@@ -6,20 +6,40 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
  1. Require a CUDA device; print the card's name and power limit.
- 2. Build the kernels from nmrgnn_tpu_torch/csrc/ with nvcc (sm_90a).
+ 2. Build the kernels from nmrgnn_tpu_torch/csrc/ with nvcc (sm_90a), one
+    nvcc per source, all started together.
  3. Hold each kernel against its plain PyTorch version on the card, at the
-    shapes of phase 4's graph (float32; rtol/atol 1e-5 for the band
-    builds, 2e-4 for the MP layer), and time both with CUDA events.
- 4. The main path: the bundled weights (load_model), a synthetic
-    protein-like structure of 2,482 atoms written as a PDB from --seed,
-    universe2graph, and ServingModel.predict on 3 frames (the
-    coordinates of each later frame jittered by 0.05 A). The peaks must be
-    finite and equal the plain gather forward (models/gnn.apply) on the
-    card within rtol/atol 5e-4, and each forward must launch the fused
-    edge-band kernel once and the MP kernel once per layer. Then one
-    forward of the unfused edge branch (apply_banded(fused_edge=False)),
-    which must launch build_band once.
- 5. One JSON line listing every kernel with its launches, error and times.
+    shapes of phase 4's graph, and time both with CUDA events. float32:
+    rtol/atol 1e-5 for the band builds, 2e-4 for the MP layers. bfloat16:
+    the builds within one bfloat16 step (both round the same float32 sum
+    once), the MP layers within one step of h (rounded to bfloat16 between
+    the products, after float32 sums taken in another order) relative to
+    the output's scale, plus one rounding of the output. The class kernels
+    run once per window class.
+ 4. The main paths, each driven with the launch counts set to 0 just
+    before and read just after: the bundled weights (load_model), a
+    synthetic protein-like structure of 2,482 atoms written as a PDB from
+    --seed, universe2graph, then
+    a. exact serving, ServingModel.predict on 3 frames (each later frame's
+       coordinates jittered by 0.05 A): finite peaks equal to the plain
+       gather forward on the card within rtol/atol 5e-4; one fused
+       edge-band build and one MP layer per layer per frame. Then one
+       forward of the unfused edge branch, which must launch build_band.
+    b. fast serving (precision="fast": bfloat16 and the Chebyshev edge
+       stage) of the same 3 frames: finite peaks, within the JAX
+       package's exact-vs-fast band of the exact peaks (rtol 0.05, atol
+       1.0 ppm, Pearson r > 0.9999); frames 0 and 1 differ; per frame on
+       the class forward one Chebyshev build and 4 partial MP layers per
+       window class, on the uniform forward one Chebyshev build and 4
+       bfloat16 MP layers (the branch read from the model's class plan).
+    c. the uniform fast forward once directly (apply_banded(cheb=...)):
+       1 build_band_poly and 4 mp_banded launches, equal to its plain
+       versions within the fast band with a mean difference under 0.05
+       ppm; and the class forward against its plain versions alike.
+    Forward times (CUDA events) and predict() wall times of both
+    precisions; with --profile, a per-kernel breakdown of each forward.
+ 5. One JSON line listing every kernel of the paths with its launches,
+    error and times.
  6. The last line: {"ok": true, "device": {...}}.
 
 The synthetic-PDB writer is a plain function, importable by the tests.
@@ -40,7 +60,11 @@ import numpy as np
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
 PEAK_F32_FLOPS = 67e12   # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # bfloat16 on the tensor cores: the bound of a bf16 product
 PEAK_HBM_BYTES = 3.35e12
+
+BF16_STEP = 2.0 ** -7  # one bfloat16 step is at most 2^-7 of a value
+FAST_RTOL, FAST_ATOL, FAST_MIN_R = 0.05, 1.0, 0.9999  # tests/test_banded.py:457-458
 
 N_ATOMS = 2482   # as many as myoglobin (PDB 108M)
 N_FRAMES = 3
@@ -115,15 +139,33 @@ def _time_ms(fn, repeats: int, inner: int = 10) -> float:
     return float(np.median(times))
 
 
+def _template_args(mangled: str) -> str:
+    """'mp_banded_kernel<256,3,bf16,partial>' from an Itanium-mangled name."""
+    m = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+    if not m:
+        return mangled
+    rest, args = mangled[m.end():], []
+    tokens = ((r"Li(\d+)E", lambda g: g), (r"Lb([01])E", lambda g: ("full", "partial")[int(g)]),
+              (r"f", lambda g: "float"), (r"\d+__nv_bfloat16", lambda g: "bf16"))
+    while rest and rest[0] != "E":
+        for pattern, name in tokens:
+            t = re.match(pattern, rest)
+            if t:
+                args.append(name(t.group(1) if t.groups() else t.group(0)))
+                rest = rest[t.end():]
+                break
+        else:
+            break
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def _ptxas_summary(log: str):
     """One line per compiled kernel: template arguments, registers, spills."""
     name = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)", m.group(1))
-            name = f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>" if k \
-                else m.group(1)
+            name = _template_args(m.group(1))
         elif "spill stores" in line and name:
             spill = line.split(":")[-1].strip() if ":" in line else line.strip()
             yield f"{name}: {spill}"
@@ -131,7 +173,7 @@ def _ptxas_summary(log: str):
             yield f"{name}: {line.split('info    :')[-1].strip()}"
 
 
-def _profile_forward(fn, fwd_ms: float, runs: int = 5):
+def _profile_forward(fn, fwd_ms: float, label: str, runs: int = 5):
     """Device time of each kernel per forward, from torch.profiler, and the
     share of the forward's time (``fwd_ms``) the card spends idle."""
     import torch
@@ -155,18 +197,36 @@ def _profile_forward(fn, fwd_ms: float, runs: int = 5):
     rows.sort(key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
     if not rows:
-        print("phase 4: profiler: no device time recorded (not measured)")
+        print(f"phase 4: profiler ({label}): no device time recorded (not measured)")
         return None
-    print(f"phase 4: profiler: {busy:.4f} ms of kernels per forward, idle share "
+    print(f"phase 4: profiler ({label}): {busy:.4f} ms of kernels per forward, idle share "
           f"{max(0.0, 1 - busy / fwd_ms):.3f} of the {fwd_ms:.4f} ms forward")
     for r in rows[:12]:
         print(f"  {r['ms']:.4f} ms  x{r['calls']:g}  {r['kernel']}")
     return {"busy_ms": busy, "rows": rows}
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _pearson(a, b) -> float:
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def _in_fast_band(got, want, what: str, mean_atol=None) -> str:
+    """Fail unless ``got`` is within the JAX package's exact-vs-fast band of
+    ``want`` (and, given ``mean_atol``, a mean |difference| under it)."""
+    diff = np.abs(got - want)
+    r = _pearson(got, want)
+    if not np.all(np.isfinite(got)) or r <= FAST_MIN_R or not np.allclose(
+            got, want, rtol=FAST_RTOL, atol=FAST_ATOL):
+        raise SystemExit(f"chip_smoke: {what} outside the fast band: r={r:.7f}, "
+                         f"max |diff| {diff.max():.4f}")
+    if mean_atol is not None and diff.mean() >= mean_atol:
+        raise SystemExit(f"chip_smoke: {what}: mean |diff| {diff.mean():.4f} >= {mean_atol}")
+    return f"r={r:.7f}, max |diff| {diff.max():.4f} ppm, mean {diff.mean():.4f} ppm"
 
 
 def main(argv=None) -> int:
@@ -174,7 +234,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also print the device time of each kernel in a forward "
+                    help="also print the device time of each kernel in each forward "
                          "(torch.profiler)")
     args = ap.parse_args(argv)
 
@@ -198,7 +258,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     logs = _cuda.build(verbose=True)
-    print(f"phase 2: built {', '.join(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 2: built {', '.join(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f} s "
+          f"(one nvcc per source, in parallel)")
     for name, log in logs.items():
         for line in _ptxas_summary(log):
             print(f"  ptxas {name}.cu {line}")
@@ -209,11 +270,12 @@ def main(argv=None) -> int:
     from nmrgnn_tpu_torch.graph import Graph
     from nmrgnn_tpu_torch.library import load_model, universe2graph
     from nmrgnn_tpu_torch.models import gnn
-    from nmrgnn_tpu_torch.models.infer import _edge_features, apply_banded
-    from nmrgnn_tpu_torch.models.serving import ServingModel
+    from nmrgnn_tpu_torch.models.infer import _edge_features, apply_banded, apply_banded_classes
+    from nmrgnn_tpu_torch.models.serving import CHEB_DEGREE, ServingModel
     from nmrgnn_tpu_torch.ops import banded
+    from nmrgnn_tpu_torch.ops.edgefn import fit_edge_chebyshev
 
-    # -- the main path's inputs ---------------------------------------------
+    # -- the main paths' inputs ---------------------------------------------
     params, cfg = load_model(device="cuda")
     n_params = gnn.count_params(params)
     with tempfile.TemporaryDirectory() as tmp:
@@ -225,13 +287,14 @@ def main(argv=None) -> int:
     order = rcm_order(graphs[0].nlist, graphs[0].edges)
     g_rcm, _ = permute_graph(graphs[0], order, pin_zero=False)
     plan = banded.band_plan(g_rcm.nlist, g_rcm.edges)
+    cls_plan = banded.band_plan_classes(g_rcm.nlist, g_rcm.edges)
     T, B, W = plan.num_tiles, plan.block_rows, plan.window
     N, K = g_rcm.nlist.shape
     F, E, H = cfg.atom_feature_size, cfg.edge_feature_size, cfg.edge_hidden_size
-    Lh = cfg.edge_fc_layers - 1
-    print(f"model: {n_params} parameters, F={F} E={E} H={H} K={K}, "
-          f"{len(params['mp'])} MP layers")
-    print(f"graph: N={N} N_pad={plan.n_padded} T={T} B={B} RCM window W={W}")
+    Lh, L = cfg.edge_fc_layers - 1, len(params["mp"])
+    print(f"model: {n_params} parameters, F={F} E={E} H={H} K={K}, {L} MP layers")
+    print(f"graph: N={N} N_pad={plan.n_padded} T={T} B={B} RCM window W={W}; class plan "
+          f"{', '.join(f'{len(c.ids)} tiles @ {c.window}' for c in cls_plan.classes)}")
     if W > 1024:
         raise SystemExit(f"chip_smoke: RCM window {W} > 1024")
 
@@ -242,31 +305,54 @@ def main(argv=None) -> int:
 
     gt = on_card(g_rcm)
     plan_d = banded.plan_on_device(plan, dev)
+    cls_d = banded.plan_on_device(cls_plan, dev)
+    cheb = fit_edge_chebyshev(params["edge_fc"], rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
+                              rbf_count=H, activation=cfg.fc_activation, degree=CHEB_DEGREE)
+    cheb_d = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    bf16, f32 = torch.bfloat16, torch.float32
 
     # -- phase 3: each kernel against its plain version --------------------
-    kernels = []
+    kernels, checks = [], []
     fc = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation)
     real_edges = int((g_rcm.edges > 0).sum())
     m_bytes = T * E * B * W * 4
 
-    def check(name, line, got_fn, want_fn, tol, flops, nbytes, extra=""):
+    def check(name, line, got_fn, want_fn, *, tol, flops, nbytes, peak=PEAK_F32_FLOPS,
+              rtol=None, tol_of_max=0.0, source="banded.cu", dtype="float32", row=True,
+              extra=""):
+        """Compare kernel and plain version (tensors or lists of them, one
+        per window class) within rtol (default tol) and atol = tol +
+        tol_of_max * max|plain|; time both; record the row."""
         got, want = got_fn(), want_fn()
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        got = list(got) if isinstance(got, (list, tuple)) else [got]
+        want = list(want) if isinstance(want, (list, tuple)) else [want]
+        scale = max(float(w.float().abs().max()) for w in want)
+        atol = tol + tol_of_max * scale
+        err = 0.0
+        for g, w in zip(got, want):
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol if rtol is None else rtol,
+                                       atol=atol)
         ms, plain_ms = _time_ms(got_fn, REPEATS), _time_ms(want_fn, REPEATS)
-        bound_ms, bound_by = _bound(flops, nbytes)
-        print(f"phase 3: {name}: max|kernel-plain|={err:.3e} (tol {tol:g}) "
+        bound_ms, bound_by = _bound(flops, nbytes, peak)
+        print(f"phase 3: {name} [{dtype}]: max|kernel-plain|={err:.3e} (atol {atol:.3g}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB){extra}")
-        kernels.append({
-            "name": name, "route": "cuda", "source": "nmrgnn_tpu_torch/csrc/banded.cu",
+              f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
+              f"{f', {len(got)} launches' if len(got) > 1 else ''}{extra}")
+        rec = {
+            "name": name, "route": "cuda", "source": f"nmrgnn_tpu_torch/csrc/{source}",
             "replaces": line, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        })
-        return got
+            "library_ms": None, "dtype": dtype, "calls_per_timing": len(got),
+        }
+        checks.append(rec)
+        if row:
+            kernels.append(rec)
+        return got if len(got) > 1 else got[0]
 
+    # the exact path's kernels (float32)
     ew = params["edge_fc"]
     fused_flops = 2 * real_edges * H * (H * Lh + E)
     fused_bytes = (N * K * 8 + 4 * sum(t.numel() for p in ew for t in p.values())
@@ -276,7 +362,7 @@ def main(argv=None) -> int:
         "build_band_fused", "nmrgnn_tpu/ops/banded.py:1107",
         lambda: banded.build_band_fused(gt.nlist, gt.edges, ew, plan_d, **fc),
         lambda: banded.build_band_fused_plain(gt.nlist, gt.edges, ew, plan_d, **fc),
-        1e-5, fused_flops, fused_bytes,
+        tol=1e-5, flops=fused_flops, nbytes=fused_bytes,
         extra=f"; {transc / 1e6:.1f} M transcendentals",
     )
     e_feat = _edge_features(params, cfg, gt.edges)
@@ -284,7 +370,8 @@ def main(argv=None) -> int:
         "build_band", "nmrgnn_tpu/ops/banded.py:484",
         lambda: banded.build_band(gt.nlist, e_feat, plan_d),
         lambda: banded.build_band_plain(gt.nlist, e_feat, plan_d),
-        1e-5, 2 * real_edges * E, N * K * 4 + N * K * E * 4 + T * 4 + m_bytes,
+        tol=1e-5, flops=2 * real_edges * E,
+        nbytes=N * K * 4 + N * K * E * 4 + T * 4 + m_bytes,
     )
     nodes = torch.nn.functional.pad(gnn.dense(params["embed"], gt.atoms),
                                     (0, 0, 0, plan.n_padded - N))
@@ -293,17 +380,85 @@ def main(argv=None) -> int:
     nnz = int((M != 0).sum())
     mp_flops = 2 * nnz * F + 2 * T * E * B * F * F
     dense_flops = 2 * T * E * B * W * F + 2 * T * E * B * F * F
-    mp_bytes = m_bytes + plan.n_padded * F * 8 + F * F * E * 4 + plan.n_padded * 4 + T * 4
+
+    def mp_bytes(eb):
+        return (T * E * B * W * eb + plan.n_padded * F * eb * 2 + F * F * E * eb
+                + plan.n_padded * 4 + T * 4)
+
     check(
         "mp_banded", "nmrgnn_tpu/ops/banded.py:555",
         lambda: banded.mp_banded(M, plan_d, nodes, w0, inv_p, cfg.mp_activation),
         lambda: banded.mp_banded_plain(M, plan_d, nodes, w0, inv_p, cfg.mp_activation),
-        2e-4, mp_flops, mp_bytes,
+        tol=2e-4, flops=mp_flops, nbytes=mp_bytes(4),
         extra=f"; band {nnz} nonzeros of {M.numel()}, dense products "
               f"{dense_flops / 1e9:.3f} GFLOP",
     )
 
-    # -- phase 4: the main path ----------------------------------------------
+    # the fast path's kernels: the Chebyshev builds (bfloat16 on the path,
+    # float32 checked too), the partial MP per class, and bfloat16 mp_banded
+    deg = cheb.degree
+    cheb_flops = N * K * (deg - 1) * (2 + 2 * E) + N * K * 2 * E
+    cheb_in = N * K * 8 + cheb.coeffs.size * 4
+    build_tol = dict(rtol=BF16_STEP, tol=1e-5)  # one bfloat16 step; float32: 1e-5
+    Mp, Mcls = {}, {}
+    for dt, tag, eb in ((bf16, "bfloat16", 2), (f32, "float32", 4)):
+        Mp[dt] = check(
+            "build_band_poly", "nmrgnn_tpu/ops/banded.py:1268",
+            lambda dt=dt: banded.build_band_poly(gt.nlist, gt.edges, cheb_d, plan_d, dt),
+            lambda dt=dt: banded.build_band_poly_plain(gt.nlist, gt.edges, cheb_d, plan_d, dt),
+            **(build_tol if dt == bf16 else dict(tol=1e-5)), flops=cheb_flops,
+            nbytes=cheb_in + T * 4 + T * E * B * W * eb, source="poly.cu", dtype=tag,
+            row=dt == bf16,
+        )
+        cls_bytes = sum(len(c.ids) * (8 + E * B * c.window * eb) for c in cls_plan.classes)
+        Mcls[dt] = check(
+            "build_band_poly_cls", "nmrgnn_tpu/ops/banded.py:1645",
+            lambda dt=dt: [banded.build_band_poly_cls(gt.nlist, gt.edges, cheb_d, c, B,
+                                                      plan.n_padded, dt)
+                           for c in cls_d.classes],
+            lambda dt=dt: [banded.build_band_poly_cls_plain(gt.nlist, gt.edges, cheb_d, c, B,
+                                                            plan.n_padded, dt)
+                           for c in cls_d.classes],
+            **(build_tol if dt == bf16 else dict(tol=1e-5)), flops=cheb_flops,
+            nbytes=cheb_in + cls_bytes, source="poly.cu", dtype=tag, row=dt == bf16,
+        )
+    for dt, tag, eb, peak in ((bf16, "bfloat16", 2, PEAK_BF16_FLOPS),
+                              (f32, "float32", 4, PEAK_F32_FLOPS)):
+        table = nodes.to(dt)
+        part_flops = sum(2 * int((m != 0).sum()) * F + 2 * len(c.ids) * E * B * F * F
+                         for m, c in zip(Mcls[dt], cls_plan.classes))
+        part_bytes = sum(m.numel() * eb + plan.n_padded * F * eb + F * F * E * eb
+                         + len(c.ids) * (4 + B * F * 4)
+                         for m, c in zip(Mcls[dt], cls_plan.classes))
+        check(
+            "mp_banded_partial", "nmrgnn_tpu/ops/banded.py:833",
+            lambda dt=dt, table=table: [banded.mp_banded_partial(m, c.lo, table, w0)
+                                        for m, c in zip(Mcls[dt], cls_d.classes)],
+            lambda dt=dt, table=table: [banded.mp_banded_partial_plain(m, c.lo, table, w0)
+                                        for m, c in zip(Mcls[dt], cls_d.classes)],
+            tol=2e-4, tol_of_max=BF16_STEP if dt == bf16 else 0.0, flops=part_flops,
+            nbytes=part_bytes, peak=peak, source="poly.cu", dtype=tag, row=dt == bf16,
+        )
+    nodes16 = nodes.to(bf16)
+    nnz16 = int((Mp[bf16] != 0).sum())
+    check(
+        "mp_banded_bf16", "nmrgnn_tpu/ops/banded.py:555",
+        lambda: banded.mp_banded(Mp[bf16], plan_d, nodes16, w0, inv_p, cfg.mp_activation),
+        lambda: banded.mp_banded_plain(Mp[bf16], plan_d, nodes16, w0, inv_p, cfg.mp_activation),
+        rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP,
+        flops=2 * nnz16 * F + 2 * T * E * B * F * F, nbytes=mp_bytes(2), peak=PEAK_BF16_FLOPS,
+        dtype="bfloat16",
+    )
+
+    def counts():
+        return {f.__name__: f.launches for f in banded.KERNEL_WRAPPERS}
+
+    def expect(got, **want):
+        want = {f.__name__: want.get(f.__name__, 0) for f in banded.KERNEL_WRAPPERS}
+        if got != want:
+            raise SystemExit(f"chip_smoke: launches {got} != {want}")
+
+    # -- phase 4a: exact serving ---------------------------------------------
     banded.reset_launch_counts()
     model = ServingModel(params, cfg, device="cuda")
     peaks, frame_s = [], []
@@ -311,13 +466,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         peaks.append(model.predict(g))
         frame_s.append(time.perf_counter() - t0)
-    launches = {f.__name__: f.launches for f in banded.KERNEL_WRAPPERS}
-    print(f"phase 4: served {len(graphs)} frames, launches {launches}, "
+    exact_launches = counts()
+    print(f"phase 4a: exact: served {len(graphs)} frames, launches {exact_launches}, "
           f"per-frame wall ms {[round(s * 1e3, 3) for s in frame_s]}")
-    want = {"build_band_fused": len(graphs), "mp_banded": len(graphs) * len(params["mp"]),
-            "build_band": 0}
-    if launches != want:
-        raise SystemExit(f"chip_smoke: main-path launches {launches} != {want}")
+    expect(exact_launches, build_band_fused=len(graphs), mp_banded=len(graphs) * L)
     worst = 0.0
     for f, (g, p) in enumerate(zip(graphs, peaks)):
         if p.shape != (N,) or not np.all(np.isfinite(p)):
@@ -325,7 +477,7 @@ def main(argv=None) -> int:
         ref = gnn.apply(params, cfg, on_card(g)).cpu().numpy()
         np.testing.assert_allclose(p, ref, rtol=5e-4, atol=5e-4)
         worst = max(worst, float(np.max(np.abs(p - ref))))
-    print(f"phase 4: peaks finite, max|served - plain gather forward| = {worst:.3e} "
+    print(f"phase 4a: peaks finite, max|served - plain gather forward| = {worst:.3e} "
           f"(tol 5e-4); frame 0 peaks mean {float(np.mean(peaks[0])):.4f} ppm")
     if np.array_equal(peaks[0], peaks[1]):
         raise SystemExit("chip_smoke: jittered frames gave identical peaks")
@@ -333,31 +485,113 @@ def main(argv=None) -> int:
     banded.reset_launch_counts()
     unfused = apply_banded(params, cfg, gt, plan_d, fused_edge=False)
     torch.cuda.synchronize()
-    branch = {f.__name__: f.launches for f in banded.KERNEL_WRAPPERS}
-    want_branch = {"build_band_fused": 0, "mp_banded": len(params["mp"]), "build_band": 1}
-    if branch != want_branch:
-        raise SystemExit(f"chip_smoke: unfused-branch launches {branch} != {want_branch}")
+    unfused_launches = counts()
+    expect(unfused_launches, mp_banded=L, build_band=1)
     plain = apply_banded(params, cfg, gt, plan_d, use_kernels=False)
     torch.testing.assert_close(unfused, plain, rtol=5e-4, atol=5e-4)
-    print(f"phase 4: unfused edge branch launches {branch}, max|kernels - plain| = "
+    print(f"phase 4a: unfused edge branch launches {unfused_launches}, max|kernels - plain| = "
           f"{float((unfused - plain).abs().max()):.3e} (tol 5e-4)")
-    counts = dict(launches, build_band=branch["build_band"])
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
 
-    fwd_ms = _time_ms(lambda: apply_banded(params, cfg, gt, plan_d), 10)
-    plain_fwd_ms = _time_ms(lambda: apply_banded(params, cfg, gt, plan_d, use_kernels=False), 10)
-    walls = []
-    for _ in range(10):
+    # -- phase 4b: fast serving ----------------------------------------------
+    banded.reset_launch_counts()
+    fast = ServingModel(params, cfg, device="cuda", precision="fast")
+    fast_peaks, fast_s, branches = [], [], []
+    for g in graphs:
         t0 = time.perf_counter()
-        model.predict(graphs[-1])
-        walls.append((time.perf_counter() - t0) * 1e3)
-    predict_ms = float(np.median(walls))
-    print(f"phase 4: forward on the card {fwd_ms:.4f} ms (median of 10, CUDA events), "
-          f"plain forward {plain_fwd_ms:.4f} ms, predict() wall {predict_ms:.3f} ms "
-          f"(median of 10, host clock, includes RCM permute and copies)")
+        fast_peaks.append(fast.predict(g))
+        fast_s.append(time.perf_counter() - t0)
+        # the class forward served this frame iff the model's class plan
+        # (after this frame) covers it and has more than one class
+        gp, _ = permute_graph(g, fast._order, pin_zero=False)
+        cp = fast._cls_plan_vmem
+        on_cls = (cp is not None and len(cp.classes) > 1
+                  and banded.class_plan_covers(cp, gp.nlist, gp.edges))
+        branches.append(len(cp.classes) if on_cls else 0)
+    fast_launches = counts()
+    n_cls = sum(branches)
+    n_uni = branches.count(0)
+    print(f"phase 4b: fast: served {len(graphs)} frames, forwards "
+          f"{['classes(%d)' % b if b else 'uniform' for b in branches]} "
+          f"(re-bucketing switch {'on' if fast._cls_vmem_off else 'off'}), launches "
+          f"{fast_launches}, per-frame wall ms {[round(s * 1e3, 3) for s in fast_s]}")
+    expect(fast_launches, build_band_poly_cls=n_cls, mp_banded_partial=n_cls * L,
+           build_band_poly=n_uni, mp_banded=n_uni * L)
+    for f, p in enumerate(fast_peaks):
+        if p.shape != (N,):
+            raise SystemExit(f"chip_smoke: fast frame {f}: peaks of shape {p.shape}")
+        print(f"phase 4b: fast frame {f} vs exact frame {f}: "
+              f"{_in_fast_band(p, peaks[f], f'fast frame {f}')}")
+    if np.array_equal(fast_peaks[0], fast_peaks[1]):
+        raise SystemExit("chip_smoke: jittered frames gave identical fast peaks")
 
-    breakdown = _profile_forward(lambda: apply_banded(params, cfg, gt, plan_d), fwd_ms) \
+    # -- phase 4c: each fast forward directly ----------------------------------
+    banded.reset_launch_counts()
+    uni = apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d)
+    torch.cuda.synchronize()
+    uni_launches = counts()
+    expect(uni_launches, build_band_poly=1, mp_banded=L)
+    uni_plain = apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d, use_kernels=False)
+    print(f"phase 4c: uniform fast forward launches {uni_launches}; kernels vs plain: "
+          f"{_in_fast_band(uni.cpu().numpy(), uni_plain.cpu().numpy(), 'uniform', 0.05)}")
+    banded.reset_launch_counts()
+    clsf = apply_banded_classes(params, cfg16, gt, cls_d, cheb_d)
+    torch.cuda.synchronize()
+    cls_launches = counts()
+    nc = len(cls_plan.classes)
+    expect(cls_launches, build_band_poly_cls=nc, mp_banded_partial=nc * L)
+    cls_plain = apply_banded_classes(params, cfg16, gt, cls_d, cheb_d, use_kernels=False)
+    print(f"phase 4c: class fast forward launches {cls_launches}; kernels vs plain: "
+          f"{_in_fast_band(clsf.cpu().numpy(), cls_plain.cpu().numpy(), 'classes', 0.05)}")
+
+    # launches per kernel row: the count in the run of the path it serves
+    # (a fast-path kernel the fast serving run missed takes its direct run's)
+    direct = {n: max(uni_launches[n], cls_launches[n]) for n in uni_launches}
+    for k in kernels:
+        n = k["name"]
+        if n in ("build_band_fused", "mp_banded"):
+            k["launches"] = exact_launches[n]
+        elif n == "build_band":
+            k["launches"] = unfused_launches[n]
+        else:
+            wrapper = "mp_banded" if n == "mp_banded_bf16" else n
+            k["launches"] = fast_launches[wrapper] or direct[wrapper]
+        if not k["launches"]:
+            raise SystemExit(f"chip_smoke: {n} was never launched on its path")
+
+    # -- timing ----------------------------------------------------------------
+    fwd = {
+        "exact": lambda: apply_banded(params, cfg, gt, plan_d),
+        "fast_classes": lambda: apply_banded_classes(params, cfg16, gt, cls_d, cheb_d),
+        "fast_uniform": lambda: apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d),
+    }
+    plain_fwd = {
+        "exact": lambda: apply_banded(params, cfg, gt, plan_d, use_kernels=False),
+        "fast_classes": lambda: apply_banded_classes(params, cfg16, gt, cls_d, cheb_d,
+                                                     use_kernels=False),
+        "fast_uniform": lambda: apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d,
+                                             use_kernels=False),
+    }
+    fwd_ms = {k: _time_ms(f, 10) for k, f in fwd.items()}
+    plain_fwd_ms = {k: _time_ms(f, 10) for k, f in plain_fwd.items()}
+
+    def wall_ms(m, g, runs=10):
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            m.predict(g)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    predict_ms = {"exact": wall_ms(model, graphs[-1]),
+                  "fast_frame0": wall_ms(fast, graphs[0]),
+                  "fast_last_frame": wall_ms(fast, graphs[-1])}
+    for k in fwd:
+        print(f"phase 4: {k} forward on the card {fwd_ms[k]:.4f} ms, plain versions "
+              f"{plain_fwd_ms[k]:.4f} ms (median of 10, CUDA events)")
+    print(f"phase 4: predict() wall ms (median of 10, host clock, includes RCM permute, "
+          f"plan checks and copies): {json.dumps({k: round(v, 3) for k, v in predict_ms.items()})}")
+
+    breakdown = {k: _profile_forward(f, fwd_ms[k], k) for k, f in fwd.items()} \
         if args.profile else None
 
     # -- phases 5 and 6 -----------------------------------------------------
@@ -366,9 +600,11 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump({
                 "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                "graph": {"N": N, "N_pad": plan.n_padded, "T": T, "B": B, "W": W, "K": K},
-                "kernels": kernels, "forward_ms": fwd_ms, "plain_forward_ms": plain_fwd_ms,
-                "predict_wall_ms": predict_ms, "frame_wall_s": frame_s,
+                "graph": {"N": N, "N_pad": plan.n_padded, "T": T, "B": B, "W": W, "K": K,
+                          "classes": [[len(c.ids), c.window] for c in cls_plan.classes]},
+                "kernels": kernels, "checks": checks, "forward_ms": fwd_ms,
+                "plain_forward_ms": plain_fwd_ms, "predict_wall_ms": predict_ms,
+                "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
                 "forward_breakdown": breakdown,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

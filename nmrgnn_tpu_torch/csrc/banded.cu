@@ -9,56 +9,20 @@
 // entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
 //
-// All arithmetic is float32 on the CUDA cores. There is no fast-math
-// flag: expf, log1pf and tanhf are the accurate library versions, as the
-// exact serving path needs.
+// The MP layer's kernel is in common.cuh, shared with poly.cu's partial
+// MP; its float32 and bfloat16 entry points are here.
+//
+// All arithmetic is float32 on the CUDA cores (bfloat16 only as operands
+// and outputs). There is no fast-math flag: expf, log1pf and tanhf are
+// the accurate library versions, as the exact serving path needs.
 //
 // Layouts follow the JAX package: M is [T, E, B, W] (tile, edge channel,
 // row in tile, window column), nodes are [N_pad, F], nlist [N_pad, K]
 // with -1 on padded rows.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
-
-enum Act { kLinear = 0, kRelu = 1, kSoftplus = 2, kTanh = 3 };
-
-// softplus as max(x, 0) + log1p(exp(-|x|)), the form of jax.nn.softplus.
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case kRelu:
-      return fmaxf(x, 0.0f);
-    case kSoftplus:
-      return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-    case kTanh:
-      return tanhf(x);
-    default:
-      return x;
-  }
-}
-
-// One band row: out[n * channel_stride + w] = sum of ev[k * E + n] over
-// the slots k with rel[k] == w, taken in slot order, for w in [0, W).
-// Duplicate indices add; indices outside [0, W) (other windows, and -1
-// padding) match nothing.
-template <int E>
-__device__ __forceinline__ void band_row(const int* rel, const float* ev, int K,
-                                         int W, float* out, size_t channel_stride,
-                                         int tid, int nthreads) {
-  for (int w = tid; w < W; w += nthreads) {
-    float acc[E];
-#pragma unroll
-    for (int n = 0; n < E; ++n) acc[n] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      if (rel[k] == w) {
-#pragma unroll
-        for (int n = 0; n < E; ++n) acc[n] += ev[k * E + n];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < E; ++n) out[n * channel_stride + w] = acc[n];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Band build. Replaces _build_band_kernel (nmrgnn_tpu/ops/banded.py:484-507):
@@ -88,8 +52,8 @@ __global__ void __launch_bounds__(kBuildThreads)
   for (int i = threadIdx.x; i < K * E; i += kBuildThreads)
     s_e[i] = e[(size_t)row * K * E + i];
   __syncthreads();
-  band_row<E>(s_rel, s_e, K, W, M + ((size_t)t * E * B + b) * W, (size_t)B * W,
-              threadIdx.x, kBuildThreads);
+  band_row<E, float>(s_rel, s_e, K, W, M + ((size_t)t * E * B + b) * W, (size_t)B * W,
+                     threadIdx.x, kBuildThreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -217,159 +181,8 @@ __global__ void __launch_bounds__(kFusedThreads)
     const int row = row0 + a;
     const int t = row / B;
     const int b = row - t * B;
-    band_row<E>(s_rel + a * K, s_e + a * K * E, K, W,
+    band_row<E, float>(s_rel + a * K, s_e + a * K * E, K, W,
                 M + ((size_t)t * E * B + b) * W, (size_t)B * W, tid, kFusedThreads);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// MP layer. Replaces _mp_banded_kernel (nmrgnn_tpu/ops/banded.py:555-579):
-//   acc = sum_n (M[t, n] @ nodes[lo_t : lo_t + W]) @ w_t[n]
-//   out[tile rows] = act(acc * inv_degree) + nodes[tile rows]
-// A block takes RB rows of one tile and all F columns, so neither product
-// is recomputed by another block. The window (and then W_n) is staged
-// through shared memory kMpChunk rows at a time, with the band values of
-// all E channels for the block's rows; each thread accumulates a 4 x 4
-// register tile per channel. h_n = M_n @ window goes through shared memory
-// into the second product. Bound: the two products, 2*T*E*B*W*F +
-// 2*T*E*B*F*F float32 operations (dense; the band is under 2% nonzero).
-
-constexpr int kMpThreads = 256;
-constexpr int kMpChunk = 16;
-
-template <int F, int E>
-__global__ void __launch_bounds__(kMpThreads)
-    mp_banded_kernel(const float* __restrict__ M,      // [T, E, B, W]
-                     const int* __restrict__ lo,       // [T]
-                     const float* __restrict__ nodes,  // [T*B, F]
-                     const float* __restrict__ w,      // [E, F, F]
-                     const float* __restrict__ inv,    // [T*B]
-                     float* __restrict__ out,          // [T*B, F]
-                     int B, int W, int act) {
-  constexpr int CG = F / 4;            // float4 column groups
-  constexpr int RG = kMpThreads / CG;  // row groups of 4 rows
-  constexpr int RB = RG * 4;           // rows per block
-  __shared__ float4 s_stage[kMpChunk * CG];   // window rows, then W_n rows
-  __shared__ float s_m[E][RB][kMpChunk];      // band values of the block's rows
-  __shared__ float4 s_h[RB * CG];             // h_n = M_n @ window, [RB][F]
-
-  const int tid = threadIdx.x;
-  const int cg = tid % CG;
-  const int rg = tid / CG;
-  const int per_tile = B / RB;
-  const int t = blockIdx.x / per_tile;
-  const int r0 = (blockIdx.x - t * per_tile) * RB;
-  const int base = lo[t];
-  const int n_rows = gridDim.x / per_tile * B;
-  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
-
-  float h[E][4][4];
-#pragma unroll
-  for (int n = 0; n < E; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h[n][i][j] = 0.0f;
-
-  for (int w0 = 0; w0 < W; w0 += kMpChunk) {
-    for (int i = tid; i < kMpChunk * CG; i += kMpThreads) {
-      const int r = i / CG;
-      const int c = i - r * CG;
-      const int src = base + w0 + r;  // the plan keeps lo + W <= N_pad
-      s_stage[i] = (src >= 0 && src < n_rows) ? nodes4[(size_t)src * CG + c]
-                                               : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    for (int i = tid; i < E * RB * kMpChunk; i += kMpThreads) {
-      const int n = i / (RB * kMpChunk);
-      const int rem = i - n * RB * kMpChunk;
-      const int r = rem / kMpChunk;
-      const int c = rem - r * kMpChunk;
-      s_m[n][r][c] = M[((size_t)(t * E + n) * B + r0 + r) * W + w0 + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kMpChunk; ++k) {
-      const float4 v = s_stage[k * CG + cg];
-#pragma unroll
-      for (int n = 0; n < E; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float m = s_m[n][rg * 4 + i][k];
-          h[n][i][0] = fmaf(m, v.x, h[n][i][0]);
-          h[n][i][1] = fmaf(m, v.y, h[n][i][1]);
-          h[n][i][2] = fmaf(m, v.z, h[n][i][2]);
-          h[n][i][3] = fmaf(m, v.w, h[n][i][3]);
-        }
-    }
-    __syncthreads();
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  const float* s_hf = reinterpret_cast<const float*>(s_h);
-#pragma unroll
-  for (int n = 0; n < E; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      s_h[(rg * 4 + i) * CG + cg] = make_float4(h[n][i][0], h[n][i][1], h[n][i][2], h[n][i][3]);
-    const float4* wn4 = reinterpret_cast<const float4*>(w + (size_t)n * F * F);
-    for (int l0 = 0; l0 < F; l0 += kMpChunk) {
-      for (int i = tid; i < kMpChunk * CG; i += kMpThreads)
-        s_stage[i] = wn4[(size_t)l0 * CG + i];
-      __syncthreads();  // also publishes this channel's s_h
-#pragma unroll
-      for (int k = 0; k < kMpChunk; ++k) {
-        const float4 v = s_stage[k * CG + cg];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float hv = s_hf[(rg * 4 + i) * F + l0 + k];
-          acc[i][0] = fmaf(hv, v.x, acc[i][0]);
-          acc[i][1] = fmaf(hv, v.y, acc[i][1]);
-          acc[i][2] = fmaf(hv, v.z, acc[i][2]);
-          acc[i][3] = fmaf(hv, v.w, acc[i][3]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  float4* out4 = reinterpret_cast<float4*>(out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)t * B + r0 + rg * 4 + i;
-    const float s = inv[row];
-    const float4 res = nodes4[row * CG + cg];
-    out4[row * CG + cg] = make_float4(activate(acc[i][0] * s, act) + res.x,
-                                      activate(acc[i][1] * s, act) + res.y,
-                                      activate(acc[i][2] * s, act) + res.z,
-                                      activate(acc[i][3] * s, act) + res.w);
-  }
-}
-
-template <int F, int E>
-cudaError_t launch_mp(const float* M, const int* lo, const float* nodes, const float* w,
-                      const float* inv, float* out, int T, int B, int W, int act,
-                      cudaStream_t stream) {
-  constexpr int RB = (kMpThreads / (F / 4)) * 4;
-  if (B % RB != 0) return cudaErrorInvalidValue;
-  mp_banded_kernel<F, E><<<T * (B / RB), kMpThreads, 0, stream>>>(M, lo, nodes, w, inv,
-                                                                   out, B, W, act);
-  return cudaGetLastError();
-}
-
-template <int F>
-cudaError_t launch_mp_e(int E, const float* M, const int* lo, const float* nodes,
-                        const float* w, const float* inv, float* out, int T, int B, int W,
-                        int act, cudaStream_t stream) {
-  switch (E) {
-    case 1: return launch_mp<F, 1>(M, lo, nodes, w, inv, out, T, B, W, act, stream);
-    case 2: return launch_mp<F, 2>(M, lo, nodes, w, inv, out, T, B, W, act, stream);
-    case 3: return launch_mp<F, 3>(M, lo, nodes, w, inv, out, T, B, W, act, stream);
-    case 4: return launch_mp<F, 4>(M, lo, nodes, w, inv, out, T, B, W, act, stream);
-    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -433,17 +246,20 @@ int nmr_build_band_fused(const int* nlist, const float* d, const int* lo, const 
   }
 }
 
+// One MP layer (ops/banded.mp_banded): float32, or bfloat16 operands with
+// float32 accumulation. n_table = T * B: the table is the node table.
 int nmr_mp_banded(const float* M, const int* lo, const float* nodes, const float* w,
                   const float* inv, float* out, int T, int E, int B, int W, int F, int act,
                   void* stream) {
-  if (T < 1 || B < 1 || W < 1 || W % kMpChunk != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 64: return launch_mp_e<64>(E, M, lo, nodes, w, inv, out, T, B, W, act, s);
-    case 128: return launch_mp_e<128>(E, M, lo, nodes, w, inv, out, T, B, W, act, s);
-    case 256: return launch_mp_e<256>(E, M, lo, nodes, w, inv, out, T, B, W, act, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_mp_any<float, false>(F, E, M, lo, nodes, w, inv, out, T, B, W, T * B, act,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+int nmr_mp_banded_bf16(const __nv_bfloat16* M, const int* lo, const __nv_bfloat16* nodes,
+                       const __nv_bfloat16* w, const float* inv, __nv_bfloat16* out, int T,
+                       int E, int B, int W, int F, int act, void* stream) {
+  return launch_mp_any<__nv_bfloat16, false>(F, E, M, lo, nodes, w, inv, out, T, B, W, T * B,
+                                             act, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -15,6 +15,11 @@ dict of tensors in the JAX package's layout.
 Parameter layout: {"embed": {"kernel"}, "edge_fc": [{"kernel", "bias"}],
 "mp": [{"w": [F, F, E]}], "fc": [...], "out": {...}, "peak_std",
 "peak_avg"}. Training (noise, dropout) is a later slice.
+
+``config.compute_dtype`` ("float32" or "bfloat16") sets the operand type
+of the products, with float32 sums, as in the JAX package: the edge stage,
+the MP layers and the FC block, but not the embedding nor, in this gather
+forward, the per-element head (``nmrgnn_tpu/models/gnn.py:181-214``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from .._device import resolve_device
 from ..config import ModelConfig
 from ..graph import Graph
 from ..ops import edge
+from ..ops.edge import as_operand
 from ..ops.activations import get_activation
 from ..ops.message_passing import mp_layer
 
@@ -45,8 +51,19 @@ def _dense_init(gen, d_in: int, d_out: int, use_bias: bool = True) -> dict:
     return p
 
 
-def dense(p: dict, x: torch.Tensor, activation=None) -> torch.Tensor:
-    y = x @ p["kernel"]
+def compute_dtype(config: ModelConfig) -> torch.dtype:
+    """The torch dtype named by ``config.compute_dtype``."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if config.compute_dtype not in dtypes:
+        raise ValueError(f"compute_dtype {config.compute_dtype!r}: takes {sorted(dtypes)}")
+    return dtypes[config.compute_dtype]
+
+
+def dense(p: dict, x: torch.Tensor, activation=None,
+          compute_dtype=torch.float32) -> torch.Tensor:
+    """Dense layer; the product's operands in ``compute_dtype``, its sum,
+    the bias and the activation in float32."""
+    y = as_operand(x, compute_dtype) @ as_operand(p["kernel"], compute_dtype)
     if "bias" in p:
         y = y + p["bias"]
     return activation(y) if activation is not None else y
@@ -104,20 +121,24 @@ def init_params(
 
 
 def edge_features(params: Params, config: ModelConfig, edges: torch.Tensor) -> torch.Tensor:
-    """f32[N, K, E]: RBF + EdgeFC, masked by ``edges > 0`` before and after."""
+    """f32[N, K, E]: RBF + EdgeFC, masked by ``edges > 0`` before and after;
+    the EdgeFC products in the compute type."""
     return edge.edge_features(edges, params["edge_fc"], rbf_low=config.rbf_low,
                               rbf_high=config.rbf_high,
-                              activation_name=config.fc_activation)
+                              activation_name=config.fc_activation,
+                              compute_dtype=compute_dtype(config))
 
 
 def readout(params: Params, config: ModelConfig, atoms: torch.Tensor,
-            nodes: torch.Tensor) -> torch.Tensor:
-    """FC block, per-element head and de-standardization -> peaks f32[N]."""
+            nodes: torch.Tensor, head_dtype=torch.float32) -> torch.Tensor:
+    """FC block (products in the compute type), per-element head (products
+    in ``head_dtype``) and de-standardization -> peaks f32[N]."""
     fc_act = get_activation(config.fc_activation)
+    cd = compute_dtype(config)
     for p in params["fc"][:-1]:
-        nodes = dense(p, nodes, fc_act) + nodes
-    nodes = dense(params["fc"][-1], nodes, fc_act)
-    full_peaks = dense(params["out"], nodes)
+        nodes = dense(p, nodes, fc_act, cd) + nodes
+    nodes = dense(params["fc"][-1], nodes, fc_act, cd)
+    full_peaks = dense(params["out"], nodes, compute_dtype=head_dtype)
     return torch.sum(
         full_peaks * atoms * params["peak_std"] + atoms * params["peak_avg"], dim=-1
     )
@@ -128,10 +149,11 @@ def apply(params: Params, config: ModelConfig, graph: Graph) -> torch.Tensor:
     The plain gather forward: the reference every faster path is held to."""
     atoms, nlist, edges, inv_degree = graph
     mp_act = get_activation(config.mp_activation)
+    cd = compute_dtype(config)
     e = edge_features(params, config, edges)
     nodes = dense(params["embed"], atoms)
     for p in params["mp"]:
-        nodes = mp_layer(p["w"], nodes, nlist, e, inv_degree, mp_act) + nodes
+        nodes = mp_layer(p["w"], nodes, nlist, e, inv_degree, mp_act, cd) + nodes
     return readout(params, config, atoms, nodes)
 
 

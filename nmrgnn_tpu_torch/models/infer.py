@@ -1,11 +1,19 @@
-"""Banded inference forward (``nmrgnn_tpu/models/infer.py:127-280``),
-exact precision.
+"""Banded inference forwards (``nmrgnn_tpu/models/infer.py:127-364``).
 
-``apply_banded`` builds the band once (fused RBF + EdgeFC + build by
-default) and runs one banded MP layer per ``params["mp"]`` entry, then the
-readout. ``graph`` should be RCM-reordered (``data.reorder.rcm_order``
-with ``pin_zero=False``) so the band is narrow; the result does not depend
-on the order.
+``apply_banded`` builds the band once per forward and runs one banded MP
+layer per ``params["mp"]`` entry, then the readout. The edge stage is the
+exact one (fused RBF + EdgeFC + build by default) or, given ``cheb``, its
+Chebyshev compression, the "fast" precision's.
+
+``apply_banded_classes`` is the class-bucketed forward of the fast
+precision: one Chebyshev band per window class, and per MP layer one
+partial product per class, whose rows are put back in place before the
+activation and residual.
+
+The products honour ``config.compute_dtype`` (bfloat16 operands, float32
+sums), as the JAX package's forwards do. ``graph`` should be RCM-reordered
+(``data.reorder.rcm_order`` with ``pin_zero=False``) so the band is
+narrow; the result does not depend on the order.
 """
 from __future__ import annotations
 
@@ -15,21 +23,37 @@ import torch.nn.functional as nnf
 
 from ..config import ModelConfig
 from ..graph import Graph
+from ..ops.activations import get_activation
 from ..ops.banded import (
+    BandClassPlan,
     BandPlan,
     band_plan,
     build_band,
     build_band_fused,
     build_band_plain,
+    build_band_poly,
+    build_band_poly_cls,
+    build_band_poly_cls_plain,
+    build_band_poly_plain,
     mp_banded,
+    mp_banded_partial,
+    mp_banded_partial_plain,
     mp_banded_plain,
     plan_on_device,
 )
-from .gnn import dense
+from ..ops.edgefn import EdgeCheb
+from .gnn import compute_dtype, dense, readout
 from .gnn import edge_features as _edge_features
-from .gnn import readout as _readout
 
-__all__ = ["_edge_features", "_readout", "precompute_band", "apply_banded"]
+__all__ = ["_edge_features", "_readout", "precompute_band", "apply_banded",
+           "apply_banded_classes"]
+
+
+def _readout(params, config: ModelConfig, atoms, nodes) -> torch.Tensor:
+    """The banded forwards' readout: the FC block AND the per-element head
+    in the compute type (``nmrgnn_tpu/models/infer.py:148-170``), unlike
+    the gather forward, whose head is float32."""
+    return readout(params, config, atoms, nodes, head_dtype=compute_dtype(config))
 
 
 def precompute_band(graph: Graph, block_rows: int = 128) -> BandPlan:
@@ -45,7 +69,7 @@ def apply_banded(
     plan: BandPlan,
     use_kernels: bool = True,
     fused_edge: bool = True,
-    cheb=None,
+    cheb: EdgeCheb = None,
     hbm_table: bool = False,
     fused_first: bool = False,
 ) -> torch.Tensor:
@@ -55,34 +79,87 @@ def apply_banded(
     default) the band build and MP layers go through the kernel wrappers
     of ``ops/banded.py`` (CUDA kernels on the card, their plain versions
     on the CPU); ``use_kernels=False`` runs the plain versions on any
-    device, with the unfused edge stage. ``fused_edge=False`` computes the
-    edge features first and builds the band with ``build_band``."""
-    if cheb is not None:
-        raise NotImplementedError(
-            "the Chebyshev edge stage (precision='fast') is ROADMAP queue B4"
-        )
+    device (the exact edge stage then unfused). ``fused_edge=False``
+    computes the edge features first and builds the band with
+    ``build_band``. ``cheb`` (``ops.edgefn.EdgeCheb``) switches the edge
+    stage to its Chebyshev compression, built by ``build_band_poly``.
+
+    The band, the node table and the MP weights are in the compute type;
+    the fused exact edge stage is float32 only."""
     if hbm_table:
         raise NotImplementedError("the HBM node-table MP layer is ROADMAP queue B5")
     if fused_first:
         raise NotImplementedError("the fused Chebyshev build + MP layer 1 is ROADMAP queue B13")
     atoms, nlist, edges, inv_degree = graph
     n = atoms.shape[0]
+    cd = compute_dtype(config)
     plan = plan_on_device(plan, atoms.device)
-    if use_kernels and fused_edge:
+    if cheb is not None:
+        build = build_band_poly if use_kernels else build_band_poly_plain
+        M = build(nlist, edges, cheb, plan, out_dtype=cd)
+    elif use_kernels and fused_edge:
+        if cd != torch.float32:
+            raise NotImplementedError(
+                "the fused exact edge stage in bfloat16 is ROADMAP queue B3 (bf16)")
         M = build_band_fused(
             nlist, edges, params["edge_fc"], plan,
             rbf_low=config.rbf_low, rbf_high=config.rbf_high,
             activation_name=config.fc_activation,
         )
-    elif use_kernels:
-        M = build_band(nlist, _edge_features(params, config, edges), plan)
     else:
-        M = build_band_plain(nlist, _edge_features(params, config, edges), plan)
+        build = build_band if use_kernels else build_band_plain
+        M = build(nlist, _edge_features(params, config, edges), plan).to(cd)
 
     pad = plan.n_padded - n
-    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(cd)
     inv_p = nnf.pad(inv_degree, (0, pad))
     mp = mp_banded if use_kernels else mp_banded_plain
     for p in params["mp"]:
         nodes = mp(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+    return _readout(params, config, atoms, nodes[:n].float())
+
+
+def apply_banded_classes(
+    params,
+    config: ModelConfig,
+    graph: Graph,
+    cls_plan: BandClassPlan,
+    cheb: EdgeCheb,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Class-bucketed forward; peaks f32[N] for the unpadded atoms.
+
+    Per class c it builds M_c [Tc, E, B, Wc] (the Chebyshev edge stage in
+    the build, ``build_band_poly_cls``). Per MP layer it runs
+    ``mp_banded_partial`` for each class against the node table cast to
+    the compute type, puts each class's float32 rows back at its tiles
+    (one ``index_copy_`` per class, over whole tiles), and applies
+    act(acc * inv_degree) + nodes in float32, as the JAX package does
+    outside its kernels. The node table itself stays float32 between
+    layers. ``use_kernels=False`` runs the plain versions."""
+    atoms, nlist, edges, inv_degree = graph
+    n = atoms.shape[0]
+    dev = atoms.device
+    B, T = cls_plan.block_rows, cls_plan.num_tiles
+    cd = compute_dtype(config)
+    mp_act = get_activation(config.mp_activation)
+    cls_plan = plan_on_device(cls_plan, dev)
+    build = build_band_poly_cls if use_kernels else build_band_poly_cls_plain
+    partial = mp_banded_partial if use_kernels else mp_banded_partial_plain
+    Ms = [build(nlist, edges, cheb, c, B, cls_plan.n_padded, out_dtype=cd)
+          for c in cls_plan.classes]
+    tiles = [c.ids.long() for c in cls_plan.classes]
+
+    pad = cls_plan.n_padded - n
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
+    F = nodes.shape[-1]
+    inv_col = nnf.pad(inv_degree, (0, pad))[:, None]
+    for p in params["mp"]:
+        w = p["w"].to(cd)
+        table = nodes.to(cd)
+        acc = torch.empty((T, B, F), dtype=torch.float32, device=dev)
+        for c, M, ids in zip(cls_plan.classes, Ms, tiles):
+            out_c = partial(M, c.lo, table, w)
+            acc.index_copy_(0, ids, out_c.view(-1, B, F))  # the classes partition the tiles
+        nodes = mp_act(acc.view(T * B, F) * inv_col) + nodes
     return _readout(params, config, atoms, nodes[:n])

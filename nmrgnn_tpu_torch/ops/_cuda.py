@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and bind them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
-interface, compiled for Hopper with
+interface (the ``*.cuh`` headers are included by the sources), compiled
+for Hopper with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -26,7 +27,7 @@ from typing import Dict, Iterable, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "nmrgnn_tpu_torch")
-SOURCES = ("banded",)
+SOURCES = ("banded", "poly")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -13,24 +13,35 @@ residual:
     out[tile] = act(sum_n (M[t, n] @ nodes[lo_t : lo_t + W]) @ W_n * inv)
                 + nodes[tile]
 
-Three kernels carry this path. Each wrapper below takes the plain PyTorch
-version for a tensor on the CPU and launches its CUDA kernel
-(``csrc/banded.cu``) for a tensor on the card; it never falls back from
-the card to the plain version. Each counts its launches in ``.launches``.
+The "fast" precision builds the band from the Chebyshev-compressed edge
+stage (``ops/edgefn.py``) in bfloat16, and on a skewed window
+distribution buckets the tiles into a few window classes
+(``band_plan_classes``): each class gets its own band, and each MP layer
+runs the partial product (no epilogue) once per class.
 
-=================  ===========================================  ==========
-wrapper            replaces (TPU kernel)                        bound
-=================  ===========================================  ==========
-build_band         _build_band_kernel, banded.py:484-507        bytes (M)
-build_band_fused   _fused_edge_band_kernel, banded.py:1107-1170 operations
-mp_banded          _mp_banded_kernel, banded.py:555-579         operations
-=================  ===========================================  ==========
+Each wrapper below takes the plain PyTorch version for a tensor on the CPU
+and launches its CUDA kernel (``csrc/banded.cu``, ``csrc/poly.cu``) for a
+tensor on the card; it never falls back from the card to the plain
+version. Each counts its launches in ``.launches``.
 
-The band plan is host-side numpy, as in the JAX package.
+===================  ==========================================  ==========
+wrapper              replaces (TPU kernel)                       bound
+===================  ==========================================  ==========
+build_band           _build_band_kernel, banded.py:484-507       bytes (M)
+build_band_fused     _fused_edge_band_kernel, banded.py:1107     operations
+mp_banded            _mp_banded_kernel, banded.py:555-579        operations
+                     (float32; bfloat16: bytes)
+build_band_poly      _poly_band_kernel, banded.py:1268, 1418     bytes (M)
+build_band_poly_cls  build_band_poly_cls, banded.py:1645-1700    bytes (M)
+mp_banded_partial    _mp_banded_partial_kernel, banded.py:833    bytes
+===================  ==========================================  ==========
+
+The band plans are host-side numpy, as in the JAX package.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -40,6 +51,7 @@ import torch.nn.functional as nnf
 from . import _cuda
 from .activations import ACTIVATION_CODES, get_activation
 from .edge import edge_features
+from .edgefn import EdgeCheb, cheb_x
 
 
 class BandPlan(NamedTuple):
@@ -58,6 +70,13 @@ class BandPlan(NamedTuple):
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _bucket(w: int, w_buckets) -> int:
+    for b in w_buckets:
+        if w <= b:
+            return b
+    return _round_up(int(w), 512)
 
 
 def band_plan(
@@ -85,13 +104,7 @@ def band_plan(
         lo_i = (int(idx.min()) // align) * align
         lo[i] = lo_i
         need[i] = int(idx.max()) - lo_i + 1
-    w = int(need.max()) if t else align
-    for b in w_buckets:
-        if w <= b:
-            w = b
-            break
-    else:
-        w = _round_up(w, 512)
+    w = _bucket(int(need.max()) if t else align, w_buckets)
     w = min(w, n_pad) if n_pad >= 128 else w
     w = max(w, 128)
     # keep windows inside [0, n_pad); moving lo down only grows coverage
@@ -115,10 +128,135 @@ def plan_covers(plan: BandPlan, nlist: np.ndarray, edges: np.ndarray) -> bool:
     return bool(ok.all())
 
 
-def plan_on_device(plan: BandPlan, device) -> BandPlan:
-    """The plan with ``lo`` checked on the host and copied to ``device``
-    once, so the kernels of a forward do not each copy it. The MP kernel
-    reads nodes[lo_t : lo_t + W], so every window must lie in [0, N_pad)."""
+class BandClass(NamedTuple):
+    """One window-width class of row tiles (see band_plan_classes)."""
+
+    ids: object   # i32[Tc] tile indices of this class
+    lo: object    # i32[Tc] window starts, gathered per class
+    window: int   # Wc
+
+
+class BandClassPlan(NamedTuple):
+    """The row tiles bucketed into at most ``max_classes`` window widths,
+    so that narrow tiles do not pay the widest tile's band in the build
+    and MP kernels. ``plan_on_device`` gives a copy whose ids and lo are
+    int32 tensors."""
+
+    classes: tuple   # of BandClass, ascending window
+    block_rows: int
+    n_padded: int
+
+    @property
+    def num_tiles(self) -> int:
+        return self.n_padded // self.block_rows
+
+
+def band_plan_classes(
+    nlist: np.ndarray,
+    edges: np.ndarray,
+    block_rows: int = 128,
+    align: int = 128,
+    max_classes: int = 3,
+    w_buckets=(256, 384, 512, 640, 768, 896, 1024, 1280, 1536, 2048, 3072, 4096),
+) -> BandClassPlan:
+    """Bucket the row tiles into up to ``max_classes`` window widths from
+    ``w_buckets``, choosing the class boundaries that minimise the total
+    band lanes (every combination of the candidate widths is tried)."""
+    nlist = np.asarray(nlist)
+    edges = np.asarray(edges)
+    n = nlist.shape[0]
+    n_pad = _round_up(max(n, block_rows), block_rows)
+    t = n_pad // block_rows
+    lo = np.zeros(t, np.int64)
+    need = np.zeros(t, np.int64)
+    for i in range(t):
+        sel = slice(i * block_rows, min((i + 1) * block_rows, n))
+        real = edges[sel] > 0
+        if not real.any():
+            need[i] = 1
+            continue
+        idx = nlist[sel][real]
+        lo_i = (int(idx.min()) // align) * align
+        lo[i] = lo_i
+        need[i] = int(idx.max()) - lo_i + 1
+
+    w_max = min(_bucket(int(need.max()), w_buckets), max(n_pad, 128))
+    cands = [b for b in w_buckets if 128 <= b < w_max]
+
+    def lanes(bounds):
+        return sum(next(b for b in bounds if nd <= b) for nd in need)
+
+    best = (float("inf"), [w_max])
+    for k in range(max_classes):
+        for combo in itertools.combinations(cands, k):
+            bounds = sorted(combo) + [w_max]
+            total = lanes(bounds)
+            if total < best[0]:
+                best = (total, bounds)
+    classes = []
+    assigned = np.full(t, -1)
+    for ci, b in enumerate(best[1]):
+        pick = (assigned < 0) & (need <= b)
+        assigned[pick] = ci
+        ids = np.nonzero(pick)[0]
+        if len(ids) == 0:
+            continue
+        lo_c = np.minimum(lo[ids], np.maximum(n_pad - b, 0))
+        classes.append(BandClass(ids=ids.astype(np.int32), lo=lo_c.astype(np.int32),
+                                 window=int(min(b, max(n_pad, 128)))))
+    return BandClassPlan(classes=tuple(classes), block_rows=block_rows, n_padded=n_pad)
+
+
+def class_plan_covers(plan: BandClassPlan, nlist: np.ndarray, edges: np.ndarray) -> bool:
+    """Whether a (new frame's) real neighbors all fall inside each tile's
+    class window: verify-and-reuse of a class plan across frames."""
+    nlist = np.asarray(nlist)
+    edges = np.asarray(edges)
+    n = nlist.shape[0]
+    if _round_up(max(n, plan.block_rows), plan.block_rows) != plan.n_padded:
+        return False
+    lo_full = np.zeros(plan.num_tiles, np.int64)
+    w_full = np.zeros(plan.num_tiles, np.int64)
+    for c in plan.classes:
+        lo_full[np.asarray(c.ids)] = np.asarray(c.lo)
+        w_full[np.asarray(c.ids)] = c.window
+    rows = np.arange(n) // plan.block_rows
+    rel = nlist - lo_full[rows][:, None]
+    ok = ((rel >= 0) & (rel < w_full[rows][:, None])) | (edges <= 0)
+    return bool(ok.all())
+
+
+def _class_plan_on_device(plan: BandClassPlan, device) -> BandClassPlan:
+    """The class plan with every class's ids and lo as int32 tensors on
+    ``device``. Host arrays are checked first: the classes partition the
+    tiles, and every window lies in [0, n_padded)."""
+    if all(isinstance(c.ids, torch.Tensor) and isinstance(c.lo, torch.Tensor)
+           for c in plan.classes):
+        return plan._replace(classes=tuple(
+            c._replace(ids=c.ids.to(device=device, dtype=torch.int32),
+                       lo=c.lo.to(device=device, dtype=torch.int32))
+            for c in plan.classes))
+    ids = [np.asarray(c.ids) for c in plan.classes]
+    los = [np.asarray(c.lo) for c in plan.classes]
+    if not np.array_equal(np.sort(np.concatenate(ids)), np.arange(plan.num_tiles)):
+        raise ValueError("the classes' tile ids must partition the plan's tiles")
+    for c, i, lo in zip(plan.classes, ids, los):
+        if lo.shape != i.shape:
+            raise ValueError(f"a class has {i.shape} ids but lo of shape {lo.shape}")
+        if lo.min() < 0 or lo.max() + c.window > plan.n_padded:
+            raise ValueError("class windows must lie inside [0, n_padded)")
+    as_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)  # noqa: E731
+    return plan._replace(classes=tuple(
+        c._replace(ids=as_dev(i), lo=as_dev(lo)) for c, i, lo in zip(plan.classes, ids, los)))
+
+
+def plan_on_device(plan, device):
+    """The plan with ``lo`` (and a class plan's ``ids``) checked on the
+    host and copied to ``device`` once, so the kernels of a forward do not
+    each copy it. The MP kernel reads nodes[lo_t : lo_t + W], so every
+    window must lie in [0, N_pad)."""
+    if isinstance(plan, BandClassPlan):
+        return _class_plan_on_device(plan, device)
     if isinstance(plan.lo, torch.Tensor):
         return plan._replace(lo=plan.lo.to(device=device, dtype=torch.int32))
     lo = np.asarray(plan.lo)
@@ -131,9 +269,9 @@ def plan_on_device(plan: BandPlan, device) -> BandPlan:
     )
 
 
-def _lo_long(plan: BandPlan, device) -> torch.Tensor:
-    lo = plan.lo if isinstance(plan.lo, torch.Tensor) else torch.as_tensor(np.asarray(plan.lo))
-    return lo.to(device=device, dtype=torch.int64)
+def _long(a, device) -> torch.Tensor:
+    a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return a.to(device=device, dtype=torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +293,7 @@ def build_band_plain(
     dev = edge_feats.device
     nlist_p = nnf.pad(nlist.to(torch.int64), (0, 0, 0, pad), value=-1)
     e_p = nnf.pad(edge_feats, (0, 0, 0, 0, 0, pad))
-    rel = nlist_p.view(T, B, k) - _lo_long(plan, dev)[:, None, None]
+    rel = nlist_p.view(T, B, k) - _long(plan.lo, dev)[:, None, None]
     mask = (rel[..., None] == torch.arange(W, device=dev)).to(edge_feats.dtype)
     return torch.einsum("tbkw,tbke->tebw", mask, e_p.view(T, B, k, e)).contiguous()
 
@@ -179,42 +317,155 @@ def build_band_fused_plain(
 def mp_banded_plain(
     M: torch.Tensor,           # [T, E, B, W]
     plan: BandPlan,
-    nodes: torch.Tensor,       # [N_pad, F]
+    nodes: torch.Tensor,       # [N_pad, F], float32 or bfloat16
     w: torch.Tensor,           # [F, F, E]
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
 ) -> torch.Tensor:
-    """One MP layer (activation(aggregate) + residual) over the band."""
+    """One MP layer (activation(aggregate) + residual) over the band, in
+    ``nodes.dtype``: operands in that type, products and sums in float32,
+    h rounded to it before the second product, the residual added in
+    float32 and the sum rounded once (``_mp_banded_kernel``, :572-579)."""
     act = get_activation(activation_name)
     T, E, B, W = M.shape
     F = nodes.shape[-1]
     dev = nodes.device
-    idx = _lo_long(plan, dev)[:, None] + torch.arange(W, device=dev)  # [T, W]
-    h = torch.einsum("tebw,twf->tebf", M, nodes[idx])
-    out = torch.einsum("tebf,efm->tbm", h, w.permute(2, 0, 1))
+    cd = nodes.dtype
+    idx = _long(plan.lo, dev)[:, None] + torch.arange(W, device=dev)  # [T, W]
+    h = torch.einsum("tebw,twf->tebf", M.float(), nodes[idx].float()).to(cd).float()
+    out = torch.einsum("tebf,efm->tbm", h, w.permute(2, 0, 1).to(cd).float())
     out = out * inv_degree.view(T, B)[..., None]
-    return (act(out) + nodes.view(T, B, F)).reshape(T * B, F)
+    return (act(out) + nodes.view(T, B, F).float()).to(cd).reshape(T * B, F)
+
+
+def mp_banded_partial_plain(
+    M: torch.Tensor,      # [T, E, B, W]
+    lo,                   # i32[T] window starts (tensor or numpy)
+    table: torch.Tensor,  # [Nt, F] window source, any Nt >= max(lo) + W
+    w: torch.Tensor,      # [F, F, E]
+) -> torch.Tensor:
+    """Partial MP aggregation f32[T * B, F] = sum_n (M_n @ table window) @
+    w_n, with no inv_degree, activation or residual. Operands are in
+    ``table.dtype`` and h is rounded to it before the second product, as
+    the kernel body rounds it (``_mp_banded_partial_kernel``, :848-851)."""
+    T, E, B, W = M.shape
+    F = table.shape[-1]
+    dev = table.device
+    cd = table.dtype
+    idx = _long(lo, dev)[:, None] + torch.arange(W, device=dev)  # [T, W]
+    h = torch.einsum("tebw,twf->tebf", M.float(), table[idx].float()).to(cd).float()
+    out = torch.einsum("tebf,efm->tbm", h, w.permute(2, 0, 1).to(cd).float())
+    return out.reshape(T * B, F)
+
+
+def poly_edge_values(cheb: EdgeCheb, d: torch.Tensor) -> torch.Tensor:
+    """f32[..., E]: the Chebyshev edge stage as the band-build kernels
+    compute it (``_poly_build_tile``, :1425-1438): clamp, the forward
+    recurrence T_p = 2x T_{p-1} - T_{p-2} summed in degree order, every
+    product and sum rounded separately, then the d > 0 mask."""
+    x = cheb_x(cheb, d)
+    c = torch.as_tensor(cheb.coeffs, dtype=torch.float32, device=d.device)
+    e = c[0] + c[1] * x[..., None]
+    x2 = 2.0 * x
+    tp_prev, tp = torch.ones_like(x), x
+    for p in range(2, c.shape[0]):
+        tp_prev, tp = tp, x2 * tp - tp_prev
+        e = e + c[p] * tp[..., None]
+    return e * (d > 0).to(torch.float32)[..., None]
+
+
+def _poly_band(nlist_t, d_t, lo, cheb: EdgeCheb, window: int, out_dtype) -> torch.Tensor:
+    """M [Tg, E, B, W] from tiles nlist_t / d_t [Tg, B, K] with window
+    starts lo [Tg]: the band accumulated slot by slot in slot order, as
+    ``_poly_build_tile`` (:1440-1448) does, in float32, then cast."""
+    e = poly_edge_values(cheb, d_t).permute(0, 3, 1, 2)  # [Tg, E, B, K]
+    rel = nlist_t.to(torch.int64) - lo[:, None, None]
+    cols = torch.arange(window, device=d_t.device)
+    tg, b, k = nlist_t.shape
+    acc = torch.zeros((tg, e.shape[1], b, window), dtype=torch.float32, device=d_t.device)
+    for j in range(k):
+        mask = (rel[:, :, j, None] == cols).to(torch.float32)  # [Tg, B, W]
+        acc += mask[:, None] * e[..., j, None]
+    return acc.to(out_dtype)
+
+
+def _padded_tiles(nlist, edges, block_rows: int, n_padded: int):
+    pad = n_padded - nlist.shape[0]
+    k = nlist.shape[1]
+    nlist_p = nnf.pad(nlist.to(torch.int64), (0, 0, 0, pad), value=-1)
+    d_p = nnf.pad(edges, (0, 0, 0, pad))
+    t = n_padded // block_rows
+    return nlist_p.view(t, block_rows, k), d_p.view(t, block_rows, k)
+
+
+def build_band_poly_plain(
+    nlist: torch.Tensor,   # i32[N, K]
+    edges: torch.Tensor,   # f32[N, K] raw distances
+    cheb: EdgeCheb,
+    plan: BandPlan,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M [T, E, B, W] in ``out_dtype`` from raw distances through the
+    Chebyshev-compressed edge stage."""
+    nl, d = _padded_tiles(nlist, edges, plan.block_rows, plan.n_padded)
+    return _poly_band(nl, d, _long(plan.lo, edges.device), cheb, plan.window, out_dtype)
+
+
+def build_band_poly_cls_plain(
+    nlist: torch.Tensor,   # i32[N, K]
+    edges: torch.Tensor,   # f32[N, K] raw distances
+    cheb: EdgeCheb,
+    cls: BandClass,
+    block_rows: int,
+    n_padded: int,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M_c [Tc, E, B, Wc]: the Chebyshev band build over one class's tiles
+    (tile ``cls.ids[i]`` into ``M_c[i]``, with window start ``cls.lo[i]``)."""
+    nl, d = _padded_tiles(nlist, edges, block_rows, n_padded)
+    ids = _long(cls.ids, edges.device)
+    return _poly_band(nl[ids], d[ids], _long(cls.lo, edges.device), cheb, cls.window,
+                      out_dtype)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_MP_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "nmr_error_string": (ctypes.c_char_p, [_I]),
-    "nmr_build_band": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "nmr_build_band_fused": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _P],
-    ),
-    "nmr_mp_banded": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "banded": {
+        "nmr_error_string": (ctypes.c_char_p, [_I]),
+        "nmr_build_band": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "nmr_build_band_fused": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _P],
+        ),
+        "nmr_mp_banded": (_I, _MP_ARGS),
+        "nmr_mp_banded_bf16": (_I, _MP_ARGS),
+    },
+    "poly": {
+        "nmr_error_string": (ctypes.c_char_p, [_I]),
+        "nmr_build_band_poly": (
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _F32, _F32, _F32, _I, _P],
+        ),
+        "nmr_mp_banded_partial": (_I, _PARTIAL_ARGS),
+        "nmr_mp_banded_partial_bf16": (_I, _PARTIAL_ARGS),
+    },
 }
+# Element types the MP and band-build kernels take, and the suffix of
+# their entry points.
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 _MAX_E = 4          # edge channels the kernels are instantiated for
 _MAX_K = 128        # neighbor slots build_band takes
 _FUSED_H = 128      # EdgeFC width the fused kernel takes
 _FUSED_SLOTS = 128  # edge slots per block of the fused kernel
 _MP_F = (64, 128, 256)
 _MP_CHUNK = 16
+_MP_THREADS = 256
+_POLY_MAX_COEFFS = 1024  # (degree + 1) * E the Chebyshev build stages
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -245,8 +496,32 @@ def _device_lo(plan: BandPlan, device) -> torch.Tensor:
     return lo
 
 
-def _launch(fn: str, device, *args) -> None:
-    lib = _cuda.library("banded", _SIGNATURES)
+def _dtype_suffix(name: str, dtype) -> str:
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name} has dtype {dtype}; the kernels take float32 or bfloat16")
+    return _SUFFIX[dtype]
+
+
+def _device_index(name: str, a, length: int, device) -> torch.Tensor:
+    """An int32 index array (tile ids, window starts) on ``device``."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.ascontiguousarray(a, np.int32))
+    t = t.to(device=device, dtype=torch.int32).contiguous()
+    _check(name, t, torch.int32, (length,), device)
+    return t
+
+
+def _mp_shape_ok(F: int, E: int, B: int, W: int) -> bool:
+    """Whether the MP kernels (common.cuh) take these widths: F in
+    _MP_F, E <= 4, B a multiple of the rows per block, W of the chunk."""
+    if F not in _MP_F or not 1 <= E <= _MAX_E:
+        return False
+    rows_per_block = (_MP_THREADS // (F // 4)) * 4
+    return B % rows_per_block == 0 and W % _MP_CHUNK == 0
+
+
+def _launch(fn: str, device, *args, source: str = "banded") -> None:
+    lib = _cuda.library(source, _SIGNATURES[source])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
@@ -358,19 +633,22 @@ build_band_fused.launches = 0
 
 
 def mp_banded(
-    M: torch.Tensor,           # [T, E, B, W] from build_band / build_band_fused
+    M: torch.Tensor,           # [T, E, B, W] from a band build, in nodes.dtype
     plan: BandPlan,
-    nodes: torch.Tensor,       # [N_pad, F] (padded to plan.n_padded)
-    w: torch.Tensor,           # [F, F, E]
+    nodes: torch.Tensor,       # [N_pad, F] (padded to plan.n_padded), f32 or bf16
+    w: torch.Tensor,           # [F, F, E] (cast to nodes.dtype)
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
 ) -> torch.Tensor:
-    """One MP layer (activation(aggregate) + residual) over the band.
+    """One MP layer (activation(aggregate) + residual) over the band, in
+    ``nodes.dtype`` (float32, or bfloat16 with float32 accumulation).
 
     Replaces ``_mp_banded_kernel`` (nmrgnn_tpu/ops/banded.py:555-579). On
     the card, a block takes a few rows of one tile and all F columns and
-    runs both products out of shared memory; it is bound by the dense
-    products, 2*T*E*B*W*F + 2*T*E*B*F*F float32 operations."""
+    runs both products out of shared memory (``csrc/common.cuh``). In
+    float32 it is bound by the dense products it does, 2*T*E*B*W*F +
+    2*T*E*B*F*F float32 operations; its data-dependent bound (the band's
+    nonzeros) is bytes in bfloat16."""
     if not _on_cuda(nodes, "mp_banded"):
         return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name)
     dev = nodes.device
@@ -378,23 +656,23 @@ def mp_banded(
     F = nodes.shape[-1]
     if (T, B, W) != (plan.num_tiles, plan.block_rows, plan.window):
         raise ValueError(f"band of shape {tuple(M.shape)} does not match the plan")
-    rb = (256 // (F // 4)) * 4 if F in _MP_F else 0
-    if F not in _MP_F or not 1 <= E <= _MAX_E or B % rb or W % _MP_CHUNK:
+    if not _mp_shape_ok(F, E, B, W):
         raise NotImplementedError(
             f"mp_banded kernel takes F in {_MP_F}, E <= {_MAX_E}, B a multiple "
             f"of the rows per block, W a multiple of {_MP_CHUNK}"
         )
-    _check("M", M, torch.float32, (T, E, B, W), dev)
-    _check("nodes", nodes, torch.float32, (T * B, F), dev)
-    _check("w", w, torch.float32, (F, F, E), dev)
+    suffix = _dtype_suffix("nodes", nodes.dtype)
+    _check("M", M, nodes.dtype, (T, E, B, W), dev)
+    _check("nodes", nodes, nodes.dtype, (T * B, F), dev)
     _check("inv_degree", inv_degree, torch.float32, (T * B,), dev)
     act = ACTIVATION_CODES.get(activation_name)
     if act is None:
         raise ValueError(f"unknown activation {activation_name!r}")
-    w_t = w.permute(2, 0, 1).contiguous()  # [E, F, F]
+    w_t = w.permute(2, 0, 1).to(nodes.dtype).contiguous()  # [E, F, F]
+    _check("w", w_t, nodes.dtype, (E, F, F), dev)
     lo = _device_lo(plan, dev)
     out = torch.empty_like(nodes)
-    _launch("nmr_mp_banded", dev, M.data_ptr(), lo.data_ptr(), nodes.data_ptr(),
+    _launch("nmr_mp_banded" + suffix, dev, M.data_ptr(), lo.data_ptr(), nodes.data_ptr(),
             w_t.data_ptr(), inv_degree.data_ptr(), out.data_ptr(), T, E, B, W, F, act)
     mp_banded.launches += 1
     return out
@@ -402,7 +680,139 @@ def mp_banded(
 
 mp_banded.launches = 0
 
-KERNEL_WRAPPERS = (build_band, build_band_fused, mp_banded)
+def _launch_poly(nlist, edges, cheb: EdgeCheb, lo, ids, tiles: int, window: int,
+                 block_rows: int, n_padded: int, out_dtype) -> torch.Tensor:
+    """Checks and launches the Chebyshev band build of ``csrc/poly.cu``
+    over ``tiles`` grid tiles (``ids`` None: tile i reads tile i)."""
+    dev = edges.device
+    n, k = nlist.shape
+    _check("nlist", nlist, torch.int32, (n, k), dev)
+    _check("edges", edges, torch.float32, (n, k), dev)
+    coeffs = torch.as_tensor(cheb.coeffs, dtype=torch.float32, device=dev).contiguous()
+    deg1, e = coeffs.shape
+    if (not 1 <= e <= _MAX_E or not 1 <= k <= _MAX_K or n > n_padded or deg1 < 2
+            or deg1 * e > _POLY_MAX_COEFFS):
+        raise NotImplementedError(
+            f"build_band_poly kernel takes E <= {_MAX_E}, K <= {_MAX_K}, degree >= 1 "
+            f"and (degree + 1) * E <= {_POLY_MAX_COEFFS}"
+        )
+    suffix = _dtype_suffix("out_dtype", out_dtype)
+    pad = n_padded - n
+    nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
+    edges_p = nnf.pad(edges, (0, 0, 0, pad))
+    M = torch.empty((tiles, e, block_rows, window), dtype=out_dtype, device=dev)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    _launch("nmr_build_band_poly", dev, nlist_p.data_ptr(), edges_p.data_ptr(), lo.data_ptr(),
+            None if ids is None else ids.data_ptr(), coeffs.data_ptr(), M.data_ptr(),
+            tiles, n_padded // block_rows, block_rows, k, e, window, deg1 - 1,
+            f32(cheb.d_lo), f32(cheb.d_hi), f32(cheb.d_hi - cheb.d_lo), int(suffix != ""),
+            source="poly")
+    return M
+
+
+def build_band_poly(
+    nlist: torch.Tensor,   # i32[N, K]
+    edges: torch.Tensor,   # f32[N, K] raw distances
+    cheb: EdgeCheb,        # coefficients as numpy or a tensor on the card
+    plan: BandPlan,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M [T, E, B, W] in ``out_dtype`` (float32 or bfloat16) straight from
+    raw distances, through the Chebyshev-compressed edge stage.
+
+    Replaces ``_poly_band_kernel`` + ``_poly_build_tile`` (nmrgnn_tpu/ops/
+    banded.py:1268-1290, 1418-1448). On the card, one block per band row
+    evaluates its K slots' recurrence into shared memory and writes the
+    row's W columns; it is bound by writing M."""
+    if not _on_cuda(edges, "build_band_poly"):
+        return build_band_poly_plain(nlist, edges, cheb, plan, out_dtype)
+    M = _launch_poly(nlist, edges, cheb, _device_lo(plan, edges.device), None,
+                     plan.num_tiles, plan.window, plan.block_rows, plan.n_padded, out_dtype)
+    build_band_poly.launches += 1
+    return M
+
+
+build_band_poly.launches = 0
+
+
+def build_band_poly_cls(
+    nlist: torch.Tensor,   # i32[N, K]
+    edges: torch.Tensor,   # f32[N, K] raw distances
+    cheb: EdgeCheb,
+    cls: BandClass,        # ids and lo as numpy or int32 tensors on the card
+    block_rows: int,
+    n_padded: int,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M_c [Tc, E, B, Wc]: ``build_band_poly`` over one window class's
+    tiles, tile ``cls.ids[i]`` into ``M_c[i]``.
+
+    Replaces ``build_band_poly_cls`` (nmrgnn_tpu/ops/banded.py:1645-1700).
+    On the card it is the kernel of ``build_band_poly`` reading its rows
+    through the ids array (an id out of range reads nothing); it is bound
+    by writing M_c."""
+    if not _on_cuda(edges, "build_band_poly_cls"):
+        return build_band_poly_cls_plain(nlist, edges, cheb, cls, block_rows, n_padded,
+                                         out_dtype)
+    dev = edges.device
+    tc = len(cls.ids)
+    ids = _device_index("cls.ids", cls.ids, tc, dev)
+    lo = _device_index("cls.lo", cls.lo, tc, dev)
+    M = _launch_poly(nlist, edges, cheb, lo, ids, tc, cls.window, block_rows, n_padded,
+                     out_dtype)
+    build_band_poly_cls.launches += 1
+    return M
+
+
+build_band_poly_cls.launches = 0
+
+
+def mp_banded_partial(
+    M: torch.Tensor,      # [T, E, B, W], in table.dtype
+    lo,                   # i32[T] window starts (numpy, or int32 on the card)
+    table: torch.Tensor,  # [Nt, F] window source, f32 or bf16, Nt >= max(lo) + W
+    w: torch.Tensor,      # [F, F, E] (cast to table.dtype)
+) -> torch.Tensor:
+    """Partial MP aggregation f32[T * B, F] = sum_n (M_n @ table window) @
+    w_n: no inv_degree, activation or residual.
+
+    Replaces ``_mp_banded_partial_kernel`` (nmrgnn_tpu/ops/banded.py:
+    833-894). On the card it is the MP kernel of ``mp_banded`` without its
+    epilogue; window rows outside the table read as zeros. It is bound by
+    the bytes of the band, the table and the output at the main path's
+    shapes."""
+    if not _on_cuda(table, "mp_banded_partial"):
+        return mp_banded_partial_plain(M, lo, table, w)
+    dev = table.device
+    T, E, B, W = M.shape
+    n_table, F = table.shape
+    if not _mp_shape_ok(F, E, B, W):
+        raise NotImplementedError(
+            f"mp_banded_partial kernel takes F in {_MP_F}, E <= {_MAX_E}, B a multiple "
+            f"of the rows per block, W a multiple of {_MP_CHUNK}"
+        )
+    suffix = _dtype_suffix("table", table.dtype)
+    _check("M", M, table.dtype, (T, E, B, W), dev)
+    _check("table", table, table.dtype, (n_table, F), dev)
+    if not isinstance(lo, torch.Tensor):
+        lo_np = np.asarray(lo)
+        if lo_np.size and (lo_np.min() < 0 or lo_np.max() + W > n_table):
+            raise ValueError("windows must lie inside the table")
+    lo = _device_index("lo", lo, T, dev)
+    w_t = w.permute(2, 0, 1).to(table.dtype).contiguous()  # [E, F, F]
+    _check("w", w_t, table.dtype, (E, F, F), dev)
+    out = torch.empty((T * B, F), dtype=torch.float32, device=dev)
+    _launch("nmr_mp_banded_partial" + suffix, dev, M.data_ptr(), lo.data_ptr(),
+            table.data_ptr(), w_t.data_ptr(), out.data_ptr(), T, E, B, W, F, n_table,
+            source="poly")
+    mp_banded_partial.launches += 1
+    return out
+
+
+mp_banded_partial.launches = 0
+
+KERNEL_WRAPPERS = (build_band, build_band_fused, mp_banded, build_band_poly,
+                   build_band_poly_cls, mp_banded_partial)
 
 
 def reset_launch_counts() -> None:

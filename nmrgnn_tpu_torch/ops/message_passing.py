@@ -5,7 +5,9 @@ the plain oracle of the banded operator.
                                  * w[l, m, n] * inv_degree[i] )
 
 The small neighbor axis is contracted first, then E dense [N,F]x[F,F]
-products.
+products. With a narrower ``compute_dtype`` the operands of both products
+are rounded to it, h is rounded to it between them (the first product's
+result type), and the sums are float32.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Callable
 import torch
 
 from .activations import softplus
+from .edge import as_operand
 
 
 def mp_aggregate(
@@ -22,11 +25,13 @@ def mp_aggregate(
     edges: torch.Tensor,       # f32[N, K, E]
     inv_degree: torch.Tensor,  # f32[N]
     w: torch.Tensor,           # f32[F, F, E]
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """Bilinear neighborhood aggregation; f32[N, F] before the activation."""
-    gathered = nodes[nlist.long()]                        # [N, K, F]
-    h = torch.einsum("ijn,ijl->inl", edges, gathered)     # [N, E, F]
-    out = torch.einsum("inl,lmn->im", h, w)               # [N, F]
+    op = lambda a: as_operand(a, compute_dtype)  # noqa: E731
+    gathered = nodes[nlist.long()]                                # [N, K, F]
+    h = op(torch.einsum("ijn,ijl->inl", op(edges), op(gathered)))  # [N, E, F]
+    out = torch.einsum("inl,lmn->im", h, op(w))                    # [N, F]
     return out * inv_degree[:, None]
 
 
@@ -37,6 +42,7 @@ def mp_layer(
     edges: torch.Tensor,
     inv_degree: torch.Tensor,
     activation: Callable = softplus,
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """MPLayer forward: aggregation + activation (no residual)."""
-    return activation(mp_aggregate(nodes, nlist, edges, inv_degree, w))
+    return activation(mp_aggregate(nodes, nlist, edges, inv_degree, w, compute_dtype))

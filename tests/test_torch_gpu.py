@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 on inputs the main path does not give them: adversarial graphs (duplicate
-neighbors, padding slots, index-0 neighbors), other widths, edge channels,
-neighbor counts and activations.
+neighbors, padding slots, index-0 neighbors, distances past the Chebyshev
+domain, tile ids out of range), other widths, edge channels, neighbor
+counts, activations and both element types (float32, bfloat16).
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -19,8 +20,11 @@ from nmrgnn_tpu_torch.models import gnn
 from nmrgnn_tpu_torch.models.infer import apply_banded, precompute_band
 from nmrgnn_tpu_torch.models.serving import ServingModel
 from nmrgnn_tpu_torch.ops import banded
+from nmrgnn_tpu_torch.ops.edgefn import EdgeCheb
 
 pytestmark = pytest.mark.gpu
+
+BF16_STEP = 2.0 ** -7  # one bfloat16 step is at most 2^-7 of a value
 
 
 @pytest.fixture
@@ -134,3 +138,164 @@ def test_apply_banded_and_serving_on_the_card(dev):
                                    ref, rtol=5e-4, atol=5e-4)
     peaks = ServingModel(params, cfg).predict(g)
     np.testing.assert_allclose(peaks, ref.cpu().numpy(), rtol=5e-4, atol=5e-4)
+
+
+def make_cheb(e, degree=64, seed=0):
+    """Chebyshev coefficients of E smooth channels (decaying with the
+    degree, as a fit of the edge stage's are)."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(degree + 1, e)) * 0.8 ** np.arange(degree + 1)[:, None]
+    return EdgeCheb(coeffs=c.astype(np.float32), d_lo=0.0, d_hi=0.35)
+
+
+def skewed_nlist(n, k, seed, spread_hi=180):
+    rng = np.random.default_rng(seed)
+    spread = np.where(np.arange(n) % 4 == 0, spread_hi, 30)
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-1, 2, (n, k)) * spread[:, None]
+                    + rng.integers(-20, 20, (n, k)), 0, n - 1).astype(np.int32)
+    nlist[:, 0] = nlist[:, 1]  # duplicate neighbors
+    nlist[7, :] = 0            # index-0 neighbors
+    dists = rng.uniform(0.01, 0.45, (n, k)).astype(np.float32)  # past d_hi too
+    dists[rng.uniform(size=(n, k)) < 0.2] = 0.0
+    return nlist, dists
+
+
+def _close(got, want, dtype):
+    """float32: 1e-5; bfloat16: one step of the output (both round the
+    same float32 sum once, summed in another order)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP, atol=1e-5)
+
+
+@pytest.mark.parametrize("e,k,dtype", [
+    (3, 16, torch.bfloat16), (3, 16, torch.float32), (1, 7, torch.bfloat16),
+    (4, 3, torch.float32), (2, 32, torch.bfloat16),
+])
+def test_build_band_poly_kernel_matches_plain(dev, e, k, dtype):
+    nlist, dists = skewed_nlist(520, k, seed=e + k)
+    cheb = make_cheb(e, seed=k)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    nl, d = _on(dev, nlist, dists)
+    dev_cheb = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
+    before = banded.build_band_poly.launches
+    got = banded.build_band_poly(nl, d, dev_cheb, plan, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert banded.build_band_poly.launches == before + 1 and got.dtype == dtype
+    _close(got, banded.build_band_poly_plain(nl, d, cheb, plan, out_dtype=dtype), dtype)
+
+
+@pytest.mark.parametrize("e,dtype", [(3, torch.bfloat16), (1, torch.float32),
+                                     (4, torch.bfloat16)])
+def test_build_band_poly_cls_kernel_matches_plain(dev, e, dtype):
+    nlist, dists = skewed_nlist(700, 12, seed=e)
+    cls_plan = banded.band_plan_classes(nlist, dists)
+    assert len(cls_plan.classes) > 1
+    dplan = banded.plan_on_device(cls_plan, dev)
+    cheb = make_cheb(e, seed=e)
+    nl, d = _on(dev, nlist, dists)
+    for c in dplan.classes:
+        got = banded.build_band_poly_cls(nl, d, cheb, c, cls_plan.block_rows,
+                                         cls_plan.n_padded, out_dtype=dtype)
+        want = banded.build_band_poly_cls_plain(nl, d, cheb, c, cls_plan.block_rows,
+                                                cls_plan.n_padded, out_dtype=dtype)
+        _close(got, want, dtype)
+    # a tile id out of range reads nothing: that tile's band is zero
+    c = cls_plan.classes[0]
+    bad = c._replace(ids=np.array([cls_plan.num_tiles] + list(c.ids[1:]), np.int32))
+    got = banded.build_band_poly_cls(nl, d, cheb, bad, cls_plan.block_rows,
+                                     cls_plan.n_padded, out_dtype=dtype)
+    assert float(got[0].abs().max()) == 0.0
+    _close(got[1:], banded.build_band_poly_cls_plain(
+        nl, d, cheb, c, cls_plan.block_rows, cls_plan.n_padded, out_dtype=dtype)[1:], dtype)
+
+
+@pytest.mark.parametrize("f,e,dtype", [
+    (256, 3, torch.bfloat16), (256, 3, torch.float32), (128, 1, torch.bfloat16),
+    (64, 4, torch.float32), (128, 2, torch.float32), (64, 4, torch.bfloat16),
+])
+def test_mp_banded_partial_kernel_matches_plain(dev, f, e, dtype):
+    """float32: 2e-4, as the MP layer. bfloat16: h is rounded to bfloat16
+    between the products, so a sum near a rounding boundary may move one h
+    by a step; tolerance one step relative to the output's scale."""
+    n = 300
+    nlist, dists, efeat, nodes, w, _ = make_case(n, 7, f, e, seed=f + e, banded_nlist=True)
+    plan = banded.band_plan(nlist, dists)
+    extra = 256  # a table longer than T * B, windows in its middle
+    rng = np.random.default_rng(f)
+    table = rng.normal(size=(plan.n_padded + extra, f)).astype(np.float32)
+    lo = plan.lo + extra // 2
+    nl, ef, tab, wt = _on(dev, nlist, efeat, table, w)
+    M = banded.build_band_plain(nl, ef, plan).to(dtype)
+    before = banded.mp_banded_partial.launches
+    got = banded.mp_banded_partial(M, lo, tab.to(dtype), wt)
+    torch.cuda.synchronize()
+    assert banded.mp_banded_partial.launches == before + 1 and got.dtype == torch.float32
+    want = banded.mp_banded_partial_plain(M, lo, tab.to(dtype), wt)
+    tol = 2e-4 if dtype == torch.float32 else BF16_STEP * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=tol)
+    # lo as an int32 tensor on the card gives the same sums
+    lo_dev = torch.as_tensor(lo, dtype=torch.int32, device=dev)
+    torch.testing.assert_close(banded.mp_banded_partial(M, lo_dev, tab.to(dtype), wt), got,
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError):  # a window past the table's end
+        banded.mp_banded_partial(M, lo + extra, tab.to(dtype), wt)
+
+
+@pytest.mark.parametrize("f,e,act", [
+    (256, 3, "softplus"), (128, 1, "relu"), (64, 4, "tanh"),
+])
+def test_mp_banded_bf16_kernel_matches_plain(dev, f, e, act):
+    """bfloat16 in and out, float32 sums; tolerance one step of h carried
+    through the second product (relative to the output's scale) plus one
+    rounding of the output."""
+    n = 300
+    nlist, dists, efeat, nodes, w, inv = make_case(n, 7, f, e, seed=f + e + 1)
+    plan = banded.band_plan(nlist, dists)
+    pad = plan.n_padded - n
+    nodes_p, inv_p = np.pad(nodes, ((0, pad), (0, 0))), np.pad(inv, (0, pad))
+    plan = banded.plan_on_device(plan, dev)
+    nl, ef, x, wt, iv = _on(dev, nlist, efeat, nodes_p, w, inv_p)
+    M = banded.build_band_plain(nl, ef, plan).bfloat16()
+    got = banded.mp_banded(M, plan, x.bfloat16(), wt, iv, act)
+    assert got.dtype == torch.bfloat16
+    want = banded.mp_banded_plain(M, plan, x.bfloat16(), wt, iv, act).float()
+    torch.testing.assert_close(got.float(), want, rtol=BF16_STEP,
+                               atol=2 * BF16_STEP * float(want.abs().max()))
+
+
+def test_fast_serving_on_the_card(dev):
+    """Fast serving on a skewed graph takes the class forward through the
+    kernels (one build per class, one partial MP per class and layer) and
+    agrees with the same model's fast serving on the CPU (plain versions)
+    within the fast band; the uniform forward runs one Chebyshev build and
+    one bfloat16 MP layer per layer."""
+    cfg = ModelConfig()
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    n = 600
+    rng = np.random.default_rng(6)
+    nlist, dists = skewed_nlist(n, 16, seed=6)
+    dists = np.where(dists > 0, np.clip(dists, 0.09, 0.3), 0.0).astype(np.float32)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    g = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    sm = ServingModel(params, cfg, reorder=False, precision="fast")
+    banded.reset_launch_counts()
+    got = sm.predict(g)
+    classes = len(sm._cls_plan_vmem.classes)
+    assert classes > 1
+    assert banded.build_band_poly_cls.launches == classes
+    assert banded.mp_banded_partial.launches == classes * cfg.mp_layers
+    assert banded.mp_banded.launches == banded.build_band_poly.launches == 0
+    want = ServingModel(params, cfg, device="cpu", reorder=False, precision="fast").predict(g)
+    assert np.corrcoef(got, want)[0, 1] > 0.9999
+    np.testing.assert_allclose(got, want, rtol=0.05, atol=1.0)
+    banded.reset_launch_counts()
+    gt = Graph(*_on(dev, *g))
+    plan = banded.band_plan(nlist, dists)
+    uni = apply_banded(sm.params, sm.config, gt, plan, cheb=sm._edge_cheb())
+    assert banded.build_band_poly.launches == 1
+    assert banded.mp_banded.launches == cfg.mp_layers
+    plain = apply_banded(sm.params, sm.config, gt, plan, cheb=sm._edge_cheb(),
+                         use_kernels=False)
+    np.testing.assert_allclose(uni.cpu().numpy(), plain.cpu().numpy(), rtol=0.05, atol=1.0)

@@ -30,6 +30,7 @@ from nmrgnn_tpu_torch.models import gnn
 from nmrgnn_tpu_torch.models.infer import apply_banded, precompute_band
 from nmrgnn_tpu_torch.models.serving import ServingModel
 from nmrgnn_tpu_torch.ops import banded
+from nmrgnn_tpu_torch.ops.edgefn import fit_edge_chebyshev
 
 torch.set_num_threads(2)
 
@@ -125,24 +126,36 @@ def test_apply_banded_branches_agree(structure, bundled):
     gp, _ = treorder.permute_graph(g, order, pin_zero=False)
     plan = precompute_band(gp)
     gt = Graph(*map(torch.from_numpy, gp))
+    # the Chebyshev edge stage in float32 serves too (the fast precision's)
+    cheb = fit_edge_chebyshev(params["edge_fc"], rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
+                              rbf_count=cfg.edge_hidden_size, activation=cfg.fc_activation,
+                              degree=64)
     with torch.no_grad():
         ref = gnn.apply(params, cfg, gt)
-        for kw in ({}, {"fused_edge": False}, {"use_kernels": False}):
+        for kw in ({}, {"fused_edge": False}, {"use_kernels": False}, {"cheb": cheb},
+                   {"cheb": cheb, "use_kernels": False}):
             torch.testing.assert_close(apply_banded(params, cfg, gt, plan, **kw), ref,
                                        rtol=5e-4, atol=5e-4)
-    for kw in ({"cheb": object()}, {"hbm_table": True}, {"fused_first": True}):
+    for kw in ({"hbm_table": True}, {"fused_first": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             apply_banded(params, cfg, gt, plan, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # the fused exact stage in bf16
+        apply_banded(params, cfg.replace(compute_dtype="bfloat16"), gt, plan)
 
 
 def test_serving_rejects_later_slices(bundled):
     _, _, params, cfg = bundled
-    with pytest.raises(NotImplementedError):
-        ServingModel(params, cfg, device="cpu", precision="fast")
+    # "fast" now serves, in bfloat16 (tests/test_torch_fast_serving.py)
+    fast = ServingModel(params, cfg, device="cpu", precision="fast")
+    assert fast.config.compute_dtype == "bfloat16" and cfg.compute_dtype == "float32"
     with pytest.raises(NotImplementedError):
         ServingModel(params, cfg, device="cpu", mode="blocksparse")
     with pytest.raises(NotImplementedError):
         ServingModel(params, cfg.replace(mp_type="attention"), device="cpu")
+    with pytest.raises(NotImplementedError):  # exact serving needs float32
+        ServingModel(params, cfg.replace(compute_dtype="bfloat16"), device="cpu")
+    with pytest.raises(ValueError):
+        ServingModel(params, cfg, device="cpu", precision="half")
 
 
 def test_serving_defaults_to_the_card(bundled):
