@@ -31,18 +31,43 @@ Phases, in order; any failure exits non-zero and prints no result:
        1.0 ppm, Pearson r > 0.9999); frames 0 and 1 differ; per frame on
        the class forward one Chebyshev build and 4 partial MP layers per
        window class, on the uniform forward one Chebyshev build and 4
-       bfloat16 MP layers (the branch read from the model's class plan).
+       bfloat16 MP layers (the branch read from the model's class plan;
+       both forwards must be taken).
     c. the uniform fast forward once directly (apply_banded(cheb=...)):
        1 build_band_poly and 4 mp_banded launches, equal to its plain
        versions within the fast band with a mean difference under 0.05
        ppm; and the class forward against its plain versions alike.
     Forward times (CUDA events) and predict() wall times of both
     precisions; with --profile, a per-kernel breakdown of each forward.
- 5. One JSON line listing every kernel of the paths with its launches,
+ 5. The large structure: 18 shifted copies of that structure on a 3 x 3 x 2
+    grid (44,676 atoms), which must resolve to the "banded_hbm" path with an
+    RCM window of at most 2048. At its shapes, mp_banded_hbm against its
+    plain version (float32 and bfloat16, phase 3's MP tolerances), and
+    mp_banded_hbm_cls per window class against its plain version.
+    ServingModel on 3 frames: exact peaks equal the plain gather forward
+    within rtol/atol 5e-4, with 1 fused build and 4 mp_banded_hbm per
+    frame; fast peaks within the fast band of the exact ones, per frame on
+    the class forward one Chebyshev build and 4 mp_banded_hbm_cls per
+    class, on the uniform forward one Chebyshev build and 4 mp_banded_hbm
+    (both forwards must be taken). Each forward driven directly (launches;
+    the fast ones against their plain versions, mean under 0.05 ppm),
+    timed, and with --profile broken down; predict() wall times.
+ 6. Trajectories: 8 frames of the 2,482-atom structure at both precisions.
+    predict_frames equals per-frame predict within 1e-4 (exact), or lies
+    in the fast band of it and within a mean 0.05 ppm of per-frame predict
+    on the uniform forward (fast). It launches each kernel once for the
+    batch where the frames' union plan passes the JAX package's budget,
+    and serves frame by frame where it does not; the batched forward
+    (apply_banded_frames) is then driven directly too, with one launch per
+    kernel, against the same references. predict_trajectory yields every
+    frame in order, equal to per-frame predict. Frames per second of each
+    (host clock) and the batched forward's time on the card.
+ 7. One JSON line listing every kernel of the paths with its launches,
     error and times.
- 6. The last line: {"ok": true, "device": {...}}.
+ 8. The last line: {"ok": true, "device": {...}}.
 
-The synthetic-PDB writer is a plain function, importable by the tests.
+Each phase prints its seconds.
+The synthetic-PDB writers are plain functions, importable by the tests.
 This script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -68,22 +93,22 @@ FAST_RTOL, FAST_ATOL, FAST_MIN_R = 0.05, 1.0, 0.9999  # tests/test_banded.py:457
 
 N_ATOMS = 2482   # as many as myoglobin (PDB 108M)
 N_FRAMES = 3
+SUPERCELL_GRID = (3, 3, 2)  # 18 copies: 44,676 atoms
+MAX_SUPERCELL_W = 2048
+TRAJ_FRAMES = 8
 REPEATS = 20
 
 # Element mix of a hydrogenated protein (fractions of all atoms).
 PROTEIN_ELEMENTS = (("H", 0.497), ("C", 0.32), ("N", 0.085), ("O", 0.095), ("S", 0.003))
 
 
-def write_synthetic_pdb(path: str, n_atoms: int = N_ATOMS, seed: int = 0, frames: int = 1,
-                        jitter: float = 0.05, spacing: float = 1.4) -> None:
-    """Write a protein-like structure as a (multi-MODEL) PDB file.
-
-    A cubic lattice of ``spacing`` Angstrom, each point jittered by 0.15 A,
-    cut to the ``n_atoms`` points nearest its center (a sphere), listed in
-    a boustrophedon walk so that atoms adjacent in the file are adjacent
-    in space, as along a chain. Elements are drawn in protein proportions.
-    Each frame after the first jitters every coordinate by ``jitter`` A.
-    """
+def synthetic_coords(n_atoms: int = N_ATOMS, seed: int = 0, spacing: float = 1.4):
+    """(coords [n, 3] in Angstrom, elements, rng) of a protein-like
+    structure: a cubic lattice of ``spacing`` Angstrom, each point jittered
+    by 0.15 A, cut to the ``n_atoms`` points nearest its center (a sphere),
+    listed in a boustrophedon walk so that atoms adjacent in the list are
+    adjacent in space, as along a chain. Elements are drawn in protein
+    proportions. The generator is returned to draw the frames' jitter."""
     rng = np.random.default_rng(seed)
     m = int(np.ceil((3 * n_atoms / (4 * np.pi)) ** (1 / 3) * 1.2)) + 1
     ax = np.arange(-m, m + 1)
@@ -96,9 +121,14 @@ def write_synthetic_pdb(path: str, n_atoms: int = N_ATOMS, seed: int = 0, frames
     pts = np.asarray(walk, np.float64) * spacing
     pts += rng.normal(scale=0.15, size=pts.shape)
     keep = np.sort(np.argsort(np.linalg.norm(pts, axis=1), kind="stable")[:n_atoms])
-    coords = pts[keep]
     names, probs = zip(*PROTEIN_ELEMENTS)
     elements = rng.choice(names, size=n_atoms, p=np.asarray(probs) / sum(probs))
+    return pts[keep], elements, rng
+
+
+def _write_pdb(path: str, coords, elements, rng, frames: int, jitter: float) -> None:
+    """``frames`` MODELs; each after the first jitters every coordinate by
+    ``jitter`` A (drawn from ``rng``)."""
     resnames = ("ALA", "GLY", "LEU", "SER", "GLU", "LYS")
     lines = []
     for f in range(frames):
@@ -115,6 +145,27 @@ def write_synthetic_pdb(path: str, n_atoms: int = N_ATOMS, seed: int = 0, frames
     lines.append("END")
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+def write_synthetic_pdb(path: str, n_atoms: int = N_ATOMS, seed: int = 0, frames: int = 1,
+                        jitter: float = 0.05, spacing: float = 1.4) -> None:
+    """Write a protein-like structure (``synthetic_coords``) as a
+    (multi-MODEL) PDB file."""
+    coords, elements, rng = synthetic_coords(n_atoms, seed, spacing)
+    _write_pdb(path, coords, elements, rng, frames, jitter)
+
+
+def write_supercell_pdb(path: str, grid=SUPERCELL_GRID, n_atoms: int = N_ATOMS, seed: int = 0,
+                        frames: int = 1, jitter: float = 0.05, gap: float = 8.0) -> None:
+    """``grid`` shifted copies of the synthetic structure, each its own
+    bounding span + ``gap`` A from the next: the construction of the JAX
+    package's 44.7k-atom row (benchmarks/scaling.py:28-54). Each copy is
+    its own RCM component, so the band stays near the single copy's."""
+    coords, elements, rng = synthetic_coords(n_atoms, seed)
+    step = coords.max(axis=0) - coords.min(axis=0) + gap
+    shifts = [np.array(c) * step for c in np.ndindex(*grid)]
+    _write_pdb(path, np.concatenate([coords + s for s in shifts]),
+               np.tile(elements, len(shifts)), rng, frames, jitter)
 
 
 def _time_ms(fn, repeats: int, inner: int = 10) -> float:
@@ -197,9 +248,9 @@ def _profile_forward(fn, fwd_ms: float, label: str, runs: int = 5):
     rows.sort(key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
     if not rows:
-        print(f"phase 4: profiler ({label}): no device time recorded (not measured)")
+        print(f"profiler ({label}): no device time recorded (not measured)")
         return None
-    print(f"phase 4: profiler ({label}): {busy:.4f} ms of kernels per forward, idle share "
+    print(f"profiler ({label}): {busy:.4f} ms of kernels per forward, idle share "
           f"{max(0.0, 1 - busy / fwd_ms):.3f} of the {fwd_ms:.4f} ms forward")
     for r in rows[:12]:
         print(f"  {r['ms']:.4f} ms  x{r['calls']:g}  {r['kernel']}")
@@ -227,6 +278,353 @@ def _in_fast_band(got, want, what: str, mean_atol=None) -> str:
     if mean_atol is not None and diff.mean() >= mean_atol:
         raise SystemExit(f"chip_smoke: {what}: mean |diff| {diff.mean():.4f} >= {mean_atol}")
     return f"r={r:.7f}, max |diff| {diff.max():.4f} ppm, mean {diff.mean():.4f} ppm"
+
+
+def _wall_ms(model, g, runs: int) -> float:
+    """Median host-clock time of ``model.predict(g)``, in ms."""
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        model.predict(g)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _on_card(g, dev):
+    import torch
+
+    from nmrgnn_tpu_torch.graph import Graph
+
+    dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
+    return Graph(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+                   for a, dt in zip(g, dtypes)])
+
+
+def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect) -> dict:
+    """The large structure: the 44,676-atom supercell through "banded_hbm"
+    at both precisions, B5 and B9 against their plain versions at its
+    shapes, forward and predict() times."""
+    import torch
+    import torch.nn.functional as nnf
+
+    from nmrgnn_tpu_torch.data.parse import structure2graph
+    from nmrgnn_tpu_torch.data.pdb import read_structure
+    from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.infer import apply_banded, apply_banded_hbm_classes
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+    from nmrgnn_tpu_torch.ops import banded
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = os.path.join(tmp, "supercell.pdb")
+        write_supercell_pdb(pdb, grid=SUPERCELL_GRID, n_atoms=N_ATOMS, seed=args.seed,
+                            frames=N_FRAMES)
+        struct = read_structure(pdb)
+    graphs = [structure2graph(struct, frame=f) for f in range(N_FRAMES)]
+    order = rcm_order(graphs[0].nlist, graphs[0].edges)
+    g_rcm, _ = permute_graph(graphs[0], order, pin_zero=False)
+    plan = banded.band_plan(g_rcm.nlist, g_rcm.edges)
+    cls_plan = banded.band_plan_classes(g_rcm.nlist, g_rcm.edges)
+    T, B, W = plan.num_tiles, plan.block_rows, plan.window
+    N, K = g_rcm.nlist.shape
+    F, E, L = cfg.atom_feature_size, cfg.edge_feature_size, len(params["mp"])
+    per_tile = B // ((256 // (F // 4)) * 4)  # blocks of the MP kernels per tile
+    classes = ", ".join(f"{len(c.ids)} tiles @ {c.window} ({len(c.ids) * per_tile} blocks)"
+                        for c in cls_plan.classes)
+    print(f"phase 5: supercell of {np.prod(SUPERCELL_GRID)} copies: N={N} N_pad={plan.n_padded} "
+          f"T={T} W={W}; class plan {classes}; {N_FRAMES} frames built and ordered on the "
+          f"host in {time.perf_counter() - t0:.1f} s")
+    if W > MAX_SUPERCELL_W:
+        raise SystemExit(f"chip_smoke: supercell window {W} > {MAX_SUPERCELL_W}")
+    gt = _on_card(g_rcm, dev)
+    plan_d = banded.plan_on_device(plan, dev)
+    cls_d = banded.plan_on_device(cls_plan, dev)
+    act = cfg.mp_activation
+
+    # -- B5 and B9 at the supercell's shapes ----------------------------------
+    fc = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation)
+    bands = {f32: banded.build_band_fused(gt.nlist, gt.edges, params["edge_fc"], plan_d, **fc),
+             bf16: banded.build_band_poly(gt.nlist, gt.edges, cheb_d, plan_d, bf16)}
+    nodes = nnf.pad(gnn.dense(params["embed"], gt.atoms), (0, 0, 0, plan.n_padded - N))
+    inv_p = nnf.pad(gt.inv_degree, (0, plan.n_padded - N))
+    w0 = params["mp"][0]["w"]
+    for dt, tag, eb, peak in ((f32, "float32", 4, PEAK_F32_FLOPS),
+                              (bf16, "bfloat16", 2, PEAK_BF16_FLOPS)):
+        M, table = bands[dt], nodes.to(dt)
+        nnz = int((M != 0).sum())
+        tol = dict(tol=2e-4) if dt == f32 else dict(rtol=BF16_STEP, tol=0.0,
+                                                     tol_of_max=2 * BF16_STEP)
+        check(
+            "mp_banded_hbm" + ("" if dt == f32 else "_bf16"), "nmrgnn_tpu/ops/banded.py:656",
+            lambda M=M, table=table: banded.mp_banded_hbm(M, plan_d, table, w0, inv_p, act),
+            lambda M=M, table=table: banded.mp_banded_hbm_plain(M, plan_d, table, w0, inv_p, act),
+            **tol, flops=2 * nnz * F + 2 * T * E * B * F * F,
+            nbytes=(M.numel() * eb + plan.n_padded * F * eb * 2 + F * F * E * eb
+                    + plan.n_padded * 4 + T * 4),
+            peak=peak, source="hbm.cu", dtype=tag,
+            extra=f"; band {nnz} nonzeros of {M.numel()}",
+        )
+        Mc = [banded.build_band_poly_cls(gt.nlist, gt.edges, cheb_d, c, B, plan.n_padded, dt)
+              for c in cls_d.classes]
+        check(
+            "mp_banded_hbm_cls", "nmrgnn_tpu/ops/banded.py:1703",
+            lambda Mc=Mc, table=table: [banded.mp_banded_hbm_cls(m, c, B, table, w0, inv_p, act)
+                                        for m, c in zip(Mc, cls_d.classes)],
+            lambda Mc=Mc, table=table: [banded.mp_banded_hbm_cls_plain(m, c, B, table, w0,
+                                                                       inv_p, act)
+                                        for m, c in zip(Mc, cls_d.classes)],
+            **tol, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16,
+            flops=sum(2 * int((m != 0).sum()) * F + 2 * len(c.ids) * E * B * F * F
+                      for m, c in zip(Mc, cls_plan.classes)),
+            # each class's band, ids and lo, and output rows; the table,
+            # the weights and inv_degree once
+            nbytes=(sum(m.numel() * eb + len(c.ids) * (8 + B * F * eb)
+                        for m, c in zip(Mc, cls_plan.classes))
+                    + plan.n_padded * (F * eb + 4) + F * F * E * eb),
+        )
+
+    # -- exact serving ----------------------------------------------------------
+    def serve(model, g_list):
+        out, walls = [], []
+        for g in g_list:
+            t = time.perf_counter()
+            out.append(model.predict(g))
+            walls.append(time.perf_counter() - t)
+        return out, walls
+
+    banded.reset_launch_counts()
+    model = ServingModel(params, cfg, device=dev)
+    peaks, exact_s = serve(model, graphs)
+    exact_launches = counts()
+    print(f"phase 5: exact: path {model._resolved}, launches {exact_launches}, per-frame wall "
+          f"ms {[round(v * 1e3, 3) for v in exact_s]}")
+    if model._resolved != "banded_hbm":
+        raise SystemExit(f"chip_smoke: the supercell resolved to {model._resolved}")
+    expect(exact_launches, build_band_fused=N_FRAMES, mp_banded_hbm=N_FRAMES * L)
+    worst = 0.0
+    for f, (g, p) in enumerate(zip(graphs, peaks)):
+        if p.shape != (N,) or not np.all(np.isfinite(p)):
+            raise SystemExit(f"chip_smoke: supercell frame {f}: peaks {p.shape} not all finite")
+        ref = gnn.apply(params, cfg, _on_card(g, dev)).cpu().numpy()
+        np.testing.assert_allclose(p, ref, rtol=5e-4, atol=5e-4)
+        worst = max(worst, float(np.max(np.abs(p - ref))))
+    print(f"phase 5: exact peaks finite, max|served - plain gather forward| = {worst:.3e} "
+          f"(tol 5e-4)")
+    if np.array_equal(peaks[0], peaks[1]):
+        raise SystemExit("chip_smoke: jittered supercell frames gave identical peaks")
+
+    # -- fast serving -------------------------------------------------------------
+    banded.reset_launch_counts()
+    fast = ServingModel(params, cfg, device=dev, precision="fast")
+    fast_peaks, fast_s, branches = [], [], []
+    for g in graphs:
+        t = time.perf_counter()
+        fast_peaks.append(fast.predict(g))
+        fast_s.append(time.perf_counter() - t)
+        gp, _ = permute_graph(g, fast._order, pin_zero=False)
+        cp = fast._cls_plan
+        on_cls = (cp is not None and len(cp.classes) > 1
+                  and banded.class_plan_covers(cp, gp.nlist, gp.edges))
+        branches.append(len(cp.classes) if on_cls else 0)
+    fast_launches = counts()
+    n_cls, n_uni = sum(branches), branches.count(0)
+    if not (n_cls and n_uni):
+        raise SystemExit(f"chip_smoke: the supercell's fast frames took one forward only "
+                         f"({branches}); both are on the path")
+    print(f"phase 5: fast: path {fast._resolved}, forwards "
+          f"{['classes(%d)' % b if b else 'uniform' for b in branches]} (re-bucketing switch "
+          f"{'on' if fast._cls_hbm_off else 'off'}), launches {fast_launches}, per-frame wall "
+          f"ms {[round(v * 1e3, 3) for v in fast_s]}")
+    if fast._resolved != "banded_hbm":
+        raise SystemExit(f"chip_smoke: the supercell resolved to {fast._resolved} (fast)")
+    expect(fast_launches, build_band_poly_cls=n_cls, mp_banded_hbm_cls=n_cls * L,
+           build_band_poly=n_uni, mp_banded_hbm=n_uni * L)
+    for f, p in enumerate(fast_peaks):
+        print(f"phase 5: fast frame {f} vs exact frame {f}: "
+              f"{_in_fast_band(p, peaks[f], f'supercell fast frame {f}')}")
+
+    # -- each forward directly, against its plain versions --------------------------
+    fwd = {
+        "exact_hbm": lambda: apply_banded(params, cfg, gt, plan_d, hbm_table=True),
+        "fast_hbm_classes": lambda: apply_banded_hbm_classes(params, cfg16, gt, cls_d, cheb_d),
+        "fast_hbm_uniform": lambda: apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d,
+                                                 hbm_table=True),
+    }
+    nc = len(cls_plan.classes)
+    want_launches = {
+        "exact_hbm": dict(build_band_fused=1, mp_banded_hbm=L),
+        "fast_hbm_classes": dict(build_band_poly_cls=nc, mp_banded_hbm_cls=nc * L),
+        "fast_hbm_uniform": dict(build_band_poly=1, mp_banded_hbm=L),
+    }
+    direct = {}
+    for k, f in fwd.items():
+        banded.reset_launch_counts()
+        got = f()
+        torch.cuda.synchronize()
+        direct[k] = counts()
+        expect(direct[k], **want_launches[k])
+        if k == "exact_hbm":
+            continue  # held against the gather forward above
+        plain = (apply_banded_hbm_classes(params, cfg16, gt, cls_d, cheb_d, use_kernels=False)
+                 if k == "fast_hbm_classes" else
+                 apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d, hbm_table=True,
+                              use_kernels=False))
+        print(f"phase 5: {k} launches {direct[k]}; kernels vs plain: "
+              f"{_in_fast_band(got.cpu().numpy(), plain.cpu().numpy(), k, 0.05)}")
+    fwd_ms = {k: _time_ms(f, 5, inner=3) for k, f in fwd.items()}
+    for k in fwd:
+        print(f"phase 5: {k} forward on the card {fwd_ms[k]:.4f} ms (median of 5, CUDA events)")
+
+    predict_ms = {"exact": _wall_ms(model, graphs[-1], 5),
+                  "fast_frame0": _wall_ms(fast, graphs[0], 5),
+                  "fast_last_frame": _wall_ms(fast, graphs[-1], 5)}
+    print(f"phase 5: predict() wall ms (median of 5, host clock): "
+          f"{json.dumps({k: round(v, 3) for k, v in predict_ms.items()})}")
+    breakdown = ({k: _profile_forward(f, fwd_ms[k], k, runs=3) for k, f in fwd.items()}
+                 if args.profile else None)
+
+    return {
+        "N": N, "N_pad": plan.n_padded, "T": T, "W": W,
+        "classes": [[len(c.ids), c.window, len(c.ids) * per_tile] for c in cls_plan.classes],
+        "launches": {
+            "mp_banded_hbm": exact_launches["mp_banded_hbm"],
+            "mp_banded_hbm_bf16": fast_launches["mp_banded_hbm"],
+            "mp_banded_hbm_cls": fast_launches["mp_banded_hbm_cls"],
+        },
+        "forward_ms": fwd_ms, "predict_wall_ms": predict_ms,
+        "frame_wall_s": {"exact": exact_s, "fast": fast_s}, "fast_branches": branches,
+        "forward_breakdown": breakdown,
+    }
+
+
+def _phase6(args, dev, params, cfg, counts, expect) -> dict:
+    """Trajectories: TRAJ_FRAMES frames of the 2,482-atom structure through
+    predict_frames (one forward, one readback) and predict_trajectory, at
+    both precisions, against per-frame predict."""
+    import torch
+
+    from nmrgnn_tpu_torch.data.parse import structure2graph
+    from nmrgnn_tpu_torch.data.pdb import read_structure
+    from nmrgnn_tpu_torch.data.reorder import permute_graph
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.models.infer import apply_banded_frames
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+    from nmrgnn_tpu_torch.ops import banded
+
+    F, E, H = cfg.atom_feature_size, cfg.edge_feature_size, cfg.edge_hidden_size
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = os.path.join(tmp, "trajectory.pdb")
+        write_synthetic_pdb(pdb, n_atoms=N_ATOMS, seed=args.seed, frames=TRAJ_FRAMES)
+        struct = read_structure(pdb)
+    t0 = time.perf_counter()
+    graphs = [structure2graph(struct, frame=f) for f in range(TRAJ_FRAMES)]
+    build_ms = (time.perf_counter() - t0) * 1e3 / TRAJ_FRAMES
+    L = len(params["mp"])
+    out = {"frames": TRAJ_FRAMES, "graph_build_ms_per_frame": build_ms}
+    for precision in ("exact", "fast"):
+        ref = ServingModel(params, cfg, device=dev, precision=precision)
+        want = np.stack([ref.predict(g) for g in graphs])
+        loops = []
+        for _ in range(3):  # warm: the order, the plans and the fit are made
+            t0 = time.perf_counter()
+            for g in graphs:
+                ref.predict(g)
+            loops.append(time.perf_counter() - t0)
+        loop_s = float(np.median(loops))
+
+        model = ServingModel(params, cfg, device=dev, precision=precision)
+        banded.reset_launch_counts()
+        got = model.predict_frames(graphs)
+        launches = counts()
+        if got.shape != (TRAJ_FRAMES, N_ATOMS):
+            raise SystemExit(f"chip_smoke: predict_frames gave shape {got.shape}")
+        # the union plan and the JAX package's rule for it (predict_frames
+        # serves frame by frame when the union is past the budget)
+        gp = [permute_graph(g, model._order, pin_zero=False)[0] for g in graphs]
+        stack = Graph(*[np.stack([getattr(g, f) for g in gp]) for f in Graph._fields])
+        union = banded.band_plan_frames(stack.nlist, stack.edges)
+        mc, nb = model.config, 4 if precision == "exact" else 2
+        batched = (banded.plan_fits_vmem(union, F, E, dtype_bytes=nb)
+                   and banded.fused_build_ok(union, H, E, stack.nlist.shape[-1], out_bytes=nb))
+        batch_launches = (dict(build_band_fused=1, mp_banded=L) if precision == "exact"
+                          else dict(build_band_poly=1, mp_banded=L))
+        how = "one batched forward" if batched else "past the budget, frame by frame"
+        print(f"phase 6: {precision}: predict_frames of {TRAJ_FRAMES} frames, union window "
+              f"{union.window}: {how}, launches {launches}")
+        if batched:
+            expect(launches, **batch_launches)
+        elif precision == "exact":
+            expect(launches, build_band_fused=TRAJ_FRAMES, mp_banded=TRAJ_FRAMES * L)
+        cheb = model._edge_cheb() if precision == "fast" else None
+        gt = Graph(*[torch.as_tensor(a, device=dev) for a in stack])
+        union_d = banded.plan_on_device(union, dev)
+
+        def batch_fwd():
+            return apply_banded_frames(model.params, mc, gt, union_d, cheb=cheb)
+
+        banded.reset_launch_counts()
+        direct = batch_fwd()[:, model._inverse].cpu().numpy()
+        expect(counts(), **batch_launches)
+        if precision == "exact":
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(direct, want, rtol=1e-4, atol=1e-4)
+            agree = (f"max |predict_frames - per-frame predict| "
+                     f"{float(np.abs(got - want).max()):.3e}, max |batched forward - per-frame "
+                     f"predict| "
+                     f"{float(np.abs(direct - want).max()):.3e}")
+        else:
+            uni = ServingModel(params, cfg, device=dev, precision=precision)
+            uni._cls_vmem_off = True  # per frame on the uniform forward, as the batch
+            want_uni = np.stack([uni.predict(g) for g in graphs])
+            agree = (f"vs per-frame predict {_in_fast_band(got.ravel(), want.ravel(), 'frames')}"
+                     f"; vs per-frame uniform forward "
+                     f"{_in_fast_band(got.ravel(), want_uni.ravel(), 'frames', 0.05)}")
+            _in_fast_band(direct.ravel(), want_uni.ravel(), "batched forward", 0.05)
+        print(f"phase 6: {precision}: {agree}")
+        batch_ms = _time_ms(batch_fwd, 5, inner=3)
+        print(f"phase 6: {precision}: the batched forward of {TRAJ_FRAMES} frames (launches "
+              f"{batch_launches}) {batch_ms:.4f} ms on the card (CUDA events)")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.predict_frames(graphs)
+            times.append(time.perf_counter() - t0)
+        frames_s = float(np.median(times))
+
+        traj_model = ServingModel(params, cfg, device=dev, precision=precision)
+        t0 = time.perf_counter()
+        traj = list(traj_model.predict_trajectory(struct))
+        traj_s = time.perf_counter() - t0
+        if [i for i, _ in traj] != list(range(TRAJ_FRAMES)):
+            raise SystemExit(f"chip_smoke: predict_trajectory yielded frames "
+                             f"{[i for i, _ in traj]}")
+        err = max(float(np.abs(p - want[i]).max()) for i, p in traj)
+        if err > 1e-5:
+            raise SystemExit(f"chip_smoke: predict_trajectory differs from per-frame predict "
+                             f"by {err:.3e}")
+        t0 = time.perf_counter()
+        for _ in traj_model.predict_trajectory(struct):
+            pass
+        traj_s = min(traj_s, time.perf_counter() - t0)
+        out[precision] = {
+            "union_window": union.window, "predict_frames_batched": bool(batched),
+            "batched_forward_ms": batch_ms,
+            "predict_loop_fps": TRAJ_FRAMES / loop_s,
+            "predict_frames_fps": TRAJ_FRAMES / frames_s,
+            "predict_trajectory_fps": TRAJ_FRAMES / traj_s,
+            "predict_frames_launches": launches,
+        }
+        print(f"phase 6: {precision}: predict_trajectory yields frames 0-{TRAJ_FRAMES - 1} in "
+              f"order, max |trajectory - per-frame predict| {err:.3e}; frames/s (host clock): "
+              f"per-frame predict {TRAJ_FRAMES / loop_s:.1f} (median of 3, warm), predict_frames "
+              f"{TRAJ_FRAMES / frames_s:.1f} (median of 3, graphs prebuilt), "
+              f"predict_trajectory {TRAJ_FRAMES / traj_s:.1f} (best of 2, graph builds "
+              f"included; {build_ms:.1f} ms per frame serially)")
+    torch.cuda.synchronize()
+    return out
 
 
 def main(argv=None) -> int:
@@ -260,6 +658,7 @@ def main(argv=None) -> int:
     logs = _cuda.build(verbose=True)
     print(f"phase 2: built {', '.join(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)")
+    t_phase = time.perf_counter()
     for name, log in logs.items():
         for line in _ptxas_summary(log):
             print(f"  ptxas {name}.cu {line}")
@@ -267,7 +666,6 @@ def main(argv=None) -> int:
     from nmrgnn_tpu_torch.data.pdb import read_structure
     from nmrgnn_tpu_torch.data.parse import structure2graph
     from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
-    from nmrgnn_tpu_torch.graph import Graph
     from nmrgnn_tpu_torch.library import load_model, universe2graph
     from nmrgnn_tpu_torch.models import gnn
     from nmrgnn_tpu_torch.models.infer import _edge_features, apply_banded, apply_banded_classes
@@ -276,7 +674,7 @@ def main(argv=None) -> int:
     from nmrgnn_tpu_torch.ops.edgefn import fit_edge_chebyshev
 
     # -- the main paths' inputs ---------------------------------------------
-    params, cfg = load_model(device="cuda")
+    params, cfg = load_model(device=dev)
     n_params = gnn.count_params(params)
     with tempfile.TemporaryDirectory() as tmp:
         pdb = os.path.join(tmp, "synthetic.pdb")
@@ -298,12 +696,7 @@ def main(argv=None) -> int:
     if W > 1024:
         raise SystemExit(f"chip_smoke: RCM window {W} > 1024")
 
-    def on_card(g):
-        dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
-        return Graph(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
-                       for a, dt in zip(g, dtypes)])
-
-    gt = on_card(g_rcm)
+    gt = _on_card(g_rcm, dev)
     plan_d = banded.plan_on_device(plan, dev)
     cls_d = banded.plan_on_device(cls_plan, dev)
     cheb = fit_edge_chebyshev(params["edge_fc"], rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
@@ -389,7 +782,7 @@ def main(argv=None) -> int:
         "mp_banded", "nmrgnn_tpu/ops/banded.py:555",
         lambda: banded.mp_banded(M, plan_d, nodes, w0, inv_p, cfg.mp_activation),
         lambda: banded.mp_banded_plain(M, plan_d, nodes, w0, inv_p, cfg.mp_activation),
-        tol=2e-4, flops=mp_flops, nbytes=mp_bytes(4),
+        tol=2e-4, flops=mp_flops, nbytes=mp_bytes(4), source="hbm.cu",
         extra=f"; band {nnz} nonzeros of {M.numel()}, dense products "
               f"{dense_flops / 1e9:.3f} GFLOP",
     )
@@ -427,9 +820,11 @@ def main(argv=None) -> int:
         table = nodes.to(dt)
         part_flops = sum(2 * int((m != 0).sum()) * F + 2 * len(c.ids) * E * B * F * F
                          for m, c in zip(Mcls[dt], cls_plan.classes))
-        part_bytes = sum(m.numel() * eb + plan.n_padded * F * eb + F * F * E * eb
-                         + len(c.ids) * (4 + B * F * 4)
-                         for m, c in zip(Mcls[dt], cls_plan.classes))
+        # each class's band, lo and float32 output rows; the table and the
+        # weights once
+        part_bytes = (sum(m.numel() * eb + len(c.ids) * (4 + B * F * 4)
+                          for m, c in zip(Mcls[dt], cls_plan.classes))
+                      + plan.n_padded * F * eb + F * F * E * eb)
         check(
             "mp_banded_partial", "nmrgnn_tpu/ops/banded.py:833",
             lambda dt=dt, table=table: [banded.mp_banded_partial(m, c.lo, table, w0)
@@ -437,7 +832,7 @@ def main(argv=None) -> int:
             lambda dt=dt, table=table: [banded.mp_banded_partial_plain(m, c.lo, table, w0)
                                         for m, c in zip(Mcls[dt], cls_d.classes)],
             tol=2e-4, tol_of_max=BF16_STEP if dt == bf16 else 0.0, flops=part_flops,
-            nbytes=part_bytes, peak=peak, source="poly.cu", dtype=tag, row=dt == bf16,
+            nbytes=part_bytes, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16,
         )
     nodes16 = nodes.to(bf16)
     nnz16 = int((Mp[bf16] != 0).sum())
@@ -447,8 +842,11 @@ def main(argv=None) -> int:
         lambda: banded.mp_banded_plain(Mp[bf16], plan_d, nodes16, w0, inv_p, cfg.mp_activation),
         rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP,
         flops=2 * nnz16 * F + 2 * T * E * B * F * F, nbytes=mp_bytes(2), peak=PEAK_BF16_FLOPS,
-        dtype="bfloat16",
+        source="hbm.cu", dtype="bfloat16",
     )
+
+    print(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     def counts():
         return {f.__name__: f.launches for f in banded.KERNEL_WRAPPERS}
@@ -460,7 +858,7 @@ def main(argv=None) -> int:
 
     # -- phase 4a: exact serving ---------------------------------------------
     banded.reset_launch_counts()
-    model = ServingModel(params, cfg, device="cuda")
+    model = ServingModel(params, cfg, device=dev)
     peaks, frame_s = [], []
     for g in graphs:
         t0 = time.perf_counter()
@@ -474,7 +872,7 @@ def main(argv=None) -> int:
     for f, (g, p) in enumerate(zip(graphs, peaks)):
         if p.shape != (N,) or not np.all(np.isfinite(p)):
             raise SystemExit(f"chip_smoke: frame {f}: peaks of shape {p.shape} not all finite")
-        ref = gnn.apply(params, cfg, on_card(g)).cpu().numpy()
+        ref = gnn.apply(params, cfg, _on_card(g, dev)).cpu().numpy()
         np.testing.assert_allclose(p, ref, rtol=5e-4, atol=5e-4)
         worst = max(worst, float(np.max(np.abs(p - ref))))
     print(f"phase 4a: peaks finite, max|served - plain gather forward| = {worst:.3e} "
@@ -494,7 +892,7 @@ def main(argv=None) -> int:
 
     # -- phase 4b: fast serving ----------------------------------------------
     banded.reset_launch_counts()
-    fast = ServingModel(params, cfg, device="cuda", precision="fast")
+    fast = ServingModel(params, cfg, device=dev, precision="fast")
     fast_peaks, fast_s, branches = [], [], []
     for g in graphs:
         t0 = time.perf_counter()
@@ -510,6 +908,9 @@ def main(argv=None) -> int:
     fast_launches = counts()
     n_cls = sum(branches)
     n_uni = branches.count(0)
+    if not (n_cls and n_uni):
+        raise SystemExit(f"chip_smoke: the fast frames took one forward only ({branches}); "
+                         f"both are on the path")
     print(f"phase 4b: fast: served {len(graphs)} frames, forwards "
           f"{['classes(%d)' % b if b else 'uniform' for b in branches]} "
           f"(re-bucketing switch {'on' if fast._cls_vmem_off else 'off'}), launches "
@@ -543,9 +944,7 @@ def main(argv=None) -> int:
     print(f"phase 4c: class fast forward launches {cls_launches}; kernels vs plain: "
           f"{_in_fast_band(clsf.cpu().numpy(), cls_plain.cpu().numpy(), 'classes', 0.05)}")
 
-    # launches per kernel row: the count in the run of the path it serves
-    # (a fast-path kernel the fast serving run missed takes its direct run's)
-    direct = {n: max(uni_launches[n], cls_launches[n]) for n in uni_launches}
+    # launches per kernel row: the count in the serving run of its path
     for k in kernels:
         n = k["name"]
         if n in ("build_band_fused", "mp_banded"):
@@ -554,7 +953,7 @@ def main(argv=None) -> int:
             k["launches"] = unfused_launches[n]
         else:
             wrapper = "mp_banded" if n == "mp_banded_bf16" else n
-            k["launches"] = fast_launches[wrapper] or direct[wrapper]
+            k["launches"] = fast_launches[wrapper]
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {n} was never launched on its path")
 
@@ -574,17 +973,9 @@ def main(argv=None) -> int:
     fwd_ms = {k: _time_ms(f, 10) for k, f in fwd.items()}
     plain_fwd_ms = {k: _time_ms(f, 10) for k, f in plain_fwd.items()}
 
-    def wall_ms(m, g, runs=10):
-        walls = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            m.predict(g)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(walls))
-
-    predict_ms = {"exact": wall_ms(model, graphs[-1]),
-                  "fast_frame0": wall_ms(fast, graphs[0]),
-                  "fast_last_frame": wall_ms(fast, graphs[-1])}
+    predict_ms = {"exact": _wall_ms(model, graphs[-1], 10),
+                  "fast_frame0": _wall_ms(fast, graphs[0], 10),
+                  "fast_last_frame": _wall_ms(fast, graphs[-1], 10)}
     for k in fwd:
         print(f"phase 4: {k} forward on the card {fwd_ms[k]:.4f} ms, plain versions "
               f"{plain_fwd_ms[k]:.4f} ms (median of 10, CUDA events)")
@@ -593,8 +984,20 @@ def main(argv=None) -> int:
 
     breakdown = {k: _profile_forward(f, fwd_ms[k], k) for k, f in fwd.items()} \
         if args.profile else None
+    print(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
 
     # -- phases 5 and 6 -----------------------------------------------------
+    t_phase = time.perf_counter()
+    large = _phase5(args, dev, params, cfg, cheb_d, check, counts, expect)
+    print(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    traj = _phase6(args, dev, params, cfg, counts, expect)
+    print(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+    for k in kernels:
+        if k["name"] in large["launches"]:
+            k["launches"] = large["launches"][k["name"]]
+        if not k["launches"]:
+            raise SystemExit(f"chip_smoke: {k['name']} was never launched on its path")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -605,7 +1008,7 @@ def main(argv=None) -> int:
                 "kernels": kernels, "checks": checks, "forward_ms": fwd_ms,
                 "plain_forward_ms": plain_fwd_ms, "predict_wall_ms": predict_ms,
                 "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
-                "forward_breakdown": breakdown,
+                "forward_breakdown": breakdown, "large": large, "trajectory": traj,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

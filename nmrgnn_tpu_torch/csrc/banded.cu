@@ -1,6 +1,6 @@
-// Hand-written Hopper kernels for the RCM-banded message-passing path of
-// nmrgnn_tpu_torch (ops/banded.py holds the wrappers and the plain
-// PyTorch version of each kernel).
+// Hand-written Hopper kernels for the band builds of the exact (float32)
+// RCM-banded message-passing path of nmrgnn_tpu_torch (ops/banded.py
+// holds the wrappers and the plain PyTorch version of each kernel).
 //
 // Built by ops/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -9,11 +9,9 @@
 // entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
 //
-// The MP layer's kernel is in common.cuh, shared with poly.cu's partial
-// MP; its float32 and bfloat16 entry points are here.
+// The MP layer's kernel, for every path, is in hbm.cu.
 //
-// All arithmetic is float32 on the CUDA cores (bfloat16 only as operands
-// and outputs). There is no fast-math flag: expf, log1pf and tanhf are
+// All arithmetic is float32 on the CUDA cores. There is no fast-math flag: expf, log1pf and tanhf are
 // the accurate library versions, as the exact serving path needs.
 //
 // Layouts follow the JAX package: M is [T, E, B, W] (tile, edge channel,
@@ -244,22 +242,6 @@ int nmr_build_band_fused(const int* nlist, const float* d, const int* lo, const 
     case 4: return launch_fused<4>(nlist, d, lo, wh, bh, wf, bf, M, n_pad, B, K, W, n_hidden, rbf_low, gap, inv_gap, act, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// One MP layer (ops/banded.mp_banded): float32, or bfloat16 operands with
-// float32 accumulation. n_table = T * B: the table is the node table.
-int nmr_mp_banded(const float* M, const int* lo, const float* nodes, const float* w,
-                  const float* inv, float* out, int T, int E, int B, int W, int F, int act,
-                  void* stream) {
-  return launch_mp_any<float, false>(F, E, M, lo, nodes, w, inv, out, T, B, W, T * B, act,
-                                     static_cast<cudaStream_t>(stream));
-}
-
-int nmr_mp_banded_bf16(const __nv_bfloat16* M, const int* lo, const __nv_bfloat16* nodes,
-                       const __nv_bfloat16* w, const float* inv, __nv_bfloat16* out, int T,
-                       int E, int B, int W, int F, int act, void* stream) {
-  return launch_mp_any<__nv_bfloat16, false>(F, E, M, lo, nodes, w, inv, out, T, B, W, T * B,
-                                             act, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Hand-written Hopper kernels for the "fast" serving precision of
-// nmrgnn_tpu_torch: the Chebyshev band build (uniform and per window
-// class) and the partial MP layer of the class-bucketed forward.
+// nmrgnn_tpu_torch: the Chebyshev band build, uniform and per window
+// class. (The partial MP layer of the class-bucketed forward is hbm.cu's
+// MP kernel without its epilogue.)
 // ops/banded.py holds the wrappers and the plain PyTorch version of each.
 //
 // Built by ops/_cuda.py like banded.cu (nvcc, sm_90a, -O3, no fast math)
@@ -103,15 +104,6 @@ cudaError_t launch_poly(const int* nlist, const float* d, const int* lo, const i
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Partial MP layer. Replaces _mp_banded_partial_kernel (nmrgnn_tpu/ops/
-// banded.py:833-894): out f32[T*B, F] = sum_n round_T(M[t, n] @
-// table[lo_t : lo_t + W]) @ w[n], with no inv_degree, activation or
-// residual; the table may have more rows than T * B. The kernel is
-// mp_banded_kernel of common.cuh without its epilogue (its design and
-// bound are described there), run once per window class with that
-// class's lo and W.
-
 }  // namespace
 
 extern "C" {
@@ -143,22 +135,6 @@ int nmr_build_band_poly(const int* nlist, const float* d, const int* lo, const i
   NMR_POLY_CASE(4)
 #undef NMR_POLY_CASE
   return cudaErrorInvalidValue;
-}
-
-int nmr_mp_banded_partial(const float* M, const int* lo, const float* table, const float* w,
-                          float* out, int T, int E, int B, int W, int F, int n_table,
-                          void* stream) {
-  return launch_mp_any<float, true>(F, E, M, lo, table, w, nullptr, out, T, B, W, n_table,
-                                    kLinear, static_cast<cudaStream_t>(stream));
-}
-
-int nmr_mp_banded_partial_bf16(const __nv_bfloat16* M, const int* lo,
-                               const __nv_bfloat16* table, const __nv_bfloat16* w,
-                               float* out, int T, int E, int B, int W, int F, int n_table,
-                               void* stream) {
-  return launch_mp_any<__nv_bfloat16, true>(F, E, M, lo, table, w, nullptr, out, T, B, W,
-                                            n_table, kLinear,
-                                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,7 +8,14 @@ Chebyshev compression, the "fast" precision's.
 ``apply_banded_classes`` is the class-bucketed forward of the fast
 precision: one Chebyshev band per window class, and per MP layer one
 partial product per class, whose rows are put back in place before the
-activation and residual.
+activation and residual. ``apply_banded_hbm_classes`` is its twin for
+structures past the node-table budget: per class and layer the whole MP
+layer (epilogue included) with the table in device memory, and the table
+kept in the compute type between layers.
+
+``apply_banded_frames`` runs ``apply_banded`` over a stack of frames at
+once: the frames are concatenated along the rows, so each kernel is
+launched once per forward for the whole batch.
 
 The products honour ``config.compute_dtype`` (bfloat16 operands, float32
 sums), as the JAX package's forwards do. ``graph`` should be RCM-reordered
@@ -36,6 +43,10 @@ from ..ops.banded import (
     build_band_poly_cls_plain,
     build_band_poly_plain,
     mp_banded,
+    mp_banded_hbm,
+    mp_banded_hbm_cls,
+    mp_banded_hbm_cls_plain,
+    mp_banded_hbm_plain,
     mp_banded_partial,
     mp_banded_partial_plain,
     mp_banded_plain,
@@ -46,7 +57,7 @@ from .gnn import compute_dtype, dense, readout
 from .gnn import edge_features as _edge_features
 
 __all__ = ["_edge_features", "_readout", "precompute_band", "apply_banded",
-           "apply_banded_classes"]
+           "apply_banded_classes", "apply_banded_hbm_classes", "apply_banded_frames"]
 
 
 def _readout(params, config: ModelConfig, atoms, nodes) -> torch.Tensor:
@@ -60,6 +71,39 @@ def precompute_band(graph: Graph, block_rows: int = 128) -> BandPlan:
     """Host-side banding plan for an (RCM-ordered) frame; reusable across
     layers, forwards and frames with the same topology."""
     return band_plan(np.asarray(graph.nlist), np.asarray(graph.edges), block_rows=block_rows)
+
+
+def _band(params, config: ModelConfig, nlist, edges, plan: BandPlan, use_kernels: bool,
+          fused_edge: bool, cheb: EdgeCheb) -> torch.Tensor:
+    """The band M [T, E, B, W] in the compute type (see apply_banded)."""
+    cd = compute_dtype(config)
+    if cheb is not None:
+        build = build_band_poly if use_kernels else build_band_poly_plain
+        return build(nlist, edges, cheb, plan, out_dtype=cd)
+    if use_kernels and fused_edge:
+        if cd != torch.float32:
+            raise NotImplementedError(
+                "the fused exact edge stage in bfloat16 is ROADMAP queue B3 (bf16)")
+        return build_band_fused(
+            nlist, edges, params["edge_fc"], plan,
+            rbf_low=config.rbf_low, rbf_high=config.rbf_high,
+            activation_name=config.fc_activation,
+        )
+    build = build_band if use_kernels else build_band_plain
+    return build(nlist, _edge_features(params, config, edges), plan).to(cd)
+
+
+def _mp_layers(params, config: ModelConfig, M, plan: BandPlan, nodes, inv_p,
+               use_kernels: bool, hbm_table: bool) -> torch.Tensor:
+    """One banded MP layer per ``params["mp"]`` entry over the padded node
+    table ``nodes`` (in the compute type)."""
+    if hbm_table:
+        mp = mp_banded_hbm if use_kernels else mp_banded_hbm_plain
+    else:
+        mp = mp_banded if use_kernels else mp_banded_plain
+    for p in params["mp"]:
+        nodes = mp(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+    return nodes
 
 
 def apply_banded(
@@ -83,39 +127,21 @@ def apply_banded(
     computes the edge features first and builds the band with
     ``build_band``. ``cheb`` (``ops.edgefn.EdgeCheb``) switches the edge
     stage to its Chebyshev compression, built by ``build_band_poly``.
+    ``hbm_table`` runs the MP layers through ``mp_banded_hbm`` (the node
+    table read from device memory tile by tile): the same numerics.
 
     The band, the node table and the MP weights are in the compute type;
     the fused exact edge stage is float32 only."""
-    if hbm_table:
-        raise NotImplementedError("the HBM node-table MP layer is ROADMAP queue B5")
     if fused_first:
         raise NotImplementedError("the fused Chebyshev build + MP layer 1 is ROADMAP queue B13")
     atoms, nlist, edges, inv_degree = graph
     n = atoms.shape[0]
-    cd = compute_dtype(config)
     plan = plan_on_device(plan, atoms.device)
-    if cheb is not None:
-        build = build_band_poly if use_kernels else build_band_poly_plain
-        M = build(nlist, edges, cheb, plan, out_dtype=cd)
-    elif use_kernels and fused_edge:
-        if cd != torch.float32:
-            raise NotImplementedError(
-                "the fused exact edge stage in bfloat16 is ROADMAP queue B3 (bf16)")
-        M = build_band_fused(
-            nlist, edges, params["edge_fc"], plan,
-            rbf_low=config.rbf_low, rbf_high=config.rbf_high,
-            activation_name=config.fc_activation,
-        )
-    else:
-        build = build_band if use_kernels else build_band_plain
-        M = build(nlist, _edge_features(params, config, edges), plan).to(cd)
-
+    M = _band(params, config, nlist, edges, plan, use_kernels, fused_edge, cheb)
     pad = plan.n_padded - n
-    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(cd)
-    inv_p = nnf.pad(inv_degree, (0, pad))
-    mp = mp_banded if use_kernels else mp_banded_plain
-    for p in params["mp"]:
-        nodes = mp(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(compute_dtype(config))
+    nodes = _mp_layers(params, config, M, plan, nodes, nnf.pad(inv_degree, (0, pad)),
+                       use_kernels, hbm_table)
     return _readout(params, config, atoms, nodes[:n].float())
 
 
@@ -163,3 +189,90 @@ def apply_banded_classes(
             acc.index_copy_(0, ids, out_c.view(-1, B, F))  # the classes partition the tiles
         nodes = mp_act(acc.view(T * B, F) * inv_col) + nodes
     return _readout(params, config, atoms, nodes[:n])
+
+
+def apply_banded_hbm_classes(
+    params,
+    config: ModelConfig,
+    graph: Graph,
+    cls_plan: BandClassPlan,
+    cheb: EdgeCheb,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Class-bucketed forward with the node table in device memory (the
+    JAX package's large-structure fast path); peaks f32[N] for the
+    unpadded atoms.
+
+    Per class c it builds M_c [Tc, E, B, Wc] (``build_band_poly_cls``).
+    Per MP layer it runs ``mp_banded_hbm_cls`` for each class, every class
+    reading the layer's input table, and puts each class's rows (in the
+    compute type) into a new table by whole tiles. The table stays in the
+    compute type between layers. ``use_kernels=False`` runs the plain
+    versions."""
+    atoms, nlist, edges, inv_degree = graph
+    n = atoms.shape[0]
+    dev = atoms.device
+    B, T = cls_plan.block_rows, cls_plan.num_tiles
+    cd = compute_dtype(config)
+    cls_plan = plan_on_device(cls_plan, dev)
+    build = build_band_poly_cls if use_kernels else build_band_poly_cls_plain
+    mp = mp_banded_hbm_cls if use_kernels else mp_banded_hbm_cls_plain
+    Ms = [build(nlist, edges, cheb, c, B, cls_plan.n_padded, out_dtype=cd)
+          for c in cls_plan.classes]
+    tiles = [c.ids.long() for c in cls_plan.classes]
+
+    pad = cls_plan.n_padded - n
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(cd)
+    F = nodes.shape[-1]
+    inv_p = nnf.pad(inv_degree, (0, pad))
+    for p in params["mp"]:
+        # a new table: writing into `nodes` would change the windows that
+        # the layer's later classes read
+        new_nodes = torch.empty_like(nodes)
+        for c, M, ids in zip(cls_plan.classes, Ms, tiles):
+            out_c = mp(M, c, B, nodes, p["w"], inv_p, config.mp_activation)
+            # the classes partition the tiles
+            new_nodes.view(T, B, F).index_copy_(0, ids, out_c.view(-1, B, F))
+        nodes = new_nodes
+    return _readout(params, config, atoms, nodes[:n].float())
+
+
+def apply_banded_frames(
+    params,
+    config: ModelConfig,
+    graphs: Graph,
+    plan: BandPlan,
+    cheb: EdgeCheb = None,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """``apply_banded`` over a stack of same-atom frames; peaks f32[Fr, N].
+
+    ``graphs`` holds stacked tensors ([Fr, N, ...]) and ``plan`` covers
+    every frame (``band_plan_frames``). The frames are laid end to end
+    along the rows, each padded to ``plan.n_padded``: frame f's neighbor
+    indices move by f * n_padded (its padded rows stay -1) and the plan's
+    window starts are repeated with the same offsets, so one band build and
+    one MP launch per layer serve the whole batch, and each frame's rows
+    see only its own. A padding slot (index 0, distance 0) adds nothing
+    wherever its index lands. Each frame's node table equals
+    ``apply_banded``'s."""
+    atoms, nlist, edges, inv_degree = graphs
+    fr, n = atoms.shape[:2]
+    dev = atoms.device
+    npad = plan.n_padded
+    pad = npad - n
+    offsets = torch.arange(fr, device=dev, dtype=torch.int32)[:, None, None] * npad
+    nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
+    nlist_b = torch.where(nlist_p >= 0, nlist_p + offsets, nlist_p).reshape(fr * npad, -1)
+    lo_b = plan_on_device(plan, dev).lo[None, :] + offsets[:, 0]
+    big_plan = plan._replace(lo=lo_b.reshape(-1).contiguous(), n_padded=fr * npad)
+    M = _band(params, config, nlist_b.contiguous(),
+              nnf.pad(edges, (0, 0, 0, pad)).reshape(fr * npad, -1), big_plan,
+              use_kernels, True, cheb)
+    F = params["embed"]["kernel"].shape[-1]
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
+    nodes = _mp_layers(params, config, M, big_plan,
+                       nodes.reshape(fr * npad, F).to(compute_dtype(config)),
+                       nnf.pad(inv_degree, (0, pad)).reshape(-1), use_kernels, False)
+    nodes = nodes.view(fr, npad, F)[:, :n].reshape(fr * n, F).float()
+    return _readout(params, config, atoms.reshape(fr * n, -1), nodes).view(fr, n)

@@ -1,34 +1,55 @@
-"""Single-structure serving (``nmrgnn_tpu/models/serving.py:59-365,
-487-499, 706-775``), banded mode, one device.
+"""Serving (``nmrgnn_tpu/models/serving.py``), one device: single
+structures, batches of frames and trajectories.
 
 The first call fixes the RCM atom ordering (``reorder=False`` serves the
-graph as given); each later frame verifies the cached band plan against
-its own neighbor lists (``plan_covers``) and rebuilds it only when a real
-neighbor escapes its window. ``predict`` returns peaks in the original
-atom order.
+graph as given) and the path, as the JAX package resolves it
+(``_resolve_mode``):
+
+* ``"banded"`` when the band plan passes the JAX package's node-table
+  budget (``plan_fits_vmem`` and ``fused_build_ok``, at ``block_size`` or
+  ``block_size // 2`` rows per tile): the MP layers through ``mp_banded``;
+* ``"banded_hbm"`` for larger structures whose band passes the per-tile
+  budget (``hbm_plan_fits_vmem``): the MP layers through ``mp_banded_hbm``,
+  and at ``precision="fast"`` with more than one window class the
+  class-bucketed ``apply_banded_hbm_classes``.
+
+Where the JAX package would resolve to ``"blocksparse"`` (the band
+escapes ``hbm_plan_fits_vmem`` too), the port, which has no block-sparse
+path yet, serves through ``"banded_hbm"`` with the full band plan: what
+the JAX package does when the user forces ``mode="banded"``. These budgets
+are the JAX package's rule for which path, and so which numerics, a
+structure takes; the Hopper kernels take any window.
+
+Each later frame verifies the cached band plan against its own neighbor
+lists (``plan_covers``) and rebuilds it only when a real neighbor escapes
+its window; a frame whose new plan escapes the budget that chose the path
+re-resolves the path. ``predict`` returns peaks in the original atom order.
 
 ``precision="exact"`` serves in float32 through the fused RBF + EdgeFC
 band build. ``precision="fast"``, the JAX package's production serving
 configuration, computes the products in bfloat16 with float32 sums and
 replaces the edge stage by its degree-64 Chebyshev fit, fitted once per
 model. On a skewed window distribution (a class plan of more than one
-class) it serves through the class-bucketed forward
-(``apply_banded_classes``), else through ``apply_banded(cheb=...)``. A
-class plan is verified and reused across frames like the uniform plan;
-when frame motion re-buckets the classes (another shape signature), new
-class plans are switched off for good (``_cls_vmem_off``) and the frames
+class) it serves through the class-bucketed forward of its path, else
+through ``apply_banded(cheb=...)``. A class plan is verified and reused
+across frames like the uniform plan; when frame motion re-buckets the
+classes (another shape signature), new class plans of that path are
+switched off for good (``_cls_vmem_off``, ``_cls_hbm_off``) and the frames
 that the cached class plan does not cover take the uniform forward, as in
-the JAX package. "fast" serves on the CPU too, through the plain
-versions of the kernels.
+the JAX package. "fast" serves on the CPU too, through the plain versions
+of the kernels.
 
-The JAX package's VMEM gates (``plan_fits_vmem``, ``fused_build_ok``)
-do not apply here: the Hopper kernels stage windows through shared memory
-in fixed-size chunks, so any plan runs. Modes other than banded, the HBM
-node table, trajectories and meshes are later slices of the port.
+``predict_frames`` serves a batch of frames of a "banded" structure in one
+forward over their union plan (``apply_banded_frames``) with one readback;
+``predict_trajectory`` overlaps the host's graph builds with the forwards.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import collections
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,13 +63,17 @@ from ..ops.banded import (
     BandPlan,
     band_plan,
     band_plan_classes,
+    band_plan_frames,
     class_plan_covers,
+    fused_build_ok,
+    hbm_plan_fits_vmem,
     plan_covers,
+    plan_fits_vmem,
     plan_on_device,
 )
 from ..ops.edgefn import EdgeCheb, fit_edge_chebyshev
 from .gnn import tree_map
-from .infer import apply_banded, apply_banded_classes
+from .infer import apply_banded, apply_banded_classes, apply_banded_frames, apply_banded_hbm_classes
 
 CHEB_DEGREE = 64  # the Chebyshev fit the JAX package serves with
 
@@ -65,20 +90,22 @@ class ServingModel:
         config: ModelConfig,
         device="cuda",
         reorder: bool = True,
+        block_size: int = 128,
         mode: str = "auto",
         precision: str = "exact",
     ):
         """``params`` is a tree of numpy arrays or tensors (``load_model``
         or ``init_params``); it is copied to ``device`` once. ``mode``
-        "auto" and "banded" both serve through the banded kernels.
-        ``precision`` is "exact" (float32) or "fast" (bfloat16 products
-        with float32 sums, and the Chebyshev edge stage)."""
+        "auto" resolves the path on the first call; "banded" forces the
+        node-table path (with the full band plan where the budget would
+        refuse it). ``precision`` is "exact" (float32) or "fast" (bfloat16
+        products with float32 sums, and the Chebyshev edge stage)."""
         if precision not in ("exact", "fast"):
             raise ValueError(f"unknown precision {precision!r}")
         if mode not in ("auto", "banded"):
             raise NotImplementedError(
-                f"serving mode {mode!r}: HBM, block-sparse and gather modes are "
-                "ROADMAP queue A6-A7 / B5-B12"
+                f"serving mode {mode!r}: the block-sparse and gather modes are "
+                "ROADMAP queue A6-A7 / B10-B12"
             )
         if config.mp_type != "bilinear":
             raise NotImplementedError("attention-family serving is ROADMAP queue A6")
@@ -96,17 +123,24 @@ class ServingModel:
         self.config = config
         self.precision = precision
         self.reorder = reorder
+        self.block_size = block_size
+        self.mode = mode
         self.params = tree_map(
             lambda t: torch.as_tensor(t).to(device=self.device, dtype=torch.float32), params
         )
         self._order: Optional[np.ndarray] = None
         self._inverse: Optional[np.ndarray] = None
+        self._resolved: Optional[str] = None
         self._plan: Optional[BandPlan] = None
-        self._plan_dev: Optional[BandPlan] = None
-        self._cheb: Optional[EdgeCheb] = None
-        self._cls_plan_vmem: Optional[BandClassPlan] = None  # host copy
-        self._cls_plan_dev: Optional[BandClassPlan] = None
+        self._frames_plan: Optional[BandPlan] = None  # union plan of predict_frames
+        self._cls_plan: Optional[BandClassPlan] = None       # "banded_hbm" class plan
+        self._cls_plan_vmem: Optional[BandClassPlan] = None  # "banded" class plan
         self._cls_vmem_off = False  # set when frame motion re-buckets the classes
+        self._cls_hbm_off = False   # the "banded_hbm" twin
+        self._cheb: Optional[EdgeCheb] = None
+        self._on_device = {}  # slot -> (host plan, its copy on the device)
+
+    # -- path selection and plans --------------------------------------------
 
     def _prepare(self, g: Graph) -> Graph:
         """Apply (and on the first call fix) the RCM ordering."""
@@ -118,34 +152,115 @@ class ServingModel:
         g, self._inverse = permute_graph(g, self._order, pin_zero=False)
         return g
 
-    def _banded_plan(self, g: Graph) -> BandPlan:
-        """The cached plan if it covers this frame, else a new one."""
+    def _dtype_bytes(self) -> int:
+        return 2 if self.config.compute_dtype == "bfloat16" else 4
+
+    def _plan_if_fits(self, g: Graph) -> Optional[BandPlan]:
+        """A band plan within the node-table and fused-build budgets,
+        trying half-height tiles for wide bands; None if neither fits."""
+        cfg, b = self.config, self._dtype_bytes()
+        for block_rows in (self.block_size, self.block_size // 2):
+            plan = band_plan(g.nlist, g.edges, block_rows=block_rows)
+            if plan_fits_vmem(
+                plan, cfg.atom_feature_size, cfg.edge_feature_size, dtype_bytes=b,
+            ) and fused_build_ok(
+                plan, cfg.edge_hidden_size, cfg.edge_feature_size, g.nlist.shape[1],
+                out_bytes=b,
+            ):
+                return plan
+        return None
+
+    def _plan_if_hbm(self, g: Graph) -> Optional[BandPlan]:
+        """A band plan within the per-tile budget of the HBM node-table
+        path, trying half-height tiles for wide bands; None if neither
+        fits."""
+        cfg, b = self.config, self._dtype_bytes()
+        for block_rows in (self.block_size, self.block_size // 2):
+            plan = band_plan(g.nlist, g.edges, block_rows=block_rows)
+            if hbm_plan_fits_vmem(plan, cfg.atom_feature_size, cfg.edge_feature_size,
+                                  dtype_bytes=b):
+                return plan
+        return None
+
+    def _resolve_mode(self, g: Graph) -> str:
+        """"banded" or "banded_hbm", fixed until a frame escapes its budget.
+        A band past both budgets serves through "banded_hbm" with the full
+        plan (the JAX package's "blocksparse": not ported yet)."""
+        if self._resolved is not None:
+            return self._resolved
+        if self.mode != "auto":
+            self._resolved = self.mode
+            return self._resolved
+        plan = self._plan_if_fits(g)
+        if plan is not None:
+            self._resolved = "banded"
+        else:
+            self._resolved = "banded_hbm"
+            plan = self._plan_if_hbm(g)
+            if plan is None:
+                plan = band_plan(g.nlist, g.edges, block_rows=self.block_size)
+        self._plan = plan
+        return self._resolved
+
+    def _banded_plan(self, g: Graph) -> Optional[BandPlan]:
+        """The cached plan if it covers this frame, else a new one within
+        the budget that chose the path; None when the new one escapes it
+        (the caller then re-resolves the path)."""
         if self._plan is None or not plan_covers(self._plan, g.nlist, g.edges):
-            self._plan = band_plan(g.nlist, g.edges)
-            self._plan_dev = plan_on_device(self._plan, self.device)
-        return self._plan_dev
+            if self._resolved == "banded_hbm":
+                plan = self._plan_if_hbm(g)
+            else:
+                plan = self._plan_if_fits(g)
+            if plan is None and (self.mode == "banded" or self._resolved == "banded_hbm"):
+                # forced banded, or past the HBM budget (no block-sparse path)
+                plan = band_plan(g.nlist, g.edges, block_rows=self.block_size)
+            self._plan = plan
+        return self._plan
+
+    def _class_plan(self, g: Graph, cached: Optional[BandClassPlan], off: bool, fits):
+        """(plan, switch): the cached class plan if it still covers the
+        frame (even after the switch), else None if the switch is on or a
+        class escapes ``fits``, else a new plan; a new plan whose shape
+        signature differs from the cached one's turns the switch on and
+        gives None."""
+        if cached is not None and class_plan_covers(cached, g.nlist, g.edges):
+            return cached, off
+        if off:
+            return None, off
+        cls_plan = band_plan_classes(g.nlist, g.edges, block_rows=self.block_size)
+        cfg, b = self.config, self._dtype_bytes()
+        for c in cls_plan.classes:
+            probe = BandPlan(lo=c.lo, window=c.window, block_rows=cls_plan.block_rows,
+                             n_padded=cls_plan.n_padded)
+            if not fits(probe, cfg.atom_feature_size, cfg.edge_feature_size, dtype_bytes=b):
+                return None, off
+        if cached is not None and _class_signature(cls_plan) != _class_signature(cached):
+            return None, True
+        return cls_plan, off
+
+    def _banded_cls_plan(self, g: Graph) -> Optional[BandClassPlan]:
+        """The class plan of the "banded_hbm" fast path (host arrays)."""
+        plan, self._cls_hbm_off = self._class_plan(g, self._cls_plan, self._cls_hbm_off,
+                                                   hbm_plan_fits_vmem)
+        if plan is not None:
+            self._cls_plan = plan
+        return plan
 
     def _banded_cls_plan_vmem(self, g: Graph) -> Optional[BandClassPlan]:
-        """The class plan for this frame (host arrays), or None when new
-        class plans are switched off: the cached plan if it still covers
-        the frame (even after the switch), else a new one, unless the new
-        one's shape signature differs from the cached one's, which turns
-        the switch on."""
-        if self._cls_plan_vmem is not None and class_plan_covers(
-            self._cls_plan_vmem, g.nlist, g.edges
-        ):
-            return self._cls_plan_vmem
-        if self._cls_vmem_off:
-            return None
-        cls_plan = band_plan_classes(g.nlist, g.edges)
-        if self._cls_plan_vmem is not None and (
-            _class_signature(cls_plan) != _class_signature(self._cls_plan_vmem)
-        ):
-            self._cls_vmem_off = True
-            return None
-        self._cls_plan_vmem = cls_plan
-        self._cls_plan_dev = plan_on_device(cls_plan, self.device)
-        return cls_plan
+        """The class plan of the "banded" fast path (host arrays)."""
+        plan, self._cls_vmem_off = self._class_plan(g, self._cls_plan_vmem, self._cls_vmem_off,
+                                                    plan_fits_vmem)
+        if plan is not None:
+            self._cls_plan_vmem = plan
+        return plan
+
+    def _device_plan(self, slot: str, plan):
+        """``plan`` with its index arrays on the device, copied once per
+        plan (each slot keeps its latest)."""
+        cached = self._on_device.get(slot)
+        if cached is None or cached[0] is not plan:
+            cached = self._on_device[slot] = (plan, plan_on_device(plan, self.device))
+        return cached[1]
 
     def _edge_cheb(self) -> EdgeCheb:
         """The degree-64 Chebyshev fit of the edge stage, fitted once on the
@@ -167,27 +282,137 @@ class ServingModel:
             for a, dt in zip(g, dtypes)
         ])
 
+    # -- prediction ------------------------------------------------------------
+
     def _predict_async(self, graph: Graph) -> Tuple[torch.Tensor, Optional[np.ndarray]]:
         """Launch the forward; returns (peaks on the device in the served
         order, the inverse permutation or None) without waiting for the
         device."""
         g = self._prepare(Graph(*[np.asarray(a) for a in graph]))
+        mode = self._resolve_mode(g)
         plan = self._banded_plan(g)
+        if plan is None:
+            # this frame's band escaped the budget that chose the path
+            self._resolved = None
+            return self._predict_async(graph)
         gt = self._to_device(g)
+        plan_d = self._device_plan("plan", plan)
+        hbm = mode == "banded_hbm"
         if self.precision == "exact":
-            return apply_banded(self.params, self.config, gt, plan), self._inverse
+            return apply_banded(self.params, self.config, gt, plan_d, hbm_table=hbm), self._inverse
         cheb = self._edge_cheb()
-        cls_plan = self._banded_cls_plan_vmem(g)
+        cls_plan = self._banded_cls_plan(g) if hbm else self._banded_cls_plan_vmem(g)
         if cls_plan is not None and len(cls_plan.classes) > 1:
             # a skewed window distribution: narrow tiles skip the widest
             # tile's band in the build and MP kernels
-            peaks = apply_banded_classes(self.params, self.config, gt, self._cls_plan_dev, cheb)
+            fwd = apply_banded_hbm_classes if hbm else apply_banded_classes
+            cls_d = self._device_plan("cls_hbm" if hbm else "cls_vmem", cls_plan)
+            peaks = fwd(self.params, self.config, gt, cls_d, cheb)
         else:
-            peaks = apply_banded(self.params, self.config, gt, plan, cheb=cheb)
+            peaks = apply_banded(self.params, self.config, gt, plan_d, cheb=cheb, hbm_table=hbm)
         return peaks, self._inverse
+
+    @staticmethod
+    def _finalize(peaks: torch.Tensor, inverse: Optional[np.ndarray]) -> np.ndarray:
+        out = peaks.cpu().numpy()
+        return out if inverse is None else out[..., inverse]
 
     def predict(self, graph: Graph) -> np.ndarray:
         """peaks f32[N] in the graph's own atom order."""
-        peaks, inverse = self._predict_async(graph)
-        peaks = peaks.cpu().numpy()
-        return peaks if inverse is None else peaks[inverse]
+        return self._finalize(*self._predict_async(graph))
+
+    def predict_frames(self, graphs) -> np.ndarray:
+        """peaks f32[Fr, N] for Fr frames of one structure (the same atoms
+        in the same order), in one forward over a union band plan and one
+        readback. The union plan is kept in its own slot, never in place of
+        the single-frame plan. Falls back to per-frame ``predict`` when the
+        path is not "banded" or the union plan escapes its budget. Both
+        precisions take the uniform forward here, as in the JAX package."""
+        gs = [Graph(*[np.asarray(a) for a in g]) for g in graphs]
+        if self.reorder:
+            if self._order is None or self._order.shape[0] != gs[0].atoms.shape[0]:
+                self._order = rcm_order(gs[0].nlist, gs[0].edges)
+            pairs = [permute_graph(g, self._order, pin_zero=False) for g in gs]
+            gs = [p[0] for p in pairs]
+            self._inverse = pairs[0][1]
+        if self._resolve_mode(gs[0]) != "banded":
+            return np.stack([self.predict(g) for g in graphs])
+        stack = Graph(*[np.stack([getattr(g, f) for g in gs]) for f in Graph._fields])
+        plan = None
+        for cand in (self._frames_plan, self._plan):
+            if cand is not None and all(plan_covers(cand, g.nlist, g.edges) for g in gs):
+                plan = cand
+                break
+        if plan is None:
+            base = self._plan
+            union = band_plan_frames(
+                stack.nlist, stack.edges,
+                block_rows=base.block_rows if base is not None else self.block_size,
+            )
+            # a union window one bucket wider than frame 0's plan may pass
+            # the budget that chose the path: serve frame by frame then
+            cfg, b = self.config, self._dtype_bytes()
+            if not (plan_fits_vmem(union, cfg.atom_feature_size, cfg.edge_feature_size,
+                                   dtype_bytes=b)
+                    and fused_build_ok(union, cfg.edge_hidden_size, cfg.edge_feature_size,
+                                       stack.nlist.shape[-1], out_bytes=b)):
+                return np.stack([self.predict(g) for g in graphs])
+            plan = self._frames_plan = union
+        cheb = self._edge_cheb() if self.precision == "fast" else None
+        peaks = apply_banded_frames(self.params, self.config, self._to_device(stack),
+                                    self._device_plan("frames", plan), cheb=cheb)
+        return self._finalize(peaks, self._inverse if self.reorder else None)
+
+    def predict_trajectory(
+        self, struct, stride: int = 1, neighbor_number: int = 16,
+        prefetch: int = 4, build_workers: int = 4,
+    ) -> Iterator[Tuple[int, np.ndarray]]:
+        """Yield (frame_index, peaks f32[N]) over a parsed Structure.
+
+        ``build_workers`` threads build the upcoming frames' graphs on the
+        host (``data.parse.structure2graph``) while the device runs the
+        current forward, at most ``build_workers + prefetch`` ahead; frame
+        i's readback happens after frame i + 1 has been launched; results
+        come out in frame order. A failed build raises in the consumer
+        (``RuntimeError``); the trajectory is never cut short silently."""
+        from ..data.parse import structure2graph
+
+        frames = list(range(0, struct.n_frames, stride))
+        q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
+
+        def build(i):
+            return i, structure2graph(struct, neighbor_number, frame=i)
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(max_workers=build_workers) as pool:
+                    futs = collections.deque()
+                    it = iter(frames)
+                    for i in it:
+                        futs.append(pool.submit(build, i))
+                        if len(futs) >= build_workers + prefetch:
+                            break
+                    while futs:
+                        q.put(futs.popleft().result())
+                        i = next(it, None)
+                        if i is not None:
+                            futs.append(pool.submit(build, i))
+                q.put(None)
+            except BaseException as e:  # noqa: BLE001 - handed to the consumer
+                q.put(e)
+
+        threading.Thread(target=producer, daemon=True).start()
+        pending = None  # (frame, peaks on the device, inverse)
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, BaseException):
+                raise RuntimeError("trajectory graph build failed mid-stream") from item
+            i, g = item
+            peaks, inverse = self._predict_async(g)
+            if pending is not None:
+                yield pending[0], self._finalize(pending[1], pending[2])
+            pending = (i, peaks, inverse)
+        if pending is not None:
+            yield pending[0], self._finalize(pending[1], pending[2])

@@ -19,10 +19,18 @@ distribution buckets the tiles into a few window classes
 (``band_plan_classes``): each class gets its own band, and each MP layer
 runs the partial product (no epilogue) once per class.
 
+Past the JAX package's node-table budget (``plan_fits_vmem``) a structure
+takes the "banded_hbm" path: the MP layer reads the node table from device
+memory tile by tile (``mp_banded_hbm``), and the fast precision's class
+forward runs the whole layer, epilogue included, once per class
+(``mp_banded_hbm_cls``). On the card every MP layer reads its table from
+device memory: the four MP wrappers launch one kernel (``csrc/hbm.cu``),
+each counting its own launches as the TPU kernel it replaces.
+
 Each wrapper below takes the plain PyTorch version for a tensor on the CPU
-and launches its CUDA kernel (``csrc/banded.cu``, ``csrc/poly.cu``) for a
-tensor on the card; it never falls back from the card to the plain
-version. Each counts its launches in ``.launches``.
+and launches its CUDA kernel (``csrc/banded.cu``, ``poly.cu``,
+``hbm.cu``) for a tensor on the card; it never falls back from the card
+to the plain version. Each counts its launches in ``.launches``.
 
 ===================  ==========================================  ==========
 wrapper              replaces (TPU kernel)                       bound
@@ -34,6 +42,8 @@ mp_banded            _mp_banded_kernel, banded.py:555-579        operations
 build_band_poly      _poly_band_kernel, banded.py:1268, 1418     bytes (M)
 build_band_poly_cls  build_band_poly_cls, banded.py:1645-1700    bytes (M)
 mp_banded_partial    _mp_banded_partial_kernel, banded.py:833    bytes
+mp_banded_hbm        _mp_banded_hbm_kernel, banded.py:656-773    as mp_banded
+mp_banded_hbm_cls    _mp_banded_hbm_cls_kernel, banded.py:1703   as mp_banded
 ===================  ==========================================  ==========
 
 The band plans are host-side numpy, as in the JAX package.
@@ -72,6 +82,9 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+_W_BUCKETS = (256, 384, 512, 640, 768, 896, 1024, 1280, 1536, 2048, 3072, 4096)
+
+
 def _bucket(w: int, w_buckets) -> int:
     for b in w_buckets:
         if w <= b:
@@ -84,23 +97,37 @@ def band_plan(
     edges: np.ndarray,
     block_rows: int = 128,
     align: int = 128,
-    w_buckets=(256, 384, 512, 640, 768, 896, 1024, 1280, 1536, 2048, 3072, 4096),
+    w_buckets=_W_BUCKETS,
 ) -> BandPlan:
     """Per-tile window starts and the bucketed window width. Only real
     edges (distance > 0) constrain the windows."""
-    nlist = np.asarray(nlist)
-    edges = np.asarray(edges)
-    n = nlist.shape[0]
+    return band_plan_frames(np.asarray(nlist)[None], np.asarray(edges)[None],
+                            block_rows=block_rows, align=align, w_buckets=w_buckets)
+
+
+def band_plan_frames(
+    nlist_stack: np.ndarray,   # i32[F, N, K]
+    edges_stack: np.ndarray,   # f32[F, N, K]
+    block_rows: int = 128,
+    align: int = 128,
+    w_buckets=_W_BUCKETS,
+) -> BandPlan:
+    """The union band plan over a stack of frames (same atoms and order,
+    per-frame neighbor lists): every frame's real neighbors fall inside
+    its windows, so one plan serves the whole batch."""
+    nlist_stack = np.asarray(nlist_stack)
+    edges_stack = np.asarray(edges_stack)
+    n = nlist_stack.shape[1]
     n_pad = _round_up(max(n, block_rows), block_rows)
     t = n_pad // block_rows
     lo = np.zeros(t, np.int64)
     need = np.zeros(t, np.int64)
     for i in range(t):
         sel = slice(i * block_rows, min((i + 1) * block_rows, n))
-        real = edges[sel] > 0
+        real = edges_stack[:, sel] > 0
         if not real.any():
             continue
-        idx = nlist[sel][real]
+        idx = nlist_stack[:, sel][real]
         lo_i = (int(idx.min()) // align) * align
         lo[i] = lo_i
         need[i] = int(idx.max()) - lo_i + 1
@@ -157,7 +184,7 @@ def band_plan_classes(
     block_rows: int = 128,
     align: int = 128,
     max_classes: int = 3,
-    w_buckets=(256, 384, 512, 640, 768, 896, 1024, 1280, 1536, 2048, 3072, 4096),
+    w_buckets=_W_BUCKETS,
 ) -> BandClassPlan:
     """Bucket the row tiles into up to ``max_classes`` window widths from
     ``w_buckets``, choosing the class boundaries that minimise the total
@@ -224,6 +251,98 @@ def class_plan_covers(plan: BandClassPlan, nlist: np.ndarray, edges: np.ndarray)
     rel = nlist - lo_full[rows][:, None]
     ok = ((rel >= 0) & (rel < w_full[rows][:, None])) | (edges <= 0)
     return bool(ok.all())
+
+
+# ---------------------------------------------------------------------------
+# The path rule. These are the JAX package's VMEM budgets
+# (nmrgnn_tpu/ops/banded.py:273-339, 440-477), kept as plain host
+# arithmetic under the same names: they decide which path, and so which
+# numerics, a structure takes (serving's "banded" or "banded_hbm", the
+# class forwards, the batched frames), so that the port serves a structure
+# as the JAX package does. They are not limits of the Hopper kernels,
+# which take any window.
+
+
+def plan_fits_vmem(
+    plan: BandPlan,
+    n_features: int,
+    n_edge_channels: int = 3,
+    dtype_bytes: int = 4,
+    budget_bytes: int = 12 * 1024 * 1024,
+) -> bool:
+    """Whether the node-table-resident MP working set (the whole node
+    table, one band tile double-buffered, the weights, the f32 scratch)
+    fits the TPU's per-core budget: the rule for the "banded" path."""
+    nodes = plan.n_padded * n_features * dtype_bytes
+    band_tile = 2 * n_edge_channels * plan.block_rows * plan.window * dtype_bytes
+    w = n_edge_channels * n_features * n_features * dtype_bytes
+    scratch = n_edge_channels * plan.block_rows * n_features * 4
+    return nodes + band_tile + w + scratch < budget_bytes
+
+
+def hbm_plan_fits_vmem(
+    plan: BandPlan,
+    n_features: int,
+    n_edge_channels: int = 3,
+    dtype_bytes: int = 4,
+    budget_bytes: int = 12 * 1024 * 1024,
+) -> bool:
+    """Whether the per-tile working set of the HBM node-table MP layer
+    (double-buffered [W, F] windows, [B, F] residual rows, [E, B, W] band
+    tiles and [B, F] output tiles, and the weights) fits the TPU's budget:
+    the rule for the "banded_hbm" path and its class plans."""
+    B, W = plan.block_rows, plan.window
+    F, E, b = n_features, n_edge_channels, dtype_bytes
+    win = 2 * W * F * b
+    res = 2 * B * F * b
+    band = 2 * E * B * W * b
+    weights = E * F * F * b
+    out = 2 * B * F * b
+    return win + res + band + weights + out < budget_bytes
+
+
+def _fused_build_arrays(plan: BandPlan, edge_hidden: int, n_edge_channels: int,
+                        neighbor_k: int, out_bytes: int):
+    """(per-slot MLP activations, float32 band accumulators, double-buffered
+    output tile) of the fused edge + band build on the TPU, in bytes."""
+    B, W = plan.block_rows, plan.window
+    return (B * neighbor_k * edge_hidden * 4, n_edge_channels * B * W * 4,
+            2 * n_edge_channels * B * W * out_bytes)
+
+
+def fused_build_fits(
+    plan: BandPlan,
+    edge_hidden: int,
+    n_edge_channels: int = 3,
+    neighbor_k: int = 16,
+    out_bytes: int = 4,
+    budget_bytes: int = 15 * 1024 * 1024,
+) -> bool:
+    """The calibrated estimate of the fused build's scoped memory on the
+    TPU, 3.24 x (accumulators + output tiles) - 2 MiB + activations, under
+    the budget."""
+    x, accs, out2 = _fused_build_arrays(plan, edge_hidden, n_edge_channels, neighbor_k,
+                                        out_bytes)
+    return 3.24 * (accs + out2) - 2 * 1024 * 1024 + x < budget_bytes
+
+
+def fused_build_ok(
+    plan: BandPlan,
+    edge_hidden: int,
+    n_edge_channels: int = 3,
+    neighbor_k: int = 16,
+    out_bytes: int = 4,
+    budget_bytes: int = 15 * 1024 * 1024,
+) -> bool:
+    """The fused-build rule as the JAX package applies it off a TPU: reject
+    when the raw arrays alone pass 16 MiB, else the estimate
+    (``fused_build_fits``). On a TPU the JAX package consults a compile
+    probe in the band between 60% and 100% of the budget; there is none
+    here, so the choice equals the JAX package's on a CPU backend."""
+    naive = sum(_fused_build_arrays(plan, edge_hidden, n_edge_channels, neighbor_k,
+                                    out_bytes))
+    return naive <= 16 * 1024 * 1024 and fused_build_fits(
+        plan, edge_hidden, n_edge_channels, neighbor_k, out_bytes, budget_bytes)
 
 
 def _class_plan_on_device(plan: BandClassPlan, device) -> BandClassPlan:
@@ -314,30 +433,6 @@ def build_band_fused_plain(
     return build_band_plain(nlist, e, plan)
 
 
-def mp_banded_plain(
-    M: torch.Tensor,           # [T, E, B, W]
-    plan: BandPlan,
-    nodes: torch.Tensor,       # [N_pad, F], float32 or bfloat16
-    w: torch.Tensor,           # [F, F, E]
-    inv_degree: torch.Tensor,  # f32[N_pad]
-    activation_name: str = "softplus",
-) -> torch.Tensor:
-    """One MP layer (activation(aggregate) + residual) over the band, in
-    ``nodes.dtype``: operands in that type, products and sums in float32,
-    h rounded to it before the second product, the residual added in
-    float32 and the sum rounded once (``_mp_banded_kernel``, :572-579)."""
-    act = get_activation(activation_name)
-    T, E, B, W = M.shape
-    F = nodes.shape[-1]
-    dev = nodes.device
-    cd = nodes.dtype
-    idx = _long(plan.lo, dev)[:, None] + torch.arange(W, device=dev)  # [T, W]
-    h = torch.einsum("tebw,twf->tebf", M.float(), nodes[idx].float()).to(cd).float()
-    out = torch.einsum("tebf,efm->tbm", h, w.permute(2, 0, 1).to(cd).float())
-    out = out * inv_degree.view(T, B)[..., None]
-    return (act(out) + nodes.view(T, B, F).float()).to(cd).reshape(T * B, F)
-
-
 def mp_banded_partial_plain(
     M: torch.Tensor,      # [T, E, B, W]
     lo,                   # i32[T] window starts (tensor or numpy)
@@ -356,6 +451,68 @@ def mp_banded_partial_plain(
     h = torch.einsum("tebw,twf->tebf", M.float(), table[idx].float()).to(cd).float()
     out = torch.einsum("tebf,efm->tbm", h, w.permute(2, 0, 1).to(cd).float())
     return out.reshape(T * B, F)
+
+
+def _mp_epilogue(acc, tiles, nodes, inv_degree, activation_name):
+    """act(acc * inv_degree) + residual over the rows of ``tiles`` (acc
+    f32[Tg * B, F], tile ``tiles[i]`` in rows [i * B, (i + 1) * B)), in
+    float32, rounded once to ``nodes.dtype``."""
+    F = nodes.shape[-1]
+    B = acc.shape[0] // tiles.shape[0]
+    rows = (tiles[:, None] * B + torch.arange(B, device=nodes.device)).reshape(-1)
+    out = acc * inv_degree[rows][:, None]
+    return (get_activation(activation_name)(out) + nodes[rows].float()).to(nodes.dtype).view(-1, F)
+
+
+def mp_banded_plain(
+    M: torch.Tensor,           # [T, E, B, W]
+    plan: BandPlan,
+    nodes: torch.Tensor,       # [N_pad, F], float32 or bfloat16
+    w: torch.Tensor,           # [F, F, E]
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+) -> torch.Tensor:
+    """One MP layer (activation(aggregate) + residual) over the band, in
+    ``nodes.dtype``: operands in that type, products and sums in float32,
+    h rounded to it before the second product, the residual added in
+    float32 and the sum rounded once (``_mp_banded_kernel``, :572-579)."""
+    acc = mp_banded_partial_plain(M, plan.lo, nodes, w)
+    tiles = torch.arange(M.shape[0], device=nodes.device)
+    return _mp_epilogue(acc, tiles, nodes, inv_degree, activation_name)
+
+
+def mp_banded_hbm_plain(
+    M: torch.Tensor,           # [T, E, B, W]
+    plan: BandPlan,
+    nodes: torch.Tensor,       # [N_pad, F], float32 or bfloat16
+    w: torch.Tensor,           # [F, F, E]
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+) -> torch.Tensor:
+    """The MP layer with the node table in device memory: the same
+    function as ``mp_banded_plain`` (``_mp_banded_hbm_kernel``,
+    :656-714, has ``_mp_banded_kernel``'s numerics)."""
+    return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name)
+
+
+def mp_banded_hbm_cls_plain(
+    M: torch.Tensor,           # [Tc, E, B, Wc]
+    cls: BandClass,
+    block_rows: int,
+    nodes: torch.Tensor,       # [N_pad, F], float32 or bfloat16
+    w: torch.Tensor,           # [F, F, E]
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+) -> torch.Tensor:
+    """One MP layer over one window class's tiles: class-contiguous rows
+    [Tc * B, F] in ``nodes.dtype``, row block i the update of tile
+    ``cls.ids[i]`` (window start ``cls.lo[i]``, its residual rows and
+    inv_degree), with ``mp_banded_plain``'s rounding
+    (``_mp_banded_hbm_cls_kernel``, :1703-1756)."""
+    if M.shape[2] != block_rows:
+        raise ValueError(f"band of shape {tuple(M.shape)} has no {block_rows}-row tiles")
+    acc = mp_banded_partial_plain(M, cls.lo, nodes, w)
+    return _mp_epilogue(acc, _long(cls.ids, nodes.device), nodes, inv_degree, activation_name)
 
 
 def poly_edge_values(cheb: EdgeCheb, d: torch.Tensor) -> torch.Tensor:
@@ -432,7 +589,7 @@ def build_band_poly_cls_plain(
 # Kernel wrappers.
 
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_MP_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_MP_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "banded": {
@@ -442,8 +599,6 @@ _SIGNATURES = {
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _P],
         ),
-        "nmr_mp_banded": (_I, _MP_ARGS),
-        "nmr_mp_banded_bf16": (_I, _MP_ARGS),
     },
     "poly": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
@@ -451,6 +606,11 @@ _SIGNATURES = {
             _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _F32, _F32, _F32, _I, _P],
         ),
+    },
+    "hbm": {
+        "nmr_error_string": (ctypes.c_char_p, [_I]),
+        "nmr_mp_banded": (_I, _MP_ARGS),
+        "nmr_mp_banded_bf16": (_I, _MP_ARGS),
         "nmr_mp_banded_partial": (_I, _PARTIAL_ARGS),
         "nmr_mp_banded_partial_bf16": (_I, _PARTIAL_ARGS),
     },
@@ -512,7 +672,7 @@ def _device_index(name: str, a, length: int, device) -> torch.Tensor:
 
 
 def _mp_shape_ok(F: int, E: int, B: int, W: int) -> bool:
-    """Whether the MP kernels (common.cuh) take these widths: F in
+    """Whether the MP kernel (hbm.cu) takes these widths: F in
     _MP_F, E <= 4, B a multiple of the rows per block, W of the chunk."""
     if F not in _MP_F or not 1 <= E <= _MAX_E:
         return False
@@ -632,6 +792,47 @@ def build_band_fused(
 build_band_fused.launches = 0
 
 
+def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
+    """Checks and launches the MP layer of ``csrc/hbm.cu`` over M's grid
+    tiles (``ids`` None: tile i updates tile i)."""
+    dev = nodes.device
+    Tg, E, B, W = M.shape
+    n_table, F = nodes.shape
+    if not _mp_shape_ok(F, E, B, W):
+        raise NotImplementedError(
+            f"{what} kernel takes F in {_MP_F}, E <= {_MAX_E}, B a multiple "
+            f"of the rows per block, W a multiple of {_MP_CHUNK}"
+        )
+    if n_table % B:
+        raise ValueError(f"the node table's {n_table} rows are not whole {B}-row tiles")
+    suffix = _dtype_suffix("nodes", nodes.dtype)
+    _check("M", M, nodes.dtype, (Tg, E, B, W), dev)
+    _check("nodes", nodes, nodes.dtype, (n_table, F), dev)
+    _check("inv_degree", inv_degree, torch.float32, (n_table,), dev)
+    act = ACTIVATION_CODES.get(activation_name)
+    if act is None:
+        raise ValueError(f"unknown activation {activation_name!r}")
+    w_t = w.permute(2, 0, 1).to(nodes.dtype).contiguous()  # [E, F, F]
+    _check("w", w_t, nodes.dtype, (E, F, F), dev)
+    out = torch.empty((Tg * B, F), dtype=nodes.dtype, device=dev)
+    _launch("nmr_mp_banded" + suffix, dev, M.data_ptr(), lo.data_ptr(),
+            None if ids is None else ids.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
+            inv_degree.data_ptr(), out.data_ptr(), Tg, E, B, W, F, n_table, act,
+            source="hbm")
+    return out
+
+
+def _mp_layer(M, plan: BandPlan, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
+    """The MP layer of every tile of ``plan`` on the card."""
+    T, _, B, W = M.shape
+    if (T, B, W) != (plan.num_tiles, plan.block_rows, plan.window):
+        raise ValueError(f"band of shape {tuple(M.shape)} does not match the plan")
+    if nodes.shape[0] != T * B:
+        raise ValueError(f"nodes has {nodes.shape[0]} rows, the plan {T * B}")
+    return _launch_mp(M, _device_lo(plan, nodes.device), None, nodes, w, inv_degree,
+                      activation_name, what)
+
+
 def mp_banded(
     M: torch.Tensor,           # [T, E, B, W] from a band build, in nodes.dtype
     plan: BandPlan,
@@ -645,40 +846,20 @@ def mp_banded(
 
     Replaces ``_mp_banded_kernel`` (nmrgnn_tpu/ops/banded.py:555-579). On
     the card, a block takes a few rows of one tile and all F columns and
-    runs both products out of shared memory (``csrc/common.cuh``). In
-    float32 it is bound by the dense products it does, 2*T*E*B*W*F +
-    2*T*E*B*F*F float32 operations; its data-dependent bound (the band's
-    nonzeros) is bytes in bfloat16."""
+    streams the window, the band and then the weights through two
+    shared-memory stages with ``cp.async`` (``csrc/hbm.cu``). In float32
+    it is bound by the dense products it does, 2*T*E*B*W*F + 2*T*E*B*F*F
+    float32 operations; its data-dependent bound (the band's nonzeros) is
+    bytes in bfloat16."""
     if not _on_cuda(nodes, "mp_banded"):
         return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name)
-    dev = nodes.device
-    T, E, B, W = M.shape
-    F = nodes.shape[-1]
-    if (T, B, W) != (plan.num_tiles, plan.block_rows, plan.window):
-        raise ValueError(f"band of shape {tuple(M.shape)} does not match the plan")
-    if not _mp_shape_ok(F, E, B, W):
-        raise NotImplementedError(
-            f"mp_banded kernel takes F in {_MP_F}, E <= {_MAX_E}, B a multiple "
-            f"of the rows per block, W a multiple of {_MP_CHUNK}"
-        )
-    suffix = _dtype_suffix("nodes", nodes.dtype)
-    _check("M", M, nodes.dtype, (T, E, B, W), dev)
-    _check("nodes", nodes, nodes.dtype, (T * B, F), dev)
-    _check("inv_degree", inv_degree, torch.float32, (T * B,), dev)
-    act = ACTIVATION_CODES.get(activation_name)
-    if act is None:
-        raise ValueError(f"unknown activation {activation_name!r}")
-    w_t = w.permute(2, 0, 1).to(nodes.dtype).contiguous()  # [E, F, F]
-    _check("w", w_t, nodes.dtype, (E, F, F), dev)
-    lo = _device_lo(plan, dev)
-    out = torch.empty_like(nodes)
-    _launch("nmr_mp_banded" + suffix, dev, M.data_ptr(), lo.data_ptr(), nodes.data_ptr(),
-            w_t.data_ptr(), inv_degree.data_ptr(), out.data_ptr(), T, E, B, W, F, act)
+    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded")
     mp_banded.launches += 1
     return out
 
 
 mp_banded.launches = 0
+
 
 def _launch_poly(nlist, edges, cheb: EdgeCheb, lo, ids, tiles: int, window: int,
                  block_rows: int, n_padded: int, out_dtype) -> torch.Tensor:
@@ -778,9 +959,9 @@ def mp_banded_partial(
 
     Replaces ``_mp_banded_partial_kernel`` (nmrgnn_tpu/ops/banded.py:
     833-894). On the card it is the MP kernel of ``mp_banded`` without its
-    epilogue; window rows outside the table read as zeros. It is bound by
-    the bytes of the band, the table and the output at the main path's
-    shapes."""
+    epilogue (``csrc/hbm.cu``); window rows outside the table read as
+    zeros. It is bound by the bytes of the band, the table and the output
+    at the main path's shapes."""
     if not _on_cuda(table, "mp_banded_partial"):
         return mp_banded_partial_plain(M, lo, table, w)
     dev = table.device
@@ -804,15 +985,85 @@ def mp_banded_partial(
     out = torch.empty((T * B, F), dtype=torch.float32, device=dev)
     _launch("nmr_mp_banded_partial" + suffix, dev, M.data_ptr(), lo.data_ptr(),
             table.data_ptr(), w_t.data_ptr(), out.data_ptr(), T, E, B, W, F, n_table,
-            source="poly")
+            source="hbm")
     mp_banded_partial.launches += 1
     return out
 
 
 mp_banded_partial.launches = 0
 
+
+def mp_banded_hbm(
+    M: torch.Tensor,           # [T, E, B, W] from a band build, in nodes.dtype
+    plan: BandPlan,
+    nodes: torch.Tensor,       # [N_pad, F] node table, f32 or bf16
+    w: torch.Tensor,           # [F, F, E] (cast to nodes.dtype)
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+) -> torch.Tensor:
+    """One MP layer (activation(aggregate) + residual) with the node table
+    read from device memory tile by tile; the same function as
+    ``mp_banded``, bit for bit.
+
+    Replaces ``_mp_banded_hbm_kernel`` (nmrgnn_tpu/ops/banded.py:656-773).
+    On the card it launches ``mp_banded``'s kernel (``csrc/hbm.cu``),
+    which already reads the table from device memory, the next chunk of
+    window, band or weights in flight while the current one's FMAs run:
+    on Hopper no path holds the table on chip, so the TPU's resident and
+    HBM kernels are one kernel here. Bound as ``mp_banded``."""
+    if not _on_cuda(nodes, "mp_banded_hbm"):
+        return mp_banded_hbm_plain(M, plan, nodes, w, inv_degree, activation_name)
+    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded_hbm")
+    mp_banded_hbm.launches += 1
+    return out
+
+
+mp_banded_hbm.launches = 0
+
+
+def mp_banded_hbm_cls(
+    M: torch.Tensor,           # [Tc, E, B, Wc] from build_band_poly_cls, in nodes.dtype
+    cls: BandClass,            # ids and lo as numpy or int32 tensors on the card
+    block_rows: int,
+    nodes: torch.Tensor,       # [N_pad, F] node table, f32 or bf16
+    w: torch.Tensor,           # [F, F, E] (cast to nodes.dtype)
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+) -> torch.Tensor:
+    """One MP layer over one window class's tiles with the node table in
+    device memory: class-contiguous rows [Tc * B, F] in ``nodes.dtype``,
+    row block i the update of tile ``cls.ids[i]``.
+
+    Replaces ``_mp_banded_hbm_cls_kernel`` (nmrgnn_tpu/ops/banded.py:
+    1703-1823). On the card it is ``mp_banded_hbm``'s kernel reading its
+    residual rows and inv_degree through the ids array; an id out of range
+    given on the card reads nothing and writes zeros, one given as numpy
+    raises. Bound as ``mp_banded_hbm``."""
+    if not _on_cuda(nodes, "mp_banded_hbm_cls"):
+        return mp_banded_hbm_cls_plain(M, cls, block_rows, nodes, w, inv_degree,
+                                       activation_name)
+    dev = nodes.device
+    tc, _, B, W = M.shape
+    if B != block_rows or len(cls.ids) != tc or cls.window != W:
+        raise ValueError(f"band of shape {tuple(M.shape)} does not match the class")
+    n_tiles = nodes.shape[0] // B
+    for name, a, hi in (("cls.ids", cls.ids, n_tiles - 1),
+                        ("cls.lo", cls.lo, nodes.shape[0] - W)):
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
+            if a.size and (a.min() < 0 or a.max() > hi):
+                raise ValueError(f"{name} out of range [0, {hi}]")
+    ids = _device_index("cls.ids", cls.ids, tc, dev)
+    lo = _device_index("cls.lo", cls.lo, tc, dev)
+    out = _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, "mp_banded_hbm_cls")
+    mp_banded_hbm_cls.launches += 1
+    return out
+
+
+mp_banded_hbm_cls.launches = 0
+
 KERNEL_WRAPPERS = (build_band, build_band_fused, mp_banded, build_band_poly,
-                   build_band_poly_cls, mp_banded_partial)
+                   build_band_poly_cls, mp_banded_partial, mp_banded_hbm, mp_banded_hbm_cls)
 
 
 def reset_launch_counts() -> None:

@@ -299,3 +299,139 @@ def test_fast_serving_on_the_card(dev):
     plain = apply_banded(sm.params, sm.config, gt, plan, cheb=sm._edge_cheb(),
                          use_kernels=False)
     np.testing.assert_allclose(uni.cpu().numpy(), plain.cpu().numpy(), rtol=0.05, atol=1.0)
+
+
+def _mp_case(dev, f, e, dtype, n=700, seed=0):
+    """A band from a skewed graph (several window classes), a node table
+    padded to the plan, weights and inv_degree, on the card."""
+    nlist, dists = skewed_nlist(n, 12, seed=seed)
+    rng = np.random.default_rng(seed)
+    efeat = rng.normal(size=(n, 12, e)).astype(np.float32) * (dists > 0)[..., None]
+    plan = banded.band_plan(nlist, dists)
+    pad = plan.n_padded - n
+    nodes = np.pad(rng.normal(size=(n, f)).astype(np.float32), ((0, pad), (0, 0)))
+    w = (rng.normal(size=(f, f, e)) / np.sqrt(f)).astype(np.float32)
+    inv = np.pad(inv_degree_from_nlist(nlist), (0, pad))
+    nl, ef, x, wt, iv = _on(dev, nlist, efeat, nodes, w, inv)
+    dplan = banded.plan_on_device(plan, dev)
+    M = banded.build_band_plain(nl, ef, dplan).to(dtype)
+    return nlist, dists, nl, ef, dplan, M, x.to(dtype), wt, iv
+
+
+def _mp_close(got, want, dtype):
+    """float32: 2e-4, as the MP layer. bfloat16: one step of h (rounded
+    between the products) relative to the output's scale, plus one
+    rounding of the output."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                   atol=2 * BF16_STEP * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("f,e,dtype,act", [
+    (256, 3, torch.float32, "softplus"), (256, 3, torch.bfloat16, "softplus"),
+    (128, 1, torch.float32, "relu"), (64, 4, torch.bfloat16, "tanh"),
+    (128, 2, torch.bfloat16, "linear"),
+])
+def test_mp_banded_hbm_kernel_matches_plain_and_mp_banded(dev, f, e, dtype, act):
+    """B5 against its plain version, and equal to B1 bit for bit: one
+    kernel behind two wrappers, each counting only its own launches."""
+    *_, plan, M, x, wt, iv = _mp_case(dev, f, e, dtype, seed=f + e)
+    before = banded.mp_banded_hbm.launches, banded.mp_banded.launches
+    got = banded.mp_banded_hbm(M, plan, x, wt, iv, act)
+    torch.cuda.synchronize()
+    assert (banded.mp_banded_hbm.launches, banded.mp_banded.launches) == (before[0] + 1,
+                                                                          before[1])
+    assert got.dtype == dtype
+    _mp_close(got, banded.mp_banded_hbm_plain(M, plan, x, wt, iv, act), dtype)
+    torch.testing.assert_close(got, banded.mp_banded(M, plan, x, wt, iv, act), rtol=0, atol=0)
+    assert (banded.mp_banded_hbm.launches, banded.mp_banded.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("f,e,dtype", [
+    (256, 3, torch.float32), (256, 3, torch.bfloat16), (128, 2, torch.bfloat16),
+    (64, 4, torch.float32),
+])
+def test_mp_banded_hbm_cls_kernel_matches_plain(dev, f, e, dtype):
+    """B9 per class against its plain version; its rows equal B5's rows of
+    the class's tiles when the class band is the uniform band's columns;
+    a reversed (non-contiguous) ids order moves the row blocks with it; an
+    id out of range given on the card gives zero rows, one given as numpy
+    raises."""
+    nlist, dists, nl, ef, plan, _, x, wt, iv = _mp_case(dev, f, e, dtype, seed=f + 7 * e)
+    cls_plan = banded.band_plan_classes(nlist, dists)
+    assert len(cls_plan.classes) > 1
+    B = cls_plan.block_rows
+    for c in banded.plan_on_device(cls_plan, dev).classes:
+        rows = c.ids.long()  # the class's band: its tiles of a build at its windows
+        full = banded.build_band_plain(nl, ef, banded.BandPlan(
+            lo=torch.zeros(plan.num_tiles, dtype=torch.int32, device=dev).index_put(
+                (rows,), c.lo), window=c.window, block_rows=B, n_padded=plan.n_padded))
+        Mc = full[rows].to(dtype).contiguous()
+        before = banded.mp_banded_hbm_cls.launches
+        got = banded.mp_banded_hbm_cls(Mc, c, B, x, wt, iv)
+        torch.cuda.synchronize()
+        assert banded.mp_banded_hbm_cls.launches == before + 1 and got.dtype == dtype
+        _mp_close(got, banded.mp_banded_hbm_cls_plain(Mc, c, B, x, wt, iv), dtype)
+        rev = c._replace(ids=c.ids.flip(0).contiguous(), lo=c.lo.flip(0).contiguous())
+        got_rev = banded.mp_banded_hbm_cls(Mc.flip(0).contiguous(), rev, B, x, wt, iv)
+        torch.testing.assert_close(got_rev.view(-1, B, f), got.view(-1, B, f).flip(0),
+                                   rtol=0, atol=0)
+    c = cls_plan.classes[0]
+    bad_ids = np.array([cls_plan.num_tiles] + list(c.ids[1:]), np.int32)
+    Mc = torch.zeros((len(c.ids), e, B, c.window), dtype=dtype, device=dev)
+    with pytest.raises(ValueError):
+        banded.mp_banded_hbm_cls(Mc, c._replace(ids=bad_ids), B, x, wt, iv)
+    got = banded.mp_banded_hbm_cls(
+        Mc, c._replace(ids=torch.as_tensor(bad_ids, device=dev)), B, x, wt, iv)
+    assert float(got[:B].float().abs().max()) == 0.0
+    ok = banded.mp_banded_hbm_cls(Mc, c, B, x, wt, iv)
+    torch.testing.assert_close(got[B:], ok[B:], rtol=0, atol=0)
+
+
+def test_hbm_class_forward_and_batched_frames_on_the_card(dev):
+    """apply_banded_hbm_classes through the kernels against its plain
+    versions (fast band), launching per class one build and one MP layer
+    per layer; apply_banded_frames launches each kernel once for the
+    batch and equals a per-frame loop of apply_banded within 2e-4."""
+    from nmrgnn_tpu_torch.models.infer import apply_banded_frames, apply_banded_hbm_classes
+
+    cfg = ModelConfig()
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(3), device=dev)
+    n = 600
+    rng = np.random.default_rng(8)
+    nlist, dists = skewed_nlist(n, 16, seed=8)
+    dists = np.where(dists > 0, np.clip(dists, 0.09, 0.3), 0.0).astype(np.float32)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    g = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    gt = Graph(*_on(dev, *g))
+    sm = ServingModel(params, cfg, reorder=False, precision="fast")
+    cls_plan = banded.band_plan_classes(nlist, dists)
+    nc = len(cls_plan.classes)
+    assert nc > 1
+    banded.reset_launch_counts()
+    got = apply_banded_hbm_classes(sm.params, sm.config, gt, cls_plan, sm._edge_cheb())
+    torch.cuda.synchronize()
+    assert banded.build_band_poly_cls.launches == nc
+    assert banded.mp_banded_hbm_cls.launches == nc * cfg.mp_layers
+    want = apply_banded_hbm_classes(sm.params, sm.config, gt, cls_plan, sm._edge_cheb(),
+                                    use_kernels=False)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.corrcoef(got, want)[0, 1] > 0.9999
+    np.testing.assert_allclose(got, want, rtol=0.05, atol=1.0)
+
+    frames = [g] + [g._replace(edges=np.where(
+        dists > 0, dists * (1 + 0.01 * rng.normal(size=dists.shape)), 0.0).astype(np.float32))
+        for _ in range(3)]
+    stack = Graph(*_on(dev, *[np.stack([getattr(f, k) for f in frames]) for k in Graph._fields]))
+    plan = banded.band_plan_frames(np.stack([f.nlist for f in frames]),
+                                   np.stack([f.edges for f in frames]))
+    banded.reset_launch_counts()
+    batch = apply_banded_frames(params, cfg, stack, plan)
+    torch.cuda.synchronize()
+    assert banded.build_band_fused.launches == 1
+    assert banded.mp_banded.launches == cfg.mp_layers
+    loop = torch.stack([apply_banded(params, cfg, Graph(*_on(dev, *f)), plan) for f in frames])
+    torch.testing.assert_close(batch, loop, rtol=2e-4, atol=2e-4)

@@ -133,12 +133,12 @@ def test_apply_banded_branches_agree(structure, bundled):
     with torch.no_grad():
         ref = gnn.apply(params, cfg, gt)
         for kw in ({}, {"fused_edge": False}, {"use_kernels": False}, {"cheb": cheb},
-                   {"cheb": cheb, "use_kernels": False}):
+                   {"cheb": cheb, "use_kernels": False}, {"hbm_table": True},
+                   {"hbm_table": True, "cheb": cheb}):
             torch.testing.assert_close(apply_banded(params, cfg, gt, plan, **kw), ref,
                                        rtol=5e-4, atol=5e-4)
-    for kw in ({"hbm_table": True}, {"fused_first": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            apply_banded(params, cfg, gt, plan, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        apply_banded(params, cfg, gt, plan, fused_first=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # the fused exact stage in bf16
         apply_banded(params, cfg.replace(compute_dtype="bfloat16"), gt, plan)
 
