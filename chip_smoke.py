@@ -62,9 +62,25 @@ Phases, in order; any failure exits non-zero and prints no result:
     kernel, against the same references. predict_trajectory yields every
     frame in order, equal to per-frame predict. Frames per second of each
     (host clock) and the batched forward's time on the card.
- 7. One JSON line listing every kernel of the paths with its launches,
+ 7. The wide band: one globule of 100,000 atoms from --seed (a sphere,
+    not a supercell: a large protein assembly with hydrogens), 3 frames,
+    whose RCM band is past both banded budgets, so that ServingModel
+    resolves it to "blocksparse" at both precisions (required). At its
+    shapes, in float32 and bfloat16: build_block_adjacency (B10) against
+    its plain version (1e-5, or one bfloat16 step), mp_blocksparse (B11)
+    on the group-1 structure and mp_blocksparse_grouped (B12) on the
+    group-4 structure against theirs (phase 3's MP tolerances), and B12
+    equal to B11. Serving the 3 frames: exact peaks equal the plain gather
+    forward within rtol/atol 5e-4, fast peaks within the fast band of them,
+    1 B10 and 4 B12 per frame; whether frames 2-3 were remapped or rebuilt.
+    apply_blocksparse(group=1) driven directly: 1 B10 and 4 B11, equal to
+    its plain versions (float32 2e-4; bfloat16 a mean under 0.05 ppm).
+    mode="blocksparse" forced on phase 4's 2,482-atom frames: exact peaks
+    equal phase 4a's banded ones within 5e-4. Forward times (CUDA events),
+    predict() wall times and, with --profile, each forward's breakdown.
+ 8. One JSON line listing every kernel of the paths with its launches,
     error and times.
- 8. The last line: {"ok": true, "device": {...}}.
+ 9. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -96,6 +112,7 @@ N_FRAMES = 3
 SUPERCELL_GRID = (3, 3, 2)  # 18 copies: 44,676 atoms
 MAX_SUPERCELL_W = 2048
 TRAJ_FRAMES = 8
+GLOBULE_ATOMS = 100_000
 REPEATS = 20
 
 # Element mix of a hydrogenated protein (fractions of all atoms).
@@ -290,6 +307,18 @@ def _wall_ms(model, g, runs: int) -> float:
     return float(np.median(walls))
 
 
+def _wrappers():
+    """Every kernel wrapper of the port, each with its launch count."""
+    from nmrgnn_tpu_torch.ops import banded, blocksparse
+
+    return banded.KERNEL_WRAPPERS + blocksparse.KERNEL_WRAPPERS
+
+
+def _reset_counts() -> None:
+    for f in _wrappers():
+        f.launches = 0
+
+
 def _on_card(g, dev):
     import torch
 
@@ -395,7 +424,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect) -> dict:
             walls.append(time.perf_counter() - t)
         return out, walls
 
-    banded.reset_launch_counts()
+    _reset_counts()
     model = ServingModel(params, cfg, device=dev)
     peaks, exact_s = serve(model, graphs)
     exact_launches = counts()
@@ -417,7 +446,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect) -> dict:
         raise SystemExit("chip_smoke: jittered supercell frames gave identical peaks")
 
     # -- fast serving -------------------------------------------------------------
-    banded.reset_launch_counts()
+    _reset_counts()
     fast = ServingModel(params, cfg, device=dev, precision="fast")
     fast_peaks, fast_s, branches = [], [], []
     for g in graphs:
@@ -461,7 +490,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect) -> dict:
     }
     direct = {}
     for k, f in fwd.items():
-        banded.reset_launch_counts()
+        _reset_counts()
         got = f()
         torch.cuda.synchronize()
         direct[k] = counts()
@@ -536,7 +565,7 @@ def _phase6(args, dev, params, cfg, counts, expect) -> dict:
         loop_s = float(np.median(loops))
 
         model = ServingModel(params, cfg, device=dev, precision=precision)
-        banded.reset_launch_counts()
+        _reset_counts()
         got = model.predict_frames(graphs)
         launches = counts()
         if got.shape != (TRAJ_FRAMES, N_ATOMS):
@@ -565,7 +594,7 @@ def _phase6(args, dev, params, cfg, counts, expect) -> dict:
         def batch_fwd():
             return apply_banded_frames(model.params, mc, gt, union_d, cheb=cheb)
 
-        banded.reset_launch_counts()
+        _reset_counts()
         direct = batch_fwd()[:, model._inverse].cpu().numpy()
         expect(counts(), **batch_launches)
         if precision == "exact":
@@ -625,6 +654,224 @@ def _phase6(args, dev, params, cfg, counts, expect) -> dict:
               f"included; {build_ms:.1f} ms per frame serially)")
     torch.cuda.synchronize()
     return out
+
+
+def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, expect) -> dict:
+    """The wide band: the GLOBULE_ATOMS globule through "blocksparse" at
+    both precisions, B10, B11 and B12 against their plain versions at its
+    shapes, apply_blocksparse(group=1) directly, the forced block-sparse
+    path on phase 4's frames, forward and predict() times."""
+    import torch
+    import torch.nn.functional as nnf
+
+    from nmrgnn_tpu_torch.data.parse import structure2graph
+    from nmrgnn_tpu_torch.data.pdb import read_structure
+    from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.infer import apply_blocksparse
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+    from nmrgnn_tpu_torch.ops import banded
+    from nmrgnn_tpu_torch.ops import blocksparse as bs
+    from nmrgnn_tpu_torch.ops.edge import edge_features
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = os.path.join(tmp, "globule.pdb")
+        write_synthetic_pdb(pdb, n_atoms=GLOBULE_ATOMS, seed=args.seed, frames=N_FRAMES)
+        struct = read_structure(pdb)
+    graphs = [structure2graph(struct, frame=f) for f in range(N_FRAMES)]
+    order = rcm_order(graphs[0].nlist, graphs[0].edges)
+    g_rcm, _ = permute_graph(graphs[0], order, pin_zero=False)
+    N, K = g_rcm.nlist.shape
+    F, E, L = cfg.atom_feature_size, cfg.edge_feature_size, len(params["mp"])
+    windows = {b: banded.band_plan(g_rcm.nlist, g_rcm.edges, block_rows=b).window
+               for b in (128, 64)}
+    t_struct = time.perf_counter()
+    structs = {grp: bs.block_structure(g_rcm.nlist, g_rcm.edges, 128, pair_rounding=32,
+                                       group=grp) for grp in (1, 4)}
+    t_struct = (time.perf_counter() - t_struct) / len(structs)
+    s4 = structs[4]
+    B, nb, n_pad, real = s4.block_size, s4.nb, s4.n_padded, int(s4.pair_valid.sum())
+    a_elems = {grp: s.n_pairs * E * B * B for grp, s in structs.items()}
+    # the share of the (rows per MP block) x 16 A chunks that hold a nonzero
+    # (the others' FMAs are skipped)
+    real_mask = g_rcm.edges > 0
+    rb = (256 // (F // 4)) * 4
+    rows = np.nonzero(real_mask)[0]
+    chunk = ((structs[1].edge_pair[real_mask].astype(np.int64) * (B // rb) + rows % B // rb)
+             * (B // 16) + g_rcm.nlist[real_mask] % B // 16)
+    chunk_share = np.unique(chunk).size / (structs[1].n_pairs * (B // rb) * (B // 16))
+    print(f"phase 7: globule of N={N} atoms ({N_FRAMES} frames, built and ordered on the host in "
+          f"{time.perf_counter() - t0:.1f} s): RCM window {windows[128]} (128-row tiles), "
+          f"{windows[64]} (64-row tiles); nb={nb}, P={structs[1].n_pairs} (group 1), "
+          f"{s4.n_pairs} (group 4), {real} real pairs; A {a_elems[4] * 4 / 1e9:.2f} GB in "
+          f"float32, {a_elems[4] * 2 / 1e9:.2f} GB in bfloat16 (group 4); "
+          f"{int(real_mask.sum())} real edges, {chunk_share:.1%} of the {rb} x 16 A chunks "
+          f"of the MP blocks hold a nonzero; block_structure {t_struct:.3f} s a structure on "
+          f"the host")
+    for precision in ("exact", "fast"):
+        path = ServingModel(params, cfg, device=dev, precision=precision,
+                            reorder=False)._resolve_mode(g_rcm)
+        if path != "blocksparse":
+            raise SystemExit(f"chip_smoke: the {N}-atom globule resolved to {path} ({precision})")
+
+    # -- B10, B11 and B12 at the globule's shapes --------------------------------
+    gt = _on_card(g_rcm, dev)
+    sd = {grp: bs.struct_on_device(s, dev) for grp, s in structs.items()}
+    e_feat = edge_features(gt.edges, params["edge_fc"], rbf_low=cfg.rbf_low,
+                           rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation)
+    real_edges = int(real_mask.sum())
+    nodes = nnf.pad(gnn.dense(params["embed"], gt.atoms), (0, 0, 0, n_pad - N))
+    inv_p = nnf.pad(gt.inv_degree, (0, n_pad - N))
+    w0, act = params["mp"][0]["w"], cfg.mp_activation
+    timing = dict(repeats=3, inner=2, phase=7)
+    line = "nmrgnn_tpu/ops/blocksparse.py:"
+    for dt, tag, eb, peak in ((f32, "float32", 4, PEAK_F32_FLOPS),
+                              (bf16, "bfloat16", 2, PEAK_BF16_FLOPS)):
+        sfx = "" if dt == f32 else "_bf16"
+        A = {4: check(
+            "build_block_adjacency" + sfx, line + "215",
+            lambda dt=dt: bs.build_block_adjacency(gt.nlist, e_feat, sd[4], dt),
+            lambda dt=dt: bs.build_block_adjacency_plain(gt.nlist, e_feat, sd[4], dt),
+            **(dict(tol=1e-5) if dt == f32 else dict(rtol=BF16_STEP, tol=1e-5)),
+            flops=real_edges * E,  # one float32 add per real edge and channel
+            nbytes=N * K * 4 * (1 + E) + s4.n_pairs * 12 + a_elems[4] * eb,
+            source="blocksparse.cu", dtype=tag, **timing, extra=" (group-4 structure)",
+        )}
+        A[1] = bs.build_block_adjacency(gt.nlist, e_feat, sd[1], dt)
+        table = nodes.to(dt)
+        mp_tol = (dict(tol=2e-4) if dt == f32
+                  else dict(rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP))
+        outs = {}
+        for grp, wrapper, at in ((1, bs.mp_blocksparse, "301"),
+                                 (4, bs.mp_blocksparse_grouped, "341")):
+            nnz = int((A[grp] != 0).sum())
+            kw = {} if grp == 1 else {"group": 4}
+            outs[grp] = check(
+                wrapper.__name__ + sfx, line + at,
+                lambda a=A[grp], s=sd[grp], f=wrapper, kw=kw: f(a, s, table, w0, inv_p, act, **kw),
+                lambda a=A[grp], s=sd[grp]: bs.mp_blocksparse_plain(a, s, table, w0, inv_p, act),
+                **mp_tol, flops=2 * nnz * F + 2 * nb * E * B * F * F,
+                # A, the table and the weights read once, the output written once
+                nbytes=(a_elems[grp] * eb + 2 * n_pad * F * eb + E * F * F * eb + n_pad * 4
+                        + structs[grp].n_pairs * 4 + (nb + 1) * 4),
+                peak=peak, source="blocksparse.cu", dtype=tag, **timing,
+                extra=f"; group-{grp} structure, A {nnz} nonzeros of {a_elems[grp]}, dense "
+                      f"products {(2 * a_elems[grp] * F + 2 * nb * E * B * F * F) / 1e9:.1f} GFLOP",
+            )
+        if not torch.equal(outs[4], outs[1]):
+            diff = float((outs[4].float() - outs[1].float()).abs().max())
+            raise SystemExit(f"chip_smoke: mp_blocksparse_grouped differs from mp_blocksparse "
+                             f"[{tag}] by {diff:.3e}")
+        print(f"phase 7: mp_blocksparse_grouped on the group-4 structure equals mp_blocksparse "
+              f"on the group-1 structure bit for bit [{tag}]")
+        del A, outs, table
+        torch.cuda.empty_cache()
+
+    # -- serving the frames ---------------------------------------------------------
+    def serve(model):
+        out, walls, how, prev = [], [], [], None
+        for g in graphs:
+            t = time.perf_counter()
+            out.append(model.predict(g))
+            walls.append(time.perf_counter() - t)
+            how.append("built" if prev is None else
+                       "remapped" if model._struct.pair_rows is prev.pair_rows else "rebuilt")
+            prev = model._struct
+        return out, walls, how
+
+    served = {}
+    for precision in ("exact", "fast"):
+        _reset_counts()
+        model = ServingModel(params, cfg, device=dev, precision=precision)
+        peaks, walls, how = serve(model)
+        launches = counts()
+        print(f"phase 7: {precision}: path {model._resolved}, structures {how}, launches "
+              f"{launches}, per-frame wall ms {[round(v * 1e3, 3) for v in walls]}")
+        if model._resolved != "blocksparse":
+            raise SystemExit(f"chip_smoke: the globule was served through {model._resolved}")
+        expect(launches, build_block_adjacency=N_FRAMES, mp_blocksparse_grouped=N_FRAMES * L)
+        served[precision] = dict(model=model, peaks=peaks, walls=walls, how=how,
+                                 launches=launches)
+    worst = 0.0
+    for f, (g, p) in enumerate(zip(graphs, served["exact"]["peaks"])):
+        if p.shape != (N,) or not np.all(np.isfinite(p)):
+            raise SystemExit(f"chip_smoke: globule frame {f}: peaks {p.shape} not all finite")
+        ref = gnn.apply(params, cfg, _on_card(g, dev)).cpu().numpy()
+        np.testing.assert_allclose(p, ref, rtol=5e-4, atol=5e-4)
+        worst = max(worst, float(np.max(np.abs(p - ref))))
+    print(f"phase 7: exact peaks finite, max|served - plain gather forward| = {worst:.3e} "
+          f"(tol 5e-4)")
+    exact_peaks = served["exact"]["peaks"]
+    if np.array_equal(exact_peaks[0], exact_peaks[1]):
+        raise SystemExit("chip_smoke: jittered globule frames gave identical peaks")
+    for f, p in enumerate(served["fast"]["peaks"]):
+        print(f"phase 7: fast frame {f} vs exact frame {f}: "
+              f"{_in_fast_band(p, exact_peaks[f], f'globule fast frame {f}')}")
+
+    # -- apply_blocksparse(group=1) directly, against its plain versions ----------
+    direct = {}
+    for c, tag in ((cfg, "float32"), (cfg16, "bfloat16")):
+        _reset_counts()
+        got = apply_blocksparse(params, c, gt, sd[1])
+        torch.cuda.synchronize()
+        direct[tag] = counts()
+        expect(direct[tag], build_block_adjacency=1, mp_blocksparse=L)
+        got = got.cpu().numpy()
+        plain = apply_blocksparse(params, c, gt, sd[1], use_kernels=False).cpu().numpy()
+        if tag == "float32":
+            np.testing.assert_allclose(got, plain, rtol=2e-4, atol=2e-4)
+            agree = f"max |diff| {float(np.abs(got - plain).max()):.3e} (tol 2e-4)"
+        else:
+            agree = _in_fast_band(got, plain, "apply_blocksparse bfloat16", 0.05)
+        print(f"phase 7: apply_blocksparse(group=1) [{tag}] launches {direct[tag]}; kernels vs "
+              f"plain: {agree}")
+
+    # -- forced block-sparse on phase 4's structure ---------------------------------
+    _reset_counts()
+    forced = ServingModel(params, cfg, device=dev, mode="blocksparse")
+    small = [forced.predict(g) for g in small_graphs]
+    expect(counts(), build_block_adjacency=len(small_graphs),
+           mp_blocksparse_grouped=len(small_graphs) * L)
+    for p, q in zip(small, small_peaks):
+        np.testing.assert_allclose(p, q, rtol=5e-4, atol=5e-4)
+    print(f"phase 7: mode='blocksparse' on the {small_graphs[0].nlist.shape[0]}-atom frames: max "
+          f"|block-sparse - banded exact peaks| "
+          f"{max(float(np.abs(p - q).max()) for p, q in zip(small, small_peaks)):.3e} (tol 5e-4)")
+
+    # -- times ------------------------------------------------------------------------
+    fwd = {
+        "exact": lambda: apply_blocksparse(params, cfg, gt, sd[4], group=4),
+        "fast": lambda: apply_blocksparse(params, cfg16, gt, sd[4], group=4),
+        "exact_group1": lambda: apply_blocksparse(params, cfg, gt, sd[1]),
+    }
+    fwd_ms = {k: _time_ms(f, 3, inner=1) for k, f in fwd.items()}
+    for k in fwd:
+        print(f"phase 7: {k} forward on the card {fwd_ms[k]:.4f} ms (median of 3, CUDA events)")
+    predict_ms = {p: _wall_ms(served[p]["model"], graphs[-1], 3) for p in served}
+    print(f"phase 7: predict() wall ms (median of 3, host clock): "
+          f"{json.dumps({k: round(v, 3) for k, v in predict_ms.items()})}")
+    breakdown = ({k: _profile_forward(f, fwd_ms[k], k, runs=2) for k, f in fwd.items()}
+                 if args.profile else None)
+    ex, fa = served["exact"]["launches"], served["fast"]["launches"]
+    return {
+        "N": N, "windows": windows, "nb": nb, "nonzero_chunk_share": chunk_share,
+        "pairs": {str(g): s.n_pairs for g, s in structs.items()}, "real_pairs": real,
+        "launches": {
+            "build_block_adjacency": ex["build_block_adjacency"],
+            "build_block_adjacency_bf16": fa["build_block_adjacency"],
+            "mp_blocksparse": direct["float32"]["mp_blocksparse"],
+            "mp_blocksparse_bf16": direct["bfloat16"]["mp_blocksparse"],
+            "mp_blocksparse_grouped": ex["mp_blocksparse_grouped"],
+            "mp_blocksparse_grouped_bf16": fa["mp_blocksparse_grouped"],
+        },
+        "structures": {p: v["how"] for p, v in served.items()},
+        "forward_ms": fwd_ms, "predict_wall_ms": predict_ms,
+        "frame_wall_s": {p: v["walls"] for p, v in served.items()},
+        "forward_breakdown": breakdown,
+    }
 
 
 def main(argv=None) -> int:
@@ -713,10 +960,11 @@ def main(argv=None) -> int:
 
     def check(name, line, got_fn, want_fn, *, tol, flops, nbytes, peak=PEAK_F32_FLOPS,
               rtol=None, tol_of_max=0.0, source="banded.cu", dtype="float32", row=True,
-              extra=""):
+              extra="", repeats=REPEATS, inner=10, phase=3):
         """Compare kernel and plain version (tensors or lists of them, one
         per window class) within rtol (default tol) and atol = tol +
-        tol_of_max * max|plain|; time both; record the row."""
+        tol_of_max * max|plain|; time both (the median of ``repeats`` runs
+        of ``inner`` calls); record the row."""
         got, want = got_fn(), want_fn()
         torch.cuda.synchronize()
         got = list(got) if isinstance(got, (list, tuple)) else [got]
@@ -728,9 +976,10 @@ def main(argv=None) -> int:
             err = max(err, float((g.float() - w.float()).abs().max()))
             torch.testing.assert_close(g.float(), w.float(), rtol=tol if rtol is None else rtol,
                                        atol=atol)
-        ms, plain_ms = _time_ms(got_fn, REPEATS), _time_ms(want_fn, REPEATS)
+        del want, w  # the plain outputs, before the timing runs allocate more
+        ms, plain_ms = _time_ms(got_fn, repeats, inner), _time_ms(want_fn, repeats, inner)
         bound_ms, bound_by = _bound(flops, nbytes, peak)
-        print(f"phase 3: {name} [{dtype}]: max|kernel-plain|={err:.3e} (atol {atol:.3g}) "
+        print(f"phase {phase}: {name} [{dtype}]: max|kernel-plain|={err:.3e} (atol {atol:.3g}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
               f"{f', {len(got)} launches' if len(got) > 1 else ''}{extra}")
@@ -849,15 +1098,15 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
 
     def counts():
-        return {f.__name__: f.launches for f in banded.KERNEL_WRAPPERS}
+        return {f.__name__: f.launches for f in _wrappers()}
 
     def expect(got, **want):
-        want = {f.__name__: want.get(f.__name__, 0) for f in banded.KERNEL_WRAPPERS}
+        want = {f.__name__: want.get(f.__name__, 0) for f in _wrappers()}
         if got != want:
             raise SystemExit(f"chip_smoke: launches {got} != {want}")
 
     # -- phase 4a: exact serving ---------------------------------------------
-    banded.reset_launch_counts()
+    _reset_counts()
     model = ServingModel(params, cfg, device=dev)
     peaks, frame_s = [], []
     for g in graphs:
@@ -880,7 +1129,7 @@ def main(argv=None) -> int:
     if np.array_equal(peaks[0], peaks[1]):
         raise SystemExit("chip_smoke: jittered frames gave identical peaks")
 
-    banded.reset_launch_counts()
+    _reset_counts()
     unfused = apply_banded(params, cfg, gt, plan_d, fused_edge=False)
     torch.cuda.synchronize()
     unfused_launches = counts()
@@ -891,7 +1140,7 @@ def main(argv=None) -> int:
           f"{float((unfused - plain).abs().max()):.3e} (tol 5e-4)")
 
     # -- phase 4b: fast serving ----------------------------------------------
-    banded.reset_launch_counts()
+    _reset_counts()
     fast = ServingModel(params, cfg, device=dev, precision="fast")
     fast_peaks, fast_s, branches = [], [], []
     for g in graphs:
@@ -926,7 +1175,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: jittered frames gave identical fast peaks")
 
     # -- phase 4c: each fast forward directly ----------------------------------
-    banded.reset_launch_counts()
+    _reset_counts()
     uni = apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d)
     torch.cuda.synchronize()
     uni_launches = counts()
@@ -934,7 +1183,7 @@ def main(argv=None) -> int:
     uni_plain = apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d, use_kernels=False)
     print(f"phase 4c: uniform fast forward launches {uni_launches}; kernels vs plain: "
           f"{_in_fast_band(uni.cpu().numpy(), uni_plain.cpu().numpy(), 'uniform', 0.05)}")
-    banded.reset_launch_counts()
+    _reset_counts()
     clsf = apply_banded_classes(params, cfg16, gt, cls_d, cheb_d)
     torch.cuda.synchronize()
     cls_launches = counts()
@@ -993,9 +1242,13 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     traj = _phase6(args, dev, params, cfg, counts, expect)
     print(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    wide = _phase7(args, dev, params, cfg, graphs, peaks, check, counts, expect)
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
     for k in kernels:
-        if k["name"] in large["launches"]:
-            k["launches"] = large["launches"][k["name"]]
+        for phase in (large, wide):
+            if k["name"] in phase["launches"]:
+                k["launches"] = phase["launches"][k["name"]]
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} was never launched on its path")
     if args.out:
@@ -1009,6 +1262,7 @@ def main(argv=None) -> int:
                 "plain_forward_ms": plain_fwd_ms, "predict_wall_ms": predict_ms,
                 "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,
+                "wide": wide,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-// Device code shared by banded.cu, poly.cu and hbm.cu: the activations,
-// float32 / bfloat16 element access and the band-row writer of the band
-// builds.
+// Device code shared by banded.cu, poly.cu, hbm.cu and blocksparse.cu: the
+// activations, float32 / bfloat16 element access, the cp.async staging of
+// the MP kernels and the band-row writer of the band builds.
 //
 // bfloat16 follows the TPU kernels' mixed precision: operands are bf16,
 // products and sums are float32 (a bf16 x bf16 product is exact in f32),
@@ -72,6 +72,23 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   u.x = *reinterpret_cast<unsigned int*>(&a);
   u.y = *reinterpret_cast<unsigned int*>(&b);
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+// -- cp.async staging (hbm.cu, blocksparse.cu) -------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // -- band rows -------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Banded inference forwards (``nmrgnn_tpu/models/infer.py:127-364``).
+"""Banded and block-sparse inference forwards (``nmrgnn_tpu/models/infer.py``).
 
 ``apply_banded`` builds the band once per forward and runs one banded MP
 layer per ``params["mp"]`` entry, then the readout. The edge stage is the
@@ -16,6 +16,13 @@ kept in the compute type between layers.
 ``apply_banded_frames`` runs ``apply_banded`` over a stack of frames at
 once: the frames are concatenated along the rows, so each kernel is
 launched once per forward for the whole batch.
+
+``apply_blocksparse`` (``nmrgnn_tpu/models/infer.py:51-124``) serves a
+structure whose band is too wide for the banded paths: it builds the
+block-sparse adjacency of the active (row block, col block) pairs once per
+forward and runs one block-sparse MP layer per ``params["mp"]`` entry. Its
+numerics are its own: the exact edge stage in float32 at either compute
+type, and a float32 readout.
 
 The products honour ``config.compute_dtype`` (bfloat16 operands, float32
 sums), as the JAX package's forwards do. ``graph`` should be RCM-reordered
@@ -52,12 +59,23 @@ from ..ops.banded import (
     mp_banded_plain,
     plan_on_device,
 )
+from ..ops.blocksparse import (
+    BlockStructure,
+    block_structure,
+    build_block_adjacency,
+    build_block_adjacency_plain,
+    mp_blocksparse,
+    mp_blocksparse_plain,
+    struct_on_device,
+)
+from ..ops.edge import edge_features as _edge_stage
 from ..ops.edgefn import EdgeCheb
 from .gnn import compute_dtype, dense, readout
 from .gnn import edge_features as _edge_features
 
 __all__ = ["_edge_features", "_readout", "precompute_band", "apply_banded",
-           "apply_banded_classes", "apply_banded_hbm_classes", "apply_banded_frames"]
+           "apply_banded_classes", "apply_banded_hbm_classes", "apply_banded_frames",
+           "precompute_structure", "apply_blocksparse"]
 
 
 def _readout(params, config: ModelConfig, atoms, nodes) -> torch.Tensor:
@@ -276,3 +294,55 @@ def apply_banded_frames(
                        nnf.pad(inv_degree, (0, pad)).reshape(-1), use_kernels, False)
     nodes = nodes.view(fr, npad, F)[:, :n].reshape(fr * n, F).float()
     return _readout(params, config, atoms.reshape(fr * n, -1), nodes).view(fr, n)
+
+
+def precompute_structure(
+    graph: Graph,
+    block_size: int = 128,
+    pair_rounding: int = 0,
+    group: int = 1,
+) -> BlockStructure:
+    """Host-side sparsity pattern for a frame, reusable across layers and
+    repeated forwards with the same neighbor lists."""
+    return block_structure(np.asarray(graph.nlist), np.asarray(graph.edges), block_size,
+                           pair_rounding=pair_rounding, group=group)
+
+
+def apply_blocksparse(
+    params,
+    config: ModelConfig,
+    graph: Graph,
+    struct: BlockStructure,
+    use_kernels: bool = True,
+    group: int = 1,
+) -> torch.Tensor:
+    """Inference forward with block-sparse MP; peaks f32[N] for the
+    unpadded atoms.
+
+    The edge stage is the exact RBF + EdgeFC in float32 whatever the
+    compute type (``nmrgnn_tpu/models/infer.py:80-86``). A, the node table
+    and the MP weights are in the compute type, the table rounded to it
+    after every layer; the readout (FC block and head) is float32
+    (``:115-123``). With ``use_kernels`` the adjacency build and the MP
+    layers go through ``build_block_adjacency`` and ``mp_blocksparse``
+    (``group`` > 1: ``mp_blocksparse_grouped``, for a structure built
+    with that ``group``); ``use_kernels=False`` runs their plain
+    versions."""
+    atoms, nlist, edges, inv_degree = graph
+    n = atoms.shape[0]
+    cd = compute_dtype(config)
+    e = _edge_stage(edges, params["edge_fc"], rbf_low=config.rbf_low, rbf_high=config.rbf_high,
+                    activation_name=config.fc_activation)
+    struct = struct_on_device(struct, atoms.device)
+    build = build_block_adjacency if use_kernels else build_block_adjacency_plain
+    A = build(nlist, e, struct, out_dtype=cd)
+    pad = struct.n_padded - n
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(cd)
+    inv_p = nnf.pad(inv_degree, (0, pad))
+    for p in params["mp"]:
+        if use_kernels:
+            nodes = mp_blocksparse(A, struct, nodes, p["w"], inv_p, config.mp_activation,
+                                   group=group)
+        else:
+            nodes = mp_blocksparse_plain(A, struct, nodes, p["w"], inv_p, config.mp_activation)
+    return readout(params, config.replace(compute_dtype="float32"), atoms, nodes[:n].float())

@@ -11,19 +11,25 @@ graph as given) and the path, as the JAX package resolves it
 * ``"banded_hbm"`` for larger structures whose band passes the per-tile
   budget (``hbm_plan_fits_vmem``): the MP layers through ``mp_banded_hbm``,
   and at ``precision="fast"`` with more than one window class the
-  class-bucketed ``apply_banded_hbm_classes``.
+  class-bucketed ``apply_banded_hbm_classes``;
+* ``"blocksparse"`` when the band escapes both budgets (a single large
+  globular structure): ``apply_blocksparse`` over the block structure of
+  ``block_size`` blocks (``pair_rounding`` and ``group`` as the JAX
+  package's accelerator path sets them), at either precision.
 
-Where the JAX package would resolve to ``"blocksparse"`` (the band
-escapes ``hbm_plan_fits_vmem`` too), the port, which has no block-sparse
-path yet, serves through ``"banded_hbm"`` with the full band plan: what
-the JAX package does when the user forces ``mode="banded"``. These budgets
-are the JAX package's rule for which path, and so which numerics, a
-structure takes; the Hopper kernels take any window.
+These budgets are the JAX package's rule for which path, and so which
+numerics, a structure takes; the Hopper kernels take any window.
+``mode="banded"`` forces the node-table path (with the full band plan
+where the budget would refuse it), ``mode="blocksparse"`` the block-sparse
+one.
 
 Each later frame verifies the cached band plan against its own neighbor
 lists (``plan_covers``) and rebuilds it only when a real neighbor escapes
 its window; a frame whose new plan escapes the budget that chose the path
-re-resolves the path. ``predict`` returns peaks in the original atom order.
+re-resolves the path, which may then be "blocksparse". A block structure
+is remapped to a later frame (``remap_frame``) and rebuilt only when a real
+edge leaves its active pairs. ``predict`` returns peaks in the original
+atom order.
 
 ``precision="exact"`` serves in float32 through the fused RBF + EdgeFC
 band build. ``precision="fast"``, the JAX package's production serving
@@ -40,8 +46,9 @@ the JAX package. "fast" serves on the CPU too, through the plain versions
 of the kernels.
 
 ``predict_frames`` serves a batch of frames of a "banded" structure in one
-forward over their union plan (``apply_banded_frames``) with one readback;
-``predict_trajectory`` overlaps the host's graph builds with the forwards.
+forward over their union plan (``apply_banded_frames``) with one readback,
+and the other paths frame by frame; ``predict_trajectory`` overlaps the
+host's graph builds with the forwards.
 """
 from __future__ import annotations
 
@@ -71,9 +78,16 @@ from ..ops.banded import (
     plan_fits_vmem,
     plan_on_device,
 )
+from ..ops.blocksparse import BlockStructure, block_structure, remap_frame, struct_on_device
 from ..ops.edgefn import EdgeCheb, fit_edge_chebyshev
 from .gnn import tree_map
-from .infer import apply_banded, apply_banded_classes, apply_banded_frames, apply_banded_hbm_classes
+from .infer import (
+    apply_banded,
+    apply_banded_classes,
+    apply_banded_frames,
+    apply_banded_hbm_classes,
+    apply_blocksparse,
+)
 
 CHEB_DEGREE = 64  # the Chebyshev fit the JAX package serves with
 
@@ -91,6 +105,8 @@ class ServingModel:
         device="cuda",
         reorder: bool = True,
         block_size: int = 128,
+        pair_rounding: int = 32,
+        group: int = 4,
         mode: str = "auto",
         precision: str = "exact",
     ):
@@ -98,15 +114,15 @@ class ServingModel:
         or ``init_params``); it is copied to ``device`` once. ``mode``
         "auto" resolves the path on the first call; "banded" forces the
         node-table path (with the full band plan where the budget would
-        refuse it). ``precision`` is "exact" (float32) or "fast" (bfloat16
-        products with float32 sums, and the Chebyshev edge stage)."""
+        refuse it), "blocksparse" the block-sparse path, whose structure
+        rounds its pair count to a multiple of ``pair_rounding`` and pads
+        each row's pairs to a multiple of ``group``. ``precision`` is
+        "exact" (float32) or "fast" (bfloat16 products with float32 sums;
+        on the banded paths the Chebyshev edge stage)."""
         if precision not in ("exact", "fast"):
             raise ValueError(f"unknown precision {precision!r}")
-        if mode not in ("auto", "banded"):
-            raise NotImplementedError(
-                f"serving mode {mode!r}: the block-sparse and gather modes are "
-                "ROADMAP queue A6-A7 / B10-B12"
-            )
+        if mode not in ("auto", "banded", "blocksparse"):
+            raise ValueError(f"unknown serving mode {mode!r}")
         if config.mp_type != "bilinear":
             raise NotImplementedError("attention-family serving is ROADMAP queue A6")
         if precision == "fast" and config.compute_dtype == "float32":
@@ -124,6 +140,8 @@ class ServingModel:
         self.precision = precision
         self.reorder = reorder
         self.block_size = block_size
+        self.pair_rounding = pair_rounding
+        self.group = group
         self.mode = mode
         self.params = tree_map(
             lambda t: torch.as_tensor(t).to(device=self.device, dtype=torch.float32), params
@@ -137,6 +155,7 @@ class ServingModel:
         self._cls_plan_vmem: Optional[BandClassPlan] = None  # "banded" class plan
         self._cls_vmem_off = False  # set when frame motion re-buckets the classes
         self._cls_hbm_off = False   # the "banded_hbm" twin
+        self._struct: Optional[BlockStructure] = None  # "blocksparse" structure
         self._cheb: Optional[EdgeCheb] = None
         self._on_device = {}  # slot -> (host plan, its copy on the device)
 
@@ -183,9 +202,8 @@ class ServingModel:
         return None
 
     def _resolve_mode(self, g: Graph) -> str:
-        """"banded" or "banded_hbm", fixed until a frame escapes its budget.
-        A band past both budgets serves through "banded_hbm" with the full
-        plan (the JAX package's "blocksparse": not ported yet)."""
+        """"banded", "banded_hbm" or "blocksparse" (a band past both
+        budgets), fixed until a frame escapes its budget."""
         if self._resolved is not None:
             return self._resolved
         if self.mode != "auto":
@@ -193,13 +211,13 @@ class ServingModel:
             return self._resolved
         plan = self._plan_if_fits(g)
         if plan is not None:
-            self._resolved = "banded"
+            self._resolved, self._plan = "banded", plan
+            return self._resolved
+        plan = self._plan_if_hbm(g)
+        if plan is not None:
+            self._resolved, self._plan = "banded_hbm", plan
         else:
-            self._resolved = "banded_hbm"
-            plan = self._plan_if_hbm(g)
-            if plan is None:
-                plan = band_plan(g.nlist, g.edges, block_rows=self.block_size)
-        self._plan = plan
+            self._resolved = "blocksparse"
         return self._resolved
 
     def _banded_plan(self, g: Graph) -> Optional[BandPlan]:
@@ -211,8 +229,8 @@ class ServingModel:
                 plan = self._plan_if_hbm(g)
             else:
                 plan = self._plan_if_fits(g)
-            if plan is None and (self.mode == "banded" or self._resolved == "banded_hbm"):
-                # forced banded, or past the HBM budget (no block-sparse path)
+            if plan is None and self.mode == "banded":
+                # the user forced banded: honor it
                 plan = band_plan(g.nlist, g.edges, block_rows=self.block_size)
             self._plan = plan
         return self._plan
@@ -254,12 +272,25 @@ class ServingModel:
             self._cls_plan_vmem = plan
         return plan
 
+    def _block_struct(self, g: Graph) -> BlockStructure:
+        """The cached block structure remapped to this frame, or a new one
+        when a real edge leaves its active pairs."""
+        if self._struct is not None:
+            remapped = remap_frame(self._struct, g.nlist, g.edges)
+            if remapped is not None:
+                self._struct = remapped
+                return remapped
+        self._struct = block_structure(g.nlist, g.edges, self.block_size,
+                                       pair_rounding=self.pair_rounding, group=self.group)
+        return self._struct
+
     def _device_plan(self, slot: str, plan):
-        """``plan`` with its index arrays on the device, copied once per
-        plan (each slot keeps its latest)."""
+        """``plan`` (a band plan or a block structure) with its index arrays
+        on the device, copied once per plan (each slot keeps its latest)."""
         cached = self._on_device.get(slot)
         if cached is None or cached[0] is not plan:
-            cached = self._on_device[slot] = (plan, plan_on_device(plan, self.device))
+            to_device = struct_on_device if isinstance(plan, BlockStructure) else plan_on_device
+            cached = self._on_device[slot] = (plan, to_device(plan, self.device))
         return cached[1]
 
     def _edge_cheb(self) -> EdgeCheb:
@@ -290,6 +321,11 @@ class ServingModel:
         device."""
         g = self._prepare(Graph(*[np.asarray(a) for a in graph]))
         mode = self._resolve_mode(g)
+        if mode == "blocksparse":
+            struct = self._device_plan("struct", self._block_struct(g))
+            peaks = apply_blocksparse(self.params, self.config, self._to_device(g), struct,
+                                      group=self.group)
+            return peaks, self._inverse
         plan = self._banded_plan(g)
         if plan is None:
             # this frame's band escaped the budget that chose the path

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "nmrgnn_tpu_torch")
-SOURCES = ("banded", "poly", "hbm")
+SOURCES = ("banded", "poly", "hbm", "blocksparse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -110,3 +110,17 @@ def library(name: str, signatures: Dict[str, Tuple[object, list]]) -> ctypes.CDL
                 f.argtypes = argtypes
             _libs[name] = lib
     return lib
+
+
+def launch(name: str, signatures: Dict[str, Tuple[object, list]], fn: str, device,
+           *args) -> None:
+    """Call entry point ``fn`` of ``csrc/<name>.cu`` with ``args`` and the
+    current stream of ``device``; raise on a non-zero return code."""
+    import torch
+
+    lib = library(name, signatures)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc} ({lib.nmr_error_string(rc).decode()})")

@@ -681,12 +681,7 @@ def _mp_shape_ok(F: int, E: int, B: int, W: int) -> bool:
 
 
 def _launch(fn: str, device, *args, source: str = "banded") -> None:
-    lib = _cuda.library(source, _SIGNATURES[source])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn}: CUDA error {rc} ({lib.nmr_error_string(rc).decode()})")
+    _cuda.launch(source, _SIGNATURES[source], fn, device, *args)
 
 
 def build_band(

@@ -1,0 +1,441 @@
+"""Block-sparse message passing (``nmrgnn_tpu/ops/blocksparse.py``) on Hopper.
+
+A structure whose RCM band is too wide for the banded paths is served
+through its block-sparse adjacency. The edge values are layer-invariant,
+so the active (row block, col block) pairs of B x B blocks and their
+blocks
+
+    A[p, n, b, q] = sum_k e[rB + b, k, n] * [nlist[rB + b, k] == cB + q]
+
+are built once per forward, and every MP layer streams each row block's
+pairs, fused with the weights, inv_degree, the activation and the
+residual:
+
+    h_n    = sum over the pairs p of row block r of A[p, n] @ nodes[col block]
+    out_r  = act((sum_n h_n @ W_n) * inv_degree) + nodes_r
+
+The structure (``block_structure``, ``remap_frame``) is host-side numpy, as
+in the JAX package; ``struct_on_device`` copies its pair arrays, with the
+CSR offsets of each row block's pairs, to the card once.
+
+Each wrapper takes the plain PyTorch version for a tensor on the CPU and
+launches its CUDA kernel (``csrc/blocksparse.cu``) for a tensor on the
+card; it never falls back from the card to the plain version. Each counts
+its launches in ``.launches``.
+
+======================  ============================================  ==========
+wrapper                 replaces (TPU kernel)                         bound
+======================  ============================================  ==========
+build_block_adjacency   _build_adj_kernel, blocksparse.py:215-293     bytes (A)
+mp_blocksparse          _mp_bs_kernel, blocksparse.py:301-338,        bytes (A)
+                        446-504
+mp_blocksparse_grouped  _mp_bs_kernel_grouped, blocksparse.py:341     bytes (A)
+======================  ============================================  ==========
+
+``mp_blocksparse`` and ``mp_blocksparse_grouped`` launch one kernel: G
+pairs a grid step is how the TPU kernel amortises its steps, and on the
+card it computes the same function on a structure built with ``group=G``
+(the extra pairs are padding and add zeros).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as nnf
+
+from . import _cuda
+from .activations import ACTIVATION_CODES, get_activation
+from .banded import (_MAX_E, _MP_CHUNK, _MP_F, _check, _dtype_suffix, _long, _mp_shape_ok,
+                     _on_cuda)
+
+
+class BlockStructure(NamedTuple):
+    """Per-structure sparsity pattern (host-computed from the neighbor
+    lists; shared by every MP layer of a forward and by repeated forwards
+    over the same frame). ``struct_on_device`` gives a copy whose pair
+    arrays and ``row_ptr`` are int32 tensors."""
+
+    pair_rows: object  # i32[P] row-block id per active pair (sorted)
+    pair_cols: object  # i32[P] col-block id per active pair
+    pair_valid: object  # i32[P] 1 for real pairs, 0 for padding
+    edge_pair: np.ndarray  # i32[N, K] active-pair index of each edge slot
+    block_size: int
+    n_padded: int
+    key_sorted: Optional[np.ndarray] = None  # i64[U] sorted active-pair keys
+    key_pos: Optional[np.ndarray] = None     # i64[U] pair index per key
+    row_ptr: object = None  # i32[nb + 1] pairs of row block r: [row_ptr[r], row_ptr[r+1])
+
+    @property
+    def nb(self) -> int:
+        return self.n_padded // self.block_size
+
+    @property
+    def n_pairs(self) -> int:
+        return self.pair_rows.shape[0]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _bucket(x: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
+    for b in buckets:
+        if x <= b:
+            return b
+    return _round_up(x, 512)
+
+
+def block_structure(
+    nlist: np.ndarray,
+    edges: np.ndarray,
+    block_size: int = 128,
+    pair_rounding: int = 0,
+    group: int = 1,
+) -> BlockStructure:
+    """The active (row-block, col-block) pair list, on the host.
+
+    Only real edges (distance > 0) define the pattern. Every row block
+    gets a pair (r, 0), so each output block is written. With ``group`` >
+    1 each row's run is padded to a multiple of ``group`` with invalid
+    pairs at col 0. The pair count is rounded (``pair_rounding`` 0: the
+    power buckets of ``_bucket``; m: up to a multiple of m) with invalid
+    padding pairs at row nb - 1, col 0."""
+    nlist = np.asarray(nlist)
+    edges = np.asarray(edges)
+    n, k = nlist.shape
+    n_pad = _round_up(n, block_size)
+    nb = n_pad // block_size
+    ib = np.broadcast_to(np.arange(n)[:, None] // block_size, nlist.shape)
+    jb = nlist // block_size
+    real = edges > 0
+    key = ib.astype(np.int64) * nb + jb.astype(np.int64)
+    uniq = np.unique(key[real]) if real.any() else np.empty(0, np.int64)
+    guaranteed = np.arange(nb, dtype=np.int64) * nb  # (r, 0) for every row
+    uniq = np.unique(np.concatenate([uniq, guaranteed]))
+    rows = (uniq // nb).astype(np.int32)
+    cols = (uniq % nb).astype(np.int32)
+    pos_of_uniq = np.arange(rows.shape[0], dtype=np.int64)  # keys are row-major sorted
+    grouped_valid = np.ones(rows.shape[0], np.int32)
+    if group > 1:
+        new_rows, new_cols, valid_parts = [], [], []
+        pos_of_uniq = np.empty(rows.shape[0], np.int64)
+        offset = 0
+        for r in np.unique(rows):
+            sel = np.nonzero(rows == r)[0]
+            cnt = sel.shape[0]
+            pad = (-cnt) % group
+            pos_of_uniq[sel] = offset + np.arange(cnt)
+            offset += cnt + pad
+            new_rows.append(np.full(cnt + pad, r, np.int32))
+            new_cols.append(np.concatenate([cols[sel], np.zeros(pad, np.int32)]))
+            valid_parts.append(np.concatenate([np.ones(cnt, np.int32), np.zeros(pad, np.int32)]))
+        rows = np.concatenate(new_rows)
+        cols = np.concatenate(new_cols)
+        grouped_valid = np.concatenate(valid_parts)
+    p = rows.shape[0]
+    p_pad = _bucket(p) if pair_rounding <= 0 else _round_up(p, pair_rounding)
+    p_pad = _round_up(p_pad, group)
+    pair_rows = np.full(p_pad, nb - 1, np.int32)
+    pair_cols = np.zeros(p_pad, np.int32)
+    pair_valid = np.zeros(p_pad, np.int32)
+    pair_rows[:p] = rows
+    pair_cols[:p] = cols
+    pair_valid[:p] = grouped_valid
+    # each edge slot -> its pair index (slots of no active pair -> pair 0)
+    edge_key = key.ravel()
+    idx = np.clip(np.searchsorted(uniq, edge_key), 0, uniq.shape[0] - 1)
+    found = uniq[idx] == edge_key
+    edge_pair = np.where(found, pos_of_uniq[idx], 0).astype(np.int32).reshape(n, k)
+    return BlockStructure(
+        pair_rows=pair_rows, pair_cols=pair_cols, pair_valid=pair_valid, edge_pair=edge_pair,
+        block_size=block_size, n_padded=n_pad, key_sorted=uniq, key_pos=pos_of_uniq,
+    )
+
+
+def remap_frame(
+    struct: BlockStructure, nlist: np.ndarray, edges: np.ndarray
+) -> Optional[BlockStructure]:
+    """Reuse a frame's block pattern for a new frame of the same
+    trajectory: only the edge -> pair mapping is recomputed. None when
+    the new frame's real edges leave the active pair set, or its padded
+    size differs (the caller rebuilds)."""
+    if struct.key_sorted is None:
+        return None
+    nlist = np.asarray(nlist)
+    edges = np.asarray(edges)
+    n, k = nlist.shape
+    if _round_up(n, struct.block_size) != struct.n_padded:
+        return None
+    nb = struct.nb
+    ib = np.arange(n, dtype=np.int64)[:, None] // struct.block_size
+    key = (ib * nb + nlist // struct.block_size).ravel()
+    idx = np.clip(np.searchsorted(struct.key_sorted, key), 0, struct.key_sorted.shape[0] - 1)
+    found = struct.key_sorted[idx] == key
+    if not (found | (edges.ravel() <= 0)).all():
+        return None
+    edge_pair = np.where(found, struct.key_pos[idx], 0).astype(np.int32).reshape(n, k)
+    return struct._replace(edge_pair=edge_pair)
+
+
+_PAIR_FIELDS = ("pair_rows", "pair_cols", "pair_valid", "row_ptr")
+
+
+def struct_on_device(struct: BlockStructure, device) -> BlockStructure:
+    """The structure with its pair arrays and the CSR offsets ``row_ptr``
+    as int32 tensors on ``device``, copied once so the kernels of a forward
+    do not each copy them. Host arrays are checked first: the rows sorted,
+    every row and col block in [0, nb). ``edge_pair`` and the keys stay on
+    the host."""
+    if all(isinstance(getattr(struct, f), torch.Tensor) for f in _PAIR_FIELDS):
+        return struct._replace(**{f: getattr(struct, f).to(device=device, dtype=torch.int32)
+                                  for f in _PAIR_FIELDS})
+    nb = struct.nb
+    rows, cols, valid = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+                         for a in (struct.pair_rows, struct.pair_cols, struct.pair_valid))
+    p = rows.shape[0]
+    if rows.shape != (p,) or cols.shape != (p,) or valid.shape != (p,):
+        raise ValueError(f"pair arrays of shapes {rows.shape}, {cols.shape}, {valid.shape}")
+    if p and (rows.min() < 0 or rows.max() >= nb or cols.min() < 0 or cols.max() >= nb):
+        raise ValueError(f"pair rows and cols must lie in [0, {nb})")
+    if np.any(np.diff(rows) < 0):
+        raise ValueError("pair_rows must be sorted")
+    row_ptr = np.searchsorted(rows, np.arange(nb + 1), side="left")
+    as_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)  # noqa: E731
+    return struct._replace(pair_rows=as_dev(rows), pair_cols=as_dev(cols),
+                           pair_valid=as_dev(valid), row_ptr=as_dev(row_ptr))
+
+
+_PLAIN_PAIR_CHUNK = 1024
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions: the CPU path, and the oracle each kernel is held
+# against on the card (counterparts of build_block_adjacency /
+# build_block_adjacency_pallas and mp_blocksparse_xla,
+# nmrgnn_tpu/ops/blocksparse.py:182-293, 548-572).
+
+
+def build_block_adjacency_plain(
+    nlist: torch.Tensor,       # i32[N, K]
+    edge_feats: torch.Tensor,  # f32[N, K, E] (EdgeFC output; 0 on padding)
+    struct: BlockStructure,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """A [P, E, B, B] in ``out_dtype``: each valid pair's block, summed in
+    float32 over the K slots in slot order (duplicate neighbors add) and
+    rounded once; padding pairs are zero."""
+    B, nb, P = struct.block_size, struct.nb, struct.n_pairs
+    n, k = nlist.shape
+    e = edge_feats.shape[-1]
+    dev = edge_feats.device
+    pad = struct.n_padded - n
+    nl = nnf.pad(nlist.to(torch.int64), (0, 0, 0, pad), value=-1).view(nb, B, k)
+    ef = nnf.pad(edge_feats.float(), (0, 0, 0, 0, 0, pad)).view(nb, B, k, e)
+    pairs = torch.nonzero(_long(struct.pair_valid, dev)).squeeze(1)  # the valid pairs
+    rows = _long(struct.pair_rows, dev)[pairs]
+    rel = nl[rows] - (_long(struct.pair_cols, dev)[pairs] * B)[:, None, None]  # [Pv, B, K]
+    vals = ef[rows]                                                           # [Pv, B, K, E]
+    A = torch.zeros((P, e, B, B), dtype=torch.float32, device=dev)
+    blocks = A.permute(0, 2, 3, 1)  # [P, b, q, E], a view of A
+    for j in range(k):  # slot order; within a slot each (pair, row) has one target
+        i, b = ((rel[:, :, j] >= 0) & (rel[:, :, j] < B)).nonzero(as_tuple=True)
+        blocks[pairs[i], b, rel[i, b, j]] += vals[i, b, j]
+    return A.to(out_dtype)
+
+
+def mp_blocksparse_plain(
+    A: torch.Tensor,           # [P, E, B, B], in nodes.dtype
+    struct: BlockStructure,
+    nodes: torch.Tensor,       # [N_pad, F], float32 or bfloat16
+    w: torch.Tensor,           # [F, F, E]
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+) -> torch.Tensor:
+    """One MP layer (activation(aggregate) + residual) over the pairs, in
+    ``nodes.dtype``: operands in that type, products and sums in float32,
+    h kept in float32 into the product with the weights (in the table's
+    type), the residual added in float32 and the sum rounded once
+    (``_mp_bs_kernel``, :327-338). _PLAIN_PAIR_CHUNK pairs at a time go
+    into h [nb, E, B, F] with ``index_add_``: unchunked, the [P, E, B, F]
+    products of 100,000 atoms would take 8.7 GB in float32."""
+    P, E, B, _ = A.shape
+    nb, F = struct.nb, nodes.shape[-1]
+    dev, cd = nodes.device, nodes.dtype
+    rows, cols = _long(struct.pair_rows, dev), _long(struct.pair_cols, dev)
+    blocks = nodes.view(nb, B, F)
+    h = torch.zeros((nb, E, B, F), dtype=torch.float32, device=dev)
+    for s in range(0, P, _PLAIN_PAIR_CHUNK):
+        c = slice(s, s + _PLAIN_PAIR_CHUNK)
+        hp = torch.einsum("pebq,pqf->pebf", A[c].float(), blocks[cols[c]].float())
+        h.index_add_(0, rows[c], hp)
+    acc = torch.einsum("iebf,efm->ibm", h, w.permute(2, 0, 1).to(cd).float())
+    out = get_activation(activation_name)(acc * inv_degree.view(nb, B, 1)) + blocks.float()
+    return out.to(cd).view(nb * B, F)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_MP_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_SIGNATURES = {
+    "nmr_error_string": (ctypes.c_char_p, [_I]),
+    "nmr_build_block_adjacency": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "nmr_mp_blocksparse": (_I, _MP_ARGS),
+    "nmr_mp_blocksparse_bf16": (_I, _MP_ARGS),
+}
+
+
+def _launch(fn: str, device, *args) -> None:
+    _cuda.launch("blocksparse", _SIGNATURES, fn, device, *args)
+
+
+def _device_struct(struct: BlockStructure, device) -> BlockStructure:
+    s = struct_on_device(struct, device)
+    P = s.n_pairs
+    for name in ("pair_rows", "pair_cols", "pair_valid"):
+        _check(f"struct.{name}", getattr(s, name), torch.int32, (P,), device)
+    _check("struct.row_ptr", s.row_ptr, torch.int32, (s.nb + 1,), device)
+    return s
+
+
+def build_block_adjacency(
+    nlist: torch.Tensor,       # i32[N, K]
+    edge_feats: torch.Tensor,  # f32[N, K, E] (EdgeFC output; 0 on padding)
+    struct: BlockStructure,    # pair arrays as numpy or int32 tensors on the card
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """A [P, E, B, B] in ``out_dtype`` (float32 or bfloat16): the active
+    adjacency blocks, padding pairs zero.
+
+    Replaces ``_build_adj_kernel`` (nmrgnn_tpu/ops/blocksparse.py:
+    215-293). On the card one block per pair; a warp takes a row, passes
+    its K slots round by shuffle, and each lane sums four columns of every
+    channel in slot order. It is bound by writing A."""
+    if not _on_cuda(edge_feats, "build_block_adjacency"):
+        return build_block_adjacency_plain(nlist, edge_feats, struct, out_dtype)
+    dev = edge_feats.device
+    n, k = nlist.shape
+    e = edge_feats.shape[-1]
+    B = struct.block_size
+    _check("nlist", nlist, torch.int32, (n, k), dev)
+    _check("edge_feats", edge_feats, torch.float32, (n, k, e), dev)
+    if not (1 <= e <= _MAX_E and k >= 1 and B % 4 == 0 and n <= struct.n_padded):
+        raise NotImplementedError(
+            f"build_block_adjacency kernel takes E <= {_MAX_E} and B a multiple of 4")
+    suffix = _dtype_suffix("out_dtype", out_dtype)
+    s = _device_struct(struct, dev)
+    pad = struct.n_padded - n
+    nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
+    e_p = nnf.pad(edge_feats, (0, 0, 0, 0, 0, pad))
+    A = torch.empty((s.n_pairs, e, B, B), dtype=out_dtype, device=dev)
+    _launch("nmr_build_block_adjacency", dev, nlist_p.data_ptr(), e_p.data_ptr(),
+            s.pair_rows.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
+            A.data_ptr(), s.n_pairs, s.nb, B, k, e, int(suffix != ""))
+    build_block_adjacency.launches += 1
+    return A
+
+
+build_block_adjacency.launches = 0
+
+
+def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
+    """Checks and launches the block-sparse MP layer of
+    ``csrc/blocksparse.cu``."""
+    dev = nodes.device
+    P, E, B, _ = A.shape
+    n_table, F = nodes.shape
+    if not _mp_shape_ok(F, E, B, B):  # a pair's B columns stream as the band's W do
+        raise NotImplementedError(
+            f"{what} kernel takes F in {_MP_F}, E <= {_MAX_E} and B a multiple of "
+            f"{_MP_CHUNK} and of the rows per block")
+    if B != struct.block_size or n_table != struct.n_padded or P != struct.n_pairs:
+        raise ValueError(f"A of shape {tuple(A.shape)} and nodes of {tuple(nodes.shape)} do "
+                         f"not match the structure")
+    suffix = _dtype_suffix("nodes", nodes.dtype)
+    _check("A", A, nodes.dtype, (P, E, B, B), dev)
+    _check("nodes", nodes, nodes.dtype, (n_table, F), dev)
+    _check("inv_degree", inv_degree, torch.float32, (n_table,), dev)
+    act = ACTIVATION_CODES.get(activation_name)
+    if act is None:
+        raise ValueError(f"unknown activation {activation_name!r}")
+    w_t = w.permute(2, 0, 1).to(nodes.dtype).contiguous()  # [E, F, F]
+    _check("w", w_t, nodes.dtype, (E, F, F), dev)
+    s = _device_struct(struct, dev)
+    out = torch.empty((n_table, F), dtype=nodes.dtype, device=dev)
+    _launch("nmr_mp_blocksparse" + suffix, dev, A.data_ptr(), s.row_ptr.data_ptr(),
+            s.pair_cols.data_ptr(), nodes.data_ptr(), w_t.data_ptr(), inv_degree.data_ptr(),
+            out.data_ptr(), P, s.nb, E, B, F, act)
+    return out
+
+
+def mp_blocksparse(
+    A: torch.Tensor,           # [P, E, B, B] from build_block_adjacency, in nodes.dtype
+    struct: BlockStructure,
+    nodes: torch.Tensor,       # [N_pad, F] (padded to struct.n_padded), f32 or bf16
+    w: torch.Tensor,           # [F, F, E] (cast to nodes.dtype)
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+    group: int = 1,
+) -> torch.Tensor:
+    """One MP layer (activation(aggregate) + residual) over the active
+    pairs, in ``nodes.dtype`` (float32, or bfloat16 with float32 sums).
+    ``group`` > 1 goes through ``mp_blocksparse_grouped``, for a structure
+    built with that ``group``.
+
+    Replaces ``_mp_bs_kernel`` (nmrgnn_tpu/ops/blocksparse.py:301-338,
+    446-504). On the card a block takes a few rows of one row block and
+    all F columns, loops over the row block's pairs (CSR offsets), staging
+    each pair's node rows and A columns through two shared-memory stages
+    with ``cp.async`` and skipping all-zero A chunks, then the weights, and
+    applies the epilogue. Its bound is reading A; the kernel spends its
+    time on the float32 FMAs of the nonzero chunks and on staging every
+    chunk."""
+    if not _on_cuda(nodes, "mp_blocksparse"):
+        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name)
+    if group > 1:
+        return mp_blocksparse_grouped(A, struct, nodes, w, inv_degree, activation_name, group)
+    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse")
+    mp_blocksparse.launches += 1
+    return out
+
+
+mp_blocksparse.launches = 0
+
+
+def mp_blocksparse_grouped(
+    A: torch.Tensor,           # [P, E, B, B], P a multiple of group
+    struct: BlockStructure,    # built with block_structure(..., group=group)
+    nodes: torch.Tensor,
+    w: torch.Tensor,
+    inv_degree: torch.Tensor,
+    activation_name: str = "softplus",
+    group: int = 4,
+) -> torch.Tensor:
+    """``mp_blocksparse`` over a structure whose rows' pair runs are padded
+    to a multiple of ``group``; the same function.
+
+    Replaces ``_mp_bs_kernel_grouped`` (nmrgnn_tpu/ops/blocksparse.py:
+    341-443), which takes G pairs of one row block a grid step to amortise
+    the TPU's per-step cost. On the card it launches ``mp_blocksparse``'s
+    kernel: a block already walks all of its row block's pairs, and a
+    padding pair (A = 0) adds zeros. Bound as ``mp_blocksparse``."""
+    if not _on_cuda(nodes, "mp_blocksparse_grouped"):
+        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name)
+    if group < 1 or A.shape[0] % group:
+        raise ValueError(f"{A.shape[0]} pairs are not whole groups of {group}")
+    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse_grouped")
+    mp_blocksparse_grouped.launches += 1
+    return out
+
+
+mp_blocksparse_grouped.launches = 0
+
+KERNEL_WRAPPERS = (build_block_adjacency, mp_blocksparse, mp_blocksparse_grouped)
+
+
+def reset_launch_counts() -> None:
+    for f in KERNEL_WRAPPERS:
+        f.launches = 0

@@ -435,3 +435,151 @@ def test_hbm_class_forward_and_batched_frames_on_the_card(dev):
     assert banded.mp_banded.launches == cfg.mp_layers
     loop = torch.stack([apply_banded(params, cfg, Graph(*_on(dev, *f)), plan) for f in frames])
     torch.testing.assert_close(batch, loop, rtol=2e-4, atol=2e-4)
+
+
+def _block_case(dev, n, k, f, e, seed, banded_nlist, group):
+    """make_case's adversarial graph, its block structure (pair_rounding
+    32), the padded node table and inv_degree on the card."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    nlist, dists, efeat, nodes, w, inv = make_case(n, k, f, e, seed, banded_nlist)
+    s = blocksparse.block_structure(nlist, dists, 128, pair_rounding=32, group=group)
+    pad = s.n_padded - n
+    nl, ef, x, wt, iv = _on(dev, nlist, efeat, np.pad(nodes, ((0, pad), (0, 0))), w,
+                            np.pad(inv, (0, pad)))
+    return s, blocksparse.struct_on_device(s, dev), nl, ef, x, wt, iv
+
+
+@pytest.mark.parametrize("n,k,e,banded_nlist,group,dtype", [
+    (400, 9, 3, False, 1, torch.float32), (400, 9, 3, False, 4, torch.bfloat16),
+    (700, 16, 3, True, 4, torch.float32), (513, 16, 1, True, 1, torch.bfloat16),
+    (300, 40, 4, False, 2, torch.float32), (128, 3, 2, False, 1, torch.float32),
+])
+def test_build_block_adjacency_kernel_matches_plain(dev, n, k, e, banded_nlist, group, dtype):
+    """B10 against its plain version (float32 1e-5, bfloat16 one step: both
+    sum in float32 in slot order and round once); padding pairs exactly
+    zero, also where one duplicates a real pair; K past one warp's 32
+    lanes; a structure given as numpy equals one on the card."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    s, sd, nl, ef, *_ = _block_case(dev, n, k, 8, e, n + k, banded_nlist, group)
+    before = blocksparse.build_block_adjacency.launches
+    got = blocksparse.build_block_adjacency(nl, ef, sd, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert blocksparse.build_block_adjacency.launches == before + 1 and got.dtype == dtype
+    _close(got, blocksparse.build_block_adjacency_plain(nl, ef, sd, out_dtype=dtype), dtype)
+    invalid = torch.as_tensor(s.pair_valid == 0, device=dev)
+    if invalid.any():
+        assert float(got[invalid].float().abs().max()) == 0.0
+    torch.testing.assert_close(blocksparse.build_block_adjacency(nl, ef, s, out_dtype=dtype),
+                               got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f,e,dtype,act", [
+    (256, 3, torch.float32, "softplus"), (256, 3, torch.bfloat16, "softplus"),
+    (128, 1, torch.float32, "relu"), (64, 4, torch.bfloat16, "tanh"),
+    (128, 2, torch.bfloat16, "linear"),
+])
+def test_mp_blocksparse_kernels_match_plain(dev, f, e, dtype, act):
+    """B11 on the group-1 structure and B12 on the group-4 structure of the
+    same graph against their plain version (float32 2e-4; bfloat16 one
+    step of the output: h stays float32, the output is rounded once), and
+    B12 equal to B11: the extra pairs add zeros. Each wrapper counts only
+    its own launches. Padding rows: softplus(0) + 0 = log 2."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    n = 700
+    s1, sd1, nl, ef, x, wt, iv = _block_case(dev, n, 16, f, e, f + e, True, 1)
+    s4, sd4, *_ = _block_case(dev, n, 16, f, e, f + e, True, 4)
+    assert not np.array_equal(s4.pair_rows, s1.pair_rows)  # the runs are padded
+    A1 = blocksparse.build_block_adjacency(nl, ef, sd1, out_dtype=dtype)
+    A4 = blocksparse.build_block_adjacency(nl, ef, sd4, out_dtype=dtype)
+    x = x.to(dtype)
+    before = blocksparse.mp_blocksparse.launches, blocksparse.mp_blocksparse_grouped.launches
+    got1 = blocksparse.mp_blocksparse(A1, sd1, x, wt, iv, act)
+    torch.cuda.synchronize()
+    got4 = blocksparse.mp_blocksparse(A4, sd4, x, wt, iv, act, group=4)
+    torch.cuda.synchronize()
+    assert (blocksparse.mp_blocksparse.launches,
+            blocksparse.mp_blocksparse_grouped.launches) == (before[0] + 1, before[1] + 1)
+    assert got1.dtype == got4.dtype == dtype
+    for got, A, s in ((got1, A1, sd1), (got4, A4, sd4)):
+        want = blocksparse.mp_blocksparse_plain(A, s, x, wt, iv, act)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                       atol=BF16_STEP * float(want.float().abs().max()))
+    torch.testing.assert_close(got4, got1, rtol=0, atol=0)
+    if act == "softplus" and dtype == torch.float32:
+        torch.testing.assert_close(got1[n:], torch.full_like(got1[n:], np.log(2.0)))
+
+
+def test_blocksparse_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    s, sd, nl, ef, x, wt, iv = _block_case(dev, 300, 7, 96, 3, 5, False, 4)
+    with pytest.raises(TypeError):  # int64 neighbor lists
+        blocksparse.build_block_adjacency(nl.long(), ef, sd)
+    with pytest.raises(TypeError):  # float16 output
+        blocksparse.build_block_adjacency(nl, ef, sd, out_dtype=torch.float16)
+    with pytest.raises(ValueError):  # neighbor lists on the CPU
+        blocksparse.build_block_adjacency(nl.cpu(), ef, sd)
+    A = blocksparse.build_block_adjacency(nl, ef, sd)
+    with pytest.raises(NotImplementedError):  # F = 96
+        blocksparse.mp_blocksparse(A, sd, x, wt, iv)
+    x2, wt2 = x[:, :64].contiguous(), wt[:64, :64].contiguous()
+    with pytest.raises(TypeError):  # A in float32, the table in bfloat16
+        blocksparse.mp_blocksparse(A, sd, x2.bfloat16(), wt2, iv)
+    with pytest.raises(ValueError):  # a table of another size than the structure's
+        blocksparse.mp_blocksparse(A, sd, x2[:128].contiguous(), wt2, iv[:128].contiguous())
+    with pytest.raises(ValueError):  # 3 does not divide the pair count (a multiple of 32)
+        blocksparse.mp_blocksparse(A, sd, x2, wt2, iv, group=3)
+    with pytest.raises(ValueError):  # a pair col past the last block
+        blocksparse.build_block_adjacency(nl, ef, s._replace(pair_cols=s.pair_cols + s.nb))
+    ok = blocksparse.mp_blocksparse(A, sd, x2, wt2, iv, group=4)  # the F = 64 kernel takes it
+    # given on the card, a pair col out of range reads zeros (here a padding
+    # pair's, whose A is zero) and offsets past the pair count are clamped
+    bad = sd._replace(pair_cols=sd.pair_cols.clone(), row_ptr=sd.row_ptr.clone())
+    bad.pair_cols[int(np.nonzero(s.pair_valid == 0)[0][-1])] = 10 ** 6
+    bad.row_ptr[-1] = 10 ** 6
+    got = blocksparse.mp_blocksparse(A, bad, x2, wt2, iv, group=4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ok, rtol=0, atol=0)
+
+
+def test_blocksparse_forward_and_serving_on_the_card(dev):
+    """apply_blocksparse(group=1) launches 1 B10 and one B11 per layer and
+    equals its plain versions within 2e-4; ServingModel(mode="blocksparse")
+    launches per frame 1 B10 and one B12 per layer and equals the gather
+    forward within 5e-4; fast serving lies in the fast band of it."""
+    from nmrgnn_tpu_torch.models.infer import apply_blocksparse
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    cfg = ModelConfig()
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(5), device=dev)
+    n = 600
+    rng = np.random.default_rng(9)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    nlist = rng.integers(0, n, (n, 16)).astype(np.int32)  # no band: many pairs
+    dists = rng.uniform(0.09, 0.3, (n, 16)).astype(np.float32)
+    g = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    gt = Graph(*_on(dev, *g))
+    s = blocksparse.block_structure(nlist, dists, 128, pair_rounding=32)
+    blocksparse.reset_launch_counts()
+    got = apply_blocksparse(params, cfg, gt, s)
+    torch.cuda.synchronize()
+    assert blocksparse.build_block_adjacency.launches == 1
+    assert blocksparse.mp_blocksparse.launches == cfg.mp_layers
+    assert blocksparse.mp_blocksparse_grouped.launches == 0
+    torch.testing.assert_close(got, apply_blocksparse(params, cfg, gt, s, use_kernels=False),
+                               rtol=2e-4, atol=2e-4)
+    ref = gnn.apply(params, cfg, gt).cpu().numpy()
+    blocksparse.reset_launch_counts()
+    exact = ServingModel(params, cfg, mode="blocksparse").predict(g)
+    assert blocksparse.build_block_adjacency.launches == 1
+    assert blocksparse.mp_blocksparse_grouped.launches == cfg.mp_layers
+    np.testing.assert_allclose(exact, ref, rtol=5e-4, atol=5e-4)
+    fast = ServingModel(params, cfg, mode="blocksparse", precision="fast").predict(g)
+    assert np.corrcoef(fast, exact)[0, 1] > 0.9999
+    np.testing.assert_allclose(fast, exact, rtol=0.05, atol=1.0)

@@ -249,8 +249,7 @@ def test_resolve_mode_matches_jax(bundled, case):
     tests/test_serving.py:122-144 to "banded_hbm" in float32 (with a wider
     band, on half-height tiles) and to "banded" in bfloat16, whose table
     is half as large, as is a 12,288-atom structure's; a band past both
-    budgets, where the JAX package resolves
-    "blocksparse", to "banded_hbm" with the full plan in the port."""
+    budgets to "blocksparse", with the JAX package's block structure."""
     jparams, jcfg, params, cfg = bundled
     g = {
         "small": lambda: skewed_graph(),
@@ -263,13 +262,15 @@ def test_resolve_mode_matches_jax(bundled, case):
         jsm = JServingModel(jparams, jcfg, use_pallas=True, reorder=False, precision=precision)
         sm = ServingModel(params, cfg, device="cpu", reorder=False, precision=precision)
         want, got = jsm._resolve_mode(JGraph(*g)), sm._resolve_mode(g)
-        if want == "blocksparse":
-            assert case == "past_both_budgets" and got == "banded_hbm"
-            full = tb.band_plan(g.nlist, g.edges)
-            assert sm._plan.window == full.window and sm._plan.block_rows == 128
-            np.testing.assert_array_equal(sm._plan.lo, full.lo)
-            continue
         assert got == want, (case, precision)
+        if want == "blocksparse":
+            assert case == "past_both_budgets"
+            got_s, want_s = sm._block_struct(g), jsm._block_struct(JGraph(*g))
+            for f in ("pair_rows", "pair_cols", "pair_valid", "edge_pair", "key_sorted",
+                      "key_pos"):
+                np.testing.assert_array_equal(getattr(got_s, f), getattr(want_s, f))
+            assert (got_s.block_size, got_s.n_padded) == (want_s.block_size, want_s.n_padded)
+            continue
         assert (sm._plan.window, sm._plan.block_rows) == (jsm._plan.window,
                                                           jsm._plan.block_rows)
         np.testing.assert_array_equal(sm._plan.lo, jsm._plan.lo)
@@ -281,6 +282,36 @@ def test_resolve_mode_matches_jax(bundled, case):
         assert got == expect[precision == "fast"]
         if case == "hbm_16k_half_tiles" and precision == "exact":
             assert sm._plan.block_rows == 64
+
+
+def test_escaping_hbm_frame_re_resolves_as_jax(bundled, monkeypatch):
+    """A "banded_hbm" structure whose later frame's band escapes the HBM
+    budget re-resolves that frame from scratch, to "blocksparse", as the
+    JAX model does (serving.py:253-264, 720-725); a following narrow frame
+    keeps the block-sparse path, its structure remapped. The forwards are
+    stubbed: only the host rule and the dispatch run."""
+    jparams, jcfg, params, cfg = bundled
+    from nmrgnn_tpu_torch.models import serving
+
+    jsm = JServingModel(jparams, jcfg, use_pallas=True, reorder=False)
+    sm = ServingModel(params, cfg, device="cpu", reorder=False)
+    zeros = lambda *a, **k: torch.zeros(16384)  # noqa: E731
+    monkeypatch.setattr(serving, "apply_banded", zeros)
+    monkeypatch.setattr(serving, "apply_blocksparse", zeros)
+    jzeros = lambda *a, **k: (lambda *b: jnp.zeros(16384))  # noqa: E731
+    monkeypatch.setattr(jsm, "_banded_fwd", jzeros)
+    monkeypatch.setattr(jsm, "_blocksparse_fwd", jzeros)
+    narrow, wide = banded_graph(16384, 8, 100), banded_graph(16384, 8, 5000, seed=1)
+    paths = []
+    for g in (narrow, wide, narrow):
+        jsm.predict(JGraph(*g))
+        sm.predict(g)
+        assert sm._resolved == jsm._resolved
+        paths.append(sm._resolved)
+        if sm._resolved == "blocksparse":
+            for f in ("pair_rows", "pair_cols", "pair_valid", "edge_pair"):
+                np.testing.assert_array_equal(getattr(sm._struct, f), getattr(jsm._struct, f))
+    assert paths == ["banded_hbm", "blocksparse", "blocksparse"]
 
 
 def test_hbm_rebucketing_switch_matches_jax(bundled):

@@ -148,8 +148,11 @@ def test_serving_rejects_later_slices(bundled):
     # "fast" now serves, in bfloat16 (tests/test_torch_fast_serving.py)
     fast = ServingModel(params, cfg, device="cpu", precision="fast")
     assert fast.config.compute_dtype == "bfloat16" and cfg.compute_dtype == "float32"
-    with pytest.raises(NotImplementedError):
-        ServingModel(params, cfg, device="cpu", mode="blocksparse")
+    # "blocksparse" now serves (tests/test_torch_blocksparse.py); an unknown
+    # mode raises, as in the JAX package
+    assert ServingModel(params, cfg, device="cpu", mode="blocksparse").mode == "blocksparse"
+    with pytest.raises(ValueError, match="unknown serving mode"):
+        ServingModel(params, cfg, device="cpu", mode="gather")
     with pytest.raises(NotImplementedError):
         ServingModel(params, cfg.replace(mp_type="attention"), device="cpu")
     with pytest.raises(NotImplementedError):  # exact serving needs float32
