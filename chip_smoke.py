@@ -78,9 +78,38 @@ Phases, in order; any failure exits non-zero and prints no result:
     mode="blocksparse" forced on phase 4's 2,482-atom frames: exact peaks
     equal phase 4a's banded ones within 5e-4. Forward times (CUDA events),
     predict() wall times and, with --profile, each forward's breakdown.
- 8. One JSON line listing every kernel of the paths with its launches,
-    error and times.
- 9. The last line: {"ok": true, "device": {...}}.
+ 8. The last TPU kernels, at phase 4's width and on its structure:
+    a. mp_banded_poly_fused (B13, the Chebyshev build fused with MP layer
+       1) in float32 and bfloat16: M against the plain build (1e-5, or one
+       bfloat16 step), nodes_1 against mp_banded_plain on that band (phase
+       3's MP tolerances), and the difference from build_band_poly +
+       mp_banded run serially on the card; B13 timed beside that pair, in
+       turns, at phase 4's and at phase 5's shapes.
+    b. apply_banded(fused_first=True, cheb=...) on phase 4's 3 frames at
+       bfloat16 and float32: 1 B13 and 3 mp_banded launches and no
+       build_band_poly per forward; peaks within a mean 0.05 ppm of the
+       serial uniform forward and in the fast band of phase 4a's exact
+       peaks. Forward times beside the serial forward's, in turns; with
+       --profile, their breakdowns.
+    c. build_band_tracedlo and build_band_poly_tracedlo (B7) with the
+       plan's lo as a tensor, equal to build_band / build_band_poly; with
+       nlist - m and lo - m (m: half the padded rows, whole tiles) equal
+       to them and to their plain versions. The composition of a 2-way
+       row split at m (nmrgnn_tpu/parallel/halo.py:609-645): the interior
+       band through mp_banded_partial on table[:m] plus the halo band
+       through it on table[m:] equals one mp_banded_partial over the full
+       band within phase 3's MP tolerance; 2 builds and 2 partial layers.
+    d. Exact serving of a compute_dtype="bfloat16" config: the fused exact
+       edge stage in bfloat16 against its plain version (one bfloat16 step
+       of M's scale: the EdgeFC sums are taken in another order, so an
+       operand near a rounding boundary rounds the other way);
+       ServingModel(precision="exact") on the 3 frames, 1 fused build and 4
+       bfloat16 MP layers a frame, peaks in the fast band of phase 4a's
+       float32 exact peaks; the forward's time beside the float32 one.
+ 9. One JSON line listing every kernel of the paths (a counterpart of
+    every pl.pallas_call site of the JAX package) with its launches, error
+    and times.
+10. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -183,6 +212,21 @@ def write_supercell_pdb(path: str, grid=SUPERCELL_GRID, n_atoms: int = N_ATOMS, 
     shifts = [np.array(c) * step for c in np.ndindex(*grid)]
     _write_pdb(path, np.concatenate([coords + s for s in shifts]),
                np.tile(elements, len(shifts)), rng, frames, jitter)
+
+
+def split_windows(lo, m: int, window: int, n_padded: int):
+    """(interior, halo) window starts [i32] of the row tiles of shard 0 of
+    a 2-way row split at ``m`` (the partitioned forward's bands,
+    nmrgnn_tpu/parallel/halo.py:609-645), from the full plan's ``lo`` of
+    those tiles: the interior band's windows clipped into the shard's own
+    rows [0, m), so indices >= m fall outside them; the halo band's over
+    the rows [m, n_padded) with indices shifted by -m (interior ones go
+    negative and match nothing), clipped to start at 0."""
+    lo = np.asarray(lo, np.int64)
+    if window > m:
+        raise ValueError(f"window {window} is wider than the shard's {m} rows")
+    return (np.minimum(lo, m - window).astype(np.int32),
+            np.clip(lo - m, 0, n_padded - m - window).astype(np.int32))
 
 
 def _time_ms(fn, repeats: int, inner: int = 10) -> float:
@@ -329,10 +373,11 @@ def _on_card(g, dev):
                    for a, dt in zip(g, dtypes)])
 
 
-def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect) -> dict:
+def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
     """The large structure: the 44,676-atom supercell through "banded_hbm"
     at both precisions, B5 and B9 against their plain versions at its
-    shapes, forward and predict() times."""
+    shapes, forward and predict() times. Returns the results and the
+    supercell's inputs on the card (graph, plan, node table, inv_degree)."""
     import torch
     import torch.nn.functional as nnf
 
@@ -526,7 +571,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect) -> dict:
         "forward_ms": fwd_ms, "predict_wall_ms": predict_ms,
         "frame_wall_s": {"exact": exact_s, "fast": fast_s}, "fast_branches": branches,
         "forward_breakdown": breakdown,
-    }
+    }, dict(gt=gt, plan=plan, plan_d=plan_d, nodes=nodes, inv_p=inv_p)
 
 
 def _phase6(args, dev, params, cfg, counts, expect) -> dict:
@@ -870,6 +915,242 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
         "structures": {p: v["how"] for p, v in served.items()},
         "forward_ms": fwd_ms, "predict_wall_ms": predict_ms,
         "frame_wall_s": {p: v["walls"] for p, v in served.items()},
+        "forward_breakdown": breakdown,
+    }
+
+
+def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict:
+    """The last TPU kernels at phase 4's width: B13 and the fused-first
+    forward, the builds with a caller-given window start (B7) and the
+    interior + halo composition, exact serving in bfloat16 (B3 in
+    bfloat16). ``small``: phase 4's inputs; ``large``: phase 5's."""
+    import torch
+    import torch.nn.functional as nnf
+
+    from nmrgnn_tpu_torch.data.reorder import permute_graph
+    from nmrgnn_tpu_torch.models.infer import _edge_features, apply_banded
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+    from nmrgnn_tpu_torch.ops import banded
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    gt, plan, plan_d, cheb = small["gt"], small["plan"], small["plan_d"], small["cheb"]
+    nodes, inv_p = small["nodes"], small["inv_p"]
+    T, B, W, n_pad = plan.num_tiles, plan.block_rows, plan.window, plan.n_padded
+    N, K = gt.nlist.shape
+    F, E, H = cfg.atom_feature_size, cfg.edge_feature_size, cfg.edge_hidden_size
+    Lh, L = cfg.edge_fc_layers - 1, len(params["mp"])
+    w0, act = params["mp"][0]["w"], cfg.mp_activation
+    deg = cheb.coeffs.shape[0] - 1
+    cheb_flops = N * K * (deg - 1) * (2 + 2 * E) + N * K * 2 * E
+    cheb_in = N * K * 8 + (deg + 1) * E * 4
+    build_tol = {f32: dict(tol=1e-5), bf16: dict(rtol=BF16_STEP, tol=1e-5)}
+    mp_tol = {f32: dict(tol=2e-4), bf16: dict(rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP)}
+    launches = {}
+
+    def close(got, want, tol, rtol=None, tol_of_max=0.0):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol if rtol is None else rtol,
+                                   atol=tol + tol_of_max * float(want.float().abs().max()))
+        return float((got.float() - want.float()).abs().max())
+
+    def in_turns(fns, repeats=10, inner=10):
+        """Median times of two versions timed in turns: a, b, b, a."""
+        a, b = fns
+        t = [_time_ms(f, repeats, inner) for f in (a, b, b, a)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    # -- 8a: B13 against its plain version and against B4 + B1 --------------------
+    b13 = {}
+    for dt, tag, eb, peak in ((f32, "float32", 4, PEAK_F32_FLOPS),
+                              (bf16, "bfloat16", 2, PEAK_BF16_FLOPS)):
+        table = nodes.to(dt)
+
+        def fused(table=table, dt=dt):
+            return banded.mp_banded_poly_fused(gt.nlist, gt.edges, cheb, plan_d, table, w0,
+                                               inv_p, act, out_dtype=dt)
+
+        def plain(table=table, dt=dt):
+            return banded.mp_banded_poly_fused_plain(gt.nlist, gt.edges, cheb, plan_d, table,
+                                                     w0, inv_p, act, out_dtype=dt)
+
+        def serial(table=table, dt=dt):
+            M = banded.build_band_poly(gt.nlist, gt.edges, cheb, plan_d, out_dtype=dt)
+            return M, banded.mp_banded(M, plan_d, table, w0, inv_p, act)
+
+        (M, got), (M_plain, _), (M_ser, ser) = fused(), plain(), serial()
+        torch.cuda.synchronize()
+        m_err = close(M, M_plain, **build_tol[dt])
+        nnz = int((M != 0).sum())
+        check(
+            "mp_banded_poly_fused" + ("" if dt == f32 else "_bf16"),
+            "nmrgnn_tpu/ops/banded.py:1522",
+            lambda f=fused: f()[1], lambda p=plain: p()[1], **mp_tol[dt],
+            flops=cheb_flops + 2 * nnz * F + 2 * T * E * B * F * F,
+            # distances and indices, coefficients, lo, the table, the
+            # weights and inv_degree read once; M and nodes_1 written once
+            nbytes=(cheb_in + T * 4 + n_pad * F * eb * 2 + F * F * E * eb + n_pad * 4
+                    + T * E * B * W * eb),
+            peak=peak, source="fused_first.cu", dtype=tag, phase=8,
+            extra=f"; M vs plain build {m_err:.3e}",
+        )
+        ser_err = (float((M.float() - M_ser.float()).abs().max()),
+                   float((got.float() - ser.float()).abs().max()))
+        ms_fused, ms_serial = in_turns((lambda f=fused: f(), lambda s=serial: s()))
+        T_l = large["plan"].num_tiles
+        lt = large["nodes"].to(dt)
+        big = (lambda lt=lt, dt=dt: banded.mp_banded_poly_fused(
+                   large["gt"].nlist, large["gt"].edges, cheb, large["plan_d"], lt, w0,
+                   large["inv_p"], act, out_dtype=dt),
+               lambda lt=lt, dt=dt: banded.mp_banded(banded.build_band_poly(
+                   large["gt"].nlist, large["gt"].edges, cheb, large["plan_d"], out_dtype=dt),
+                   large["plan_d"], lt, w0, large["inv_p"], act))
+        big_fused, big_serial = in_turns(big, repeats=5, inner=3)
+        b13[tag] = {"M_vs_serial": ser_err[0], "nodes_1_vs_serial": ser_err[1],
+                    "ms": ms_fused, "serial_ms": ms_serial,
+                    "large_T": T_l, "large_ms": big_fused, "large_serial_ms": big_serial}
+        print(f"phase 8a: mp_banded_poly_fused [{tag}]: max |B13 - (B4 + B1) on the card| M "
+              f"{ser_err[0]:.3e}, nodes_1 {ser_err[1]:.3e}; in turns (CUDA events): B13 "
+              f"{ms_fused:.4f} ms vs B4 + B1 {ms_serial:.4f} ms at T={T}; {big_fused:.4f} ms vs "
+              f"{big_serial:.4f} ms at T={T_l} ({large['gt'].nlist.shape[0]} atoms)")
+        del M, got, M_plain, M_ser, ser, table, lt
+        torch.cuda.empty_cache()
+
+    # -- 8b: the fused-first forward on phase 4's frames ----------------------------
+    fwd_launch = []
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for f, g in enumerate(small["graphs"]):
+        gp, inverse = permute_graph(g, small["order"], pin_zero=False)
+        plan_f = banded.plan_on_device(banded.band_plan(gp.nlist, gp.edges), dev)
+        gf = _on_card(gp, dev)
+        for c, tag in ((cfg16, "bfloat16"), (cfg, "float32")):
+            _reset_counts()
+            got = apply_banded(params, c, gf, plan_f, cheb=cheb, fused_first=True)
+            torch.cuda.synchronize()
+            fwd_launch.append((tag, counts()))
+            expect(fwd_launch[-1][1], mp_banded_poly_fused=1, mp_banded=L - 1)
+            got = got.cpu().numpy()[inverse]
+            ser = apply_banded(params, c, gf, plan_f, cheb=cheb).cpu().numpy()[inverse]
+            _in_fast_band(got, ser, f"fused-first frame {f} [{tag}]", 0.05)
+            band = _in_fast_band(got, small["peaks"][f], f"fused-first frame {f} [{tag}]")
+            worst[tag] = max(worst[tag], float(np.abs(got - ser).max()))
+            print(f"phase 8b: fused-first forward, frame {f} [{tag}]: launches "
+                  f"{ {k: v for k, v in fwd_launch[-1][1].items() if v} }; max |fused-first - "
+                  f"serial uniform| {np.abs(got - ser).max():.3e} ppm; vs exact peaks {band}")
+    for tag in ("float32", "bfloat16"):
+        name = "mp_banded_poly_fused" + ("" if tag == "float32" else "_bf16")
+        launches[name] = sum(c["mp_banded_poly_fused"] for t, c in fwd_launch if t == tag)
+    fwd = {"fused_first_fast": (lambda: apply_banded(params, cfg16, gt, plan_d, cheb=cheb,
+                                                     fused_first=True),
+                                lambda: apply_banded(params, cfg16, gt, plan_d, cheb=cheb)),
+           "fused_first_f32": (lambda: apply_banded(params, cfg, gt, plan_d, cheb=cheb,
+                                                    fused_first=True),
+                               lambda: apply_banded(params, cfg, gt, plan_d, cheb=cheb))}
+    fwd_ms = {}
+    for k, pair in fwd.items():
+        fwd_ms[k], fwd_ms[k + "_serial"] = in_turns(pair, repeats=10, inner=5)
+        print(f"phase 8b: {k} forward {fwd_ms[k]:.4f} ms vs the serial forward "
+              f"{fwd_ms[k + '_serial']:.4f} ms (in turns, CUDA events)")
+    breakdown = ({k: _profile_forward(pair[0], fwd_ms[k], k) for k, pair in fwd.items()}
+                 if args.profile else None)
+
+    # -- 8c: B7 and the interior + halo composition -----------------------------------
+    m = (n_pad // 2 + B - 1) // B * B
+    pad = n_pad - N
+    nl_p = nnf.pad(gt.nlist, (0, 0, 0, pad), value=-1)
+    d_p = nnf.pad(gt.edges, (0, 0, 0, pad))
+    e_feat = _edge_features(params, cfg, gt.edges)
+    e_p = nnf.pad(e_feat, (0, 0, 0, 0, 0, pad))
+    lo = plan_d.lo
+    real_edges = int((small["g_rcm"].edges > 0).sum())
+    builds = {
+        "build_band_tracedlo": (
+            f32, lambda nl, lo_, rows=n_pad: banded.build_band_tracedlo(nl, e_p[:rows], lo_, W, B),
+            lambda nl, lo_, rows=n_pad: banded.build_band_tracedlo_plain(nl, e_p[:rows], lo_, W,
+                                                                         B),
+            banded.build_band(gt.nlist, e_feat, plan_d), "nmrgnn_tpu/ops/banded.py:788", 4,
+            2 * real_edges * E,
+            n_pad * K * 4 * (1 + E) + T * 4, "banded.cu"),
+        "build_band_poly_tracedlo": (
+            bf16, lambda nl, lo_, rows=n_pad: banded.build_band_poly_tracedlo(
+                nl, d_p[:rows], cheb, lo_, W, B, bf16),
+            lambda nl, lo_, rows=n_pad: banded.build_band_poly_tracedlo_plain(
+                nl, d_p[:rows], cheb, lo_, W, B, bf16),
+            banded.build_band_poly(gt.nlist, gt.edges, cheb, plan_d, bf16),
+            "nmrgnn_tpu/ops/banded.py:1363", 2, cheb_flops, cheb_in + T * 4, "poly.cu"),
+    }
+    lo_int, lo_halo = split_windows(plan.lo[: m // B], m, W, n_pad)
+    split = {}
+    for name, (dt, build, plain, ref, line, eb, flops, in_bytes, src) in builds.items():
+        tag = "float32" if dt == f32 else "bfloat16"
+        full = check(name, line, lambda b=build: b(nl_p, lo), lambda p=plain: p(nl_p, lo),
+                     **build_tol[dt], flops=flops, nbytes=in_bytes + T * E * B * W * eb,
+                     source=src, dtype=tag, phase=8)
+        if not torch.equal(full, ref):
+            raise SystemExit(f"chip_smoke: {name} with the plan's lo differs from its build")
+        shifted = build(nl_p - m, lo - m)
+        torch.cuda.synchronize()
+        shift_err = close(shifted, plain(nl_p - m, lo - m), **build_tol[dt])
+        if not torch.equal(shifted, full):
+            raise SystemExit(f"chip_smoke: {name} with indices shifted by -{m} differs")
+        table = nodes.to(dt)
+        want = banded.mp_banded_partial(full[: m // B].contiguous(), plan.lo[: m // B], table, w0)
+        _reset_counts()
+        M_int = build(nl_p[:m], lo_int, m)
+        M_halo = build(nl_p[:m] - m, lo_halo, m)
+        acc = (banded.mp_banded_partial(M_int, lo_int, table[:m], w0)
+               + banded.mp_banded_partial(M_halo, lo_halo, table[m:], w0))
+        torch.cuda.synchronize()
+        got_launches = counts()
+        expect(got_launches, **{name: 2, "mp_banded_partial": 2})
+        launches[name] = got_launches[name]
+        halo_err = close(M_halo, plain(nl_p[:m] - m, lo_halo, m), **build_tol[dt])
+        err = close(acc, want, **mp_tol[dt])
+        split[name] = {"shifted_vs_plain": shift_err, "halo_vs_plain": halo_err,
+                       "split_vs_full": err, "halo_nonzeros": int((M_halo != 0).sum())}
+        print(f"phase 8c: {name} [{tag}]: with the plan's lo equal to its build; indices and lo "
+              f"shifted by -{m}: equal to it, {shift_err:.3e} from the plain version; 2-way "
+              f"split at m={m}: launches { {k: v for k, v in got_launches.items() if v} }, halo "
+              f"band {split[name]['halo_nonzeros']} nonzeros ({halo_err:.3e} from plain), "
+              f"max |interior + halo - full| {err:.3e}")
+        del full, shifted, M_int, M_halo, acc, want, table
+
+    # -- 8d: exact serving of a bfloat16 config ----------------------------------------
+    ew = params["edge_fc"]
+    fc = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation)
+    check(
+        "build_band_fused_bf16", "nmrgnn_tpu/ops/banded.py:1107",
+        lambda: banded.build_band_fused(gt.nlist, gt.edges, ew, plan_d, **fc, out_dtype=bf16,
+                                        compute_dtype=bf16),
+        lambda: banded.build_band_fused_plain(gt.nlist, gt.edges, ew, plan_d, **fc,
+                                              out_dtype=bf16, compute_dtype=bf16),
+        rtol=BF16_STEP, tol=0.0, tol_of_max=BF16_STEP,
+        flops=2 * real_edges * H * (H * Lh + E), peak=PEAK_BF16_FLOPS,
+        nbytes=(N * K * 8 + 4 * sum(t.numel() for p in ew for t in p.values()) + T * 4
+                + T * E * B * W * 2),
+        dtype="bfloat16", phase=8,
+    )
+    _reset_counts()
+    model16 = ServingModel(params, cfg16, device=dev)
+    peaks16 = [model16.predict(g) for g in small["graphs"]]
+    served = counts()
+    nf = len(small["graphs"])
+    expect(served, build_band_fused=nf, mp_banded=nf * L)
+    if model16._resolved != "banded" or model16.config.compute_dtype != "bfloat16":
+        raise SystemExit(f"chip_smoke: exact bfloat16 served through {model16._resolved} in "
+                         f"{model16.config.compute_dtype}")
+    launches["build_band_fused_bf16"] = served["build_band_fused"]
+    for f, p in enumerate(peaks16):
+        print(f"phase 8d: exact bfloat16 frame {f} vs exact float32 frame {f}: "
+              f"{_in_fast_band(p, small['peaks'][f], f'exact bfloat16 frame {f}')}")
+    exact_ms = in_turns((lambda: apply_banded(params, cfg16, gt, plan_d),
+                         lambda: apply_banded(params, cfg, gt, plan_d)))
+    print(f"phase 8d: exact serving in bfloat16: launches "
+          f"{ {k: v for k, v in served.items() if v} } for {nf} frames; forward "
+          f"{exact_ms[0]:.4f} ms vs float32 {exact_ms[1]:.4f} ms (in turns, CUDA events)")
+    return {
+        "m": m, "launches": launches, "b13": b13, "forward_ms": fwd_ms,
+        "fused_first_vs_serial_max_ppm": worst, "split": split,
+        "exact_bf16_forward_ms": exact_ms[0], "exact_f32_forward_ms": exact_ms[1],
         "forward_breakdown": breakdown,
     }
 
@@ -1237,7 +1518,7 @@ def main(argv=None) -> int:
 
     # -- phases 5 and 6 -----------------------------------------------------
     t_phase = time.perf_counter()
-    large = _phase5(args, dev, params, cfg, cheb_d, check, counts, expect)
+    large, large_inputs = _phase5(args, dev, params, cfg, cheb_d, check, counts, expect)
     print(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     traj = _phase6(args, dev, params, cfg, counts, expect)
@@ -1245,8 +1526,13 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     wide = _phase7(args, dev, params, cfg, graphs, peaks, check, counts, expect)
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    small = dict(graphs=graphs, order=order, peaks=peaks, g_rcm=g_rcm, gt=gt, plan=plan,
+                 plan_d=plan_d, cheb=cheb_d, nodes=nodes, inv_p=inv_p)
+    last = _phase8(args, dev, params, cfg, small, large_inputs, check, counts, expect)
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     for k in kernels:
-        for phase in (large, wide):
+        for phase in (large, wide, last):
             if k["name"] in phase["launches"]:
                 k["launches"] = phase["launches"][k["name"]]
         if not k["launches"]:
@@ -1262,7 +1548,7 @@ def main(argv=None) -> int:
                 "plain_forward_ms": plain_fwd_ms, "predict_wall_ms": predict_ms,
                 "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,
-                "wide": wide,
+                "wide": wide, "last_kernels": last,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

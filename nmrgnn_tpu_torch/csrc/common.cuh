@@ -1,6 +1,7 @@
-// Device code shared by banded.cu, poly.cu, hbm.cu and blocksparse.cu: the
-// activations, float32 / bfloat16 element access, the cp.async staging of
-// the MP kernels and the band-row writer of the band builds.
+// Device code shared by banded.cu, poly.cu, hbm.cu, fused_first.cu and
+// blocksparse.cu: the activations, float32 / bfloat16 element access, the
+// cp.async staging of the MP kernels, the Chebyshev edge stage and the
+// band-row writer of the band builds.
 //
 // bfloat16 follows the TPU kernels' mixed precision: operands are bf16,
 // products and sums are float32 (a bf16 x bf16 product is exact in f32),
@@ -89,6 +90,39 @@ __device__ __forceinline__ void cp_async_commit() {
 // Waits until at most one committed group is still in flight.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// -- the Chebyshev edge stage (poly.cu, fused_first.cu) ----------------------
+
+// The E edge values of one slot at distance dv: the clamped distance mapped
+// onto [-1, 1], x = 2 (clamp(dv) - d_lo) / span - 1, the forward recurrence
+// T_p = 2x T_{p-1} - T_{p-2} summed in degree order with the coefficients
+// c[p * E + n], then the d > 0 mask. Every product and sum is rounded
+// separately, as the JAX kernel (_poly_build_tile, nmrgnn_tpu/ops/
+// banded.py:1418-1438) and the plain version round them, so no FMA
+// contraction changes a bit and every build gives the same values.
+template <int E>
+__device__ __forceinline__ void cheb_edge(float dv, const float* c, int degree, float d_lo,
+                                          float d_hi, float span, float* e_out) {
+  const float clamped = fminf(fmaxf(dv, d_lo), d_hi);
+  const float x =
+      __fsub_rn(__fdiv_rn(__fmul_rn(2.0f, __fsub_rn(clamped, d_lo)), span), 1.0f);
+  const float x2 = __fmul_rn(2.0f, x);
+  float e[E];
+#pragma unroll
+  for (int n = 0; n < E; ++n) e[n] = __fadd_rn(c[n], __fmul_rn(c[E + n], x));
+  float tp_prev = 1.0f;
+  float tp = x;
+  for (int p = 2; p <= degree; ++p) {
+    const float tn = __fsub_rn(__fmul_rn(x2, tp), tp_prev);
+    tp_prev = tp;
+    tp = tn;
+#pragma unroll
+    for (int n = 0; n < E; ++n) e[n] = __fadd_rn(e[n], __fmul_rn(c[p * E + n], tp));
+  }
+  const float mask = dv > 0.0f ? 1.0f : 0.0f;
+#pragma unroll
+  for (int n = 0; n < E; ++n) e_out[n] = __fmul_rn(e[n], mask);
 }
 
 // -- band rows -------------------------------------------------------------

@@ -28,9 +28,8 @@ namespace {
 // bakes the coefficients into the kernel as constants; here they are a
 // small device array staged in shared memory, and the degree is a runtime
 // value. One block per band row: its K slots' E values come from the
-// forward recurrence (one thread per slot, every product and sum rounded
-// separately as the JAX kernel and the plain version round them, so no
-// FMA contraction changes a bit) into shared memory, then the threads
+// forward recurrence (one thread per slot, common.cuh's cheb_edge, every
+// product and sum rounded separately) into shared memory, then the threads
 // walk the W columns with the compare-in-slot-order loop of build_band,
 // so the stores are coalesced, duplicates add, and out-of-window indices
 // and -1 padding match nothing. Bound: bytes, writing M (T*E*B*W values
@@ -68,27 +67,8 @@ __global__ void __launch_bounds__(kPolyThreads)
       for (int n = 0; n < E; ++n) s_e[k * E + n] = 0.0f;
       continue;
     }
-    const float dv = d[row * K + k];
     s_rel[k] = nlist[row * K + k] - base;
-    const float clamped = fminf(fmaxf(dv, d_lo), d_hi);
-    const float x =
-        __fsub_rn(__fdiv_rn(__fmul_rn(2.0f, __fsub_rn(clamped, d_lo)), span), 1.0f);
-    const float x2 = __fmul_rn(2.0f, x);
-    float e[E];
-#pragma unroll
-    for (int n = 0; n < E; ++n) e[n] = __fadd_rn(s_c[n], __fmul_rn(s_c[E + n], x));
-    float tp_prev = 1.0f;
-    float tp = x;
-    for (int p = 2; p <= degree; ++p) {
-      const float tn = __fsub_rn(__fmul_rn(x2, tp), tp_prev);
-      tp_prev = tp;
-      tp = tn;
-#pragma unroll
-      for (int n = 0; n < E; ++n) e[n] = __fadd_rn(e[n], __fmul_rn(s_c[p * E + n], tp));
-    }
-    const float mask = dv > 0.0f ? 1.0f : 0.0f;
-#pragma unroll
-    for (int n = 0; n < E; ++n) s_e[k * E + n] = __fmul_rn(e[n], mask);
+    cheb_edge<E>(d[row * K + k], s_c, degree, d_lo, d_hi, span, s_e + k * E);
   }
   __syncthreads();
   band_row<E, OutT>(s_rel, s_e, K, W, M + ((size_t)i * E * B + b) * W, (size_t)B * W,

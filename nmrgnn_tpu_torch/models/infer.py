@@ -3,7 +3,8 @@
 ``apply_banded`` builds the band once per forward and runs one banded MP
 layer per ``params["mp"]`` entry, then the readout. The edge stage is the
 exact one (fused RBF + EdgeFC + build by default) or, given ``cheb``, its
-Chebyshev compression, the "fast" precision's.
+Chebyshev compression, the "fast" precision's. With ``fused_first`` the
+Chebyshev build and MP layer 1 are one kernel (``mp_banded_poly_fused``).
 
 ``apply_banded_classes`` is the class-bucketed forward of the fast
 precision: one Chebyshev band per window class, and per MP layer one
@@ -57,6 +58,7 @@ from ..ops.banded import (
     mp_banded_partial,
     mp_banded_partial_plain,
     mp_banded_plain,
+    mp_banded_poly_fused,
     plan_on_device,
 )
 from ..ops.blocksparse import (
@@ -99,16 +101,13 @@ def _band(params, config: ModelConfig, nlist, edges, plan: BandPlan, use_kernels
         build = build_band_poly if use_kernels else build_band_poly_plain
         return build(nlist, edges, cheb, plan, out_dtype=cd)
     if use_kernels and fused_edge:
-        if cd != torch.float32:
-            raise NotImplementedError(
-                "the fused exact edge stage in bfloat16 is ROADMAP queue B3 (bf16)")
         return build_band_fused(
             nlist, edges, params["edge_fc"], plan,
             rbf_low=config.rbf_low, rbf_high=config.rbf_high,
-            activation_name=config.fc_activation,
+            activation_name=config.fc_activation, out_dtype=cd, compute_dtype=cd,
         )
     build = build_band if use_kernels else build_band_plain
-    return build(nlist, _edge_features(params, config, edges), plan).to(cd)
+    return build(nlist, _edge_features(params, config, edges), plan, out_dtype=cd)
 
 
 def _mp_layers(params, config: ModelConfig, M, plan: BandPlan, nodes, inv_p,
@@ -148,18 +147,29 @@ def apply_banded(
     ``hbm_table`` runs the MP layers through ``mp_banded_hbm`` (the node
     table read from device memory tile by tile): the same numerics.
 
+    ``fused_first`` runs the Chebyshev build and MP layer 1 as one kernel
+    (``mp_banded_poly_fused``), then layers 2.. through ``mp_banded``: the
+    serial path's function. It takes the JAX package's condition
+    (``nmrgnn_tpu/models/infer.py:215-216``): kernels on, ``cheb`` given,
+    ``hbm_table`` off and at least one MP layer; otherwise it is ignored.
+
     The band, the node table and the MP weights are in the compute type;
-    the fused exact edge stage is float32 only."""
-    if fused_first:
-        raise NotImplementedError("the fused Chebyshev build + MP layer 1 is ROADMAP queue B13")
+    so are the fused exact edge stage's EdgeFC products (float32 sums)."""
     atoms, nlist, edges, inv_degree = graph
     n = atoms.shape[0]
+    cd = compute_dtype(config)
     plan = plan_on_device(plan, atoms.device)
-    M = _band(params, config, nlist, edges, plan, use_kernels, fused_edge, cheb)
     pad = plan.n_padded - n
-    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(compute_dtype(config))
-    nodes = _mp_layers(params, config, M, plan, nodes, nnf.pad(inv_degree, (0, pad)),
-                       use_kernels, hbm_table)
+    nodes = nnf.pad(dense(params["embed"], atoms).to(cd), (0, 0, 0, pad))
+    inv_p = nnf.pad(inv_degree, (0, pad))
+    if use_kernels and cheb is not None and not hbm_table and fused_first and params["mp"]:
+        M, nodes = mp_banded_poly_fused(nlist, edges, cheb, plan, nodes, params["mp"][0]["w"],
+                                        inv_p, config.mp_activation, out_dtype=cd)
+        for p in params["mp"][1:]:
+            nodes = mp_banded(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+    else:
+        M = _band(params, config, nlist, edges, plan, use_kernels, fused_edge, cheb)
+        nodes = _mp_layers(params, config, M, plan, nodes, inv_p, use_kernels, hbm_table)
     return _readout(params, config, atoms, nodes[:n].float())
 
 

@@ -31,8 +31,10 @@ is remapped to a later frame (``remap_frame``) and rebuilt only when a real
 edge leaves its active pairs. ``predict`` returns peaks in the original
 atom order.
 
-``precision="exact"`` serves in float32 through the fused RBF + EdgeFC
-band build. ``precision="fast"``, the JAX package's production serving
+``precision="exact"`` serves in the config's compute type (float32 by
+default; a ``compute_dtype="bfloat16"`` config serves with bfloat16
+products and float32 sums, as in the JAX package) through the fused RBF +
+EdgeFC band build. ``precision="fast"``, the JAX package's production serving
 configuration, computes the products in bfloat16 with float32 sums and
 replaces the edge stage by its degree-64 Chebyshev fit, fitted once per
 model. On a skewed window distribution (a class plan of more than one
@@ -117,8 +119,9 @@ class ServingModel:
         refuse it), "blocksparse" the block-sparse path, whose structure
         rounds its pair count to a multiple of ``pair_rounding`` and pads
         each row's pairs to a multiple of ``group``. ``precision`` is
-        "exact" (float32) or "fast" (bfloat16 products with float32 sums;
-        on the banded paths the Chebyshev edge stage)."""
+        "exact" (the config's compute type, the exact edge stage) or "fast"
+        (bfloat16 products with float32 sums; on the banded paths the
+        Chebyshev edge stage)."""
         if precision not in ("exact", "fast"):
             raise ValueError(f"unknown precision {precision!r}")
         if mode not in ("auto", "banded", "blocksparse"):
@@ -127,11 +130,6 @@ class ServingModel:
             raise NotImplementedError("attention-family serving is ROADMAP queue A6")
         if precision == "fast" and config.compute_dtype == "float32":
             config = config.replace(compute_dtype="bfloat16")
-        if precision == "exact" and config.compute_dtype != "float32":
-            raise NotImplementedError(
-                "exact serving in bfloat16 needs the fused edge stage in bfloat16 "
-                "(ROADMAP queue B3)"
-            )
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the plain matmuls (embedding, FC block, head) stay float32

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and bind them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
-interface (the ``*.cuh`` headers are included by the sources), compiled
+interface (the ``*.cuh`` headers are included by the sources; ``hbm.cu``
+and ``fused_first.cu`` share ``mp.cuh``'s MP kernel), compiled
 for Hopper with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -27,7 +28,7 @@ from typing import Dict, Iterable, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "nmrgnn_tpu_torch")
-SOURCES = ("banded", "poly", "hbm", "blocksparse")
+SOURCES = ("banded", "poly", "hbm", "fused_first", "blocksparse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

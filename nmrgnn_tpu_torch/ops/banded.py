@@ -27,24 +27,33 @@ forward runs the whole layer, epilogue included, once per class
 device memory: the four MP wrappers launch one kernel (``csrc/hbm.cu``),
 each counting its own launches as the TPU kernel it replaces.
 
+``mp_banded_poly_fused`` builds the Chebyshev band and runs MP layer 1 in
+one kernel (``apply_banded(fused_first=True)``), and the ``*_tracedlo``
+builds take a caller-given window start per tile (the partitioned
+forward's interior and halo bands, whose indices may be shifted negative).
+
 Each wrapper below takes the plain PyTorch version for a tensor on the CPU
 and launches its CUDA kernel (``csrc/banded.cu``, ``poly.cu``,
-``hbm.cu``) for a tensor on the card; it never falls back from the card
-to the plain version. Each counts its launches in ``.launches``.
+``hbm.cu``, ``fused_first.cu``) for a tensor on the card; it never falls
+back from the card to the plain version. Each counts its launches in
+``.launches``.
 
-===================  ==========================================  ==========
-wrapper              replaces (TPU kernel)                       bound
-===================  ==========================================  ==========
-build_band           _build_band_kernel, banded.py:484-507       bytes (M)
-build_band_fused     _fused_edge_band_kernel, banded.py:1107     operations
-mp_banded            _mp_banded_kernel, banded.py:555-579        operations
-                     (float32; bfloat16: bytes)
-build_band_poly      _poly_band_kernel, banded.py:1268, 1418     bytes (M)
-build_band_poly_cls  build_band_poly_cls, banded.py:1645-1700    bytes (M)
-mp_banded_partial    _mp_banded_partial_kernel, banded.py:833    bytes
-mp_banded_hbm        _mp_banded_hbm_kernel, banded.py:656-773    as mp_banded
-mp_banded_hbm_cls    _mp_banded_hbm_cls_kernel, banded.py:1703   as mp_banded
-===================  ==========================================  ==========
+========================  ==========================================  ==========
+wrapper                   replaces (TPU kernel)                       bound
+========================  ==========================================  ==========
+build_band                _build_band_kernel, banded.py:484-548       bytes (M)
+build_band_tracedlo       build_band_tracedlo, banded.py:788-830      bytes (M)
+build_band_fused          _fused_edge_band_kernel, banded.py:1107     operations
+mp_banded                 _mp_banded_kernel, banded.py:555-579        operations
+                          (float32; bfloat16: bytes)
+build_band_poly           _poly_band_kernel, banded.py:1268, 1418     bytes (M)
+build_band_poly_tracedlo  build_band_poly_tracedlo, banded.py:1363    bytes (M)
+mp_banded_poly_fused      _poly_mp_fused_kernel, banded.py:1451-1604  as mp_banded
+build_band_poly_cls       build_band_poly_cls, banded.py:1645-1700    bytes (M)
+mp_banded_partial         _mp_banded_partial_kernel, banded.py:833    bytes
+mp_banded_hbm             _mp_banded_hbm_kernel, banded.py:656-773    as mp_banded
+mp_banded_hbm_cls         _mp_banded_hbm_cls_kernel, banded.py:1703   as mp_banded
+========================  ==========================================  ==========
 
 The band plans are host-side numpy, as in the JAX package.
 """
@@ -399,22 +408,48 @@ def _long(a, device) -> torch.Tensor:
 # nmrgnn_tpu/ops/banded.py:1826-1867).
 
 
+def _tiles_of(m: int, block_rows: int) -> int:
+    """The tiles of ``m`` rows, which must be whole ``block_rows``-row
+    tiles (the JAX package asserts it, ``banded.py:803``, ``:1386``)."""
+    if m % block_rows:
+        raise ValueError(f"{m} rows are not whole {block_rows}-row tiles")
+    return m // block_rows
+
+
+def build_band_tracedlo_plain(
+    nlist: torch.Tensor,       # i32[M, K], M a multiple of block_rows
+    edge_feats: torch.Tensor,  # f32[M, K, E]
+    lo,                        # i32[M / block_rows] window starts (tensor or numpy)
+    window: int,
+    block_rows: int = 128,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M [T, E, B, W] in ``out_dtype`` by a one-hot compare against
+    lo_t + w and a float32 contraction over K, rounded once. An index
+    outside [lo_t, lo_t + W), negative ones included, matches nothing."""
+    m, k = nlist.shape
+    T = _tiles_of(m, block_rows)
+    e = edge_feats.shape[-1]
+    dev = edge_feats.device
+    rel = nlist.to(torch.int64).view(T, block_rows, k) - _long(lo, dev)[:, None, None]
+    mask = (rel[..., None] == torch.arange(window, device=dev)).to(torch.float32)
+    M = torch.einsum("tbkw,tbke->tebw", mask, edge_feats.float().view(T, block_rows, k, e))
+    return M.to(out_dtype).contiguous()
+
+
 def build_band_plain(
     nlist: torch.Tensor,       # i32[N, K]
     edge_feats: torch.Tensor,  # f32[N, K, E], 0 on padding slots
     plan: BandPlan,
+    out_dtype=torch.float32,
 ) -> torch.Tensor:
-    """M f32[T, E, B, W] by a one-hot compare and a contraction over K."""
-    B, W, T = plan.block_rows, plan.window, plan.num_tiles
-    n, k = nlist.shape
-    e = edge_feats.shape[-1]
-    pad = plan.n_padded - n
-    dev = edge_feats.device
+    """M [T, E, B, W] in ``out_dtype``: the rows padded to the plan (-1),
+    then ``build_band_tracedlo_plain`` with the plan's window starts."""
+    pad = plan.n_padded - nlist.shape[0]
     nlist_p = nnf.pad(nlist.to(torch.int64), (0, 0, 0, pad), value=-1)
     e_p = nnf.pad(edge_feats, (0, 0, 0, 0, 0, pad))
-    rel = nlist_p.view(T, B, k) - _long(plan.lo, dev)[:, None, None]
-    mask = (rel[..., None] == torch.arange(W, device=dev)).to(edge_feats.dtype)
-    return torch.einsum("tbkw,tbke->tebw", mask, e_p.view(T, B, k, e)).contiguous()
+    return build_band_tracedlo_plain(nlist_p, e_p, plan.lo, plan.window, plan.block_rows,
+                                     out_dtype)
 
 
 def build_band_fused_plain(
@@ -426,11 +461,15 @@ def build_band_fused_plain(
     rbf_low: float,
     rbf_high: float,
     activation_name: str = "softplus",
+    out_dtype=torch.float32,
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
-    """M f32[T, E, B, W] from raw distances: the edge stage, then the band."""
+    """M [T, E, B, W] in ``out_dtype`` from raw distances: the edge stage
+    with its products' operands in ``compute_dtype`` (float32 sums), then
+    the band in float32, rounded once."""
     e = edge_features(edges, edge_fc_params, rbf_low=rbf_low, rbf_high=rbf_high,
-                      activation_name=activation_name)
-    return build_band_plain(nlist, e, plan)
+                      activation_name=activation_name, compute_dtype=compute_dtype)
+    return build_band_plain(nlist, e, plan, out_dtype)
 
 
 def mp_banded_partial_plain(
@@ -568,6 +607,43 @@ def build_band_poly_plain(
     return _poly_band(nl, d, _long(plan.lo, edges.device), cheb, plan.window, out_dtype)
 
 
+def build_band_poly_tracedlo_plain(
+    nlist: torch.Tensor,   # i32[M, K], M a multiple of block_rows
+    edges: torch.Tensor,   # f32[M, K] raw distances
+    cheb: EdgeCheb,
+    lo,                    # i32[M / block_rows] window starts (tensor or numpy)
+    window: int,
+    block_rows: int = 128,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M [T, E, B, W] in ``out_dtype``: the Chebyshev band build with the
+    caller's window starts; out-of-window indices match nothing."""
+    m, k = nlist.shape
+    T = _tiles_of(m, block_rows)
+    return _poly_band(nlist.view(T, block_rows, k), edges.view(T, block_rows, k),
+                      _long(lo, edges.device), cheb, window, out_dtype)
+
+
+def mp_banded_poly_fused_plain(
+    nlist: torch.Tensor,       # i32[N, K]
+    edges: torch.Tensor,       # f32[N, K] raw distances
+    cheb: EdgeCheb,
+    plan: BandPlan,
+    nodes: torch.Tensor,       # [N_pad, F], float32 or bfloat16
+    w: torch.Tensor,           # [F, F, E] layer-1 weights
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+    out_dtype=torch.float32,
+):
+    """(M [T, E, B, W] in ``out_dtype``, nodes_1 [T * B, F] in
+    ``nodes.dtype``): ``build_band_poly_plain`` then ``mp_banded_plain``.
+    Layer 1 takes the float32 band rounded to ``nodes.dtype``, not to
+    ``out_dtype`` (``_poly_mp_fused_kernel``, :1489-1491)."""
+    M = build_band_poly_plain(nlist, edges, cheb, plan, torch.float32)
+    nodes_1 = mp_banded_plain(M.to(nodes.dtype), plan, nodes, w, inv_degree, activation_name)
+    return M.to(out_dtype), nodes_1
+
+
 def build_band_poly_cls_plain(
     nlist: torch.Tensor,   # i32[N, K]
     edges: torch.Tensor,   # f32[N, K] raw distances
@@ -591,13 +667,14 @@ def build_band_poly_cls_plain(
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _MP_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 7 + [_F32] * 3 + [_I, _I, _P]
 _SIGNATURES = {
     "banded": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_build_band": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "nmr_build_band": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
         "nmr_build_band_fused": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _P],
+                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _P],
         ),
     },
     "poly": {
@@ -613,6 +690,11 @@ _SIGNATURES = {
         "nmr_mp_banded_bf16": (_I, _MP_ARGS),
         "nmr_mp_banded_partial": (_I, _PARTIAL_ARGS),
         "nmr_mp_banded_partial_bf16": (_I, _PARTIAL_ARGS),
+    },
+    "fused_first": {
+        "nmr_error_string": (ctypes.c_char_p, [_I]),
+        "nmr_mp_banded_poly_fused": (_I, _FUSED_FIRST_ARGS),
+        "nmr_mp_banded_poly_fused_bf16": (_I, _FUSED_FIRST_ARGS),
     },
 }
 # Element types the MP and band-build kernels take, and the suffix of
@@ -662,6 +744,11 @@ def _dtype_suffix(name: str, dtype) -> str:
     return _SUFFIX[dtype]
 
 
+def _bf16_flag(name: str, dtype) -> int:
+    """The kernels' type flag: 0 for float32, 1 for bfloat16."""
+    return int(_dtype_suffix(name, dtype) != "")
+
+
 def _device_index(name: str, a, length: int, device) -> torch.Tensor:
     """An int32 index array (tile ids, window starts) on ``device``."""
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
@@ -680,42 +767,96 @@ def _mp_shape_ok(F: int, E: int, B: int, W: int) -> bool:
     return B % rows_per_block == 0 and W % _MP_CHUNK == 0
 
 
+def _act_code(activation_name: str) -> int:
+    act = ACTIVATION_CODES.get(activation_name)
+    if act is None:
+        raise ValueError(f"unknown activation {activation_name!r}")
+    return act
+
+
 def _launch(fn: str, device, *args, source: str = "banded") -> None:
     _cuda.launch(source, _SIGNATURES[source], fn, device, *args)
+
+
+def _launch_build(nlist, edge_feats, lo, window: int, block_rows: int,
+                  out_dtype) -> torch.Tensor:
+    """Checks and launches the band build of ``csrc/banded.cu`` over the
+    whole tiles of ``nlist`` with window starts ``lo``."""
+    dev = edge_feats.device
+    m, k = nlist.shape
+    e = edge_feats.shape[-1]
+    T = _tiles_of(m, block_rows)
+    _check("nlist", nlist, torch.int32, (m, k), dev)
+    _check("edge_feats", edge_feats, torch.float32, (m, k, e), dev)
+    _check("lo", lo, torch.int32, (T,), dev)
+    if not (1 <= e <= _MAX_E and 1 <= k <= _MAX_K):
+        raise NotImplementedError(f"build_band kernel takes E <= {_MAX_E}, K <= {_MAX_K}")
+    out_bf16 = _bf16_flag("out_dtype", out_dtype)
+    M = torch.empty((T, e, block_rows, window), dtype=out_dtype, device=dev)
+    _launch("nmr_build_band", dev, nlist.data_ptr(), edge_feats.data_ptr(), lo.data_ptr(),
+            M.data_ptr(), T, block_rows, k, e, window, out_bf16)
+    return M
 
 
 def build_band(
     nlist: torch.Tensor,       # i32[N, K]
     edge_feats: torch.Tensor,  # f32[N, K, E] (EdgeFC output; 0 on padding)
     plan: BandPlan,
+    out_dtype=torch.float32,
 ) -> torch.Tensor:
-    """M f32[T, E, B, W]: the dense band of the MP operator.
+    """M [T, E, B, W] in ``out_dtype`` (float32 or bfloat16): the dense
+    band of the MP operator, summed in float32 and rounded once.
 
-    Replaces ``_build_band_kernel`` (nmrgnn_tpu/ops/banded.py:484-507). On
+    Replaces ``_build_band_kernel`` (nmrgnn_tpu/ops/banded.py:484-548). On
     the card, one block per band row compares the row's K indices with
-    each window column; it is bound by writing M (T*E*B*W floats)."""
+    each window column; it is bound by writing M (T*E*B*W values)."""
     if not _on_cuda(edge_feats, "build_band"):
-        return build_band_plain(nlist, edge_feats, plan)
+        return build_band_plain(nlist, edge_feats, plan, out_dtype)
     dev = edge_feats.device
-    n, k = nlist.shape
-    e = edge_feats.shape[-1]
-    B, W, T = plan.block_rows, plan.window, plan.num_tiles
-    _check("nlist", nlist, torch.int32, (n, k), dev)
-    _check("edge_feats", edge_feats, torch.float32, (n, k, e), dev)
-    if not (1 <= e <= _MAX_E and 1 <= k <= _MAX_K and n <= plan.n_padded):
-        raise NotImplementedError(f"build_band kernel takes E <= {_MAX_E}, K <= {_MAX_K}")
+    n = nlist.shape[0]
+    if n > plan.n_padded:
+        raise ValueError(f"{n} rows, the plan {plan.n_padded}")
     pad = plan.n_padded - n
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     e_p = nnf.pad(edge_feats, (0, 0, 0, 0, 0, pad))
-    lo = _device_lo(plan, dev)
-    M = torch.empty((T, e, B, W), dtype=torch.float32, device=dev)
-    _launch("nmr_build_band", dev, nlist_p.data_ptr(), e_p.data_ptr(), lo.data_ptr(),
-            M.data_ptr(), T, B, k, e, W)
+    M = _launch_build(nlist_p, e_p, _device_lo(plan, dev), plan.window, plan.block_rows,
+                      out_dtype)
     build_band.launches += 1
     return M
 
 
 build_band.launches = 0
+
+
+def build_band_tracedlo(
+    nlist: torch.Tensor,       # i32[M, K], M a multiple of block_rows
+    edge_feats: torch.Tensor,  # f32[M, K, E]
+    lo,                        # i32[M / block_rows] window starts (any values)
+    window: int,
+    block_rows: int = 128,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M [T, E, B, W] in ``out_dtype``: ``build_band`` with the caller's
+    window start per tile and no padding. An index outside
+    [lo_t, lo_t + W), negative ones included, matches no column, so the
+    partitioned forward builds its interior band (halo indices excluded)
+    and its halo band (indices shifted by -m: interior ones go negative)
+    with it (``nmrgnn_tpu/parallel/halo.py:609-645``).
+
+    Replaces ``build_band_tracedlo`` (nmrgnn_tpu/ops/banded.py:788-830).
+    On the card it launches ``build_band``'s kernel, which reads ``lo``
+    from device memory; bound by writing M."""
+    _tiles_of(nlist.shape[0], block_rows)
+    if not _on_cuda(edge_feats, "build_band_tracedlo"):
+        return build_band_tracedlo_plain(nlist, edge_feats, lo, window, block_rows, out_dtype)
+    dev = edge_feats.device
+    lo = _device_index("lo", lo, nlist.shape[0] // block_rows, dev)
+    M = _launch_build(nlist, edge_feats, lo, window, block_rows, out_dtype)
+    build_band_tracedlo.launches += 1
+    return M
+
+
+build_band_tracedlo.launches = 0
 
 
 def build_band_fused(
@@ -727,18 +868,26 @@ def build_band_fused(
     rbf_low: float,
     rbf_high: float,
     activation_name: str = "softplus",
+    out_dtype=torch.float32,
+    compute_dtype=torch.float32,
 ) -> torch.Tensor:
-    """M f32[T, E, B, W] straight from raw distances: RBF + EdgeFC + band.
+    """M [T, E, B, W] in ``out_dtype`` straight from raw distances: RBF +
+    EdgeFC + band, the EdgeFC products' operands in ``compute_dtype``
+    (float32 or bfloat16) with float32 sums.
 
     Replaces ``_fused_edge_band_kernel`` (nmrgnn_tpu/ops/banded.py:
-    1107-1170). On the card, a block runs the EdgeFC MLP for 128 edge
+    1107-1254). On the card, a block runs the EdgeFC MLP for 128 edge
     slots out of shared memory and writes their band rows; the [N, K, H]
-    activations never reach device memory. It is bound by the EdgeFC
-    products (2*N*K*H*H per hidden layer, float32 CUDA cores)."""
+    activations never reach device memory. In bfloat16 it rounds each
+    product's operands to bfloat16 and keeps them in float32, so each
+    product is exact and every sum float32, as ``ops/edge.py``'s
+    ``as_operand`` does. It is bound by the EdgeFC products (2*N*K*H*H
+    per hidden layer, float32 CUDA cores)."""
     if not _on_cuda(edges, "build_band_fused"):
         return build_band_fused_plain(
             nlist, edges, edge_fc_params, plan, rbf_low=rbf_low,
             rbf_high=rbf_high, activation_name=activation_name,
+            out_dtype=out_dtype, compute_dtype=compute_dtype,
         )
     dev = edges.device
     n, k = nlist.shape
@@ -766,20 +915,20 @@ def build_band_fused(
     bf = final["bias"].contiguous()
     _check("final kernel", wf, torch.float32, (h, e), dev)
     _check("final bias", bf, torch.float32, (e,), dev)
-    act = ACTIVATION_CODES.get(activation_name)
-    if act is None:
-        raise ValueError(f"unknown activation {activation_name!r}")
+    act = _act_code(activation_name)
+    out_bf16 = _bf16_flag("out_dtype", out_dtype)
+    compute_bf16 = _bf16_flag("compute_dtype", compute_dtype)
     pad = plan.n_padded - n
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     edges_p = nnf.pad(edges, (0, 0, 0, pad))
     lo = _device_lo(plan, dev)
     gap = (rbf_high - rbf_low) / (h - 1)
-    M = torch.empty((T, e, B, W), dtype=torch.float32, device=dev)
+    M = torch.empty((T, e, B, W), dtype=out_dtype, device=dev)
     _launch("nmr_build_band_fused", dev, nlist_p.data_ptr(), edges_p.data_ptr(),
             lo.data_ptr(), wh.data_ptr(), bh.data_ptr(), wf.data_ptr(), bf.data_ptr(),
             M.data_ptr(), plan.n_padded, B, k, e, W, h, lh,
             float(np.float32(rbf_low)), float(np.float32(gap)),
-            float(np.float32(1.0 / gap)), act)
+            float(np.float32(1.0 / gap)), act, out_bf16, compute_bf16)
     build_band_fused.launches += 1
     return M
 
@@ -787,11 +936,10 @@ def build_band_fused(
 build_band_fused.launches = 0
 
 
-def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
-    """Checks and launches the MP layer of ``csrc/hbm.cu`` over M's grid
-    tiles (``ids`` None: tile i updates tile i)."""
+def _mp_operands(nodes, w, inv_degree, E: int, B: int, W: int, activation_name, what):
+    """Checks of a full MP layer's operands on the card (``csrc/mp.cuh``):
+    (entry-point suffix, activation code, w as [E, F, F] in nodes.dtype)."""
     dev = nodes.device
-    Tg, E, B, W = M.shape
     n_table, F = nodes.shape
     if not _mp_shape_ok(F, E, B, W):
         raise NotImplementedError(
@@ -801,14 +949,21 @@ def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what) -> torch
     if n_table % B:
         raise ValueError(f"the node table's {n_table} rows are not whole {B}-row tiles")
     suffix = _dtype_suffix("nodes", nodes.dtype)
-    _check("M", M, nodes.dtype, (Tg, E, B, W), dev)
     _check("nodes", nodes, nodes.dtype, (n_table, F), dev)
     _check("inv_degree", inv_degree, torch.float32, (n_table,), dev)
-    act = ACTIVATION_CODES.get(activation_name)
-    if act is None:
-        raise ValueError(f"unknown activation {activation_name!r}")
     w_t = w.permute(2, 0, 1).to(nodes.dtype).contiguous()  # [E, F, F]
     _check("w", w_t, nodes.dtype, (E, F, F), dev)
+    return suffix, _act_code(activation_name), w_t
+
+
+def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
+    """Checks and launches the MP layer of ``csrc/hbm.cu`` over M's grid
+    tiles (``ids`` None: tile i updates tile i)."""
+    dev = nodes.device
+    Tg, E, B, W = M.shape
+    n_table, F = nodes.shape
+    suffix, act, w_t = _mp_operands(nodes, w, inv_degree, E, B, W, activation_name, what)
+    _check("M", M, nodes.dtype, (Tg, E, B, W), dev)
     out = torch.empty((Tg * B, F), dtype=nodes.dtype, device=dev)
     _launch("nmr_mp_banded" + suffix, dev, M.data_ptr(), lo.data_ptr(),
             None if ids is None else ids.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
@@ -856,10 +1011,10 @@ def mp_banded(
 mp_banded.launches = 0
 
 
-def _launch_poly(nlist, edges, cheb: EdgeCheb, lo, ids, tiles: int, window: int,
-                 block_rows: int, n_padded: int, out_dtype) -> torch.Tensor:
-    """Checks and launches the Chebyshev band build of ``csrc/poly.cu``
-    over ``tiles`` grid tiles (``ids`` None: tile i reads tile i)."""
+def _poly_inputs(nlist, edges, cheb: EdgeCheb, n_padded: int, what: str):
+    """Checked inputs of a Chebyshev build on the card: (nlist and edges
+    padded to ``n_padded`` rows with -1 and 0, the float32 coefficients
+    [degree + 1, E], and the scalars (degree, d_lo, d_hi, d_hi - d_lo))."""
     dev = edges.device
     n, k = nlist.shape
     _check("nlist", nlist, torch.int32, (n, k), dev)
@@ -869,20 +1024,28 @@ def _launch_poly(nlist, edges, cheb: EdgeCheb, lo, ids, tiles: int, window: int,
     if (not 1 <= e <= _MAX_E or not 1 <= k <= _MAX_K or n > n_padded or deg1 < 2
             or deg1 * e > _POLY_MAX_COEFFS):
         raise NotImplementedError(
-            f"build_band_poly kernel takes E <= {_MAX_E}, K <= {_MAX_K}, degree >= 1 "
+            f"{what} kernel takes E <= {_MAX_E}, K <= {_MAX_K}, degree >= 1 "
             f"and (degree + 1) * E <= {_POLY_MAX_COEFFS}"
         )
-    suffix = _dtype_suffix("out_dtype", out_dtype)
     pad = n_padded - n
-    nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
-    edges_p = nnf.pad(edges, (0, 0, 0, pad))
-    M = torch.empty((tiles, e, block_rows, window), dtype=out_dtype, device=dev)
     f32 = lambda v: float(np.float32(v))  # noqa: E731
-    _launch("nmr_build_band_poly", dev, nlist_p.data_ptr(), edges_p.data_ptr(), lo.data_ptr(),
-            None if ids is None else ids.data_ptr(), coeffs.data_ptr(), M.data_ptr(),
-            tiles, n_padded // block_rows, block_rows, k, e, window, deg1 - 1,
-            f32(cheb.d_lo), f32(cheb.d_hi), f32(cheb.d_hi - cheb.d_lo), int(suffix != ""),
-            source="poly")
+    return (nnf.pad(nlist, (0, 0, 0, pad), value=-1), nnf.pad(edges, (0, 0, 0, pad)), coeffs,
+            (deg1 - 1, f32(cheb.d_lo), f32(cheb.d_hi), f32(cheb.d_hi - cheb.d_lo)))
+
+
+def _launch_poly(nlist, edges, cheb: EdgeCheb, lo, ids, tiles: int, window: int,
+                 block_rows: int, n_padded: int, out_dtype) -> torch.Tensor:
+    """Checks and launches the Chebyshev band build of ``csrc/poly.cu``
+    over ``tiles`` grid tiles (``ids`` None: tile i reads tile i)."""
+    nlist_p, edges_p, coeffs, scalars = _poly_inputs(nlist, edges, cheb, n_padded,
+                                                     "build_band_poly")
+    out_bf16 = _bf16_flag("out_dtype", out_dtype)
+    e = coeffs.shape[1]
+    M = torch.empty((tiles, e, block_rows, window), dtype=out_dtype, device=edges.device)
+    _launch("nmr_build_band_poly", edges.device, nlist_p.data_ptr(), edges_p.data_ptr(),
+            lo.data_ptr(), None if ids is None else ids.data_ptr(), coeffs.data_ptr(),
+            M.data_ptr(), tiles, n_padded // block_rows, block_rows, nlist.shape[1], e, window,
+            *scalars, out_bf16, source="poly")
     return M
 
 
@@ -909,6 +1072,88 @@ def build_band_poly(
 
 
 build_band_poly.launches = 0
+
+
+def build_band_poly_tracedlo(
+    nlist: torch.Tensor,   # i32[M, K], M a multiple of block_rows
+    edges: torch.Tensor,   # f32[M, K] raw distances
+    cheb: EdgeCheb,
+    lo,                    # i32[M / block_rows] window starts (any values)
+    window: int,
+    block_rows: int = 128,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """M [T, E, B, W] in ``out_dtype``: ``build_band_poly`` with the
+    caller's window start per tile and no padding; out-of-window indices,
+    negative ones included, match nothing (``build_band_tracedlo``'s rule).
+
+    Replaces ``build_band_poly_tracedlo`` (nmrgnn_tpu/ops/banded.py:
+    1363-1415). On the card it launches ``build_band_poly``'s kernel
+    (``csrc/poly.cu``), which reads ``lo`` from device memory; bound by
+    writing M."""
+    m = nlist.shape[0]
+    T = _tiles_of(m, block_rows)
+    if not _on_cuda(edges, "build_band_poly_tracedlo"):
+        return build_band_poly_tracedlo_plain(nlist, edges, cheb, lo, window, block_rows,
+                                              out_dtype)
+    lo = _device_index("lo", lo, T, edges.device)
+    M = _launch_poly(nlist, edges, cheb, lo, None, T, window, block_rows, m, out_dtype)
+    build_band_poly_tracedlo.launches += 1
+    return M
+
+
+build_band_poly_tracedlo.launches = 0
+
+
+def mp_banded_poly_fused(
+    nlist: torch.Tensor,       # i32[N, K]
+    edges: torch.Tensor,       # f32[N, K] raw distances
+    cheb: EdgeCheb,            # coefficients as numpy or a tensor on the card
+    plan: BandPlan,
+    nodes: torch.Tensor,       # [N_pad, F] embedded node table, f32 or bf16
+    w: torch.Tensor,           # [F, F, E] layer-1 weights (cast to nodes.dtype)
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+    out_dtype=torch.float32,
+):
+    """(M [T, E, B, W] in ``out_dtype``, nodes_1 [T * B, F] in
+    ``nodes.dtype``): the Chebyshev band build and MP layer 1 in one
+    kernel; the same function as ``build_band_poly`` followed by
+    ``mp_banded``, with layer 1 on the float32 band rounded to
+    ``nodes.dtype``.
+
+    Replaces ``_poly_mp_fused_kernel`` + ``mp_banded_poly_fused``
+    (nmrgnn_tpu/ops/banded.py:1451-1604). On the card it is ``mp_banded``'s
+    kernel (``csrc/mp.cuh``, instantiated by ``csrc/fused_first.cu``) with
+    the band built in the block from the raw distances instead of read
+    (chunks that none of a row's slots fall in skip the compares), and
+    written once to M. Bound as ``mp_banded``."""
+    if not _on_cuda(nodes, "mp_banded_poly_fused"):
+        return mp_banded_poly_fused_plain(nlist, edges, cheb, plan, nodes, w, inv_degree,
+                                          activation_name, out_dtype)
+    dev = nodes.device
+    B, W, T = plan.block_rows, plan.window, plan.num_tiles
+    n_pad, F = nodes.shape
+    nlist_p, edges_p, coeffs, scalars = _poly_inputs(nlist, edges, cheb, plan.n_padded,
+                                                     "mp_banded_poly_fused")
+    e = coeffs.shape[1]
+    if n_pad != plan.n_padded:
+        raise ValueError(f"nodes has {n_pad} rows, the plan {plan.n_padded}")
+    suffix, act, w_t = _mp_operands(nodes, w, inv_degree, e, B, W, activation_name,
+                                    "mp_banded_poly_fused")
+    m_bf16 = _bf16_flag("out_dtype", out_dtype)
+    lo = _device_lo(plan, dev)
+    M = torch.empty((T, e, B, W), dtype=out_dtype, device=dev)
+    out = torch.empty((T * B, F), dtype=nodes.dtype, device=dev)
+    _launch("nmr_mp_banded_poly_fused" + suffix, dev, nlist_p.data_ptr(), edges_p.data_ptr(),
+            coeffs.data_ptr(), lo.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
+            inv_degree.data_ptr(), out.data_ptr(), M.data_ptr(), T, e, B, W, F,
+            nlist.shape[1], *scalars, m_bf16, act, source="fused_first")
+    mp_banded_poly_fused.launches += 1
+    return M, out
+
+
+mp_banded_poly_fused.launches = 0
 
 
 def build_band_poly_cls(
@@ -1057,7 +1302,8 @@ def mp_banded_hbm_cls(
 
 mp_banded_hbm_cls.launches = 0
 
-KERNEL_WRAPPERS = (build_band, build_band_fused, mp_banded, build_band_poly,
+KERNEL_WRAPPERS = (build_band, build_band_tracedlo, build_band_fused, mp_banded,
+                   build_band_poly, build_band_poly_tracedlo, mp_banded_poly_fused,
                    build_band_poly_cls, mp_banded_partial, mp_banded_hbm, mp_banded_hbm_cls)
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 on inputs the main path does not give them: adversarial graphs (duplicate
 neighbors, padding slots, index-0 neighbors, distances past the Chebyshev
-domain, tile ids out of range), other widths, edge channels, neighbor
-counts, activations and both element types (float32, bfloat16).
+domain, tile ids out of range, indices shifted negative), other widths,
+edge channels, neighbor counts, activations and both element types
+(float32, bfloat16).
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -10,6 +11,9 @@ These tests need a CUDA device and skip without one. On the card:
 
 They import nothing of JAX.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +25,9 @@ from nmrgnn_tpu_torch.models.infer import apply_banded, precompute_band
 from nmrgnn_tpu_torch.models.serving import ServingModel
 from nmrgnn_tpu_torch.ops import banded
 from nmrgnn_tpu_torch.ops.edgefn import EdgeCheb
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import split_windows  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -583,3 +590,210 @@ def test_blocksparse_forward_and_serving_on_the_card(dev):
     fast = ServingModel(params, cfg, mode="blocksparse", precision="fast").predict(g)
     assert np.corrcoef(fast, exact)[0, 1] > 0.9999
     np.testing.assert_allclose(fast, exact, rtol=0.05, atol=1.0)
+
+
+# -- the fused Chebyshev build + MP layer 1 (B13), the builds with a
+# -- caller-given window start (B7), the fused exact edge stage in bfloat16
+
+
+def _mp_close(got, want, dtype):
+    """The MP tolerances: float32 2e-4; bfloat16 one step of h carried
+    through the second product (relative to the output's scale) plus one
+    rounding of the output."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                   atol=2 * BF16_STEP * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("f,e,nodes_dtype,out_dtype,act", [
+    (256, 3, torch.float32, torch.float32, "softplus"),
+    (256, 3, torch.bfloat16, torch.bfloat16, "softplus"),
+    (128, 1, torch.bfloat16, torch.float32, "relu"),
+    (64, 4, torch.float32, torch.bfloat16, "tanh"),
+])
+def test_mp_banded_poly_fused_kernel_matches_plain_and_serial(dev, f, e, nodes_dtype,
+                                                              out_dtype, act):
+    """M within the build tolerances of its plain version and equal to
+    build_band_poly's on the card bit for bit (the same Chebyshev function
+    and slot order); nodes_1 within the MP tolerances of its plain version
+    and equal bit for bit to build_band_poly (in nodes.dtype) followed by
+    mp_banded: the same band entries through the same MP kernel."""
+    n = 520
+    nlist, dists = skewed_nlist(n, 16, seed=f + e)
+    cheb = make_cheb(e, seed=e)
+    plan = banded.band_plan(nlist, dists)
+    rng = np.random.default_rng(f + e)
+    nodes = rng.normal(size=(plan.n_padded, f)).astype(np.float32)
+    w = (rng.normal(size=(f, f, e)) / np.sqrt(f)).astype(np.float32)
+    inv = rng.uniform(0, 1, plan.n_padded).astype(np.float32)
+    plan = banded.plan_on_device(plan, dev)
+    nl, d, x, wt, iv = _on(dev, nlist, dists, nodes, w, inv)
+    x = x.to(nodes_dtype)
+    before = banded.mp_banded_poly_fused.launches
+    M, got = banded.mp_banded_poly_fused(nl, d, cheb, plan, x, wt, iv, act, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert banded.mp_banded_poly_fused.launches == before + 1
+    assert M.dtype == out_dtype and got.dtype == nodes_dtype and got.shape == x.shape
+    M_want, want = banded.mp_banded_poly_fused_plain(nl, d, cheb, plan, x, wt, iv, act,
+                                                     out_dtype=out_dtype)
+    _close(M, M_want, out_dtype)
+    _mp_close(got, want, nodes_dtype)
+    assert torch.equal(M, banded.build_band_poly(nl, d, cheb, plan, out_dtype=out_dtype))
+    serial = banded.mp_banded(banded.build_band_poly(nl, d, cheb, plan, out_dtype=nodes_dtype),
+                              plan, x, wt, iv, act)
+    assert torch.equal(got, serial)
+
+
+@pytest.mark.parametrize("e,dtype", [(3, torch.float32), (3, torch.bfloat16),
+                                     (1, torch.bfloat16), (4, torch.float32)])
+def test_tracedlo_builds_with_shifted_indices(dev, e, dtype):
+    """Both builds with the plan's lo as a tensor equal build_band /
+    build_band_poly; with nlist - m and lo - m (negative indices and
+    window starts) the same bands, and their plain versions. The interior
+    + halo composition of a 2-way row split at m (halo.py:609-645) equals
+    one mp_banded_partial over the full band, within the MP tolerance."""
+    n, k, f = 1000, 16, 128
+    nlist, dists, efeat, *_ = make_case(n, k, 8, e, seed=e, banded_nlist=True)
+    rng = np.random.default_rng(e)
+    cheb = make_cheb(e, seed=e + 1)
+    plan = banded.band_plan(nlist, dists)
+    B, W, npad = plan.block_rows, plan.window, plan.n_padded
+    m = (npad // 2 + B - 1) // B * B
+    pad = npad - n
+    nl_p, d_p, e_p = _on(dev, np.pad(nlist, ((0, pad), (0, 0)), constant_values=-1),
+                         np.pad(dists, ((0, pad), (0, 0))),
+                         np.pad(efeat, ((0, pad), (0, 0), (0, 0))))
+    nl, d, ef = _on(dev, nlist, dists, efeat)
+    lo = torch.as_tensor(plan.lo, dtype=torch.int32, device=dev)
+    dplan = banded.plan_on_device(plan, dev)
+    b2, b4 = banded.build_band_tracedlo.launches, banded.build_band_poly_tracedlo.launches
+    bands = {
+        "B2": (banded.build_band(nl, ef, dplan, out_dtype=dtype),
+               lambda nl_, lo_, w_=W: banded.build_band_tracedlo(nl_, e_p[:nl_.shape[0]], lo_,
+                                                                w_, B, dtype),
+               lambda nl_, lo_, w_=W: banded.build_band_tracedlo_plain(
+                   nl_, e_p[:nl_.shape[0]], lo_, w_, B, dtype)),
+        "B4": (banded.build_band_poly(nl, d, cheb, dplan, out_dtype=dtype),
+               lambda nl_, lo_, w_=W: banded.build_band_poly_tracedlo(
+                   nl_, d_p[:nl_.shape[0]], cheb, lo_, w_, B, dtype),
+               lambda nl_, lo_, w_=W: banded.build_band_poly_tracedlo_plain(
+                   nl_, d_p[:nl_.shape[0]], cheb, lo_, w_, B, dtype)),
+    }
+    table = torch.as_tensor(rng.normal(size=(npad, f)).astype(np.float32), device=dev).to(dtype)
+    w = torch.as_tensor((rng.normal(size=(f, f, e)) / np.sqrt(f)).astype(np.float32), device=dev)
+    lo_int, lo_halo = split_windows(plan.lo[: m // B], m, W, npad)
+    for name, (full, build, plain) in bands.items():
+        assert torch.equal(build(nl_p, lo), full), name
+        shifted = build(nl_p - m, lo - m)
+        torch.cuda.synchronize()
+        assert torch.equal(shifted, full), name
+        _close(shifted, plain(nl_p - m, lo - m), dtype)
+        M_int = build(nl_p[:m].contiguous(), lo_int)
+        M_halo = build(nl_p[:m] - m, lo_halo)
+        _close(M_halo, plain(nl_p[:m] - m, lo_halo), dtype)
+        acc = (banded.mp_banded_partial(M_int, lo_int, table[:m].contiguous(), w)
+               + banded.mp_banded_partial(M_halo, lo_halo, table[m:].contiguous(), w))
+        want = banded.mp_banded_partial(full[: m // B].contiguous(), plan.lo[: m // B], table, w)
+        _mp_close(acc, want, dtype)
+    assert banded.build_band_tracedlo.launches == b2 + 4
+    assert banded.build_band_poly_tracedlo.launches == b4 + 4
+
+
+def test_tracedlo_and_fused_first_wrappers_raise(dev):
+    nlist, dists = skewed_nlist(300, 8, seed=3)
+    nl, d = _on(dev, nlist[:256], dists[:256])
+    cheb = make_cheb(3)
+    plan = banded.plan_on_device(banded.band_plan(nlist[:256], dists[:256]), dev)
+    iv = torch.ones(256, device=dev)
+    with pytest.raises(NotImplementedError):  # F = 96
+        banded.mp_banded_poly_fused(nl, d, cheb, plan, torch.zeros(256, 96, device=dev),
+                                    torch.zeros(96, 96, 3, device=dev), iv)
+    with pytest.raises(ValueError):  # a node table of other rows than the plan's
+        banded.mp_banded_poly_fused(nl, d, cheb, plan, torch.zeros(384, 128, device=dev),
+                                    torch.zeros(128, 128, 3, device=dev), iv)
+    lo = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # 250 rows are not whole 128-row tiles
+        banded.build_band_poly_tracedlo(nl[:250].contiguous(), d[:250].contiguous(), cheb, lo,
+                                        128)
+    with pytest.raises(ValueError):  # lo of the wrong length
+        banded.build_band_poly_tracedlo(nl, d, cheb, lo[:1], 128)
+    with pytest.raises(TypeError):
+        banded.build_band_tracedlo(nl, d[..., None].double(), lo, 128)
+
+
+@pytest.mark.parametrize("k,e,edge_fc_layers,out_dtype,compute_dtype", [
+    (16, 3, 4, torch.bfloat16, torch.bfloat16), (8, 1, 1, torch.bfloat16, torch.bfloat16),
+    (32, 4, 2, torch.float32, torch.bfloat16), (16, 2, 3, torch.bfloat16, torch.float32),
+])
+def test_fused_kernel_bf16_matches_plain(dev, k, e, edge_fc_layers, out_dtype, compute_dtype):
+    """The fused exact edge stage with bfloat16 operands and/or output
+    against its plain version. Both round the same operands; the EdgeFC
+    sums are taken in another order, so an activation near a bfloat16
+    rounding boundary rounds the other way as the next product's operand
+    and moves M by about a step: tolerance one bfloat16 step relative to
+    M's scale."""
+    nlist, dists, *_ = make_case(400, k, 8, e, seed=k + e, banded_nlist=True)
+    cfg = ModelConfig(edge_feature_size=e, edge_fc_layers=edge_fc_layers)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(k), device=dev)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    nl, d = _on(dev, nlist, dists)
+    kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation,
+              out_dtype=out_dtype, compute_dtype=compute_dtype)
+    got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)
+    want = banded.build_band_fused_plain(nl, d, params["edge_fc"], plan, **kw)
+    assert got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                               atol=BF16_STEP * float(want.float().abs().max()))
+    with pytest.raises(TypeError):
+        banded.build_band_fused(nl, d, params["edge_fc"], plan, rbf_low=cfg.rbf_low,
+                                rbf_high=cfg.rbf_high, compute_dtype=torch.float16)
+
+
+def test_fused_first_forward_and_exact_bf16_serving_on_the_card(dev):
+    """apply_banded(fused_first=True, cheb=...) launches 1 B13 and one B1
+    per later layer, no B4, and equals the serial forward bit for bit;
+    with hbm_table or without cheb, fused_first is ignored. Exact serving
+    of a bfloat16 config launches 1 fused build and one bfloat16 B1 per
+    layer a frame, within the fast band of the plain versions."""
+    from nmrgnn_tpu_torch.ops.edgefn import fit_edge_chebyshev
+
+    cfg = ModelConfig()
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(2), device=dev)
+    n = 600
+    rng = np.random.default_rng(6)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-50, 50, (n, 16)), 0, n - 1)
+    nlist = nlist.astype(np.int32)
+    dists = rng.uniform(0.09, 0.3, (n, 16)).astype(np.float32)
+    g = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    gt = Graph(*_on(dev, *g))
+    plan = banded.plan_on_device(precompute_band(g), dev)
+    cheb = fit_edge_chebyshev(params["edge_fc"], rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
+                              rbf_count=cfg.edge_hidden_size, activation=cfg.fc_activation,
+                              degree=64)
+    L = cfg.mp_layers
+    for c in (cfg, cfg.replace(compute_dtype="bfloat16")):
+        banded.reset_launch_counts()
+        fused = apply_banded(params, c, gt, plan, cheb=cheb, fused_first=True)
+        torch.cuda.synchronize()
+        assert banded.mp_banded_poly_fused.launches == 1
+        assert banded.mp_banded.launches == L - 1 and banded.build_band_poly.launches == 0
+        assert torch.equal(fused, apply_banded(params, c, gt, plan, cheb=cheb))
+        banded.reset_launch_counts()
+        for kw in ({"hbm_table": True, "cheb": cheb}, {}):
+            assert torch.equal(apply_banded(params, c, gt, plan, fused_first=True, **kw),
+                               apply_banded(params, c, gt, plan, **kw))
+        assert banded.mp_banded_poly_fused.launches == 0
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    banded.reset_launch_counts()
+    peaks = ServingModel(params, cfg16).predict(g)
+    assert banded.build_band_fused.launches == 1 and banded.mp_banded.launches == L
+    plain = apply_banded(params, cfg16, gt, plan, use_kernels=False).cpu().numpy()
+    served = ServingModel(params, cfg16, reorder=False).predict(g)
+    assert np.corrcoef(served, plain)[0, 1] > 0.9999
+    np.testing.assert_allclose(served, plain, rtol=0.05, atol=1.0)
+    assert np.abs(served - plain).mean() < 0.05
+    exact = ServingModel(params, cfg).predict(g)
+    np.testing.assert_allclose(peaks, exact, rtol=0.05, atol=1.0)

@@ -137,10 +137,16 @@ def test_apply_banded_branches_agree(structure, bundled):
                    {"hbm_table": True, "cheb": cheb}):
             torch.testing.assert_close(apply_banded(params, cfg, gt, plan, **kw), ref,
                                        rtol=5e-4, atol=5e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_banded(params, cfg, gt, plan, fused_first=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # the fused exact stage in bf16
-        apply_banded(params, cfg.replace(compute_dtype="bfloat16"), gt, plan)
+        # fused_first: the fused Chebyshev build + layer 1 with cheb, else
+        # ignored (the serial forward's bits), as in the JAX package
+        torch.testing.assert_close(apply_banded(params, cfg, gt, plan, cheb=cheb,
+                                                fused_first=True), ref, rtol=5e-4, atol=5e-4)
+        assert torch.equal(apply_banded(params, cfg, gt, plan, fused_first=True),
+                           apply_banded(params, cfg, gt, plan))
+        # the fused exact edge stage serves a bfloat16 config too
+        # (tests/test_torch_exact_bf16.py holds it against the JAX package)
+        bf16 = apply_banded(params, cfg.replace(compute_dtype="bfloat16"), gt, plan)
+    assert bf16.dtype == torch.float32 and bool(torch.isfinite(bf16).all())
 
 
 def test_serving_rejects_later_slices(bundled):
@@ -155,8 +161,10 @@ def test_serving_rejects_later_slices(bundled):
         ServingModel(params, cfg, device="cpu", mode="gather")
     with pytest.raises(NotImplementedError):
         ServingModel(params, cfg.replace(mp_type="attention"), device="cpu")
-    with pytest.raises(NotImplementedError):  # exact serving needs float32
-        ServingModel(params, cfg.replace(compute_dtype="bfloat16"), device="cpu")
+    # exact serving keeps a bfloat16 config's compute type, as the JAX
+    # package does (tests/test_torch_exact_bf16.py)
+    exact16 = ServingModel(params, cfg.replace(compute_dtype="bfloat16"), device="cpu")
+    assert exact16.precision == "exact" and exact16.config.compute_dtype == "bfloat16"
     with pytest.raises(ValueError):
         ServingModel(params, cfg, device="cpu", precision="half")
 
