@@ -15,7 +15,15 @@ Phases, in order; any failure exits non-zero and prints no result:
     once), the MP layers within one step of h (rounded to bfloat16 between
     the products, after float32 sums taken in another order) relative to
     the output's scale, plus one rounding of the output. The class kernels
-    run once per window class.
+    run once per window class. The band occupancy kernels equal their plain
+    versions exactly, and the occupancy from nlist covers every nonzero of
+    the band. The MP kernel is given the occupancy as the forwards give
+    it; its line also prints the time of the dense-band kernel it
+    replaced, the share of (32-row block, 16-column chunk) pairs it loads,
+    its blocks a launch and, as library_ms, one torch.bmm of the dense
+    band against its windows (a yardstick the port never calls), and its
+    device time given an empty, the real and a full occupancy
+    (torch.profiler).
  4. The main paths, each driven with the launch counts set to 0 just
     before and read just after: the bundled weights (load_model), a
     synthetic protein-like structure of 2,482 atoms written as a PDB from
@@ -23,7 +31,9 @@ Phases, in order; any failure exits non-zero and prints no result:
     a. exact serving, ServingModel.predict on 3 frames (each later frame's
        coordinates jittered by 0.05 A): finite peaks equal to the plain
        gather forward on the card within rtol/atol 5e-4; one fused
-       edge-band build and one MP layer per layer per frame. Then one
+       edge-band build, one band occupancy and one MP layer per layer per
+       frame (every banded forward below makes one occupancy per band and
+       hands it to the layers that read the band). Then one
        forward of the unfused edge branch, which must launch build_band.
     b. fast serving (precision="fast": bfloat16 and the Chebyshev edge
        stage) of the same 3 frames: finite peaks, within the JAX
@@ -42,14 +52,16 @@ Phases, in order; any failure exits non-zero and prints no result:
  5. The large structure: 18 shifted copies of that structure on a 3 x 3 x 2
     grid (44,676 atoms), which must resolve to the "banded_hbm" path with an
     RCM window of at most 2048. At its shapes, mp_banded_hbm against its
-    plain version (float32 and bfloat16, phase 3's MP tolerances), and
-    mp_banded_hbm_cls per window class against its plain version.
+    plain version (float32 and bfloat16, phase 3's MP tolerances, with the
+    same extra lines as phase 3's MP kernel), and mp_banded_hbm_cls per
+    window class against its plain version.
     ServingModel on 3 frames: exact peaks equal the plain gather forward
     within rtol/atol 5e-4, with 1 fused build and 4 mp_banded_hbm per
     frame; fast peaks within the fast band of the exact ones, per frame on
     the class forward one Chebyshev build and 4 mp_banded_hbm_cls per
     class, on the uniform forward one Chebyshev build and 4 mp_banded_hbm
-    (both forwards must be taken). Each forward driven directly (launches;
+    (both forwards must be taken). Exact serving of a bfloat16 config on the
+    3 frames: "banded_hbm", fast-band peaks. Each forward driven directly (launches;
     the fast ones against their plain versions, mean under 0.05 ppm),
     timed, and with --profile broken down; predict() wall times.
  6. Trajectories: 8 frames of the 2,482-atom structure at both precisions.
@@ -61,7 +73,9 @@ Phases, in order; any failure exits non-zero and prints no result:
     (apply_banded_frames) is then driven directly too, with one launch per
     kernel, against the same references. predict_trajectory yields every
     frame in order, equal to per-frame predict. Frames per second of each
-    (host clock) and the batched forward's time on the card.
+    (host clock) and the batched forward's time on the card. Exact serving
+    of a bfloat16 config through predict_frames: peaks within a mean 0.05
+    ppm of per-frame bfloat16 predict and in the fast band of float32.
  7. The wide band: one globule of 100,000 atoms from --seed (a sphere,
     not a supercell: a large protein assembly with hydrogens), 3 frames,
     whose RCM band is past both banded budgets, so that ServingModel
@@ -73,7 +87,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     equal to B11. Serving the 3 frames: exact peaks equal the plain gather
     forward within rtol/atol 5e-4, fast peaks within the fast band of them,
     1 B10 and 4 B12 per frame; whether frames 2-3 were remapped or rebuilt.
-    apply_blocksparse(group=1) driven directly: 1 B10 and 4 B11, equal to
+    Exact serving of a bfloat16 config, "blocksparse", in the fast band of
+    the exact peaks. apply_blocksparse(group=1) driven directly: 1 B10 and 4 B11, equal to
     its plain versions (float32 2e-4; bfloat16 a mean under 0.05 ppm).
     mode="blocksparse" forced on phase 4's 2,482-atom frames: exact peaks
     equal phase 4a's banded ones within 5e-4. Forward times (CUDA events),
@@ -143,6 +158,14 @@ MAX_SUPERCELL_W = 2048
 TRAJ_FRAMES = 8
 GLOBULE_ATOMS = 100_000
 REPEATS = 20
+MP_ROWS = 32  # rows per block of the MP kernel (csrc/mp.cuh)
+# The MP kernel's time a call when it multiplied the dense band, the
+# design it replaced (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6),
+# printed beside this run's: B1, B6 (3 class launches) at 2,482 atoms, B5,
+# B9 (3 class launches) at 44,676, B13 at 2,482.
+DENSE_MS = {"mp_banded": 0.2584, "mp_banded_bf16": 0.2702, "mp_banded_partial": 0.3877,
+          "mp_banded_hbm": 2.7289, "mp_banded_hbm_bf16": 2.7292, "mp_banded_hbm_cls": 2.5704,
+          "mp_banded_poly_fused": 0.2809, "mp_banded_poly_fused_bf16": 0.3123}
 
 # Element mix of a hydrogenated protein (fractions of all atoms).
 PROTEIN_ELEMENTS = (("H", 0.497), ("C", 0.32), ("N", 0.085), ("O", 0.095), ("S", 0.003))
@@ -323,6 +346,79 @@ def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _mp_blocks(tiles: int, B: int, F: int) -> int:
+    """Blocks of one MP kernel launch over ``tiles`` B-row tiles: a block
+    takes 32 rows and half the output columns (F >= 128), or all of them
+    once the 32-row blocks alone fill the card's SMs twice over
+    (``csrc/mp.cuh``'s launch rule)."""
+    import torch
+
+    row_blocks = tiles * (B // MP_ROWS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return row_blocks * (2 if F >= 128 and row_blocks < 2 * sms else 1)
+
+
+def _mp_load(bands, F: int):
+    """What the MP kernel stages of bands given as (occupancy, B, W):
+    (the share of the (32-row block, 16-column chunk) pairs it loads, the
+    blocks of each launch, the occupied (row, chunk) pairs) and a line
+    saying so."""
+    from nmrgnn_tpu_torch.ops import banded
+
+    loaded = total = row_chunks = 0
+    blocks = []
+    for occ, B, W in bands:
+        bits = banded.occupancy_bits(occ, W)
+        per_block = bits.view(-1, MP_ROWS, bits.shape[1]).any(1)
+        loaded += int(per_block.sum())
+        total += per_block.numel()
+        row_chunks += int(bits.sum())
+        blocks.append(_mp_blocks(occ.shape[0] // B, B, F))
+    share = loaded / max(total, 1)
+    return share, blocks, row_chunks, (f"; loads {share:.1%} of the {MP_ROWS}-row x 16-column "
+                                       f"chunks, {'+'.join(map(str, blocks))} blocks a launch")
+
+
+def _kernel_device_ms(fn, key: str, runs: int = 10):
+    """Device time a call of ``fn`` spends in the kernels whose name holds
+    ``key`` (torch.profiler), or None where the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if key in e.key)
+    return us / runs / 1e3 if us else None
+
+
+def _occupancy_split(label: str, layer, occ) -> dict:
+    """The MP kernel alone (device time) given an empty, the real and a
+    full occupancy: no chunk staged (the second product and the fixed
+    costs), the band's chunks, every chunk. ``layer(occ)`` runs one layer."""
+    import torch
+
+    out = {}
+    for name, o in (("empty", torch.zeros_like(occ)), ("real", occ),
+                    ("full", torch.full_like(occ, -1))):
+        out[name] = _kernel_device_ms(lambda o=o: layer(o), "mp_banded_kernel")
+    if None in out.values():
+        print(f"{label}: the profiler recorded no device time (not measured)")
+    else:
+        print(f"{label}: MP kernel alone (device time, profiler) with an empty occupancy "
+              f"{out['empty']:.4f} ms, the band's {out['real']:.4f} ms, a full one "
+              f"{out['full']:.4f} ms")
+    return out
+
+
+def _dense(name: str) -> str:
+    return f"; dense-band kernel {DENSE_MS[name]:.4f} ms" if name in DENSE_MS else ""
+
+
 def _pearson(a, b) -> float:
     return float(np.corrcoef(a, b)[0, 1])
 
@@ -405,9 +501,8 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
     T, B, W = plan.num_tiles, plan.block_rows, plan.window
     N, K = g_rcm.nlist.shape
     F, E, L = cfg.atom_feature_size, cfg.edge_feature_size, len(params["mp"])
-    per_tile = B // ((256 // (F // 4)) * 4)  # blocks of the MP kernels per tile
-    classes = ", ".join(f"{len(c.ids)} tiles @ {c.window} ({len(c.ids) * per_tile} blocks)"
-                        for c in cls_plan.classes)
+    classes = ", ".join(f"{len(c.ids)} tiles @ {c.window} ({_mp_blocks(len(c.ids), B, F)} "
+                        f"MP blocks)" for c in cls_plan.classes)
     print(f"phase 5: supercell of {np.prod(SUPERCELL_GRID)} copies: N={N} N_pad={plan.n_padded} "
           f"T={T} W={W}; class plan {classes}; {N_FRAMES} frames built and ordered on the "
           f"host in {time.perf_counter() - t0:.1f} s")
@@ -425,40 +520,61 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
     nodes = nnf.pad(gnn.dense(params["embed"], gt.atoms), (0, 0, 0, plan.n_padded - N))
     inv_p = nnf.pad(gt.inv_degree, (0, plan.n_padded - N))
     w0 = params["mp"][0]["w"]
+    occ = banded.band_occupancy(gt.nlist, gt.edges, plan_d.lo, W, B, plan.n_padded)
+    _, _, row_chunks, load = _mp_load([(occ, B, W)], F)
+    occ_cls = [banded.band_occupancy(gt.nlist, gt.edges, c.lo, c.window, B, plan.n_padded,
+                                     ids=c.ids) for c in cls_d.classes]
+    _, _, cls_chunks, cls_load = _mp_load(
+        [(o, B, c.window) for o, c in zip(occ_cls, cls_plan.classes)], F)
+    win_idx = plan_d.lo.long()[:, None] + torch.arange(W, device=dev)
     for dt, tag, eb, peak in ((f32, "float32", 4, PEAK_F32_FLOPS),
                               (bf16, "bfloat16", 2, PEAK_BF16_FLOPS)):
         M, table = bands[dt], nodes.to(dt)
         nnz = int((M != 0).sum())
         tol = dict(tol=2e-4) if dt == f32 else dict(rtol=BF16_STEP, tol=0.0,
                                                      tol_of_max=2 * BF16_STEP)
+        name = "mp_banded_hbm" + ("" if dt == f32 else "_bf16")
+        win = table[win_idx]
         check(
-            "mp_banded_hbm" + ("" if dt == f32 else "_bf16"), "nmrgnn_tpu/ops/banded.py:656",
-            lambda M=M, table=table: banded.mp_banded_hbm(M, plan_d, table, w0, inv_p, act),
+            name, "nmrgnn_tpu/ops/banded.py:656",
+            lambda M=M, table=table: banded.mp_banded_hbm(M, plan_d, table, w0, inv_p, act, occ),
             lambda M=M, table=table: banded.mp_banded_hbm_plain(M, plan_d, table, w0, inv_p, act),
             **tol, flops=2 * nnz * F + 2 * T * E * B * F * F,
-            nbytes=(M.numel() * eb + plan.n_padded * F * eb * 2 + F * F * E * eb
-                    + plan.n_padded * 4 + T * 4),
+            # the occupied band chunks, the occupancy and lo; the table and
+            # inv_degree once, the weights once, the output once
+            nbytes=(row_chunks * 16 * E * eb + occ.numel() * 4 + T * 4
+                    + plan.n_padded * F * eb * 2 + F * F * E * eb + plan.n_padded * 4),
             peak=peak, source="hbm.cu", dtype=tag,
-            extra=f"; band {nnz} nonzeros of {M.numel()}",
+            library=lambda M=M, win=win: torch.bmm(M.view(T, E * B, W), win),
+            extra=f"; band {nnz} nonzeros of {M.numel()}{load}{_dense(name)}",
         )
+        del win
         Mc = [banded.build_band_poly_cls(gt.nlist, gt.edges, cheb_d, c, B, plan.n_padded, dt)
               for c in cls_d.classes]
         check(
             "mp_banded_hbm_cls", "nmrgnn_tpu/ops/banded.py:1703",
-            lambda Mc=Mc, table=table: [banded.mp_banded_hbm_cls(m, c, B, table, w0, inv_p, act)
-                                        for m, c in zip(Mc, cls_d.classes)],
+            lambda Mc=Mc, table=table: [banded.mp_banded_hbm_cls(m, c, B, table, w0, inv_p, act, o)
+                                        for m, c, o in zip(Mc, cls_d.classes, occ_cls)],
             lambda Mc=Mc, table=table: [banded.mp_banded_hbm_cls_plain(m, c, B, table, w0,
                                                                        inv_p, act)
                                         for m, c in zip(Mc, cls_d.classes)],
             **tol, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16,
             flops=sum(2 * int((m != 0).sum()) * F + 2 * len(c.ids) * E * B * F * F
                       for m, c in zip(Mc, cls_plan.classes)),
-            # each class's band, ids and lo, and output rows; the table,
-            # the weights and inv_degree once
-            nbytes=(sum(m.numel() * eb + len(c.ids) * (8 + B * F * eb)
-                        for m, c in zip(Mc, cls_plan.classes))
+            # each class's occupied band chunks, occupancy, ids and lo, and
+            # output rows; the table, the weights and inv_degree once
+            nbytes=(cls_chunks * 16 * E * eb
+                    + sum(o.numel() * 4 + len(c.ids) * (8 + B * F * eb)
+                          for o, c in zip(occ_cls, cls_plan.classes))
                     + plan.n_padded * (F * eb + 4) + F * F * E * eb),
+            extra=cls_load + (_dense("mp_banded_hbm_cls") if dt == bf16 else ""),
         )
+
+    split = {tag: _occupancy_split(
+        f"phase 5: mp_banded_hbm [{tag}]",
+        lambda o, M_=bands[dt], x=nodes.to(dt): banded.mp_banded_hbm(M_, plan_d, x, w0, inv_p,
+                                                                      act, o), occ)
+        for dt, tag in ((f32, "float32"), (bf16, "bfloat16"))}
 
     # -- exact serving ----------------------------------------------------------
     def serve(model, g_list):
@@ -477,7 +593,8 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
           f"ms {[round(v * 1e3, 3) for v in exact_s]}")
     if model._resolved != "banded_hbm":
         raise SystemExit(f"chip_smoke: the supercell resolved to {model._resolved}")
-    expect(exact_launches, build_band_fused=N_FRAMES, mp_banded_hbm=N_FRAMES * L)
+    expect(exact_launches, build_band_fused=N_FRAMES, mp_banded_hbm=N_FRAMES * L,
+           band_occupancy=N_FRAMES)
     worst = 0.0
     for f, (g, p) in enumerate(zip(graphs, peaks)):
         if p.shape != (N,) or not np.all(np.isfinite(p)):
@@ -515,10 +632,27 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
     if fast._resolved != "banded_hbm":
         raise SystemExit(f"chip_smoke: the supercell resolved to {fast._resolved} (fast)")
     expect(fast_launches, build_band_poly_cls=n_cls, mp_banded_hbm_cls=n_cls * L,
-           build_band_poly=n_uni, mp_banded_hbm=n_uni * L)
+           build_band_poly=n_uni, mp_banded_hbm=n_uni * L, band_occupancy=n_cls + n_uni)
     for f, p in enumerate(fast_peaks):
         print(f"phase 5: fast frame {f} vs exact frame {f}: "
               f"{_in_fast_band(p, peaks[f], f'supercell fast frame {f}')}")
+
+    # -- exact serving of a bfloat16 config (ROADMAP B.6) ------------------------------
+    _reset_counts()
+    model16 = ServingModel(params, cfg16, device=dev)
+    peaks16, bf16_s = serve(model16, graphs)
+    bf16_launches = counts()
+    if model16._resolved != "banded_hbm":
+        raise SystemExit(f"chip_smoke: exact bfloat16 served the supercell through "
+                         f"{model16._resolved}")
+    expect(bf16_launches, build_band_fused=N_FRAMES, mp_banded_hbm=N_FRAMES * L,
+           band_occupancy=N_FRAMES)
+    print(f"phase 5: exact bfloat16: path {model16._resolved}, launches "
+          f"{ {k: v for k, v in bf16_launches.items() if v} }, per-frame wall ms "
+          f"{[round(v * 1e3, 3) for v in bf16_s]}")
+    for f, p in enumerate(peaks16):
+        print(f"phase 5: exact bfloat16 frame {f} vs exact float32 frame {f}: "
+              f"{_in_fast_band(p, peaks[f], f'supercell exact bfloat16 frame {f}')}")
 
     # -- each forward directly, against its plain versions --------------------------
     fwd = {
@@ -529,9 +663,10 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
     }
     nc = len(cls_plan.classes)
     want_launches = {
-        "exact_hbm": dict(build_band_fused=1, mp_banded_hbm=L),
-        "fast_hbm_classes": dict(build_band_poly_cls=nc, mp_banded_hbm_cls=nc * L),
-        "fast_hbm_uniform": dict(build_band_poly=1, mp_banded_hbm=L),
+        "exact_hbm": dict(build_band_fused=1, mp_banded_hbm=L, band_occupancy=1),
+        "fast_hbm_classes": dict(build_band_poly_cls=nc, mp_banded_hbm_cls=nc * L,
+                                 band_occupancy=nc),
+        "fast_hbm_uniform": dict(build_band_poly=1, mp_banded_hbm=L, band_occupancy=1),
     }
     direct = {}
     for k, f in fwd.items():
@@ -562,15 +697,17 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
 
     return {
         "N": N, "N_pad": plan.n_padded, "T": T, "W": W,
-        "classes": [[len(c.ids), c.window, len(c.ids) * per_tile] for c in cls_plan.classes],
+        "classes": [[len(c.ids), c.window, _mp_blocks(len(c.ids), B, F)]
+                    for c in cls_plan.classes],
         "launches": {
             "mp_banded_hbm": exact_launches["mp_banded_hbm"],
             "mp_banded_hbm_bf16": fast_launches["mp_banded_hbm"],
             "mp_banded_hbm_cls": fast_launches["mp_banded_hbm_cls"],
         },
         "forward_ms": fwd_ms, "predict_wall_ms": predict_ms,
-        "frame_wall_s": {"exact": exact_s, "fast": fast_s}, "fast_branches": branches,
-        "forward_breakdown": breakdown,
+        "frame_wall_s": {"exact": exact_s, "fast": fast_s, "exact_bf16": bf16_s},
+        "fast_branches": branches, "forward_breakdown": breakdown,
+        "mp_occupancy_split_ms": split,
     }, dict(gt=gt, plan=plan, plan_d=plan_d, nodes=nodes, inv_p=inv_p)
 
 
@@ -598,9 +735,10 @@ def _phase6(args, dev, params, cfg, counts, expect) -> dict:
     build_ms = (time.perf_counter() - t0) * 1e3 / TRAJ_FRAMES
     L = len(params["mp"])
     out = {"frames": TRAJ_FRAMES, "graph_build_ms_per_frame": build_ms}
+    wants = {}
     for precision in ("exact", "fast"):
         ref = ServingModel(params, cfg, device=dev, precision=precision)
-        want = np.stack([ref.predict(g) for g in graphs])
+        want = wants[precision] = np.stack([ref.predict(g) for g in graphs])
         loops = []
         for _ in range(3):  # warm: the order, the plans and the fit are made
             t0 = time.perf_counter()
@@ -623,15 +761,17 @@ def _phase6(args, dev, params, cfg, counts, expect) -> dict:
         mc, nb = model.config, 4 if precision == "exact" else 2
         batched = (banded.plan_fits_vmem(union, F, E, dtype_bytes=nb)
                    and banded.fused_build_ok(union, H, E, stack.nlist.shape[-1], out_bytes=nb))
-        batch_launches = (dict(build_band_fused=1, mp_banded=L) if precision == "exact"
-                          else dict(build_band_poly=1, mp_banded=L))
+        batch_launches = (dict(build_band_fused=1, mp_banded=L, band_occupancy=1)
+                          if precision == "exact"
+                          else dict(build_band_poly=1, mp_banded=L, band_occupancy=1))
         how = "one batched forward" if batched else "past the budget, frame by frame"
         print(f"phase 6: {precision}: predict_frames of {TRAJ_FRAMES} frames, union window "
               f"{union.window}: {how}, launches {launches}")
         if batched:
             expect(launches, **batch_launches)
         elif precision == "exact":
-            expect(launches, build_band_fused=TRAJ_FRAMES, mp_banded=TRAJ_FRAMES * L)
+            expect(launches, build_band_fused=TRAJ_FRAMES, mp_banded=TRAJ_FRAMES * L,
+                   band_occupancy=TRAJ_FRAMES)
         cheb = model._edge_cheb() if precision == "fast" else None
         gt = Graph(*[torch.as_tensor(a, device=dev) for a in stack])
         union_d = banded.plan_on_device(union, dev)
@@ -697,6 +837,31 @@ def _phase6(args, dev, params, cfg, counts, expect) -> dict:
               f"{TRAJ_FRAMES / frames_s:.1f} (median of 3, graphs prebuilt), "
               f"predict_trajectory {TRAJ_FRAMES / traj_s:.1f} (best of 2, graph builds "
               f"included; {build_ms:.1f} ms per frame serially)")
+
+    # -- exact serving of a bfloat16 config through predict_frames (ROADMAP B.6) --------
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    per16 = ServingModel(params, cfg16, device=dev)
+    want16 = np.stack([per16.predict(g) for g in graphs])
+    model = ServingModel(params, cfg16, device=dev)
+    _reset_counts()
+    got16 = model.predict_frames(graphs)
+    launches = counts()
+    gp = [permute_graph(g, model._order, pin_zero=False)[0] for g in graphs]
+    union = banded.band_plan_frames(np.stack([g.nlist for g in gp]),
+                                    np.stack([g.edges for g in gp]))
+    batched = (banded.plan_fits_vmem(union, F, E, dtype_bytes=2)
+               and banded.fused_build_ok(union, H, E, gp[0].nlist.shape[-1], out_bytes=2))
+    n_fwd = 1 if batched else TRAJ_FRAMES
+    expect(launches, build_band_fused=n_fwd, mp_banded=n_fwd * L, band_occupancy=n_fwd)
+    if got16.shape != (TRAJ_FRAMES, N_ATOMS):
+        raise SystemExit(f"chip_smoke: exact bfloat16 predict_frames gave shape {got16.shape}")
+    print(f"phase 6: exact bfloat16: predict_frames of {TRAJ_FRAMES} frames "
+          f"({'one batched forward' if batched else 'frame by frame'}), launches "
+          f"{ {k: v for k, v in launches.items() if v} }; vs per-frame exact bfloat16 predict "
+          f"{_in_fast_band(got16.ravel(), want16.ravel(), 'exact bfloat16 frames', 0.05)}; vs "
+          f"exact float32 {_in_fast_band(got16.ravel(), wants['exact'].ravel(), 'frames')}")
+    out["exact_bf16"] = {"predict_frames_batched": bool(batched),
+                         "predict_frames_launches": launches}
     torch.cuda.synchronize()
     return out
 
@@ -856,6 +1021,19 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
         print(f"phase 7: fast frame {f} vs exact frame {f}: "
               f"{_in_fast_band(p, exact_peaks[f], f'globule fast frame {f}')}")
 
+    # -- exact serving of a bfloat16 config (ROADMAP B.6) -------------------------------
+    _reset_counts()
+    model16 = ServingModel(params, cfg16, device=dev)
+    peaks16 = [model16.predict(g) for g in graphs]
+    launches16 = counts()
+    if model16._resolved != "blocksparse":
+        raise SystemExit(f"chip_smoke: exact bfloat16 served the globule through "
+                         f"{model16._resolved}")
+    expect(launches16, build_block_adjacency=N_FRAMES, mp_blocksparse_grouped=N_FRAMES * L)
+    for f, p in enumerate(peaks16):
+        print(f"phase 7: exact bfloat16 frame {f} vs exact frame {f}: "
+              f"{_in_fast_band(p, exact_peaks[f], f'globule exact bfloat16 frame {f}')}")
+
     # -- apply_blocksparse(group=1) directly, against its plain versions ----------
     direct = {}
     for c, tag in ((cfg, "float32"), (cfg16, "bfloat16")):
@@ -991,7 +1169,8 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
             nbytes=(cheb_in + T * 4 + n_pad * F * eb * 2 + F * F * E * eb + n_pad * 4
                     + T * E * B * W * eb),
             peak=peak, source="fused_first.cu", dtype=tag, phase=8,
-            extra=f"; M vs plain build {m_err:.3e}",
+            extra=f"; M vs plain build {m_err:.3e}"
+                  f"{_dense('mp_banded_poly_fused' + ('' if dt == f32 else '_bf16'))}",
         )
         ser_err = (float((M.float() - M_ser.float()).abs().max()),
                    float((got.float() - ser.float()).abs().max()))
@@ -1027,7 +1206,8 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
             got = apply_banded(params, c, gf, plan_f, cheb=cheb, fused_first=True)
             torch.cuda.synchronize()
             fwd_launch.append((tag, counts()))
-            expect(fwd_launch[-1][1], mp_banded_poly_fused=1, mp_banded=L - 1)
+            expect(fwd_launch[-1][1], mp_banded_poly_fused=1, mp_banded=L - 1,
+                   band_occupancy=1)
             got = got.cpu().numpy()[inverse]
             ser = apply_banded(params, c, gf, plan_f, cheb=cheb).cpu().numpy()[inverse]
             _in_fast_band(got, ser, f"fused-first frame {f} [{tag}]", 0.05)
@@ -1101,7 +1281,10 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
                + banded.mp_banded_partial(M_halo, lo_halo, table[m:], w0))
         torch.cuda.synchronize()
         got_launches = counts()
-        expect(got_launches, **{name: 2, "mp_banded_partial": 2})
+        # direct partial layers with the JAX signature: each derives its
+        # occupancy from its band
+        expect(got_launches, **{name: 2, "mp_banded_partial": 2, "band_occupancy_from_band": 2})
+        launches["band_occupancy_from_band"] = got_launches["band_occupancy_from_band"]
         launches[name] = got_launches[name]
         halo_err = close(M_halo, plain(nl_p[:m] - m, lo_halo, m), **build_tol[dt])
         err = close(acc, want, **mp_tol[dt])
@@ -1134,7 +1317,7 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
     peaks16 = [model16.predict(g) for g in small["graphs"]]
     served = counts()
     nf = len(small["graphs"])
-    expect(served, build_band_fused=nf, mp_banded=nf * L)
+    expect(served, build_band_fused=nf, mp_banded=nf * L, band_occupancy=nf)
     if model16._resolved != "banded" or model16.config.compute_dtype != "bfloat16":
         raise SystemExit(f"chip_smoke: exact bfloat16 served through {model16._resolved} in "
                          f"{model16.config.compute_dtype}")
@@ -1241,11 +1424,12 @@ def main(argv=None) -> int:
 
     def check(name, line, got_fn, want_fn, *, tol, flops, nbytes, peak=PEAK_F32_FLOPS,
               rtol=None, tol_of_max=0.0, source="banded.cu", dtype="float32", row=True,
-              extra="", repeats=REPEATS, inner=10, phase=3):
+              extra="", repeats=REPEATS, inner=10, phase=3, library=None):
         """Compare kernel and plain version (tensors or lists of them, one
         per window class) within rtol (default tol) and atol = tol +
         tol_of_max * max|plain|; time both (the median of ``repeats`` runs
-        of ``inner`` calls); record the row."""
+        of ``inner`` calls), and ``library`` (one PyTorch call, a yardstick
+        the port never calls) where given; record the row."""
         got, want = got_fn(), want_fn()
         torch.cuda.synchronize()
         got = list(got) if isinstance(got, (list, tuple)) else [got]
@@ -1255,20 +1439,24 @@ def main(argv=None) -> int:
         err = 0.0
         for g, w in zip(got, want):
             err = max(err, float((g.float() - w.float()).abs().max()))
+            if not w.is_floating_point() and not torch.equal(g, w):
+                raise SystemExit(f"chip_smoke: {name} differs from its plain version")
             torch.testing.assert_close(g.float(), w.float(), rtol=tol if rtol is None else rtol,
                                        atol=atol)
         del want, w  # the plain outputs, before the timing runs allocate more
         ms, plain_ms = _time_ms(got_fn, repeats, inner), _time_ms(want_fn, repeats, inner)
+        lib_ms = None if library is None else _time_ms(library, repeats, inner)
         bound_ms, bound_by = _bound(flops, nbytes, peak)
         print(f"phase {phase}: {name} [{dtype}]: max|kernel-plain|={err:.3e} (atol {atol:.3g}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
+              f"{'' if lib_ms is None else f', library {lib_ms:.4f} ms'}"
               f"{f', {len(got)} launches' if len(got) > 1 else ''}{extra}")
         rec = {
             "name": name, "route": "cuda", "source": f"nmrgnn_tpu_torch/csrc/{source}",
             "replaces": line, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "dtype": dtype, "calls_per_timing": len(got),
+            "library_ms": lib_ms, "dtype": dtype, "calls_per_timing": len(got),
         }
         checks.append(rec)
         if row:
@@ -1300,21 +1488,53 @@ def main(argv=None) -> int:
                                     (0, 0, 0, plan.n_padded - N))
     inv_p = torch.nn.functional.pad(gt.inv_degree, (0, plan.n_padded - N))
     w0 = params["mp"][0]["w"]
+    act = cfg.mp_activation
+    # the band's chunk occupancy, as the forwards make it once per band
+    occ_args = (gt.nlist, gt.edges, plan_d.lo, W, B, plan.n_padded)
+    occ = banded.band_occupancy(*occ_args)
+    _, _, row_chunks, load = _mp_load([(occ, B, W)], F)
+    check(
+        "band_occupancy", "nmrgnn_tpu/ops/banded.py:610",
+        lambda: banded.band_occupancy(*occ_args), lambda: banded.band_occupancy_plain(*occ_args),
+        tol=0.0, flops=0, nbytes=N * K * 8 + T * 4 + occ.numel() * 4, source="hbm.cu",
+        dtype="int32", extra=f"; {row_chunks} occupied (row, chunk) pairs",
+    )
+    occ_m = check(
+        "band_occupancy_from_band", "nmrgnn_tpu/ops/banded.py:610",
+        lambda: banded.band_occupancy_from_band(M),
+        lambda: banded.band_occupancy_from_band_plain(M),
+        tol=0.0, flops=0, nbytes=M.numel() * 4 + occ.numel() * 4, source="hbm.cu",
+        dtype="int32", extra=" (float32 band)",
+    )
+    if torch.bitwise_and(occ_m, torch.bitwise_not(occ)).any():  # exactness
+        raise SystemExit("chip_smoke: a nonzero of the band lies outside the occupancy")
+    print(f"phase 3: the occupancy from nlist covers every nonzero of the band; equal to the "
+          f"band's own: {bool(torch.equal(occ_m, occ))}")
     nnz = int((M != 0).sum())
     mp_flops = 2 * nnz * F + 2 * T * E * B * F * F
     dense_flops = 2 * T * E * B * W * F + 2 * T * E * B * F * F
 
     def mp_bytes(eb):
-        return (T * E * B * W * eb + plan.n_padded * F * eb * 2 + F * F * E * eb
-                + plan.n_padded * 4 + T * 4)
+        # the occupied chunks of each band row, the occupancy and lo; the
+        # table and inv_degree read once, the weights once, the output once
+        return (row_chunks * 16 * E * eb + occ.numel() * 4 + T * 4
+                + plan.n_padded * F * eb * 2 + F * F * E * eb + plan.n_padded * 4)
+
+    win_idx = plan_d.lo.long()[:, None] + torch.arange(W, device=dev)  # [T, W]
+
+    def bmm(M_, table):
+        """The yardstick: the dense band against its windows, one torch.bmm."""
+        win = table[win_idx]
+        return lambda: torch.bmm(M_.view(T, E * B, W), win)
 
     check(
         "mp_banded", "nmrgnn_tpu/ops/banded.py:555",
-        lambda: banded.mp_banded(M, plan_d, nodes, w0, inv_p, cfg.mp_activation),
-        lambda: banded.mp_banded_plain(M, plan_d, nodes, w0, inv_p, cfg.mp_activation),
+        lambda: banded.mp_banded(M, plan_d, nodes, w0, inv_p, act, occ),
+        lambda: banded.mp_banded_plain(M, plan_d, nodes, w0, inv_p, act),
         tol=2e-4, flops=mp_flops, nbytes=mp_bytes(4), source="hbm.cu",
+        library=bmm(M, nodes),
         extra=f"; band {nnz} nonzeros of {M.numel()}, dense products "
-              f"{dense_flops / 1e9:.3f} GFLOP",
+              f"{dense_flops / 1e9:.3f} GFLOP{load}{_dense('mp_banded')}",
     )
 
     # the fast path's kernels: the Chebyshev builds (bfloat16 on the path,
@@ -1345,35 +1565,46 @@ def main(argv=None) -> int:
             **(build_tol if dt == bf16 else dict(tol=1e-5)), flops=cheb_flops,
             nbytes=cheb_in + cls_bytes, source="poly.cu", dtype=tag, row=dt == bf16,
         )
+    occ_cls = [banded.band_occupancy(gt.nlist, gt.edges, c.lo, c.window, B, plan.n_padded,
+                                     ids=c.ids) for c in cls_d.classes]
+    _, _, cls_chunks, cls_load = _mp_load(
+        [(o, B, c.window) for o, c in zip(occ_cls, cls_plan.classes)], F)
     for dt, tag, eb, peak in ((bf16, "bfloat16", 2, PEAK_BF16_FLOPS),
                               (f32, "float32", 4, PEAK_F32_FLOPS)):
         table = nodes.to(dt)
         part_flops = sum(2 * int((m != 0).sum()) * F + 2 * len(c.ids) * E * B * F * F
                          for m, c in zip(Mcls[dt], cls_plan.classes))
-        # each class's band, lo and float32 output rows; the table and the
-        # weights once
-        part_bytes = (sum(m.numel() * eb + len(c.ids) * (4 + B * F * 4)
-                          for m, c in zip(Mcls[dt], cls_plan.classes))
+        # each class's occupied band chunks, occupancy, lo and float32
+        # output rows; the table and the weights once
+        part_bytes = (cls_chunks * 16 * E * eb
+                      + sum(o.numel() * 4 + len(c.ids) * (4 + B * F * 4)
+                            for o, c in zip(occ_cls, cls_plan.classes))
                       + plan.n_padded * F * eb + F * F * E * eb)
         check(
             "mp_banded_partial", "nmrgnn_tpu/ops/banded.py:833",
-            lambda dt=dt, table=table: [banded.mp_banded_partial(m, c.lo, table, w0)
-                                        for m, c in zip(Mcls[dt], cls_d.classes)],
+            lambda dt=dt, table=table: [banded.mp_banded_partial(m, c.lo, table, w0, o)
+                                        for m, c, o in zip(Mcls[dt], cls_d.classes, occ_cls)],
             lambda dt=dt, table=table: [banded.mp_banded_partial_plain(m, c.lo, table, w0)
                                         for m, c in zip(Mcls[dt], cls_d.classes)],
             tol=2e-4, tol_of_max=BF16_STEP if dt == bf16 else 0.0, flops=part_flops,
             nbytes=part_bytes, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16,
+            extra=cls_load + (_dense("mp_banded_partial") if dt == bf16 else ""),
         )
     nodes16 = nodes.to(bf16)
     nnz16 = int((Mp[bf16] != 0).sum())
     check(
         "mp_banded_bf16", "nmrgnn_tpu/ops/banded.py:555",
-        lambda: banded.mp_banded(Mp[bf16], plan_d, nodes16, w0, inv_p, cfg.mp_activation),
-        lambda: banded.mp_banded_plain(Mp[bf16], plan_d, nodes16, w0, inv_p, cfg.mp_activation),
+        lambda: banded.mp_banded(Mp[bf16], plan_d, nodes16, w0, inv_p, act, occ),
+        lambda: banded.mp_banded_plain(Mp[bf16], plan_d, nodes16, w0, inv_p, act),
         rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP,
         flops=2 * nnz16 * F + 2 * T * E * B * F * F, nbytes=mp_bytes(2), peak=PEAK_BF16_FLOPS,
-        source="hbm.cu", dtype="bfloat16",
+        source="hbm.cu", dtype="bfloat16", library=bmm(Mp[bf16], nodes16),
+        extra=f"; band {nnz16} nonzeros{load}{_dense('mp_banded_bf16')}",
     )
+    split = {tag: _occupancy_split(
+        f"phase 3: mp_banded [{tag}]",
+        lambda o, M_=M_, x=x: banded.mp_banded(M_, plan_d, x, w0, inv_p, act, o), occ)
+        for tag, M_, x in (("float32", M, nodes), ("bfloat16", Mp[bf16], nodes16))}
 
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -1397,7 +1628,8 @@ def main(argv=None) -> int:
     exact_launches = counts()
     print(f"phase 4a: exact: served {len(graphs)} frames, launches {exact_launches}, "
           f"per-frame wall ms {[round(s * 1e3, 3) for s in frame_s]}")
-    expect(exact_launches, build_band_fused=len(graphs), mp_banded=len(graphs) * L)
+    expect(exact_launches, build_band_fused=len(graphs), mp_banded=len(graphs) * L,
+           band_occupancy=len(graphs))
     worst = 0.0
     for f, (g, p) in enumerate(zip(graphs, peaks)):
         if p.shape != (N,) or not np.all(np.isfinite(p)):
@@ -1414,7 +1646,7 @@ def main(argv=None) -> int:
     unfused = apply_banded(params, cfg, gt, plan_d, fused_edge=False)
     torch.cuda.synchronize()
     unfused_launches = counts()
-    expect(unfused_launches, mp_banded=L, build_band=1)
+    expect(unfused_launches, mp_banded=L, build_band=1, band_occupancy=1)
     plain = apply_banded(params, cfg, gt, plan_d, use_kernels=False)
     torch.testing.assert_close(unfused, plain, rtol=5e-4, atol=5e-4)
     print(f"phase 4a: unfused edge branch launches {unfused_launches}, max|kernels - plain| = "
@@ -1446,7 +1678,7 @@ def main(argv=None) -> int:
           f"(re-bucketing switch {'on' if fast._cls_vmem_off else 'off'}), launches "
           f"{fast_launches}, per-frame wall ms {[round(s * 1e3, 3) for s in fast_s]}")
     expect(fast_launches, build_band_poly_cls=n_cls, mp_banded_partial=n_cls * L,
-           build_band_poly=n_uni, mp_banded=n_uni * L)
+           build_band_poly=n_uni, mp_banded=n_uni * L, band_occupancy=n_cls + n_uni)
     for f, p in enumerate(fast_peaks):
         if p.shape != (N,):
             raise SystemExit(f"chip_smoke: fast frame {f}: peaks of shape {p.shape}")
@@ -1460,7 +1692,7 @@ def main(argv=None) -> int:
     uni = apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d)
     torch.cuda.synchronize()
     uni_launches = counts()
-    expect(uni_launches, build_band_poly=1, mp_banded=L)
+    expect(uni_launches, build_band_poly=1, mp_banded=L, band_occupancy=1)
     uni_plain = apply_banded(params, cfg16, gt, plan_d, cheb=cheb_d, use_kernels=False)
     print(f"phase 4c: uniform fast forward launches {uni_launches}; kernels vs plain: "
           f"{_in_fast_band(uni.cpu().numpy(), uni_plain.cpu().numpy(), 'uniform', 0.05)}")
@@ -1469,7 +1701,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     cls_launches = counts()
     nc = len(cls_plan.classes)
-    expect(cls_launches, build_band_poly_cls=nc, mp_banded_partial=nc * L)
+    expect(cls_launches, build_band_poly_cls=nc, mp_banded_partial=nc * L, band_occupancy=nc)
     cls_plain = apply_banded_classes(params, cfg16, gt, cls_d, cheb_d, use_kernels=False)
     print(f"phase 4c: class fast forward launches {cls_launches}; kernels vs plain: "
           f"{_in_fast_band(clsf.cpu().numpy(), cls_plain.cpu().numpy(), 'classes', 0.05)}")
@@ -1477,8 +1709,10 @@ def main(argv=None) -> int:
     # launches per kernel row: the count in the serving run of its path
     for k in kernels:
         n = k["name"]
-        if n in ("build_band_fused", "mp_banded"):
+        if n in ("build_band_fused", "mp_banded", "band_occupancy"):
             k["launches"] = exact_launches[n]
+        elif n == "band_occupancy_from_band":
+            continue  # launched by the direct partial layers of phase 8c
         elif n == "build_band":
             k["launches"] = unfused_launches[n]
         else:
@@ -1544,7 +1778,8 @@ def main(argv=None) -> int:
                 "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                 "graph": {"N": N, "N_pad": plan.n_padded, "T": T, "B": B, "W": W, "K": K,
                           "classes": [[len(c.ids), c.window] for c in cls_plan.classes]},
-                "kernels": kernels, "checks": checks, "forward_ms": fwd_ms,
+                "kernels": kernels, "checks": checks, "mp_occupancy_split_ms": split,
+                "forward_ms": fwd_ms,
                 "plain_forward_ms": plain_fwd_ms, "predict_wall_ms": predict_ms,
                 "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,

@@ -92,6 +92,12 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // -- the Chebyshev edge stage (poly.cu, fused_first.cu) ----------------------
 
 // The E edge values of one slot at distance dv: the clamped distance mapped

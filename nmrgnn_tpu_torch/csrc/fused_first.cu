@@ -26,8 +26,8 @@ int launch_fused_first(const int* nlist, const float* d, const float* c, const i
   if (K < 1 || K > kMaxK || degree < 1 || (degree + 1) * E > kMaxCoeffs)
     return cudaErrorInvalidValue;
   const ChebBuild bld{nlist, d, c, m_out, K, degree, m_bf16, d_lo, d_hi, span};
-  return launch_mp_any<T, kBuild>(F, E, nullptr, lo, nullptr, table, w, inv, out, tiles, B, W,
-                                  tiles * B, act, bld, static_cast<cudaStream_t>(stream));
+  return launch_mp_any<T, kBuild>(F, E, nullptr, nullptr, lo, nullptr, table, w, inv, out, tiles,
+                                  B, W, tiles * B, act, bld, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -41,7 +41,8 @@ const char* nmr_error_string(int code) {
 // Layer 1 of `tiles` tiles over the node table [tiles * B, F] (table's
 // type T), the band built in the block from nlist and d ([tiles * B, K],
 // padded rows -1 and 0) and written to m_out [tiles, E, B, W] as float32
-// (m_bf16 0) or bfloat16 (1).
+// (m_bf16 0) or bfloat16 (1). w: [E, F_in, F_out] in float32, [E, F_out,
+// F_in] in bfloat16.
 int nmr_mp_banded_poly_fused(const int* nlist, const float* d, const float* c, const int* lo,
                              const float* table, const float* w, const float* inv, float* out,
                              void* m_out, int tiles, int E, int B, int W, int F, int K,

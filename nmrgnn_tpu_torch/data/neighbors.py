@@ -1,6 +1,8 @@
 """Exact k-nearest-neighbor lists on the host (``nmrgnn_tpu/data/
-neighbors.py:28-53``, scipy path only; the native cell-list loader is a
-later slice).
+neighbors.py:28-53``): the native cell list (``nmrgnn_tpu_torch/native.py``)
+when its library builds and loads, scipy's cKDTree otherwise, the JAX
+package's rule, so both packages build the same graphs (tied neighbors in
+the same slots, distances to the bit).
 
 Returns (nlist i32[N, K], dists f32[N, K]) sorted by increasing distance,
 self excluded, in the units of ``coords``. Slots beyond the true neighbor
@@ -11,8 +13,15 @@ from __future__ import annotations
 import numpy as np
 
 
-def neighbors_host(coords: np.ndarray, k: int):
-    """Exact k-NN with scipy's cKDTree. coords: f32[N, 3]."""
+def neighbors_host(coords: np.ndarray, k: int, use_native: bool = True):
+    """Exact k-NN on the host: the native cell list when built (and N > k),
+    scipy's cKDTree otherwise. coords: f32[N, 3]."""
+    if use_native and coords.shape[0] > k:
+        from .. import native
+
+        out = native.cell_list_knn(coords, k)
+        if out is not None:
+            return out
     from scipy.spatial import cKDTree
 
     n = coords.shape[0]

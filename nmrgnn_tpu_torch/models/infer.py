@@ -18,6 +18,11 @@ kept in the compute type between layers.
 once: the frames are concatenated along the rows, so each kernel is
 launched once per forward for the whole batch.
 
+With the kernels on, each banded forward makes its band's chunk occupancy
+once (``band_occupancy``, from nlist, the distances and the window starts)
+and hands it to every MP layer that reads the band, so the MP kernel
+stages only the chunks that hold a nonzero.
+
 ``apply_blocksparse`` (``nmrgnn_tpu/models/infer.py:51-124``) serves a
 structure whose band is too wide for the banded paths: it builds the
 block-sparse adjacency of the active (row block, col block) pairs once per
@@ -42,6 +47,7 @@ from ..ops.activations import get_activation
 from ..ops.banded import (
     BandClassPlan,
     BandPlan,
+    band_occupancy,
     band_plan,
     build_band,
     build_band_fused,
@@ -110,16 +116,25 @@ def _band(params, config: ModelConfig, nlist, edges, plan: BandPlan, use_kernels
     return build(nlist, _edge_features(params, config, edges), plan, out_dtype=cd)
 
 
+def _occupancy(layers, nlist, edges, plan: BandPlan, use_kernels: bool):
+    """The chunk occupancy of the plan's band, made once for the MP layers
+    that read it (None without the kernels or without such a layer)."""
+    if not (use_kernels and layers):
+        return None
+    return band_occupancy(nlist, edges, plan.lo, plan.window, plan.block_rows, plan.n_padded)
+
+
 def _mp_layers(params, config: ModelConfig, M, plan: BandPlan, nodes, inv_p,
-               use_kernels: bool, hbm_table: bool) -> torch.Tensor:
+               use_kernels: bool, hbm_table: bool, occupancy) -> torch.Tensor:
     """One banded MP layer per ``params["mp"]`` entry over the padded node
-    table ``nodes`` (in the compute type)."""
+    table ``nodes`` (in the compute type), each given the band's
+    ``occupancy``."""
     if hbm_table:
         mp = mp_banded_hbm if use_kernels else mp_banded_hbm_plain
     else:
         mp = mp_banded if use_kernels else mp_banded_plain
     for p in params["mp"]:
-        nodes = mp(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+        nodes = mp(M, plan, nodes, p["w"], inv_p, config.mp_activation, occupancy)
     return nodes
 
 
@@ -165,12 +180,22 @@ def apply_banded(
     if use_kernels and cheb is not None and not hbm_table and fused_first and params["mp"]:
         M, nodes = mp_banded_poly_fused(nlist, edges, cheb, plan, nodes, params["mp"][0]["w"],
                                         inv_p, config.mp_activation, out_dtype=cd)
+        occ = _occupancy(params["mp"][1:], nlist, edges, plan, use_kernels)
         for p in params["mp"][1:]:
-            nodes = mp_banded(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+            nodes = mp_banded(M, plan, nodes, p["w"], inv_p, config.mp_activation, occ)
     else:
         M = _band(params, config, nlist, edges, plan, use_kernels, fused_edge, cheb)
-        nodes = _mp_layers(params, config, M, plan, nodes, inv_p, use_kernels, hbm_table)
+        occ = _occupancy(params["mp"], nlist, edges, plan, use_kernels)
+        nodes = _mp_layers(params, config, M, plan, nodes, inv_p, use_kernels, hbm_table, occ)
     return _readout(params, config, atoms, nodes[:n].float())
+
+
+def _class_occupancy(params, nlist, edges, cls_plan: BandClassPlan, use_kernels: bool):
+    """Each class band's chunk occupancy, made once for its MP layers."""
+    if not (use_kernels and params["mp"]):
+        return [None] * len(cls_plan.classes)
+    return [band_occupancy(nlist, edges, c.lo, c.window, cls_plan.block_rows,
+                           cls_plan.n_padded, ids=c.ids) for c in cls_plan.classes]
 
 
 def apply_banded_classes(
@@ -203,6 +228,7 @@ def apply_banded_classes(
     Ms = [build(nlist, edges, cheb, c, B, cls_plan.n_padded, out_dtype=cd)
           for c in cls_plan.classes]
     tiles = [c.ids.long() for c in cls_plan.classes]
+    occs = _class_occupancy(params, nlist, edges, cls_plan, use_kernels)
 
     pad = cls_plan.n_padded - n
     nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
@@ -212,8 +238,8 @@ def apply_banded_classes(
         w = p["w"].to(cd)
         table = nodes.to(cd)
         acc = torch.empty((T, B, F), dtype=torch.float32, device=dev)
-        for c, M, ids in zip(cls_plan.classes, Ms, tiles):
-            out_c = partial(M, c.lo, table, w)
+        for c, M, ids, occ in zip(cls_plan.classes, Ms, tiles, occs):
+            out_c = partial(M, c.lo, table, w, occ)
             acc.index_copy_(0, ids, out_c.view(-1, B, F))  # the classes partition the tiles
         nodes = mp_act(acc.view(T * B, F) * inv_col) + nodes
     return _readout(params, config, atoms, nodes[:n])
@@ -248,6 +274,7 @@ def apply_banded_hbm_classes(
     Ms = [build(nlist, edges, cheb, c, B, cls_plan.n_padded, out_dtype=cd)
           for c in cls_plan.classes]
     tiles = [c.ids.long() for c in cls_plan.classes]
+    occs = _class_occupancy(params, nlist, edges, cls_plan, use_kernels)
 
     pad = cls_plan.n_padded - n
     nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(cd)
@@ -257,8 +284,8 @@ def apply_banded_hbm_classes(
         # a new table: writing into `nodes` would change the windows that
         # the layer's later classes read
         new_nodes = torch.empty_like(nodes)
-        for c, M, ids in zip(cls_plan.classes, Ms, tiles):
-            out_c = mp(M, c, B, nodes, p["w"], inv_p, config.mp_activation)
+        for c, M, ids, occ in zip(cls_plan.classes, Ms, tiles, occs):
+            out_c = mp(M, c, B, nodes, p["w"], inv_p, config.mp_activation, occ)
             # the classes partition the tiles
             new_nodes.view(T, B, F).index_copy_(0, ids, out_c.view(-1, B, F))
         nodes = new_nodes
@@ -294,14 +321,15 @@ def apply_banded_frames(
     nlist_b = torch.where(nlist_p >= 0, nlist_p + offsets, nlist_p).reshape(fr * npad, -1)
     lo_b = plan_on_device(plan, dev).lo[None, :] + offsets[:, 0]
     big_plan = plan._replace(lo=lo_b.reshape(-1).contiguous(), n_padded=fr * npad)
-    M = _band(params, config, nlist_b.contiguous(),
-              nnf.pad(edges, (0, 0, 0, pad)).reshape(fr * npad, -1), big_plan,
-              use_kernels, True, cheb)
+    nlist_b = nlist_b.contiguous()
+    edges_b = nnf.pad(edges, (0, 0, 0, pad)).reshape(fr * npad, -1)
+    M = _band(params, config, nlist_b, edges_b, big_plan, use_kernels, True, cheb)
     F = params["embed"]["kernel"].shape[-1]
     nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
     nodes = _mp_layers(params, config, M, big_plan,
                        nodes.reshape(fr * npad, F).to(compute_dtype(config)),
-                       nnf.pad(inv_degree, (0, pad)).reshape(-1), use_kernels, False)
+                       nnf.pad(inv_degree, (0, pad)).reshape(-1), use_kernels, False,
+                       _occupancy(params["mp"], nlist_b, edges_b, big_plan, use_kernels))
     nodes = nodes.view(fr, npad, F)[:, :n].reshape(fr * n, F).float()
     return _readout(params, config, atoms.reshape(fr * n, -1), nodes).view(fr, n)
 

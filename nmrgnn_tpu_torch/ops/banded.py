@@ -24,8 +24,14 @@ takes the "banded_hbm" path: the MP layer reads the node table from device
 memory tile by tile (``mp_banded_hbm``), and the fast precision's class
 forward runs the whole layer, epilogue included, once per class
 (``mp_banded_hbm_cls``). On the card every MP layer reads its table from
-device memory: the four MP wrappers launch one kernel (``csrc/hbm.cu``),
-each counting its own launches as the TPU kernel it replaces.
+device memory: the four MP wrappers launch one kernel (``csrc/mp.cuh``,
+instantiated by ``csrc/hbm.cu``), each counting its own launches as the
+TPU kernel it replaces. The band is under 2% dense, so the kernel stages
+only the 16-column window chunks that hold a nonzero of a block's rows and
+walks their nonzeros: it reads the band's chunk occupancy
+(``band_occupancy``, made once per band by the forwards from nlist, the
+distances and the window starts; ``band_occupancy_from_band`` for a call
+with the JAX package's signature, one pass over M).
 
 ``mp_banded_poly_fused`` builds the Chebyshev band and runs MP layer 1 in
 one kernel (``apply_banded(fused_first=True)``), and the ``*_tracedlo``
@@ -50,9 +56,11 @@ build_band_poly           _poly_band_kernel, banded.py:1268, 1418     bytes (M)
 build_band_poly_tracedlo  build_band_poly_tracedlo, banded.py:1363    bytes (M)
 mp_banded_poly_fused      _poly_mp_fused_kernel, banded.py:1451-1604  as mp_banded
 build_band_poly_cls       build_band_poly_cls, banded.py:1645-1700    bytes (M)
-mp_banded_partial         _mp_banded_partial_kernel, banded.py:833    bytes
+mp_banded_partial         _mp_banded_partial_kernel, banded.py:833    as mp_banded
 mp_banded_hbm             _mp_banded_hbm_kernel, banded.py:656-773    as mp_banded
 mp_banded_hbm_cls         _mp_banded_hbm_cls_kernel, banded.py:1703   as mp_banded
+band_occupancy            none (feeds the MP kernel)                  bytes (nlist)
+band_occupancy_from_band  none (feeds the MP kernel)                  bytes (M)
 ========================  ==========================================  ==========
 
 The band plans are host-side numpy, as in the JAX package.
@@ -472,16 +480,103 @@ def build_band_fused_plain(
     return build_band_plain(nlist, e, plan, out_dtype)
 
 
+# The band occupancy: which 16-column window chunks of each band row hold
+# a nonzero. The MP kernel stages and multiplies only the chunks a block's
+# rows occupy (``csrc/mp.cuh``); here it is one bit per grid row and chunk,
+# int32 [Tg * B, ceil(W / 512)], bit b of word j for chunk 32 j + b.
+
+
+def occupancy_words(window: int) -> int:
+    """Occupancy words of a band row of ``window`` columns."""
+    return (window // _MP_CHUNK + 31) // 32
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bool [R, nw] -> int32 [R, ceil(nw / 32)], bit b of word j = bits[:, 32 j + b]."""
+    r, nw = bits.shape
+    nwords = (nw + 31) // 32
+    b = nnf.pad(bits.to(torch.int64), (0, nwords * 32 - nw)).view(r, nwords, 32)
+    words = (b << torch.arange(32, device=bits.device)).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def occupancy_bits(occ: torch.Tensor, window: int) -> torch.Tensor:
+    """int32 [R, NW] -> bool [R, W / 16]: the chunks each row occupies."""
+    nw = window // _MP_CHUNK
+    w = occ.to(torch.int64) & 0xFFFFFFFF
+    bits = (w[..., None] >> torch.arange(32, device=occ.device)) & 1
+    return bits.view(occ.shape[0], -1)[:, :nw].bool()
+
+
+def band_occupancy_plain(
+    nlist: torch.Tensor,   # i32[N, K]
+    edges: torch.Tensor,   # f32[N, K] distances, 0 on padding slots
+    lo,                    # i32[Tg] window starts (tensor or numpy)
+    window: int,
+    block_rows: int,
+    n_padded: int,
+    ids=None,              # i32[Tg] tile ids (None: tile i)
+) -> torch.Tensor:
+    """int32 [Tg * B, NW]: grid row i * B + r occupies chunk
+    (nlist[src, k] - lo[i]) // 16 for each slot k with a positive distance
+    whose index lies in [lo[i], lo[i] + W), src = ids[i] * B + r (ids
+    None: i * B + r). Rows at or past N, and a tile id outside
+    [0, n_padded / B), occupy nothing. Exact for every band build of this
+    module: each gives a slot with distance <= 0 the value 0."""
+    dev = edges.device
+    n, k = nlist.shape
+    B = block_rows
+    lo_t = _long(lo, dev)
+    tg = lo_t.shape[0]
+    tiles = torch.arange(tg, device=dev) if ids is None else _long(ids, dev)
+    if tiles.shape != (tg,):
+        raise ValueError(f"{tiles.shape[0]} tile ids for {tg} window starts")
+    src = tiles.clamp(min=0)[:, None] * B + torch.arange(B, device=dev)  # [Tg, B]
+    ok = ((tiles >= 0) & (tiles < n_padded // B))[:, None] & (src < n)
+    src = src.clamp(max=max(n - 1, 0))
+    rel = nlist.to(torch.int64)[src] - lo_t[:, None, None]  # [Tg, B, K]
+    hit = ok[..., None] & (edges[src] > 0) & (rel >= 0) & (rel < window)
+    nw = window // _MP_CHUNK
+    chunk = torch.where(hit, rel // _MP_CHUNK, nw).view(tg * B, k)
+    bits = torch.zeros((tg * B, nw + 1), dtype=torch.bool, device=dev)
+    bits.scatter_(1, chunk, True)
+    return _pack_bits(bits[:, :nw])
+
+
+def band_occupancy_from_band_plain(M: torch.Tensor) -> torch.Tensor:
+    """int32 [T * B, NW]: the chunks of each band row of M [T, E, B, W]
+    that hold a nonzero (in any channel)."""
+    T, E, B, W = M.shape
+    bits = (M != 0).any(1).view(T * B, W // _MP_CHUNK, _MP_CHUNK).any(-1)
+    return _pack_bits(bits)
+
+
+def _occupied(M: torch.Tensor, occupancy) -> torch.Tensor:
+    """M with the chunks ``occupancy`` leaves out set to zero (M itself
+    when it is None): what the MP kernel reads of a band."""
+    if occupancy is None:
+        return M
+    T, E, B, W = M.shape
+    if tuple(occupancy.shape) != (T * B, occupancy_words(W)):
+        raise ValueError(f"occupancy of shape {tuple(occupancy.shape)} does not match the band "
+                         f"{tuple(M.shape)}")
+    keep = occupancy_bits(occupancy.to(M.device), W).repeat_interleave(_MP_CHUNK, 1)
+    return M * keep.view(T, 1, B, W).to(M.dtype)
+
+
 def mp_banded_partial_plain(
     M: torch.Tensor,      # [T, E, B, W]
     lo,                   # i32[T] window starts (tensor or numpy)
     table: torch.Tensor,  # [Nt, F] window source, any Nt >= max(lo) + W
     w: torch.Tensor,      # [F, F, E]
+    occupancy=None,       # int32 [T * B, NW] (band_occupancy), or None
 ) -> torch.Tensor:
     """Partial MP aggregation f32[T * B, F] = sum_n (M_n @ table window) @
     w_n, with no inv_degree, activation or residual. Operands are in
     ``table.dtype`` and h is rounded to it before the second product, as
-    the kernel body rounds it (``_mp_banded_partial_kernel``, :848-851)."""
+    the kernel body rounds it (``_mp_banded_partial_kernel``, :848-851).
+    Given ``occupancy``, only the band chunks it marks are read."""
+    M = _occupied(M, occupancy)
     T, E, B, W = M.shape
     F = table.shape[-1]
     dev = table.device
@@ -510,12 +605,13 @@ def mp_banded_plain(
     w: torch.Tensor,           # [F, F, E]
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
+    occupancy=None,            # int32 [T * B, NW], or None
 ) -> torch.Tensor:
     """One MP layer (activation(aggregate) + residual) over the band, in
     ``nodes.dtype``: operands in that type, products and sums in float32,
     h rounded to it before the second product, the residual added in
     float32 and the sum rounded once (``_mp_banded_kernel``, :572-579)."""
-    acc = mp_banded_partial_plain(M, plan.lo, nodes, w)
+    acc = mp_banded_partial_plain(M, plan.lo, nodes, w, occupancy)
     tiles = torch.arange(M.shape[0], device=nodes.device)
     return _mp_epilogue(acc, tiles, nodes, inv_degree, activation_name)
 
@@ -527,11 +623,12 @@ def mp_banded_hbm_plain(
     w: torch.Tensor,           # [F, F, E]
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
+    occupancy=None,            # int32 [T * B, NW], or None
 ) -> torch.Tensor:
     """The MP layer with the node table in device memory: the same
     function as ``mp_banded_plain`` (``_mp_banded_hbm_kernel``,
     :656-714, has ``_mp_banded_kernel``'s numerics)."""
-    return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name)
+    return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name, occupancy)
 
 
 def mp_banded_hbm_cls_plain(
@@ -542,6 +639,7 @@ def mp_banded_hbm_cls_plain(
     w: torch.Tensor,           # [F, F, E]
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
+    occupancy=None,            # int32 [Tc * B, NW], or None
 ) -> torch.Tensor:
     """One MP layer over one window class's tiles: class-contiguous rows
     [Tc * B, F] in ``nodes.dtype``, row block i the update of tile
@@ -550,7 +648,7 @@ def mp_banded_hbm_cls_plain(
     (``_mp_banded_hbm_cls_kernel``, :1703-1756)."""
     if M.shape[2] != block_rows:
         raise ValueError(f"band of shape {tuple(M.shape)} has no {block_rows}-row tiles")
-    acc = mp_banded_partial_plain(M, cls.lo, nodes, w)
+    acc = mp_banded_partial_plain(M, cls.lo, nodes, w, occupancy)
     return _mp_epilogue(acc, _long(cls.ids, nodes.device), nodes, inv_degree, activation_name)
 
 
@@ -665,8 +763,9 @@ def build_band_poly_cls_plain(
 # Kernel wrappers.
 
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_MP_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-_PARTIAL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_MP_ARGS = [_P] * 8 + [_I] * 7 + [_P]
+_PARTIAL_ARGS = [_P] * 6 + [_I] * 6 + [_P]
+_OCC_FROM_BAND_ARGS = [_P, _P] + [_I] * 4 + [_P]
 _FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 7 + [_F32] * 3 + [_I, _I, _P]
 _SIGNATURES = {
     "banded": {
@@ -690,6 +789,9 @@ _SIGNATURES = {
         "nmr_mp_banded_bf16": (_I, _MP_ARGS),
         "nmr_mp_banded_partial": (_I, _PARTIAL_ARGS),
         "nmr_mp_banded_partial_bf16": (_I, _PARTIAL_ARGS),
+        "nmr_band_occupancy": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+        "nmr_band_occupancy_from_band": (_I, _OCC_FROM_BAND_ARGS),
+        "nmr_band_occupancy_from_band_bf16": (_I, _OCC_FROM_BAND_ARGS),
     },
     "fused_first": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
@@ -705,8 +807,8 @@ _MAX_K = 128        # neighbor slots build_band takes
 _FUSED_H = 128      # EdgeFC width the fused kernel takes
 _FUSED_SLOTS = 128  # edge slots per block of the fused kernel
 _MP_F = (64, 128, 256)
-_MP_CHUNK = 16
-_MP_THREADS = 256
+_MP_CHUNK = 16      # window columns of an occupancy bit
+_MP_ROWS = 32       # rows per block of the MP kernel
 _POLY_MAX_COEFFS = 1024  # (degree + 1) * E the Chebyshev build stages
 
 
@@ -759,12 +861,10 @@ def _device_index(name: str, a, length: int, device) -> torch.Tensor:
 
 
 def _mp_shape_ok(F: int, E: int, B: int, W: int) -> bool:
-    """Whether the MP kernel (hbm.cu) takes these widths: F in
+    """Whether the MP kernel (``csrc/mp.cuh``) takes these widths: F in
     _MP_F, E <= 4, B a multiple of the rows per block, W of the chunk."""
-    if F not in _MP_F or not 1 <= E <= _MAX_E:
-        return False
-    rows_per_block = (_MP_THREADS // (F // 4)) * 4
-    return B % rows_per_block == 0 and W % _MP_CHUNK == 0
+    return (F in _MP_F and 1 <= E <= _MAX_E and B % _MP_ROWS == 0
+            and W % _MP_CHUNK == 0)
 
 
 def _act_code(activation_name: str) -> int:
@@ -936,9 +1036,29 @@ def build_band_fused(
 build_band_fused.launches = 0
 
 
+def _mp_weights(w, dtype, E: int, F: int, device) -> torch.Tensor:
+    """w [F_in, F_out, E] in the MP kernel's layout and ``dtype``: float32
+    [E, F_in, F_out] (rows of W_n streamed through shared memory), bfloat16
+    [E, F_out, F_in] (the tensor cores' B fragments, k contiguous)."""
+    w_t = w.permute(2, 0, 1) if dtype == torch.float32 else w.permute(2, 1, 0)
+    w_t = w_t.to(dtype).contiguous()
+    _check("w", w_t, dtype, (E, F, F), device)
+    return w_t
+
+
+def _mp_occupancy(M, occupancy) -> torch.Tensor:
+    """The band's occupancy on the card: the one given (checked), or one
+    pass over M (``band_occupancy_from_band``)."""
+    if occupancy is None:
+        return band_occupancy_from_band(M)
+    T, _, B, W = M.shape
+    _check("occupancy", occupancy, torch.int32, (T * B, occupancy_words(W)), M.device)
+    return occupancy
+
+
 def _mp_operands(nodes, w, inv_degree, E: int, B: int, W: int, activation_name, what):
     """Checks of a full MP layer's operands on the card (``csrc/mp.cuh``):
-    (entry-point suffix, activation code, w as [E, F, F] in nodes.dtype)."""
+    (entry-point suffix, activation code, w in the kernel's layout)."""
     dev = nodes.device
     n_table, F = nodes.shape
     if not _mp_shape_ok(F, E, B, W):
@@ -951,12 +1071,11 @@ def _mp_operands(nodes, w, inv_degree, E: int, B: int, W: int, activation_name, 
     suffix = _dtype_suffix("nodes", nodes.dtype)
     _check("nodes", nodes, nodes.dtype, (n_table, F), dev)
     _check("inv_degree", inv_degree, torch.float32, (n_table,), dev)
-    w_t = w.permute(2, 0, 1).to(nodes.dtype).contiguous()  # [E, F, F]
-    _check("w", w_t, nodes.dtype, (E, F, F), dev)
-    return suffix, _act_code(activation_name), w_t
+    return suffix, _act_code(activation_name), _mp_weights(w, nodes.dtype, E, F, dev)
 
 
-def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
+def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what,
+               occupancy) -> torch.Tensor:
     """Checks and launches the MP layer of ``csrc/hbm.cu`` over M's grid
     tiles (``ids`` None: tile i updates tile i)."""
     dev = nodes.device
@@ -964,15 +1083,17 @@ def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what) -> torch
     n_table, F = nodes.shape
     suffix, act, w_t = _mp_operands(nodes, w, inv_degree, E, B, W, activation_name, what)
     _check("M", M, nodes.dtype, (Tg, E, B, W), dev)
+    occ = _mp_occupancy(M, occupancy)
     out = torch.empty((Tg * B, F), dtype=nodes.dtype, device=dev)
-    _launch("nmr_mp_banded" + suffix, dev, M.data_ptr(), lo.data_ptr(),
+    _launch("nmr_mp_banded" + suffix, dev, M.data_ptr(), occ.data_ptr(), lo.data_ptr(),
             None if ids is None else ids.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
             inv_degree.data_ptr(), out.data_ptr(), Tg, E, B, W, F, n_table, act,
             source="hbm")
     return out
 
 
-def _mp_layer(M, plan: BandPlan, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
+def _mp_layer(M, plan: BandPlan, nodes, w, inv_degree, activation_name, what,
+              occupancy) -> torch.Tensor:
     """The MP layer of every tile of ``plan`` on the card."""
     T, _, B, W = M.shape
     if (T, B, W) != (plan.num_tiles, plan.block_rows, plan.window):
@@ -980,7 +1101,7 @@ def _mp_layer(M, plan: BandPlan, nodes, w, inv_degree, activation_name, what) ->
     if nodes.shape[0] != T * B:
         raise ValueError(f"nodes has {nodes.shape[0]} rows, the plan {T * B}")
     return _launch_mp(M, _device_lo(plan, nodes.device), None, nodes, w, inv_degree,
-                      activation_name, what)
+                      activation_name, what, occupancy)
 
 
 def mp_banded(
@@ -990,20 +1111,25 @@ def mp_banded(
     w: torch.Tensor,           # [F, F, E] (cast to nodes.dtype)
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
+    occupancy=None,            # int32 [T * B, NW] (band_occupancy), or None
 ) -> torch.Tensor:
     """One MP layer (activation(aggregate) + residual) over the band, in
     ``nodes.dtype`` (float32, or bfloat16 with float32 accumulation).
 
     Replaces ``_mp_banded_kernel`` (nmrgnn_tpu/ops/banded.py:555-579). On
-    the card, a block takes a few rows of one tile and all F columns and
-    streams the window, the band and then the weights through two
-    shared-memory stages with ``cp.async`` (``csrc/hbm.cu``). In float32
-    it is bound by the dense products it does, 2*T*E*B*W*F + 2*T*E*B*F*F
-    float32 operations; its data-dependent bound (the band's nonzeros) is
-    bytes in bfloat16."""
+    the card (``csrc/mp.cuh``, instantiated by ``csrc/hbm.cu``), a block
+    takes 32 rows of one tile and half the output columns, stages only the
+    window chunks its rows' band occupies and walks their nonzeros, then
+    multiplies h_n by its slice of W_n: float32 FMAs on the CUDA cores, or
+    bfloat16 ``mma.sync`` on the tensor cores. ``occupancy`` is the band's
+    chunk occupancy, made once per band by the forwards
+    (``band_occupancy``); without it the wrapper derives it from M
+    (``band_occupancy_from_band``, one pass over M). Bound by the second
+    product (2*T*E*B*F*F operations) in float32 and by its bytes in
+    bfloat16."""
     if not _on_cuda(nodes, "mp_banded"):
-        return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name)
-    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded")
+        return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name, occupancy)
+    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded", occupancy)
     mp_banded.launches += 1
     return out
 
@@ -1125,9 +1251,10 @@ def mp_banded_poly_fused(
     Replaces ``_poly_mp_fused_kernel`` + ``mp_banded_poly_fused``
     (nmrgnn_tpu/ops/banded.py:1451-1604). On the card it is ``mp_banded``'s
     kernel (``csrc/mp.cuh``, instantiated by ``csrc/fused_first.cu``) with
-    the band built in the block from the raw distances instead of read
-    (chunks that none of a row's slots fall in skip the compares), and
-    written once to M. Bound as ``mp_banded``."""
+    the band built in the block from the raw distances instead of read: the
+    block marks the chunks its rows' slots fall in, builds and multiplies
+    only those, and writes every entry of M once, zeros included. Bound as
+    ``mp_banded``, plus writing M."""
     if not _on_cuda(nodes, "mp_banded_poly_fused"):
         return mp_banded_poly_fused_plain(nlist, edges, cheb, plan, nodes, w, inv_degree,
                                           activation_name, out_dtype)
@@ -1193,17 +1320,17 @@ def mp_banded_partial(
     lo,                   # i32[T] window starts (numpy, or int32 on the card)
     table: torch.Tensor,  # [Nt, F] window source, f32 or bf16, Nt >= max(lo) + W
     w: torch.Tensor,      # [F, F, E] (cast to table.dtype)
+    occupancy=None,       # int32 [T * B, NW] (band_occupancy), or None
 ) -> torch.Tensor:
     """Partial MP aggregation f32[T * B, F] = sum_n (M_n @ table window) @
     w_n: no inv_degree, activation or residual.
 
     Replaces ``_mp_banded_partial_kernel`` (nmrgnn_tpu/ops/banded.py:
     833-894). On the card it is the MP kernel of ``mp_banded`` without its
-    epilogue (``csrc/hbm.cu``); window rows outside the table read as
-    zeros. It is bound by the bytes of the band, the table and the output
-    at the main path's shapes."""
+    epilogue (``csrc/hbm.cu``), with the same occupancy rule; window rows
+    outside the table read as zeros. Bound as ``mp_banded``."""
     if not _on_cuda(table, "mp_banded_partial"):
-        return mp_banded_partial_plain(M, lo, table, w)
+        return mp_banded_partial_plain(M, lo, table, w, occupancy)
     dev = table.device
     T, E, B, W = M.shape
     n_table, F = table.shape
@@ -1220,12 +1347,12 @@ def mp_banded_partial(
         if lo_np.size and (lo_np.min() < 0 or lo_np.max() + W > n_table):
             raise ValueError("windows must lie inside the table")
     lo = _device_index("lo", lo, T, dev)
-    w_t = w.permute(2, 0, 1).to(table.dtype).contiguous()  # [E, F, F]
-    _check("w", w_t, table.dtype, (E, F, F), dev)
+    w_t = _mp_weights(w, table.dtype, E, F, dev)
+    occ = _mp_occupancy(M, occupancy)
     out = torch.empty((T * B, F), dtype=torch.float32, device=dev)
-    _launch("nmr_mp_banded_partial" + suffix, dev, M.data_ptr(), lo.data_ptr(),
-            table.data_ptr(), w_t.data_ptr(), out.data_ptr(), T, E, B, W, F, n_table,
-            source="hbm")
+    _launch("nmr_mp_banded_partial" + suffix, dev, M.data_ptr(), occ.data_ptr(),
+            lo.data_ptr(), table.data_ptr(), w_t.data_ptr(), out.data_ptr(), T, E, B, W, F,
+            n_table, source="hbm")
     mp_banded_partial.launches += 1
     return out
 
@@ -1240,6 +1367,7 @@ def mp_banded_hbm(
     w: torch.Tensor,           # [F, F, E] (cast to nodes.dtype)
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
+    occupancy=None,            # int32 [T * B, NW] (band_occupancy), or None
 ) -> torch.Tensor:
     """One MP layer (activation(aggregate) + residual) with the node table
     read from device memory tile by tile; the same function as
@@ -1247,13 +1375,14 @@ def mp_banded_hbm(
 
     Replaces ``_mp_banded_hbm_kernel`` (nmrgnn_tpu/ops/banded.py:656-773).
     On the card it launches ``mp_banded``'s kernel (``csrc/hbm.cu``),
-    which already reads the table from device memory, the next chunk of
-    window, band or weights in flight while the current one's FMAs run:
-    on Hopper no path holds the table on chip, so the TPU's resident and
-    HBM kernels are one kernel here. Bound as ``mp_banded``."""
+    which already reads the table from device memory, the next occupied
+    chunk of window and band in flight while the current one is used: on
+    Hopper no path holds the table on chip, so the TPU's resident and HBM
+    kernels are one kernel here. Bound as ``mp_banded``."""
     if not _on_cuda(nodes, "mp_banded_hbm"):
-        return mp_banded_hbm_plain(M, plan, nodes, w, inv_degree, activation_name)
-    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded_hbm")
+        return mp_banded_hbm_plain(M, plan, nodes, w, inv_degree, activation_name, occupancy)
+    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded_hbm",
+                    occupancy)
     mp_banded_hbm.launches += 1
     return out
 
@@ -1269,6 +1398,7 @@ def mp_banded_hbm_cls(
     w: torch.Tensor,           # [F, F, E] (cast to nodes.dtype)
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
+    occupancy=None,            # int32 [Tc * B, NW] (band_occupancy with the ids), or None
 ) -> torch.Tensor:
     """One MP layer over one window class's tiles with the node table in
     device memory: class-contiguous rows [Tc * B, F] in ``nodes.dtype``,
@@ -1281,7 +1411,7 @@ def mp_banded_hbm_cls(
     raises. Bound as ``mp_banded_hbm``."""
     if not _on_cuda(nodes, "mp_banded_hbm_cls"):
         return mp_banded_hbm_cls_plain(M, cls, block_rows, nodes, w, inv_degree,
-                                       activation_name)
+                                       activation_name, occupancy)
     dev = nodes.device
     tc, _, B, W = M.shape
     if B != block_rows or len(cls.ids) != tc or cls.window != W:
@@ -1295,16 +1425,84 @@ def mp_banded_hbm_cls(
                 raise ValueError(f"{name} out of range [0, {hi}]")
     ids = _device_index("cls.ids", cls.ids, tc, dev)
     lo = _device_index("cls.lo", cls.lo, tc, dev)
-    out = _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, "mp_banded_hbm_cls")
+    out = _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, "mp_banded_hbm_cls",
+                     occupancy)
     mp_banded_hbm_cls.launches += 1
     return out
 
 
 mp_banded_hbm_cls.launches = 0
 
+def band_occupancy(
+    nlist: torch.Tensor,   # i32[N, K]
+    edges: torch.Tensor,   # f32[N, K] distances, 0 on padding slots
+    lo,                    # i32[Tg] window starts (numpy, or int32 on the card)
+    window: int,
+    block_rows: int,
+    n_padded: int,
+    ids=None,              # i32[Tg] tile ids of a class (None: tile i)
+) -> torch.Tensor:
+    """int32 [Tg * B, NW]: the chunk occupancy of the band that any build
+    of this module makes from (nlist, edges) with these window starts (and
+    ids), for the MP kernels (``band_occupancy_plain`` says which bits).
+    The forwards make it once per band and hand it to every layer.
+
+    A kernel of the port with no TPU counterpart: it feeds the MP kernel
+    that replaces B1, B5, B6 and B9 (``csrc/mp.cuh``). On the card one
+    warp takes a band row, its lanes the row's slots, and writes the
+    row's words with a warp OR; bound by reading nlist and the distances."""
+    if not _on_cuda(edges, "band_occupancy"):
+        return band_occupancy_plain(nlist, edges, lo, window, block_rows, n_padded, ids)
+    dev = edges.device
+    n, k = nlist.shape
+    tg = len(lo)
+    _check("nlist", nlist, torch.int32, (n, k), dev)
+    _check("edges", edges, torch.float32, (n, k), dev)
+    if window % _MP_CHUNK or n_padded % block_rows:
+        raise ValueError(f"window {window} is not whole {_MP_CHUNK}-column chunks, or "
+                         f"{n_padded} rows not whole {block_rows}-row tiles")
+    lo = _device_index("lo", lo, tg, dev)
+    ids = None if ids is None else _device_index("ids", ids, tg, dev)
+    occ = torch.empty((tg * block_rows, occupancy_words(window)), dtype=torch.int32, device=dev)
+    _launch("nmr_band_occupancy", dev, nlist.data_ptr(), edges.data_ptr(), lo.data_ptr(),
+            None if ids is None else ids.data_ptr(), occ.data_ptr(), tg, n,
+            n_padded // block_rows, block_rows, k, window, source="hbm")
+    band_occupancy.launches += 1
+    return occ
+
+
+band_occupancy.launches = 0
+
+
+def band_occupancy_from_band(M: torch.Tensor) -> torch.Tensor:
+    """int32 [T * B, NW]: the chunk occupancy of a band M [T, E, B, W]
+    read from M itself, for an MP call given no occupancy (the JAX
+    package's signature).
+
+    A kernel of the port with no TPU counterpart, feeding the MP kernel
+    (``csrc/mp.cuh``): one warp a band row, a lane a chunk, one pass over
+    M; bound by reading M."""
+    if not _on_cuda(M, "band_occupancy_from_band"):
+        return band_occupancy_from_band_plain(M)
+    dev = M.device
+    T, E, B, W = M.shape
+    suffix = _dtype_suffix("M", M.dtype)
+    _check("M", M, M.dtype, (T, E, B, W), dev)
+    if W % _MP_CHUNK:
+        raise ValueError(f"window {W} is not whole {_MP_CHUNK}-column chunks")
+    occ = torch.empty((T * B, occupancy_words(W)), dtype=torch.int32, device=dev)
+    _launch("nmr_band_occupancy_from_band" + suffix, dev, M.data_ptr(), occ.data_ptr(), T, E,
+            B, W, source="hbm")
+    band_occupancy_from_band.launches += 1
+    return occ
+
+
+band_occupancy_from_band.launches = 0
+
 KERNEL_WRAPPERS = (build_band, build_band_tracedlo, build_band_fused, mp_banded,
                    build_band_poly, build_band_poly_tracedlo, mp_banded_poly_fused,
-                   build_band_poly_cls, mp_banded_partial, mp_banded_hbm, mp_banded_hbm_cls)
+                   build_band_poly_cls, mp_banded_partial, mp_banded_hbm, mp_banded_hbm_cls,
+                   band_occupancy, band_occupancy_from_band)
 
 
 def reset_launch_counts() -> None:

@@ -797,3 +797,161 @@ def test_fused_first_forward_and_exact_bf16_serving_on_the_card(dev):
     assert np.abs(served - plain).mean() < 0.05
     exact = ServingModel(params, cfg).predict(g)
     np.testing.assert_allclose(peaks, exact, rtol=0.05, atol=1.0)
+
+
+# -- the MP kernel that walks the band's nonzeros (csrc/mp.cuh): the chunk
+# -- occupancy and every mode, on a band with an empty 32-row block
+
+
+def _nz_case(dev, f, e, dtype, seed):
+    """A skewed band whose rows 160-191 (tile 1, rows 32-63: one whole
+    block of the MP kernel) have no real edge, with its node table,
+    weights and inv_degree on the card."""
+    n, k = 600, 12
+    nlist, dists = skewed_nlist(n, k, seed=seed)
+    dists[160:192] = 0.0
+    rng = np.random.default_rng(seed)
+    efeat = rng.normal(size=(n, k, e)).astype(np.float32) * (dists > 0)[..., None]
+    plan = banded.band_plan(nlist, dists)
+    pad = plan.n_padded - n
+    nodes = np.pad(rng.normal(size=(n, f)).astype(np.float32), ((0, pad), (0, 0)))
+    w = (rng.normal(size=(f, f, e)) / np.sqrt(f)).astype(np.float32)
+    inv = np.pad(inv_degree_from_nlist(nlist), (0, pad))
+    nl, d, ef, x, wt, iv = _on(dev, nlist, dists, efeat, nodes, w, inv)
+    dplan = banded.plan_on_device(plan, dev)
+    M = banded.build_band_plain(nl, ef, dplan).to(dtype)
+    return dict(nlist=nlist, dists=dists, nl=nl, d=d, ef=ef, plan=dplan, M=M, x=x.to(dtype),
+                w=wt, inv=iv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_occupancy_kernels_match_plain(dev, dtype):
+    """Both occupancy kernels equal their plain versions and each other;
+    every nonzero of the band lies in a marked chunk and the empty block
+    marks none; with a class's ids, a bad id marks nothing."""
+    c = _nz_case(dev, 64, 3, dtype, seed=11)
+    plan, M = c["plan"], c["M"]
+    B, W = plan.block_rows, plan.window
+    before = banded.band_occupancy.launches, banded.band_occupancy_from_band.launches
+    got = banded.band_occupancy(c["nl"], c["d"], plan.lo, W, B, plan.n_padded)
+    from_band = banded.band_occupancy_from_band(M)
+    torch.cuda.synchronize()
+    assert (banded.band_occupancy.launches, banded.band_occupancy_from_band.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, banded.band_occupancy_plain(c["nl"], c["d"], plan.lo, W, B,
+                                                        plan.n_padded))
+    assert torch.equal(from_band, banded.band_occupancy_from_band_plain(M))
+    assert torch.equal(from_band, got)
+    bits = banded.occupancy_bits(got, W).view(-1, B, W // 16)
+    nz = (M != 0).any(1).view(-1, B, W // 16, 16).any(-1)
+    assert not (nz & ~bits).any() and nz.any()
+    assert not bits[1, 32:64].any()
+    cls_plan = banded.band_plan_classes(c["nlist"], c["dists"])
+    for cl in banded.plan_on_device(cls_plan, dev).classes:
+        ids = cl.ids.clone()
+        ids[0] = cls_plan.num_tiles
+        args = (c["nl"], c["d"], cl.lo, cl.window, B, cls_plan.n_padded)
+        got = banded.band_occupancy(*args, ids=ids)
+        assert torch.equal(got, banded.band_occupancy_plain(*args, ids=ids))
+        assert not got[:B].any()
+
+
+@pytest.mark.parametrize("f,e", [(64, 1), (256, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["full", "ids", "partial", "build"])
+def test_mp_kernel_every_mode_matches_plain(dev, mode, dtype, f, e):
+    """The MP kernel in each mode against its plain version (the MP
+    tolerances), with the occupancy from nlist equal bit for bit to the one
+    derived from M. full: B1 on a band with an empty block. ids: B9 with a
+    bad id (zero rows). partial: B6 with window rows outside the table (read
+    as zeros). build: B13 equal to B4 + B1 bit for bit."""
+    c = _nz_case(dev, f, e, dtype, seed=f + e)
+    plan, M, x, wt, iv = c["plan"], c["M"], c["x"], c["w"], c["inv"]
+    B, W = plan.block_rows, plan.window
+    occ = banded.band_occupancy(c["nl"], c["d"], plan.lo, W, B, plan.n_padded)
+    if mode == "full":
+        got = banded.mp_banded(M, plan, x, wt, iv, "softplus", occ)
+        _mp_close(got, banded.mp_banded_plain(M, plan, x, wt, iv, "softplus"), dtype)
+        assert torch.equal(got, banded.mp_banded(M, plan, x, wt, iv, "softplus"))
+    elif mode == "ids":
+        cls_plan = banded.band_plan_classes(c["nlist"], c["dists"])
+        cl = max(banded.plan_on_device(cls_plan, dev).classes, key=lambda k: len(k.ids))
+        assert len(cl.ids) > 1
+        rows = cl.ids.long()
+        full = banded.build_band_plain(c["nl"], c["ef"], banded.BandPlan(
+            lo=torch.zeros(plan.num_tiles, dtype=torch.int32, device=dev).index_put(
+                (rows,), cl.lo), window=cl.window, block_rows=B, n_padded=plan.n_padded))
+        Mc = full[rows].to(dtype).contiguous()
+        bad = cl._replace(ids=torch.cat([torch.tensor([plan.num_tiles], dtype=torch.int32,
+                                                      device=dev), cl.ids[1:]]))
+        occ_c = banded.band_occupancy(c["nl"], c["d"], cl.lo, cl.window, B, plan.n_padded,
+                                      ids=cl.ids)
+        got = banded.mp_banded_hbm_cls(Mc, bad, B, x, wt, iv, "softplus", occ_c)
+        assert float(got[:B].float().abs().max()) == 0.0
+        want = banded.mp_banded_hbm_cls_plain(Mc, cl, B, x, wt, iv, "softplus")
+        _mp_close(got[B:], want[B:], dtype)
+        assert torch.equal(got[B:], banded.mp_banded_hbm_cls(Mc, bad, B, x, wt, iv)[B:])
+    elif mode == "partial":
+        n_t = int(plan.lo.max()) + W - 3 * 16  # the widest-reaching window passes the end
+        table = x[:n_t]
+        got = banded.mp_banded_partial(M, plan.lo, table, wt, occ)
+        padded = torch.nn.functional.pad(table, (0, 0, 0, plan.n_padded - n_t))
+        _mp_close(got, banded.mp_banded_partial_plain(M, plan.lo, padded, wt), dtype)
+        assert torch.equal(got, banded.mp_banded_partial(M, plan.lo, table, wt))
+    else:
+        cheb = make_cheb(e, seed=e)
+        M13, got = banded.mp_banded_poly_fused(c["nl"], c["d"], cheb, plan, x, wt, iv,
+                                               "softplus", out_dtype=dtype)
+        M4 = banded.build_band_poly(c["nl"], c["d"], cheb, plan, out_dtype=dtype)
+        assert torch.equal(M13, M4)
+        assert torch.equal(got, banded.mp_banded(M4, plan, x, wt, iv, "softplus", occ))
+        _, want = banded.mp_banded_poly_fused_plain(c["nl"], c["d"], cheb, plan, x, wt, iv,
+                                                    "softplus", out_dtype=dtype)
+        _mp_close(got, want, dtype)
+
+
+def test_exact_bf16_serving_on_the_other_paths(dev):
+    """Exact serving of a bfloat16 config through "banded_hbm" (the path
+    forced as the CPU tests force it), "blocksparse" and predict_frames:
+    the compute type's kernels launched, peaks within the fast band of the
+    float32 exact peaks."""
+    cfg = ModelConfig()
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(3), device=dev)
+    n = 600
+    rng = np.random.default_rng(8)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    frames = []
+    for f in range(3):
+        nlist = np.clip(np.arange(n)[:, None] + rng.integers(-50, 50, (n, 16)), 0, n - 1)
+        nlist = nlist.astype(np.int32)
+        dists = rng.uniform(0.09, 0.3, (n, 16)).astype(np.float32)
+        frames.append(Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist)))
+    exact = ServingModel(params, cfg, reorder=False)
+    want = np.stack([exact.predict(g) for g in frames])
+    L = cfg.mp_layers
+
+    def in_band(got):
+        assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999
+        np.testing.assert_allclose(got, want, rtol=0.05, atol=1.0)
+
+    hbm = ServingModel(params, cfg16, reorder=False)
+    hbm._resolved = "banded_hbm"
+    banded.reset_launch_counts()
+    in_band(np.stack([hbm.predict(g) for g in frames]))
+    assert hbm._resolved == "banded_hbm"
+    assert banded.mp_banded_hbm.launches == 3 * L and banded.mp_banded.launches == 0
+    assert banded.band_occupancy.launches == 3
+
+    from nmrgnn_tpu_torch.ops import blocksparse as bs
+
+    bs.reset_launch_counts()
+    wide = ServingModel(params, cfg16, mode="blocksparse", reorder=False)
+    in_band(np.stack([wide.predict(g) for g in frames]))
+    assert bs.mp_blocksparse_grouped.launches == 3 * L
+
+    batch = ServingModel(params, cfg16, reorder=False)
+    banded.reset_launch_counts()
+    got = batch.predict_frames(frames)
+    in_band(got)
+    assert banded.mp_banded.launches in (L, 3 * L)  # batched, or frame by frame past the budget
