@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero and prints no result:
     its blocks a launch and, as library_ms, one torch.bmm of the dense
     band against its windows (a yardstick the port never calls), and its
     device time given an empty, the real and a full occupancy
-    (torch.profiler).
+    (torch.profiler). The fused exact edge stage (B3) is also timed alone
+    (torch.profiler), beside the kernel it replaced, with the hidden EdgeFC
+    products through torch.matmul (cuBLAS, TF32 off) on the [N * K, H]
+    RBF activations as library_ms: a yardstick, not the same function.
  4. The main paths, each driven with the launch counts set to 0 just
     before and read just after: the bundled weights (load_model), a
     synthetic protein-like structure of 2,482 atoms written as a PDB from
@@ -54,7 +57,9 @@ Phases, in order; any failure exits non-zero and prints no result:
     RCM window of at most 2048. At its shapes, mp_banded_hbm against its
     plain version (float32 and bfloat16, phase 3's MP tolerances, with the
     same extra lines as phase 3's MP kernel), and mp_banded_hbm_cls per
-    window class against its plain version.
+    window class against its plain version; the fused exact edge stage
+    against its plain version at its shapes, alone and a call, with phase
+    3's yardstick.
     ServingModel on 3 frames: exact peaks equal the plain gather forward
     within rtol/atol 5e-4, with 1 fused build and 4 mp_banded_hbm per
     frame; fast peaks within the fast band of the exact ones, per frame on
@@ -81,15 +86,24 @@ Phases, in order; any failure exits non-zero and prints no result:
     whose RCM band is past both banded budgets, so that ServingModel
     resolves it to "blocksparse" at both precisions (required). At its
     shapes, in float32 and bfloat16: build_block_adjacency (B10) against
-    its plain version (1e-5, or one bfloat16 step), mp_blocksparse (B11)
-    on the group-1 structure and mp_blocksparse_grouped (B12) on the
-    group-4 structure against theirs (phase 3's MP tolerances), and B12
-    equal to B11. Serving the 3 frames: exact peaks equal the plain gather
-    forward within rtol/atol 5e-4, fast peaks within the fast band of them,
-    1 B10 and 4 B12 per frame; whether frames 2-3 were remapped or rebuilt.
-    Exact serving of a bfloat16 config, "blocksparse", in the fast band of
-    the exact peaks. apply_blocksparse(group=1) driven directly: 1 B10 and 4 B11, equal to
-    its plain versions (float32 2e-4; bfloat16 a mean under 0.05 ppm).
+    its plain version (1e-5, or one bfloat16 step), the block occupancy
+    from nlist and from A against theirs (exactly; the one from nlist
+    covers every nonzero of A and equals A's own), mp_blocksparse (B11) on
+    the group-1 structure and mp_blocksparse_grouped (B12) on the group-4
+    structure, given the occupancy as the forward gives it, against theirs
+    (phase 3's MP tolerances), alone and a call, beside the kernel they
+    replaced, with the share of (pair, 32-row slab, 16-column chunk)
+    pieces they load and their device time at an empty / real / full
+    occupancy, and B12 equal
+    to B11 bit for bit; a call with the JAX signature (the occupancy
+    derived from A) equal to B11 bit for bit. Serving the 3 frames: exact
+    peaks equal the plain gather forward within rtol/atol 5e-4, fast peaks
+    within the fast band of them, 1 B10, 1 block occupancy and 4 B12 per
+    frame; whether frames 2-3 were remapped or rebuilt. Exact serving of a
+    bfloat16 config, "blocksparse", in the fast band of the exact peaks.
+    apply_blocksparse(group=1) driven directly: 1 B10, 1 block occupancy
+    and 4 B11, equal to its plain versions (float32 2e-4; bfloat16 a mean
+    under 0.05 ppm).
     mode="blocksparse" forced on phase 4's 2,482-atom frames: exact peaks
     equal phase 4a's banded ones within 5e-4. Forward times (CUDA events),
     predict() wall times and, with --profile, each forward's breakdown.
@@ -117,7 +131,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     d. Exact serving of a compute_dtype="bfloat16" config: the fused exact
        edge stage in bfloat16 against its plain version (one bfloat16 step
        of M's scale: the EdgeFC sums are taken in another order, so an
-       operand near a rounding boundary rounds the other way);
+       operand near a rounding boundary rounds the other way), alone and a
+       call, with phase 3's yardstick in bfloat16;
        ServingModel(precision="exact") on the 3 frames, 1 fused build and 4
        bfloat16 MP layers a frame, peaks in the fast band of phase 4a's
        float32 exact peaks; the forward's time beside the float32 one.
@@ -159,13 +174,23 @@ TRAJ_FRAMES = 8
 GLOBULE_ATOMS = 100_000
 REPEATS = 20
 MP_ROWS = 32  # rows per block of the MP kernel (csrc/mp.cuh)
-# The MP kernel's time a call when it multiplied the dense band, the
-# design it replaced (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6),
-# printed beside this run's: B1, B6 (3 class launches) at 2,482 atoms, B5,
-# B9 (3 class launches) at 44,676, B13 at 2,482.
-DENSE_MS = {"mp_banded": 0.2584, "mp_banded_bf16": 0.2702, "mp_banded_partial": 0.3877,
-          "mp_banded_hbm": 2.7289, "mp_banded_hbm_bf16": 2.7292, "mp_banded_hbm_cls": 2.5704,
-          "mp_banded_poly_fused": 0.2809, "mp_banded_poly_fused_bf16": 0.3123}
+# The time of the kernel design each row's kernel replaced, as this
+# script measured it (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6),
+# printed beside this run's: a call (CUDA events) of the MP kernel that
+# multiplied the dense band (B1, B6 as 3 class launches and B13 at 2,482
+# atoms, B5 and B9 as 3 class launches at 44,676), of the fused edge stage
+# with one block an SM (B3 at 2,482 atoms; alone, profiler, at 44,676) and
+# of the block-sparse MP kernel that staged every chunk (B11 / B12 at
+# 100,000 atoms).
+REPLACED_MS = {
+    "mp_banded": 0.2584, "mp_banded_bf16": 0.2702, "mp_banded_partial": 0.3877,
+    "mp_banded_hbm": 2.7289, "mp_banded_hbm_bf16": 2.7292, "mp_banded_hbm_cls": 2.5704,
+    "mp_banded_poly_fused": 0.2809, "mp_banded_poly_fused_bf16": 0.3123,
+    "build_band_fused": 0.2551, "build_band_fused_bf16": 0.2604,
+    "build_band_fused_44676_alone": 3.3193,
+    "mp_blocksparse": 6.7209, "mp_blocksparse_bf16": 7.0094,
+    "mp_blocksparse_grouped": 6.8592, "mp_blocksparse_grouped_bf16": 7.1247,
+}
 
 # Element mix of a hydrogenated protein (fractions of all atoms).
 PROTEIN_ELEMENTS = (("H", 0.497), ("C", 0.32), ("N", 0.085), ("O", 0.095), ("S", 0.003))
@@ -275,12 +300,12 @@ def _time_ms(fn, repeats: int, inner: int = 10) -> float:
 
 
 def _template_args(mangled: str) -> str:
-    """'mp_banded_kernel<256,3,bf16,partial>' from an Itanium-mangled name."""
+    """'mp_banded_kernel<256,3,bf16,1>' from an Itanium-mangled name."""
     m = re.search(r"\d+([a-z_]+_kernel)I", mangled)
     if not m:
         return mangled
     rest, args = mangled[m.end():], []
-    tokens = ((r"Li(\d+)E", lambda g: g), (r"Lb([01])E", lambda g: ("full", "partial")[int(g)]),
+    tokens = ((r"Li(\d+)E", lambda g: g), (r"Lb([01])E", lambda g: ("false", "true")[int(g)]),
               (r"f", lambda g: "float"), (r"\d+__nv_bfloat16", lambda g: "bf16"))
     while rest and rest[0] != "E":
         for pattern, name in tokens:
@@ -341,9 +366,35 @@ def _profile_forward(fn, fwd_ms: float, label: str, runs: int = 5):
     return {"busy_ms": busy, "rows": rows}
 
 
-def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
+def _flops(flops) -> float:
+    return sum(f for f, _ in flops) if isinstance(flops, (list, tuple)) else flops
+
+
+def _bound(flops, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    """(ms, "operations" or "bytes"): the larger of the operations' time
+    and the bytes' time. ``flops`` is a count at ``peak_flops``, or a list
+    of (count, peak) parts run on different units (CUDA cores, tensor
+    cores), whose times add."""
+    parts = flops if isinstance(flops, (list, tuple)) else [(flops, peak_flops)]
+    t_ops, t_bytes = sum(f / p for f, p in parts), nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _replaced(name: str) -> str:
+    return f"; replaced kernel {REPLACED_MS[name]:.4f} ms" if name in REPLACED_MS else ""
+
+
+def _edgefc_yardstick(params, cfg, edges, dtype):
+    """B3's yardstick: the hidden EdgeFC products (one torch.matmul each,
+    cuBLAS, TF32 off) on the [N * K, H] RBF activations in ``dtype``. Not
+    the same function: no RBF, bias, activation, final layer or band."""
+    import torch
+
+    from nmrgnn_tpu_torch.ops.rbf import rbf_expand
+
+    ws = [p["kernel"].to(dtype) for p in params["edge_fc"][:-1]]
+    x = rbf_expand(edges.reshape(-1), cfg.rbf_low, cfg.rbf_high, ws[0].shape[0]).to(dtype)
+    return lambda: [torch.matmul(x, w) for w in ws]
 
 
 def _mp_blocks(tiles: int, B: int, F: int) -> int:
@@ -413,10 +464,6 @@ def _occupancy_split(label: str, layer, occ) -> dict:
               f"{out['empty']:.4f} ms, the band's {out['real']:.4f} ms, a full one "
               f"{out['full']:.4f} ms")
     return out
-
-
-def _dense(name: str) -> str:
-    return f"; dense-band kernel {DENSE_MS[name]:.4f} ms" if name in DENSE_MS else ""
 
 
 def _pearson(a, b) -> float:
@@ -515,8 +562,20 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
 
     # -- B5 and B9 at the supercell's shapes ----------------------------------
     fc = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation)
-    bands = {f32: banded.build_band_fused(gt.nlist, gt.edges, params["edge_fc"], plan_d, **fc),
-             bf16: banded.build_band_poly(gt.nlist, gt.edges, cheb_d, plan_d, bf16)}
+    ew, H, Lh = params["edge_fc"], cfg.edge_hidden_size, cfg.edge_fc_layers - 1
+    real_edges = int((g_rcm.edges > 0).sum())
+    bands = {f32: check(
+        "build_band_fused", "nmrgnn_tpu/ops/banded.py:1107",
+        lambda: banded.build_band_fused(gt.nlist, gt.edges, ew, plan_d, **fc),
+        lambda: banded.build_band_fused_plain(gt.nlist, gt.edges, ew, plan_d, **fc),
+        tol=1e-5, flops=2 * real_edges * H * (H * Lh + E),
+        nbytes=(N * K * 8 + 4 * sum(t.numel() for p in ew for t in p.values()) + T * 4
+                + T * E * B * W * 4),
+        alone="fused_edge_band_kernel", library=_edgefc_yardstick(params, cfg, gt.edges, f32),
+        row=False, phase=5, repeats=5, inner=3,
+        extra=f"; library: the {Lh} hidden EdgeFC products alone (torch.matmul, a "
+              f"yardstick); replaced kernel alone {REPLACED_MS['build_band_fused_44676_alone']:.4f} ms",
+    ), bf16: banded.build_band_poly(gt.nlist, gt.edges, cheb_d, plan_d, bf16)}
     nodes = nnf.pad(gnn.dense(params["embed"], gt.atoms), (0, 0, 0, plan.n_padded - N))
     inv_p = nnf.pad(gt.inv_degree, (0, plan.n_padded - N))
     w0 = params["mp"][0]["w"]
@@ -546,7 +605,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
                     + plan.n_padded * F * eb * 2 + F * F * E * eb + plan.n_padded * 4),
             peak=peak, source="hbm.cu", dtype=tag,
             library=lambda M=M, win=win: torch.bmm(M.view(T, E * B, W), win),
-            extra=f"; band {nnz} nonzeros of {M.numel()}{load}{_dense(name)}",
+            extra=f"; band {nnz} nonzeros of {M.numel()}{load}{_replaced(name)}",
         )
         del win
         Mc = [banded.build_band_poly_cls(gt.nlist, gt.edges, cheb_d, c, B, plan.n_padded, dt)
@@ -567,7 +626,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
                     + sum(o.numel() * 4 + len(c.ids) * (8 + B * F * eb)
                           for o, c in zip(occ_cls, cls_plan.classes))
                     + plan.n_padded * (F * eb + 4) + F * F * E * eb),
-            extra=cls_load + (_dense("mp_banded_hbm_cls") if dt == bf16 else ""),
+            extra=cls_load + (_replaced("mp_banded_hbm_cls") if dt == bf16 else ""),
         )
 
     split = {tag: _occupancy_split(
@@ -905,31 +964,35 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
     s4 = structs[4]
     B, nb, n_pad, real = s4.block_size, s4.nb, s4.n_padded, int(s4.pair_valid.sum())
     a_elems = {grp: s.n_pairs * E * B * B for grp, s in structs.items()}
-    # the share of the (rows per MP block) x 16 A chunks that hold a nonzero
-    # (the others' FMAs are skipped)
+    # the share of the (pair, 32-row slab, 16-column chunk) pieces of A that
+    # hold a nonzero: the MP kernel stages only those (the block occupancy)
     real_mask = g_rcm.edges > 0
-    rb = (256 // (F // 4)) * 4
     rows = np.nonzero(real_mask)[0]
-    chunk = ((structs[1].edge_pair[real_mask].astype(np.int64) * (B // rb) + rows % B // rb)
-             * (B // 16) + g_rcm.nlist[real_mask] % B // 16)
-    chunk_share = np.unique(chunk).size / (structs[1].n_pairs * (B // rb) * (B // 16))
+    chunk = ((structs[1].edge_pair[real_mask].astype(np.int64) * (B // MP_ROWS)
+              + rows % B // MP_ROWS) * (B // 16) + g_rcm.nlist[real_mask] % B // 16)
+    chunk_share = np.unique(chunk).size / (structs[1].n_pairs * (B // MP_ROWS) * (B // 16))
     print(f"phase 7: globule of N={N} atoms ({N_FRAMES} frames, built and ordered on the host in "
           f"{time.perf_counter() - t0:.1f} s): RCM window {windows[128]} (128-row tiles), "
           f"{windows[64]} (64-row tiles); nb={nb}, P={structs[1].n_pairs} (group 1), "
           f"{s4.n_pairs} (group 4), {real} real pairs; A {a_elems[4] * 4 / 1e9:.2f} GB in "
           f"float32, {a_elems[4] * 2 / 1e9:.2f} GB in bfloat16 (group 4); "
-          f"{int(real_mask.sum())} real edges, {chunk_share:.1%} of the {rb} x 16 A chunks "
-          f"of the MP blocks hold a nonzero; block_structure {t_struct:.3f} s a structure on "
-          f"the host")
+          f"{int(real_mask.sum())} real edges, {chunk_share:.1%} of the {MP_ROWS} x 16 pieces "
+          f"of A hold a nonzero; block_structure {t_struct:.3f} s a structure on the host")
     for precision in ("exact", "fast"):
         path = ServingModel(params, cfg, device=dev, precision=precision,
                             reorder=False)._resolve_mode(g_rcm)
         if path != "blocksparse":
             raise SystemExit(f"chip_smoke: the {N}-atom globule resolved to {path} ({precision})")
 
-    # -- B10, B11 and B12 at the globule's shapes --------------------------------
+    # -- B10, the block occupancy, B11 and B12 at the globule's shapes ----------
     gt = _on_card(g_rcm, dev)
     sd = {grp: bs.struct_on_device(s, dev) for grp, s in structs.items()}
+    occs = {grp: bs.block_occupancy(gt.nlist, gt.edges, s) for grp, s in sd.items()}
+    n_bits = (B // MP_ROWS) * (B // 16)  # pieces of a pair
+    pieces = {grp: int(banded.occupancy_bits(o, n_bits * 16).sum()) for grp, o in occs.items()}
+    if pieces[1] != pieces[4] or pieces[1] != np.unique(chunk).size:
+        raise SystemExit(f"chip_smoke: the block occupancy marks {pieces} pieces, the host "
+                         f"{np.unique(chunk).size}")
     e_feat = edge_features(gt.edges, params["edge_fc"], rbf_low=cfg.rbf_low,
                            rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation)
     real_edges = int(real_mask.sum())
@@ -938,6 +1001,7 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
     w0, act = params["mp"][0]["w"], cfg.mp_activation
     timing = dict(repeats=3, inner=2, phase=7)
     line = "nmrgnn_tpu/ops/blocksparse.py:"
+    split, jax_signature = {}, {}
     for dt, tag, eb, peak in ((f32, "float32", 4, PEAK_F32_FLOPS),
                               (bf16, "bfloat16", 2, PEAK_BF16_FLOPS)):
         sfx = "" if dt == f32 else "_bf16"
@@ -951,9 +1015,36 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
             source="blocksparse.cu", dtype=tag, **timing, extra=" (group-4 structure)",
         )}
         A[1] = bs.build_block_adjacency(gt.nlist, e_feat, sd[1], dt)
+        if dt == f32:  # the block occupancy, as the forward makes it, and from A
+            occ_bytes = s4.n_pairs * bs.pair_words(B) * 4
+            occs[4] = check(
+                "block_occupancy", line + "341",
+                lambda: bs.block_occupancy(gt.nlist, gt.edges, sd[4]),
+                lambda: bs.block_occupancy_plain(gt.nlist, gt.edges, sd[4]),
+                tol=0.0, flops=0, nbytes=N * K * 8 + s4.n_pairs * 8 + (nb + 1) * 4 + occ_bytes,
+                source="blocksparse.cu", dtype="int32", alone="block_occupancy_kernel",
+                **timing, extra=f" (group-4 structure); {pieces[4]} occupied pieces",
+            )
+            from_a = check(
+                "block_occupancy_from_adjacency", line + "341",
+                lambda: bs.block_occupancy_from_adjacency(A[4]),
+                lambda: bs.block_occupancy_from_adjacency_plain(A[4]),
+                tol=0.0, flops=0, nbytes=a_elems[4] * eb + occ_bytes, source="blocksparse.cu",
+                dtype="int32", alone="block_occupancy_from_adjacency_kernel", **timing,
+                extra=" (group-4 structure, float32 A)",
+            )
+            if torch.bitwise_and(from_a, torch.bitwise_not(occs[4])).any():  # exactness
+                raise SystemExit("chip_smoke: a nonzero of A lies outside the block occupancy")
+            print(f"phase 7: the block occupancy from nlist covers every nonzero of A; equal to "
+                  f"A's own: {bool(torch.equal(from_a, occs[4]))}")
+            del from_a
         table = nodes.to(dt)
         mp_tol = (dict(tol=2e-4) if dt == f32
                   else dict(rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP))
+        # the first product's FMAs on the CUDA cores; the second product there
+        # in float32, on the tensor cores twice (h_hi, h_lo) in bfloat16
+        second = 2 * nb * E * B * F * F
+        second = [(second, PEAK_F32_FLOPS)] if dt == f32 else [(2 * second, PEAK_BF16_FLOPS)]
         outs = {}
         for grp, wrapper, at in ((1, bs.mp_blocksparse, "301"),
                                  (4, bs.mp_blocksparse_grouped, "341")):
@@ -961,15 +1052,21 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
             kw = {} if grp == 1 else {"group": 4}
             outs[grp] = check(
                 wrapper.__name__ + sfx, line + at,
-                lambda a=A[grp], s=sd[grp], f=wrapper, kw=kw: f(a, s, table, w0, inv_p, act, **kw),
+                lambda a=A[grp], s=sd[grp], f=wrapper, kw=kw, o=occs[grp]: f(
+                    a, s, table, w0, inv_p, act, occupancy=o, **kw),
                 lambda a=A[grp], s=sd[grp]: bs.mp_blocksparse_plain(a, s, table, w0, inv_p, act),
-                **mp_tol, flops=2 * nnz * F + 2 * nb * E * B * F * F,
-                # A, the table and the weights read once, the output written once
-                nbytes=(a_elems[grp] * eb + 2 * n_pad * F * eb + E * F * F * eb + n_pad * 4
+                **mp_tol, flops=[(2 * nnz * F, PEAK_F32_FLOPS)] + second,
+                # the occupied pieces of A and the occupancy; the table, the
+                # weights and inv_degree read once, the output written once
+                nbytes=(pieces[grp] * E * MP_ROWS * 16 * eb + occs[grp].numel() * 4
+                        + 2 * n_pad * F * eb + E * F * F * eb + n_pad * 4
                         + structs[grp].n_pairs * 4 + (nb + 1) * 4),
-                peak=peak, source="blocksparse.cu", dtype=tag, **timing,
-                extra=f"; group-{grp} structure, A {nnz} nonzeros of {a_elems[grp]}, dense "
-                      f"products {(2 * a_elems[grp] * F + 2 * nb * E * B * F * F) / 1e9:.1f} GFLOP",
+                peak=peak, source="blocksparse.cu (mp.cuh, kPairs)", dtype=tag, **timing,
+                alone="mp_banded_kernel",
+                extra=f"; group-{grp} structure, A {nnz} nonzeros of {a_elems[grp]}; loads "
+                      f"{pieces[grp] / (structs[grp].n_pairs * n_bits):.1%} of the (pair, "
+                      f"{MP_ROWS}-row slab, 16-column chunk) pieces ({pieces[grp]}), "
+                      f"{nb * (B // MP_ROWS)} blocks a launch{_replaced(wrapper.__name__ + sfx)}",
             )
         if not torch.equal(outs[4], outs[1]):
             diff = float((outs[4].float() - outs[1].float()).abs().max())
@@ -977,7 +1074,22 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
                              f"[{tag}] by {diff:.3e}")
         print(f"phase 7: mp_blocksparse_grouped on the group-4 structure equals mp_blocksparse "
               f"on the group-1 structure bit for bit [{tag}]")
-        del A, outs, table
+        split[tag] = _occupancy_split(
+            f"phase 7: mp_blocksparse_grouped [{tag}]",
+            lambda o, a=A[4], x=table: bs.mp_blocksparse_grouped(a, sd[4], x, w0, inv_p, act,
+                                                                 occupancy=o), occs[4])
+        # a call with the JAX package's signature derives the occupancy from A
+        _reset_counts()
+        direct_jax = bs.mp_blocksparse(A[1], sd[1], table, w0, inv_p, act)
+        torch.cuda.synchronize()
+        jax_signature[tag] = counts()
+        expect(jax_signature[tag], mp_blocksparse=1, block_occupancy_from_adjacency=1)
+        if not torch.equal(direct_jax, outs[1]):
+            raise SystemExit(f"chip_smoke: mp_blocksparse without an occupancy differs from "
+                             f"the call given it [{tag}]")
+        print(f"phase 7: mp_blocksparse with the JAX signature (occupancy from A) equals the "
+              f"call given the occupancy bit for bit [{tag}]")
+        del A, outs, table, direct_jax
         torch.cuda.empty_cache()
 
     # -- serving the frames ---------------------------------------------------------
@@ -1002,7 +1114,8 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
               f"{launches}, per-frame wall ms {[round(v * 1e3, 3) for v in walls]}")
         if model._resolved != "blocksparse":
             raise SystemExit(f"chip_smoke: the globule was served through {model._resolved}")
-        expect(launches, build_block_adjacency=N_FRAMES, mp_blocksparse_grouped=N_FRAMES * L)
+        expect(launches, build_block_adjacency=N_FRAMES, mp_blocksparse_grouped=N_FRAMES * L,
+               block_occupancy=N_FRAMES)
         served[precision] = dict(model=model, peaks=peaks, walls=walls, how=how,
                                  launches=launches)
     worst = 0.0
@@ -1029,7 +1142,8 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
     if model16._resolved != "blocksparse":
         raise SystemExit(f"chip_smoke: exact bfloat16 served the globule through "
                          f"{model16._resolved}")
-    expect(launches16, build_block_adjacency=N_FRAMES, mp_blocksparse_grouped=N_FRAMES * L)
+    expect(launches16, build_block_adjacency=N_FRAMES, mp_blocksparse_grouped=N_FRAMES * L,
+           block_occupancy=N_FRAMES)
     for f, p in enumerate(peaks16):
         print(f"phase 7: exact bfloat16 frame {f} vs exact frame {f}: "
               f"{_in_fast_band(p, exact_peaks[f], f'globule exact bfloat16 frame {f}')}")
@@ -1041,7 +1155,7 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
         got = apply_blocksparse(params, c, gt, sd[1])
         torch.cuda.synchronize()
         direct[tag] = counts()
-        expect(direct[tag], build_block_adjacency=1, mp_blocksparse=L)
+        expect(direct[tag], build_block_adjacency=1, mp_blocksparse=L, block_occupancy=1)
         got = got.cpu().numpy()
         plain = apply_blocksparse(params, c, gt, sd[1], use_kernels=False).cpu().numpy()
         if tag == "float32":
@@ -1057,7 +1171,7 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
     forced = ServingModel(params, cfg, device=dev, mode="blocksparse")
     small = [forced.predict(g) for g in small_graphs]
     expect(counts(), build_block_adjacency=len(small_graphs),
-           mp_blocksparse_grouped=len(small_graphs) * L)
+           mp_blocksparse_grouped=len(small_graphs) * L, block_occupancy=len(small_graphs))
     for p, q in zip(small, small_peaks):
         np.testing.assert_allclose(p, q, rtol=5e-4, atol=5e-4)
     print(f"phase 7: mode='blocksparse' on the {small_graphs[0].nlist.shape[0]}-atom frames: max "
@@ -1089,11 +1203,14 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
             "mp_blocksparse_bf16": direct["bfloat16"]["mp_blocksparse"],
             "mp_blocksparse_grouped": ex["mp_blocksparse_grouped"],
             "mp_blocksparse_grouped_bf16": fa["mp_blocksparse_grouped"],
+            "block_occupancy": ex["block_occupancy"],
+            "block_occupancy_from_adjacency":
+                jax_signature["float32"]["block_occupancy_from_adjacency"],
         },
         "structures": {p: v["how"] for p, v in served.items()},
         "forward_ms": fwd_ms, "predict_wall_ms": predict_ms,
         "frame_wall_s": {p: v["walls"] for p, v in served.items()},
-        "forward_breakdown": breakdown,
+        "forward_breakdown": breakdown, "mp_occupancy_split_ms": split,
     }
 
 
@@ -1170,7 +1287,7 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
                     + T * E * B * W * eb),
             peak=peak, source="fused_first.cu", dtype=tag, phase=8,
             extra=f"; M vs plain build {m_err:.3e}"
-                  f"{_dense('mp_banded_poly_fused' + ('' if dt == f32 else '_bf16'))}",
+                  f"{_replaced('mp_banded_poly_fused' + ('' if dt == f32 else '_bf16'))}",
         )
         ser_err = (float((M.float() - M_ser.float()).abs().max()),
                    float((got.float() - ser.float()).abs().max()))
@@ -1307,10 +1424,14 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
         lambda: banded.build_band_fused_plain(gt.nlist, gt.edges, ew, plan_d, **fc,
                                               out_dtype=bf16, compute_dtype=bf16),
         rtol=BF16_STEP, tol=0.0, tol_of_max=BF16_STEP,
+        # every EdgeFC product has bfloat16 operands (the final H x E's too)
         flops=2 * real_edges * H * (H * Lh + E), peak=PEAK_BF16_FLOPS,
         nbytes=(N * K * 8 + 4 * sum(t.numel() for p in ew for t in p.values()) + T * 4
                 + T * E * B * W * 2),
-        dtype="bfloat16", phase=8,
+        dtype="bfloat16", phase=8, alone="fused_edge_band_kernel",
+        library=_edgefc_yardstick(params, cfg, gt.edges, bf16),
+        extra=f"; library: the {Lh} hidden EdgeFC products alone in bfloat16 (torch.matmul, a "
+              f"yardstick){_replaced('build_band_fused_bf16')}",
     )
     _reset_counts()
     model16 = ServingModel(params, cfg16, device=dev)
@@ -1424,12 +1545,14 @@ def main(argv=None) -> int:
 
     def check(name, line, got_fn, want_fn, *, tol, flops, nbytes, peak=PEAK_F32_FLOPS,
               rtol=None, tol_of_max=0.0, source="banded.cu", dtype="float32", row=True,
-              extra="", repeats=REPEATS, inner=10, phase=3, library=None):
+              extra="", repeats=REPEATS, inner=10, phase=3, library=None, alone=None):
         """Compare kernel and plain version (tensors or lists of them, one
         per window class) within rtol (default tol) and atol = tol +
         tol_of_max * max|plain|; time both (the median of ``repeats`` runs
-        of ``inner`` calls), and ``library`` (one PyTorch call, a yardstick
-        the port never calls) where given; record the row."""
+        of ``inner`` calls), ``library`` (one PyTorch call, a yardstick
+        the port never calls) where given, and the device time of the
+        kernels named ``alone`` in a call (torch.profiler) where given;
+        record the row."""
         got, want = got_fn(), want_fn()
         torch.cuda.synchronize()
         got = list(got) if isinstance(got, (list, tuple)) else [got]
@@ -1446,10 +1569,13 @@ def main(argv=None) -> int:
         del want, w  # the plain outputs, before the timing runs allocate more
         ms, plain_ms = _time_ms(got_fn, repeats, inner), _time_ms(want_fn, repeats, inner)
         lib_ms = None if library is None else _time_ms(library, repeats, inner)
+        alone_ms = None if alone is None else _kernel_device_ms(got_fn, alone)
         bound_ms, bound_by = _bound(flops, nbytes, peak)
         print(f"phase {phase}: {name} [{dtype}]: max|kernel-plain|={err:.3e} (atol {atol:.3g}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
+              f"kernel {ms:.4f} ms"
+              f"{'' if alone is None else ' (alone ' + (f'{alone_ms:.4f} ms' if alone_ms else 'not measured') + ')'}"
+              f", plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {_flops(flops) / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
               f"{'' if lib_ms is None else f', library {lib_ms:.4f} ms'}"
               f"{f', {len(got)} launches' if len(got) > 1 else ''}{extra}")
         rec = {
@@ -1457,6 +1583,7 @@ def main(argv=None) -> int:
             "replaces": line, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "dtype": dtype, "calls_per_timing": len(got),
+            "alone_ms": alone_ms,
         }
         checks.append(rec)
         if row:
@@ -1473,8 +1600,10 @@ def main(argv=None) -> int:
         "build_band_fused", "nmrgnn_tpu/ops/banded.py:1107",
         lambda: banded.build_band_fused(gt.nlist, gt.edges, ew, plan_d, **fc),
         lambda: banded.build_band_fused_plain(gt.nlist, gt.edges, ew, plan_d, **fc),
-        tol=1e-5, flops=fused_flops, nbytes=fused_bytes,
-        extra=f"; {transc / 1e6:.1f} M transcendentals",
+        tol=1e-5, flops=fused_flops, nbytes=fused_bytes, alone="fused_edge_band_kernel",
+        library=_edgefc_yardstick(params, cfg, gt.edges, f32),
+        extra=f"; {transc / 1e6:.1f} M transcendentals; library: the {Lh} hidden EdgeFC "
+              f"products alone (torch.matmul, a yardstick){_replaced('build_band_fused')}",
     )
     e_feat = _edge_features(params, cfg, gt.edges)
     check(
@@ -1534,7 +1663,7 @@ def main(argv=None) -> int:
         tol=2e-4, flops=mp_flops, nbytes=mp_bytes(4), source="hbm.cu",
         library=bmm(M, nodes),
         extra=f"; band {nnz} nonzeros of {M.numel()}, dense products "
-              f"{dense_flops / 1e9:.3f} GFLOP{load}{_dense('mp_banded')}",
+              f"{dense_flops / 1e9:.3f} GFLOP{load}{_replaced('mp_banded')}",
     )
 
     # the fast path's kernels: the Chebyshev builds (bfloat16 on the path,
@@ -1588,7 +1717,7 @@ def main(argv=None) -> int:
                                         for m, c in zip(Mcls[dt], cls_d.classes)],
             tol=2e-4, tol_of_max=BF16_STEP if dt == bf16 else 0.0, flops=part_flops,
             nbytes=part_bytes, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16,
-            extra=cls_load + (_dense("mp_banded_partial") if dt == bf16 else ""),
+            extra=cls_load + (_replaced("mp_banded_partial") if dt == bf16 else ""),
         )
     nodes16 = nodes.to(bf16)
     nnz16 = int((Mp[bf16] != 0).sum())
@@ -1599,7 +1728,7 @@ def main(argv=None) -> int:
         rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP,
         flops=2 * nnz16 * F + 2 * T * E * B * F * F, nbytes=mp_bytes(2), peak=PEAK_BF16_FLOPS,
         source="hbm.cu", dtype="bfloat16", library=bmm(Mp[bf16], nodes16),
-        extra=f"; band {nnz16} nonzeros{load}{_dense('mp_banded_bf16')}",
+        extra=f"; band {nnz16} nonzeros{load}{_replaced('mp_banded_bf16')}",
     )
     split = {tag: _occupancy_split(
         f"phase 3: mp_banded [{tag}]",

@@ -9,18 +9,20 @@
 // entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
 //
-// The MP layer's kernel, for every path, is in hbm.cu.
+// The MP layer's kernel, for every path, is mp.cuh's.
 //
-// All arithmetic is float32 on the CUDA cores; a bfloat16 compute type
-// rounds the EdgeFC products' operands to bfloat16 and keeps them in
-// float32, so each product is exact and every sum float32, and a bfloat16
-// output rounds the float32 band once. There is no fast-math flag: expf,
-// log1pf and tanhf are the accurate library versions, as the exact serving
-// path needs.
+// The band sums are float32 and a bfloat16 output rounds the float32 band
+// once. The fused edge stage's EdgeFC products run in float32 on the CUDA
+// cores, or with a bfloat16 compute type on the tensor cores (bfloat16
+// operands, each product exact, float32 sums). There is no fast-math
+// flag: expf, log1pf and tanhf are the accurate library versions, as the
+// exact serving path needs.
 //
 // Layouts follow the JAX package: M is [T, E, B, W] (tile, edge channel,
 // row in tile, window column), nodes are [N_pad, F], nlist [N_pad, K]
 // with -1 on padded rows.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -33,8 +35,8 @@ namespace {
 // with lo read from device memory, so any caller-given window start works;
 // an index outside [lo[t], lo[t] + W), negative ones included, matches no
 // column. One block per band row; its K indices and K x E values sit in
-// shared memory, and the threads walk the W columns, so every store is
-// coalesced; the float32 sum is rounded once to OutT. Bound: the M write
+// shared memory, and the threads walk the W columns 4 at a time
+// (common.cuh's band_row), so every store is coalesced; the float32 sum is rounded once to OutT. Bound: the M write
 // (T*E*B*W values of OutT); the compares are K per column.
 
 constexpr int kBuildThreads = 128;
@@ -69,59 +71,123 @@ __global__ void __launch_bounds__(kBuildThreads)
 // d > 0 mask, then the band build, without writing the [N, K, H]
 // activations to device memory.
 //
-// A block takes 128 consecutive edge slots (128 / K atoms). Its
-// activations live in shared memory feature-major (xT[h][s]), the current
-// layer's [H, H] kernel beside them: 128 KB of dynamic shared memory. Each
-// of the 256 threads computes an 8 x 8 register tile of the 128 x 128
-// layer output (slots ty*4+{0..3}, 64+ty*4+{0..3}; features tx*4+{0..3},
-// 64+tx*4+{0..3}), so both operands are read as float4 without bank
-// conflicts. Bound: the EdgeFC products, 2*N*K*H*H per hidden layer, in
-// float32 on the CUDA cores; the M write is the byte term.
+// What bounds it: the EdgeFC products, 2*N*K*H*H flops per hidden layer
+// (70.5 GFLOP at 44,676 atoms with 3 hidden layers: 1.05 ms in float32 at
+// 67 TFLOP/s), then the accurate transcendentals (the RBF's expf, the
+// activations' log1pf(expf) or tanhf: about a fifth of the products'
+// issue slots in float32) on the same CUDA cores; the M write is the
+// byte term.
 //
-// The compute type (build_band_fused's compute_dtype, :1173-1254) is a
-// runtime flag: with ct_bf16 every operand of an EdgeFC product (the RBF
-// and each layer's activations, each layer's kernel) is rounded to
-// bfloat16 as it is written to shared memory and held there in float32,
-// as ops/edge.py's as_operand emulates jnp.dot(x.astype(bf16),
-// k.astype(bf16), preferred_element_type=float32). The RBF, biases,
-// activations, the d > 0 mask and the band sum stay float32; M is rounded
-// once to OutT. The flag only rounds stored values, so the float32 path
-// computes what it did before it existed.
+// A block takes 128 consecutive edge slots (128 / K atoms), 256 threads,
+// two blocks an SM (at most 128 registers a thread, at most 102 KB of
+// shared memory a block), so one block's RBF, activations and band
+// writes overlap the other's products. The compute type is a template
+// argument:
+//
+// float32 (CUDA cores, no TF32: the exact tolerance). The activations
+// live in shared memory feature-major (xT[h][s], 64 KB); each layer's
+// [H, H] kernel streams through a 2-stage cp.async ring of 32-row chunks
+// (32 KB; the first chunk is in flight during the RBF pass, the next
+// layer's during this layer's epilogue; 4 barriers a layer). Each thread computes an 8 x 8
+// register tile of the 128 x 128 layer output (slots ty*4+{0..3},
+// 64+ty*4+{0..3}; features tx*4+{0..3}, 64+tx*4+{0..3}), both operands
+// read as float4 without bank conflicts; the k sum is one fmaf chain in
+// ascending order, so every value equals the one-block-an-SM kernel's it
+// replaced bit for bit.
+//
+// bfloat16 (ops/edge.py's as_operand: jnp.dot(x.astype(bf16),
+// k.astype(bf16), preferred_element_type=float32)): the RBF and each
+// layer's activations are stored as bfloat16 in shared memory
+// ([s][h], rows padded to 288 bytes, 36 KB) and every hidden layer runs on
+// the tensor cores, mma.sync.m16n8k16 with float32 accumulation: warp w
+// owns slots (w % 2) * 64 + [0, 64) and features (w / 2) * 32 + [0, 32)
+// and reads its A fragments and its B fragments, from the layer's kernel
+// given transposed in bfloat16 ([H_out, H_in], k contiguous, staged in
+// shared memory by cp.async during the RBF or the previous epilogue,
+// 36 KB), 64 bits at a time with the k order inside a 16-wide step
+// permuted alike in both operands. Each product is exact and
+// every sum float32, in another order than the plain version's. The final
+// Dense H x E sums each slot's 128 terms over a warp's lanes.
+//
+// Both: the RBF centres __fadd_rn(__fmul_rn(h, gap), low), divided by the
+// gap, not its square; biases, activations (accurate expf, log1pf, tanhf),
+// the final layer and the d > 0 mask in float32; the band rows summed in
+// float32 in slot order (duplicate indices add) and rounded once to
+// OutT by common.cuh's band_row, the writer of every band build.
 
 constexpr int kH = 128;
 constexpr int kSlots = 128;
 constexpr int kFusedThreads = 256;
-constexpr size_t kFusedSmem = (size_t)(kH * kSlots + kH * kH) * sizeof(float);
+constexpr int kKC = 32;          // kernel rows of a ring stage (float32)
+constexpr int kWStages = 2;      // ring stages, one in flight
+constexpr int kXS = kH + 16;     // bfloat16 row stride (activations, kernel), elements
 
-// v as an EdgeFC operand: rounded to bfloat16 when the compute type is.
-__device__ __forceinline__ float operand(float v, int ct_bf16) {
-  return ct_bf16 ? round_to<__nv_bfloat16>(v) : v;
+// float32: xT and the ring; bfloat16: the activations and the layer's
+// kernel, [kSlots][kXS] and [kH][kXS].
+template <bool kTC>
+__host__ __device__ constexpr size_t fused_smem_bytes() {
+  return kTC ? (size_t)(kSlots + kH) * kXS * sizeof(__nv_bfloat16)
+             : (size_t)(kH * kSlots + kWStages * kKC * kH) * sizeof(float);
 }
 
-template <int E, typename OutT>
-__global__ void __launch_bounds__(kFusedThreads)
+// f(std::integral_constant<int, act>()): the epilogues see the activation
+// as a constant, so their 64 elements are scheduled together rather than
+// each behind its own branch.
+template <typename Fn>
+__device__ __forceinline__ void with_activation(int act, Fn&& f) {
+  switch (act) {
+    case kRelu: f(std::integral_constant<int, kRelu>()); break;
+    case kSoftplus: f(std::integral_constant<int, kSoftplus>()); break;
+    case kTanh: f(std::integral_constant<int, kTanh>()); break;
+    default: f(std::integral_constant<int, kLinear>()); break;
+  }
+}
+
+template <int E, typename OutT, bool kTC>
+__global__ void __launch_bounds__(kFusedThreads, 2)
     fused_edge_band_kernel(const int* __restrict__ nlist,  // [N_pad, K]
                            const float* __restrict__ d,    // [N_pad, K]
                            const int* __restrict__ lo,     // [T]
-                           const float* __restrict__ wh,   // [Lh, H, H]
+                           const void* __restrict__ wh_,   // f32 [Lh, H_in, H_out];
+                                                           // kTC: bf16 [Lh, H_out, H_in]
                            const float* __restrict__ bh,   // [Lh, H]
                            const float* __restrict__ wf,   // [H, E]
                            const float* __restrict__ bf,   // [E]
                            OutT* __restrict__ M,           // [T, E, B, W]
-                           int B, int K, int W, int n_hidden, float rbf_low,
-                           float gap, float inv_gap, int act, int ct_bf16) {
+                           int B, int K, int W, int n_hidden, float rbf_low, float gap,
+                           float inv_gap, int act) {
   extern __shared__ float4 smem4[];
-  float* xT = reinterpret_cast<float*>(smem4);  // [kH][kSlots]
-  float* sw = xT + kH * kSlots;                 // [kH][kH]
   __shared__ float s_d[kSlots];
   __shared__ float s_mask[kSlots];
   __shared__ int s_rel[kSlots];
   __shared__ float s_e[kSlots * E];
+  __shared__ float s_wf[kH * E];
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const size_t slot0 = (size_t)blockIdx.x * kSlots;
   const int rows = kSlots / K;
   const int row0 = blockIdx.x * rows;
+
+  // float32: the hidden kernels' rows, chunk c = rows [16 c, +16) of all
+  // layers laid end to end; the first two in flight before anything else
+  float* xT = reinterpret_cast<float*>(smem4);  // [kH][kSlots]
+  float* wring = xT + kH * kSlots;              // [kWStages][kKC][kH]
+  const float* wh = static_cast<const float*>(wh_);
+  const int total = kTC ? 0 : n_hidden * (kH / kKC);
+  auto load_w = [&](int c) {
+    const float* g = wh + (size_t)c * kKC * kH;
+    float* st = wring + (c % kWStages) * kKC * kH;
+    for (int s = tid; s < kKC * kH / 4; s += kFusedThreads)
+      cp_async16(st + s * 4, g + s * 4, true);
+  };
+  if constexpr (!kTC) {
+    for (int c = 0; c < kWStages - 1; ++c) {
+      if (c < total) load_w(c);
+      cp_async_commit();  // possibly empty: the waits count groups
+    }
+  }
 
   for (int s = tid; s < kSlots; s += kFusedThreads) {
     const float dv = d[slot0 + s];
@@ -129,84 +195,190 @@ __global__ void __launch_bounds__(kFusedThreads)
     s_mask[s] = dv > 0.0f ? 1.0f : 0.0f;
     s_rel[s] = nlist[slot0 + s] - lo[(row0 + s / K) / B];
   }
+  for (int i = tid; i < kH * E; i += kFusedThreads)
+    s_wf[i] = kTC ? round_to<__nv_bfloat16>(wf[i]) : wf[i];
   __syncthreads();
 
-  // RBF with centers h * gap + low (rounded as two operations, as the
-  // TPU kernel computes them), divided by the gap, not the gap squared.
-  for (int i = tid; i < kH * kSlots; i += kFusedThreads) {
-    const int h = i / kSlots;
-    const int s = i - h * kSlots;
-    const float c = __fadd_rn(__fmul_rn((float)h, gap), rbf_low);
-    const float x = s_d[s] - c;
-    xT[i] = operand(expf(-(x * x) * inv_gap) * s_mask[s], ct_bf16);
-  }
-
-  const int ty = tid % 16;
-  const int tx = tid / 16;
-  for (int l = 0; l < n_hidden; ++l) {
-    __syncthreads();
-    const float4* src = reinterpret_cast<const float4*>(wh + (size_t)l * kH * kH);
-    float4* dst = reinterpret_cast<float4*>(sw);
-    for (int i = tid; i < kH * kH / 4; i += kFusedThreads) {
-      const float4 v = src[i];
-      dst[i] = make_float4(operand(v.x, ct_bf16), operand(v.y, ct_bf16),
-                           operand(v.z, ct_bf16), operand(v.w, ct_bf16));
+  if constexpr (!kTC) {
+    // RBF with centers h * gap + low (rounded as two operations, as the
+    // TPU kernel computes them), divided by the gap, not the gap squared.
+    for (int i = tid; i < kH * kSlots; i += kFusedThreads) {
+      const int h = i / kSlots;
+      const int s = i - h * kSlots;
+      const float c = __fadd_rn(__fmul_rn((float)h, gap), rbf_low);
+      const float x = s_d[s] - c;
+      xT[i] = expf(-(x * x) * inv_gap) * s_mask[s];
     }
-    __syncthreads();
 
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < kH; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(xT + k * kSlots + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(xT + k * kSlots + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(sw + k * kH + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(sw + k * kH + 64 + tx * 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const int ty = tid % 16;
+    const int tx = tid / 16;
+    for (int l = 0; l < n_hidden; ++l) {
+      float acc[8][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // every read of xT is done before it is overwritten
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      for (int cl = 0; cl < kH / kKC; ++cl) {
+        const int c = l * (kH / kKC) + cl;
+        cp_async_wait<kWStages - 2>();  // chunk c has landed
+        __syncthreads();  // ... for every thread; chunk c - 1's stage is free; xT published
+        if (c + kWStages - 1 < total) load_w(c + kWStages - 1);
+        cp_async_commit();
+        const float* sw = wring + (c % kWStages) * kKC * kH;
+        const float* xk = xT + cl * kKC * kSlots;
+#pragma unroll 4
+        for (int k = 0; k < kKC; ++k) {
+          const float4 a0 = *reinterpret_cast<const float4*>(xk + k * kSlots + ty * 4);
+          const float4 a1 = *reinterpret_cast<const float4*>(xk + k * kSlots + 64 + ty * 4);
+          const float4 b0 = *reinterpret_cast<const float4*>(sw + k * kH + tx * 4);
+          const float4 b1 = *reinterpret_cast<const float4*>(sw + k * kH + 64 + tx * 4);
+          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+      }
+      __syncthreads();  // every read of xT is done before it is overwritten
 
+      with_activation(act, [&](auto ka) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int f = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-      const float bias = bh[(size_t)l * kH + f];
-      float v[8];
+        for (int j = 0; j < 8; ++j) {
+          const int f = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
+          const float bias = bh[(size_t)l * kH + f];
+          float v[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = operand(activate(acc[i][j] + bias, act), ct_bf16);
-      const float4 v0 = make_float4(v[0], v[1], v[2], v[3]);
-      const float4 v1 = make_float4(v[4], v[5], v[6], v[7]);
-      *reinterpret_cast<float4*>(xT + f * kSlots + ty * 4) = v0;
-      *reinterpret_cast<float4*>(xT + f * kSlots + 64 + ty * 4) = v1;
+          for (int i = 0; i < 8; ++i) v[i] = activate(acc[i][j] + bias, decltype(ka)::value);
+          *reinterpret_cast<float4*>(xT + f * kSlots + ty * 4) =
+              make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(xT + f * kSlots + 64 + ty * 4) =
+              make_float4(v[4], v[5], v[6], v[7]);
+        }
+      });
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // Final linear layer H -> E, bias, then the d > 0 mask.
+    for (int o = tid; o < kSlots * E; o += kFusedThreads) {
+      const int n = o / kSlots;
+      const int s = o - n * kSlots;
+      float acc = 0.0f;
+      for (int k = 0; k < kH; ++k) acc = fmaf(xT[k * kSlots + s], s_wf[k * E + n], acc);
+      s_e[s * E + n] = (acc + bf[n]) * s_mask[s];
+    }
+  } else {
+    __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kSlots][kXS]
+    __nv_bfloat16* Ws = X + kSlots * kXS;  // [kH][kXS]: layer l's [H_out, H_in] kernel
+    const __nv_bfloat16* wt = static_cast<const __nv_bfloat16*>(wh_);
+    auto load_wt = [&](int l) {
+      const __nv_bfloat16* g = wt + (size_t)l * kH * kH;
+      for (int s = tid; s < kH * kH / 8; s += kFusedThreads) {  // 16 bytes each
+        const int r = s / (kH / 8);
+        const int q = s - r * (kH / 8);
+        cp_async16(Ws + r * kXS + q * 8, g + r * kH + q * 8, true);
+      }
+    };
+    if (n_hidden > 0) load_wt(0);  // in flight during the RBF
+    cp_async_commit();
+    for (int i = tid; i < kH * kSlots; i += kFusedThreads) {
+      const int s = i / kH;
+      const int h = i - s * kH;
+      const float c = __fadd_rn(__fmul_rn((float)h, gap), rbf_low);
+      const float x = s_d[s] - c;
+      X[s * kXS + h] = __float2bfloat16_rn(expf(-(x * x) * inv_gap) * s_mask[s]);
+    }
+    const int g = lane >> 2;
+    const int t4 = (lane & 3) * 4;
+    const int t2 = (lane & 3) * 2;
+    const int sm0 = (warp & 1) * 64;   // the warp's slots
+    const int fn0 = (warp >> 1) * 32;  // and features
+    for (int l = 0; l < n_hidden; ++l) {
+      cp_async_wait<0>();
+      __syncthreads();  // the RBF or the last epilogue, and layer l's kernel, are published
+      float acc[4][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < kH; k0 += 16) {
+        // physical k0 + t4 .. + 3 is logical (2t, 2t+1, 2t+8, 2t+9) in both operands
+        unsigned a[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const __nv_bfloat16* xr = X + (sm0 + mt * 16 + g) * kXS + k0 + t4;
+          const uint2 x = *reinterpret_cast<const uint2*>(xr);
+          const uint2 y = *reinterpret_cast<const uint2*>(xr + 8 * kXS);
+          a[mt][0] = x.x, a[mt][1] = y.x, a[mt][2] = x.y, a[mt][3] = y.y;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint2 b =
+              *reinterpret_cast<const uint2*>(Ws + (fn0 + nt * 8 + g) * kXS + k0 + t4);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], a[mt], b.x, b.y);
+        }
+      }
+      __syncthreads();  // every read of X and Ws is done before they are overwritten
+      if (l + 1 < n_hidden) load_wt(l + 1);  // in flight during the epilogue
+      cp_async_commit();
+      with_activation(act, [&](auto ka) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int f = fn0 + nt * 8 + t2;
+          const float b0 = bh[(size_t)l * kH + f];
+          const float b1 = bh[(size_t)l * kH + f + 1];
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int s = sm0 + mt * 16 + g + half * 8;
+              *reinterpret_cast<__nv_bfloat162*>(X + s * kXS + f) = __floats2bfloat162_rn(
+                  activate(acc[mt][nt][2 * half] + b0, decltype(ka)::value),
+                  activate(acc[mt][nt][2 * half + 1] + b1, decltype(ka)::value));
+            }
+        }
+      });
+    }
+    __syncthreads();
+
+    // Final linear layer H -> E: a warp a slot at a time, lane l the terms
+    // k = 4l .. 4l + 3 (their kernel rows held in registers), summed over
+    // the lanes; bias, then the d > 0 mask.
+    float wreg[4][E];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int n = 0; n < E; ++n) wreg[q][n] = s_wf[(lane * 4 + q) * E + n];
+    for (int s = warp; s < kSlots; s += kFusedThreads / 32) {
+      const uint2 u = *reinterpret_cast<const uint2*>(X + s * kXS + lane * 4);
+      const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      const float xv[4] = {x01.x, x01.y, x23.x, x23.y};
+#pragma unroll
+      for (int n = 0; n < E; ++n) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc = fmaf(xv[q], wreg[q][n], acc);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (lane == 0) s_e[s * E + n] = (acc + bf[n]) * s_mask[s];
+      }
     }
   }
   __syncthreads();
 
-  // Final linear layer H -> E, bias, then the d > 0 mask.
-  for (int i = tid; i < kH * E; i += kFusedThreads) sw[i] = operand(wf[i], ct_bf16);
-  __syncthreads();
-  for (int o = tid; o < kSlots * E; o += kFusedThreads) {
-    const int n = o / kSlots;
-    const int s = o - n * kSlots;
-    float acc = 0.0f;
-    for (int k = 0; k < kH; ++k) acc = fmaf(xT[k * kSlots + s], sw[k * E + n], acc);
-    s_e[s * E + n] = (acc + bf[n]) * s_mask[s];
-  }
-  __syncthreads();
-
+  // The band rows, through the writer B2 and B4 share.
   for (int a = 0; a < rows; ++a) {
     const int row = row0 + a;
     const int t = row / B;
     const int b = row - t * B;
-    band_row<E, OutT>(s_rel + a * K, s_e + a * K * E, K, W,
-                      M + ((size_t)t * E * B + b) * W, (size_t)B * W, tid, kFusedThreads);
+    band_row<E, OutT>(s_rel + a * K, s_e + a * K * E, K, W, M + ((size_t)t * E * B + b) * W,
+                      (size_t)B * W, tid, kFusedThreads);
   }
 }
 
@@ -218,21 +390,42 @@ cudaError_t launch_build(const int* nlist, const float* e, const int* lo, void* 
   return cudaGetLastError();
 }
 
-template <int E, typename OutT>
-cudaError_t launch_fused(const int* nlist, const float* d, const int* lo, const float* wh,
+template <int E, typename OutT, bool kTC>
+cudaError_t launch_fused(const int* nlist, const float* d, const int* lo, const void* wh,
                          const float* bh, const float* wf, const float* bf, void* M,
                          int n_pad, int B, int K, int W, int n_hidden, float rbf_low,
-                         float gap, float inv_gap, int act, int ct_bf16,
-                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_edge_band_kernel<E, OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kFusedSmem);
+                         float gap, float inv_gap, int act, cudaStream_t stream) {
+  constexpr size_t smem = fused_smem_bytes<kTC>();
+  cudaError_t err = cudaFuncSetAttribute(fused_edge_band_kernel<E, OutT, kTC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && !kTC)  // two blocks of 102 KB an SM
+    err = cudaFuncSetAttribute(fused_edge_band_kernel<E, OutT, kTC>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const int blocks = (int)(((size_t)n_pad * K) / kSlots);
-  fused_edge_band_kernel<E, OutT><<<blocks, kFusedThreads, kFusedSmem, stream>>>(
+  fused_edge_band_kernel<E, OutT, kTC><<<blocks, kFusedThreads, smem, stream>>>(
       nlist, d, lo, wh, bh, wf, bf, static_cast<OutT*>(M), B, K, W, n_hidden, rbf_low, gap,
-      inv_gap, act, ct_bf16);
+      inv_gap, act);
   return cudaGetLastError();
+}
+
+template <int E>
+cudaError_t launch_fused_any(int out_bf16, int compute_bf16, const int* nlist, const float* d,
+                             const int* lo, const void* wh, const float* bh, const float* wf,
+                             const float* bf, void* M, int n_pad, int B, int K, int W,
+                             int n_hidden, float rbf_low, float gap, float inv_gap, int act,
+                             cudaStream_t s) {
+#define NMR_FUSED_LAUNCH(OT, TC)                                                             \
+  return launch_fused<E, OT, TC>(nlist, d, lo, wh, bh, wf, bf, M, n_pad, B, K, W, n_hidden, \
+                                 rbf_low, gap, inv_gap, act, s)
+  if (out_bf16) {
+    if (compute_bf16) NMR_FUSED_LAUNCH(__nv_bfloat16, true);
+    NMR_FUSED_LAUNCH(__nv_bfloat16, false);
+  }
+  if (compute_bf16) NMR_FUSED_LAUNCH(float, true);
+  NMR_FUSED_LAUNCH(float, false);
+#undef NMR_FUSED_LAUNCH
 }
 
 }  // namespace
@@ -262,8 +455,10 @@ int nmr_build_band(const int* nlist, const float* e, const int* lo, void* M, int
 }
 
 // The fused edge stage + band build; out_bf16 selects the output type,
-// compute_bf16 the EdgeFC products' operand type (0: float32, 1: bfloat16).
-int nmr_build_band_fused(const int* nlist, const float* d, const int* lo, const float* wh,
+// compute_bf16 the EdgeFC products' operand type (0: float32, 1: bfloat16)
+// and the layout of the hidden kernels wh: float32 [Lh, H_in, H_out], or
+// bfloat16 [Lh, H_out, H_in].
+int nmr_build_band_fused(const int* nlist, const float* d, const int* lo, const void* wh,
                          const float* bh, const float* wf, const float* bf, void* M,
                          int n_pad, int B, int K, int E, int W, int H, int n_hidden,
                          float rbf_low, float gap, float inv_gap, int act, int out_bf16,
@@ -272,14 +467,10 @@ int nmr_build_band_fused(const int* nlist, const float* d, const int* lo, const 
       W < 1 || n_hidden < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NMR_FUSED_CASE(EE)                                                                  \
-  if (E == EE)                                                                              \
-    return out_bf16 ? launch_fused<EE, __nv_bfloat16>(nlist, d, lo, wh, bh, wf, bf, M,      \
-                                                      n_pad, B, K, W, n_hidden, rbf_low,    \
-                                                      gap, inv_gap, act, compute_bf16, s)   \
-                    : launch_fused<EE, float>(nlist, d, lo, wh, bh, wf, bf, M, n_pad, B, K, \
-                                              W, n_hidden, rbf_low, gap, inv_gap, act,      \
-                                              compute_bf16, s);
+#define NMR_FUSED_CASE(EE)                                                                \
+  if (E == EE)                                                                            \
+    return launch_fused_any<EE>(out_bf16, compute_bf16, nlist, d, lo, wh, bh, wf, bf, M,  \
+                                n_pad, B, K, W, n_hidden, rbf_low, gap, inv_gap, act, s);
   NMR_FUSED_CASE(1)
   NMR_FUSED_CASE(2)
   NMR_FUSED_CASE(3)

@@ -1,7 +1,7 @@
 // Device code shared by banded.cu, poly.cu, hbm.cu, fused_first.cu and
 // blocksparse.cu: the activations, float32 / bfloat16 element access, the
-// cp.async staging of the MP kernels, the Chebyshev edge stage and the
-// band-row writer of the band builds.
+// cp.async staging, the tensor cores' bfloat16 product, the Chebyshev edge
+// stage and the band-row writer of the band builds.
 //
 // bfloat16 follows the TPU kernels' mixed precision: operands are bf16,
 // products and sums are float32 (a bf16 x bf16 product is exact in f32),
@@ -75,7 +75,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// -- cp.async staging (hbm.cu, blocksparse.cu) -------------------------------
+// -- cp.async staging (mp.cuh, banded.cu) ------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -96,6 +96,19 @@ __device__ __forceinline__ void cp_async_wait_one() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// -- tensor cores (mp.cuh, banded.cu) ----------------------------------------
+
+// D += A @ B on the tensor cores: A 16 x 16 bf16 (row major), B 16 x 8
+// bf16 (column major), D 16 x 8 float32 (PTX ISA's m16n8k16 fragments).
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // -- the Chebyshev edge stage (poly.cu, fused_first.cu) ----------------------
@@ -136,23 +149,44 @@ __device__ __forceinline__ void cheb_edge(float dv, const float* c, int degree, 
 // One band row: out[n * channel_stride + w] = sum of ev[k * E + n] over
 // the slots k with rel[k] == w, taken in slot order, for w in [0, W); the
 // float32 sum is rounded once to OutT. Duplicate indices add; indices
-// outside [0, W) (other windows, and -1 padding) match nothing.
+// outside [0, W) (other windows, and -1 padding) match nothing. The one
+// band-row writer of B2, B3, B4, B7 and B8, so their bands agree bit for
+// bit: a thread sums 4 consecutive columns in one pass over the K slots
+// and stores them 16 bytes (8 in bfloat16) at a time where W is a
+// multiple of 4 (out 16-byte aligned), one by one otherwise.
 template <int E, typename OutT>
 __device__ __forceinline__ void band_row(const int* rel, const float* ev, int K, int W,
                                          OutT* out, size_t channel_stride, int tid,
                                          int nthreads) {
-  for (int w = tid; w < W; w += nthreads) {
-    float acc[E];
+  const bool vec = (W & 3) == 0;
+  for (int w0 = tid * 4; w0 < W; w0 += nthreads * 4) {
+    float acc[E][4];
 #pragma unroll
-    for (int n = 0; n < E; ++n) acc[n] = 0.0f;
+    for (int n = 0; n < E; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[n][q] = 0.0f;
     for (int k = 0; k < K; ++k) {
-      if (rel[k] == w) {
+      const int dq = rel[k] - w0;
+      if (static_cast<unsigned>(dq) < 4u) {
 #pragma unroll
-        for (int n = 0; n < E; ++n) acc[n] += ev[k * E + n];
+        for (int q = 0; q < 4; ++q)
+          if (dq == q) {
+#pragma unroll
+            for (int n = 0; n < E; ++n) acc[n][q] += ev[k * E + n];
+          }
       }
     }
 #pragma unroll
-    for (int n = 0; n < E; ++n) out[n * channel_stride + w] = from_f32<OutT>(acc[n]);
+    for (int n = 0; n < E; ++n) {
+      OutT* o = out + n * channel_stride + w0;
+      if (vec) {
+        store4(o, make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]));
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (w0 + q < W) o[q] = from_f32<OutT>(acc[n][q]);
+      }
+    }
   }
 }
 

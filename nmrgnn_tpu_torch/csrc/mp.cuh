@@ -1,27 +1,38 @@
-// The hand-written Hopper kernel of every banded MP layer of
-// nmrgnn_tpu_torch, and the band-occupancy passes that feed it. hbm.cu
-// instantiates the kernel with the band read from device memory (over all
-// row tiles, or over one window class's tiles through an ids array; with
-// or without the epilogue) and holds the occupancy passes; fused_first.cu
-// instantiates it with the band built in the block (B13), so the two
-// sources build in parallel. ops/banded.py holds the wrappers (one per TPU
-// kernel, each with its launch count) and the plain PyTorch version of
-// each.
+// The hand-written Hopper kernel of every MP layer of nmrgnn_tpu_torch,
+// banded and block-sparse, and the band-occupancy passes that feed it.
+// hbm.cu instantiates the kernel with the band read from device memory
+// (over all row tiles, or over one window class's tiles through an ids
+// array; with or without the epilogue) and holds the occupancy passes;
+// fused_first.cu instantiates it with the band built in the block (B13);
+// blocksparse.cu with the block-sparse adjacency's pairs (B11, B12), so
+// the three sources build in parallel. ops/banded.py and
+// ops/blocksparse.py hold the wrappers (one per TPU kernel, each with its
+// launch count) and the plain PyTorch version of each.
 //
-// It replaces the TPU's five MP kernels: _mp_banded_kernel (nmrgnn_tpu/
+// It replaces the TPU's seven MP kernels: _mp_banded_kernel (nmrgnn_tpu/
 // ops/banded.py:555-579, B1), _mp_banded_hbm_kernel (:656-773, B5),
 // _mp_banded_partial_kernel (:833-894, B6), _poly_mp_fused_kernel
-// (:1451-1519, B13) and _mp_banded_hbm_cls_kernel (:1703-1823, B9). On
-// Hopper no node table is resident on chip, so all five are one kernel:
+// (:1451-1519, B13), _mp_banded_hbm_cls_kernel (:1703-1823, B9), and
+// _mp_bs_kernel / _mp_bs_kernel_grouped (nmrgnn_tpu/ops/blocksparse.py:
+// 299-443, B11 / B12). On Hopper no node table is resident on chip, so
+// all seven are one kernel:
 //   acc = sum_n round_T(M[i, n] @ table[lo_i : lo_i + W]) @ w[n]
 //   kFull:    out[i*B + r] = T(act(acc * inv_degree) + table[tile*B + r])
 //   kPartial: out[i*B + r] = acc (float32)
 //   kBuild:   kFull with ids null, where M[i] is not read but built in the
 //             block from the raw distances (the Chebyshev band build of
 //             poly.cu) and written whole to m_out
+//   kPairs:   kFull with ids null over the row blocks i of the block-sparse
+//             adjacency A [P, E, B, B] (M with W = B): the window of pair p
+//             is the node rows of its col block, cols[p] * B + [0, B), the
+//             pairs of row block i are [row_ptr[i], row_ptr[i + 1]) in CSR
+//             order, and h_n = sum_p A[p, n] @ window_p stays float32 into
+//             the second product (_mp_bs_kernel's jnp.dot(h_acc[n],
+//             w_ref[n], preferred_element_type=float32), :336)
 // where grid tile i updates tile = ids[i] (ids null: tile = i). An id
 // outside [0, n_table / B) reads nothing and writes zeros; window rows
-// outside the table read as zeros.
+// outside the table, and a pair's col outside [0, n_table / B), read as
+// zeros; row_ptr offsets are clamped to [0, P].
 //
 // What bounds it. The band holds about 16 nonzeros in a row of W ~ 900
 // (under 2%), so the dense first product (2*T*E*B*W*F flops, what the TPU's
@@ -80,6 +91,26 @@
 // 4. The epilogue is float32, rounded once to T; the residual rows and
 //    inv_degree are read from device memory.
 //
+// kPairs (B11, B12). The occupancy is one bit per (pair, 32-row slab,
+// 16-column chunk): bit s * (B / 16) + c of pair p's ceil(B * B / 512)
+// words (one word at B = 128) says whether A[p, :, 32 s : 32 s + 32,
+// 16 c : 16 c + 16] holds a nonzero. ops/blocksparse.py's forwards make it
+// once per structure and frame from nlist, the distances and the pairs
+// (blocksparse.cu's block_occupancy_kernel); a direct call derives it from
+// A. A block (row block i, slab s) has warp 0 list the set bits of its
+// slab over the row block's pairs, in pair order and ascending chunk
+// order, in segments of at most kPairCap entries (one segment unless a
+// row block holds more than about 250 occupied pairs; the pipeline drains
+// between segments), then stages and walks them as the band's chunks: the
+// same ascending fmaf chain over (pair, column) as a dense loop over
+// every pair and column, zero terms dropped. Padding pairs (A zero) are
+// never listed, so a structure built with group = G gives B12 the
+// entries, and the result bits, of B11. The second product: float32 as
+// above; bfloat16 splits h into h_hi = bf16(h) and h_lo = bf16(h - h_hi)
+// (|h - h_hi - h_lo| <= 2^-16 |h|) and runs both through the tensor cores
+// with float32 sums, so h is not rounded to bfloat16 as the banded modes
+// round it.
+//
 // kBuild (B13). The block stages its rows' K slots (window-relative index,
 // the E Chebyshev values of common.cuh's cheb_edge, the function of
 // poly.cu, so the values equal B4's bit for bit) and their chunk bits at
@@ -106,7 +137,22 @@ static_assert(kMpRows == 32, "the occupancy OR takes one row a lane");
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use
 
 // What one launch computes (see above).
-enum MpMode { kFull = 0, kPartial = 1, kBuild = 2 };
+enum MpMode { kFull = 0, kPartial = 1, kBuild = 2, kPairs = 3 };
+
+// kPairs' adjacency structure (unused by the other modes).
+struct PairList {
+  const int* row_ptr;  // [nb + 1] CSR offsets of each row block's pairs
+  const int* cols;     // [P] col block of each pair
+  int P;
+};
+
+// kPairs: list entries of one segment (pair << 5 | chunk).
+constexpr int kPairCap = 2048;
+
+// kPairs: occupancy words of a pair, at B rows and columns.
+__host__ __device__ constexpr int pair_words(int B) {
+  return ((B / kMpRows) * (B / kMpChunk) + 31) / 32;
+}
 
 // The in-block band build of kBuild (unused by the other modes).
 struct ChebBuild {
@@ -153,22 +199,29 @@ __host__ __device__ constexpr int mp_h_stride() {
 }
 
 // Shared memory. Phase 1 (the first product): mp_stages<T>() stages of [16, F]
-// window rows and the [E, 32, 16] band chunk, the chunk list (nw ints), the
-// block's OR'd occupancy words, and kBuild's slots. Phase 2 (the second
-// product) reuses it: h [E, 32, stride] in T and, in float32, kWStages
+// window rows and the [E, 32, 16] band chunk, the chunk list (nw ints, or
+// kPairs' kPairCap), the block's OR'd occupancy words, and kBuild's slots.
+// Phase 2 (the second product) reuses it: h [parts, E, 32, stride] in T
+// (kPairs' bfloat16 h_hi and h_lo: two parts) and, in float32, kWStages
 // stages of [kWRows, slice] W_n rows.
 template <int F, int E, typename T>
 __host__ __device__ constexpr size_t mp_stage_bytes() {
   return (size_t)kMpChunk * F * sizeof(T) + (size_t)E * kMpRows * kMpChunk * sizeof(T);
 }
-template <int F, int E, typename T>
+template <typename T, int kMode>
+__host__ __device__ constexpr int mp_h_parts() {
+  return kMode == kPairs && sizeof(T) == 2 ? 2 : 1;
+}
+template <int F, int E, typename T, int kMode>
 __host__ __device__ constexpr size_t mp_phase2_bytes() {
-  return (size_t)E * kMpRows * mp_h_stride<F, T>() * sizeof(T) +
+  return (size_t)mp_h_parts<T, kMode>() * E * kMpRows * mp_h_stride<F, T>() * sizeof(T) +
          (sizeof(T) == 4 ? (size_t)kWStages * kWRows * mp_slice<F>() * sizeof(float) : 0);
 }
+template <int kMode>
 __host__ __device__ constexpr size_t list_bytes(int W) {
-  return round16((size_t)(W / kMpChunk) * sizeof(int)) +
-         round16((size_t)occ_words(W) * sizeof(unsigned));
+  return kMode == kPairs ? round16((size_t)kPairCap * sizeof(int))
+                         : round16((size_t)(W / kMpChunk) * sizeof(int)) +
+                               round16((size_t)occ_words(W) * sizeof(unsigned));
 }
 
 // kBuild's shared memory after the stages and the list: the coefficients,
@@ -190,9 +243,9 @@ __host__ __device__ constexpr size_t build_smem_bytes(int E, int K, int degree, 
 
 template <int F, int E, typename T, int kMode>
 __host__ __device__ constexpr size_t mp_smem_bytes(int W, int K, int degree) {
-  const size_t p1 = mp_stages<T>() * mp_stage_bytes<F, E, T>() + list_bytes(W) +
+  const size_t p1 = mp_stages<T>() * mp_stage_bytes<F, E, T>() + list_bytes<kMode>(W) +
                     (kMode == kBuild ? build_smem_bytes(E, K, degree, W) : 0);
-  const size_t p2 = mp_phase2_bytes<F, E, T>();
+  const size_t p2 = mp_phase2_bytes<F, E, T, kMode>();
   return p1 > p2 ? p1 : p2;
 }
 
@@ -239,30 +292,22 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
     *reinterpret_cast<__nv_bfloat162*>(p + q) = __floats2bfloat162_rn(v[q], v[q + 1]);
 }
 
-// D += A @ B on the tensor cores: A 16 x 16 bf16 (row major), B 16 x 8
-// bf16 (column major), D 16 x 8 float32 (PTX ISA's m16n8k16 fragments).
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two blocks an SM for E <= 3 (at most 128 registers a thread), so that
 // one block's chunk loads overlap the other's second product.
 template <int F, int E, typename T, int kMode>
 __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
-    mp_banded_kernel(const T* __restrict__ M,           // [tiles, E, B, W] (not kBuild)
-                     const unsigned* __restrict__ occ,  // [tiles * B, NW] (not kBuild)
-                     const int* __restrict__ lo,        // [tiles] window starts
+    mp_banded_kernel(const T* __restrict__ M,           // [tiles, E, B, W] (not kBuild);
+                                                        // kPairs: A [P, E, B, B]
+                     const unsigned* __restrict__ occ,  // [tiles * B, NW] (not kBuild);
+                                                        // kPairs: [P, pair_words(B)]
+                     const int* __restrict__ lo,        // [tiles] window starts (not kPairs)
                      const int* __restrict__ ids,       // [tiles] tile ids, or null
                      const T* __restrict__ table,       // [n_table, F] node table
                      const T* __restrict__ w,           // [E, F, F] (see the note)
                      const float* __restrict__ inv,     // [n_table] (not kPartial)
                      void* __restrict__ out_,           // [tiles * B, F]: T, or float if partial
-                     int B, int W, int n_table, int act, int spb, ChebBuild bld) {
+                     int B, int W, int n_table, int act, int spb, ChebBuild bld,
+                     PairList prs) {
   constexpr bool kPart = kMode == kPartial;
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int RB = kMpRows;
@@ -277,8 +322,10 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
   constexpr int SEG_M = kMpChunk * (int)sizeof(T) / 16;          // of a band row's chunk
   constexpr size_t TAB = (size_t)kMpChunk * F * sizeof(T);
   constexpr size_t STAGE = mp_stage_bytes<F, E, T>();
+  constexpr int NH = mp_h_parts<T, kMode>();                   // parts of h in phase 2
   extern __shared__ float4 smem4[];
   __shared__ int s_nc;
+  __shared__ int s_pnext;  // kPairs: the first pair of the next segment
   char* smem = reinterpret_cast<char*>(smem4);
 
   const int tid = threadIdx.x;
@@ -301,23 +348,23 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
     }
     return;
   }
-  const int base = lo[i];
+  const int base = kMode == kPairs ? 0 : lo[i];
   const int nw = W / kMpChunk;  // window chunks
   const int NW = occ_words(W);
 
   // -- shared memory -----------------------------------------------------------
   char* list_smem = smem + NST * STAGE;
-  int* s_list = reinterpret_cast<int*>(list_smem);  // [nw] nonempty chunks
+  int* s_list = reinterpret_cast<int*>(list_smem);  // [nw] nonempty chunks (kPairs: entries)
   unsigned* s_or =
       reinterpret_cast<unsigned*>(list_smem + round16((size_t)nw * sizeof(int)));  // [NW]
-  char* bld_smem = list_smem + list_bytes(W);
+  char* bld_smem = list_smem + list_bytes<kMode>(W);
   float* s_c = reinterpret_cast<float*>(bld_smem);
   bld_smem += build_coeff_bytes(E, bld.degree);
   int* s_rel = reinterpret_cast<int*>(bld_smem);  // [RB][K]
   bld_smem += build_rel_bytes(bld.K);
   unsigned* s_bits = reinterpret_cast<unsigned*>(bld_smem);  // [RB][NW]
   float* s_e = reinterpret_cast<float*>(bld_smem + build_mask_bytes(W));  // [RB][K][E]
-  T* s_h = reinterpret_cast<T*>(smem);  // phase 2: [E][RB][HS]
+  T* s_h = reinterpret_cast<T*>(smem);  // phase 2: [NH][E][RB][HS]
 
   // -- the block's nonempty chunks -------------------------------------------------
   if constexpr (kMode == kBuild) {
@@ -337,26 +384,80 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
     }
     __syncthreads();
   }
-  // the OR of the block's rows' words: warp j % 8 takes word j, lane = row
-  for (int j = warp; j < NW; j += kMpWarps) {
-    const unsigned v = kMode == kBuild ? s_bits[lane * NW + j] : occ[(out_row0 + lane) * NW + j];
-    const unsigned o = __reduce_or_sync(0xffffffffu, v);
-    if (lane == 0) s_or[j] = o;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int count = 0;
-    for (int j = 0; j < NW; ++j) {
-      const int c = j * 32 + lane;
-      const bool set = c < nw && ((s_or[j] >> lane) & 1u);
-      const unsigned bal = __ballot_sync(0xffffffffu, set);
-      if (set) s_list[count + __popc(bal & ((1u << lane) - 1u))] = c;
-      count += __popc(bal);
+  if constexpr (kMode != kPairs) {
+    // the OR of the block's rows' words: warp j % 8 takes word j, lane = row
+    for (int j = warp; j < NW; j += kMpWarps) {
+      const unsigned v =
+          kMode == kBuild ? s_bits[lane * NW + j] : occ[(out_row0 + lane) * NW + j];
+      const unsigned o = __reduce_or_sync(0xffffffffu, v);
+      if (lane == 0) s_or[j] = o;
     }
-    if (lane == 0) s_nc = count;
+    __syncthreads();
+    if (warp == 0) {
+      int count = 0;
+      for (int j = 0; j < NW; ++j) {
+        const int c = j * 32 + lane;
+        const bool set = c < nw && ((s_or[j] >> lane) & 1u);
+        const unsigned bal = __ballot_sync(0xffffffffu, set);
+        if (set) s_list[count + __popc(bal & ((1u << lane) - 1u))] = c;
+        count += __popc(bal);
+      }
+      if (lane == 0) s_nc = count;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const int nc = s_nc;
+
+  // kPairs: the row block's pairs (offsets clamped to [0, P]); list_pairs
+  // has warp 0 list the next segment's entries, pair << 5 | chunk, from
+  // pair p_next on: the set bits of the block's slab, pairs in order (32
+  // at a time, a prefix sum over the lanes), chunks ascending, until the
+  // next 32 pairs' entries would pass kPairCap.
+  const int p_lo = kMode == kPairs ? min(max(prs.row_ptr[i], 0), prs.P) : 0;
+  const int p_hi = kMode == kPairs ? min(max(prs.row_ptr[i + 1], p_lo), prs.P) : 0;
+  int p_next = p_lo;
+  auto list_pairs = [&]() {
+    if (warp == 0) {
+      const int nch = B / kMpChunk;
+      const int wpp = pair_words(B);
+      const int b0 = (r0 / RB) * nch;  // the slab's first bit
+      const unsigned keep = nch >= 32 ? 0xffffffffu : (1u << nch) - 1u;
+      int count = 0;
+      int p = p_next;
+      for (; p < p_hi; p += 32) {
+        const int q = p + lane;
+        unsigned bits = 0u;
+        if (q < p_hi) {
+          const unsigned* o = occ + (size_t)q * wpp + (b0 >> 5);
+          const int sh = b0 & 31;
+          bits = o[0] >> sh;
+          if (sh + nch > 32) bits |= o[1] << (32 - sh);
+          bits &= keep;
+        }
+        const int cnt = __popc(bits);
+        int incl = cnt;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int t = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += t;
+        }
+        const int total = __shfl_sync(0xffffffffu, incl, 31);
+        if (count + total > kPairCap) break;  // uniform: the next segment's
+        int pos = count + incl - cnt;
+        while (bits) {
+          const int c = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          s_list[pos++] = (q << 5) | c;
+        }
+        count += total;
+      }
+      if (lane == 0) {
+        s_nc = count;
+        s_pnext = min(p, p_hi);
+      }
+    }
+    __syncthreads();
+    p_next = s_pnext;
+  };
 
   // kBuild: every entry of m_out is written once, chunk c by the block of
   // slice c % S; here the empty chunks' zeros.
@@ -378,15 +479,30 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
   }
 
   // Stage of list entry idx: window rows [base + c*16, +16) and (not
-  // kBuild) the band's columns [c*16, +16) of the block's rows.
+  // kBuild) the band's columns [c*16, +16) of the block's rows; kPairs:
+  // pair p's col block's rows [cols[p]*B + c*16, +16) and A[p]'s columns.
   auto load_chunk = [&](int idx) {
     char* st = smem + (idx % NST) * STAGE;
-    const int w0 = s_list[idx] * kMpChunk;
+    int w0, src0;
+    size_t mt;  // M's tile: the grid tile, or kPairs' pair
+    bool col_ok = true;
+    if constexpr (kMode == kPairs) {
+      const int e = s_list[idx];
+      const int col = prs.cols[e >> 5];
+      col_ok = col >= 0 && col < n_table / B;
+      w0 = (e & 31) * kMpChunk;
+      src0 = (col_ok ? col : 0) * B + w0;
+      mt = (size_t)(e >> 5);
+    } else {
+      w0 = s_list[idx] * kMpChunk;
+      src0 = base + w0;
+      mt = (size_t)i;
+    }
     for (int s = tid; s < kMpChunk * SEG_ROW; s += kMpThreads) {
       const int r = s / SEG_ROW;
       const int q = s - r * SEG_ROW;
-      const int src = base + w0 + r;
-      const bool ok = src >= 0 && src < n_table;
+      const int src = src0 + r;
+      const bool ok = col_ok && src >= 0 && src < n_table;
       const char* g = reinterpret_cast<const char*>(table + (size_t)(ok ? src : 0) * F);
       cp_async16(st + (size_t)s * 16, g + q * 16, ok);
     }
@@ -397,7 +513,7 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
         const int q = s - nr * SEG_M;
         const int n = nr / RB;
         const int r = nr - n * RB;
-        const T* g = M + ((size_t)(i * E + n) * B + r0 + r) * W + w0;
+        const T* g = M + ((mt * E + n) * B + r0 + r) * W + w0;
         cp_async16(sm + (size_t)s * 16, reinterpret_cast<const char*>(g) + q * 16, true);
       }
     }
@@ -451,67 +567,87 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
       for (int q = 0; q < CPL; ++q) hacc[n][a][q] = 0.0f;
   const int wr0 = warp * kMpWarpRows;  // the warp's first row
 
-  // NST - 1 chunks in flight; list entry idx lands in group idx
-  for (int p = 0; p < NST - 1; ++p) {
-    if (p < nc) {
-      load_chunk(p);
-      if constexpr (kMode == kBuild) build_chunk(p);  // published by iteration p's barrier
+  // One segment of list entries (kPairs: until the row block's pairs are
+  // listed; the other modes list every chunk at once).
+  for (;;) {
+    if constexpr (kMode == kPairs) list_pairs();
+    const int nc = s_nc;
+    // NST - 1 chunks in flight; list entry idx lands in group idx
+    for (int p = 0; p < NST - 1; ++p) {
+      if (p < nc) {
+        load_chunk(p);
+        if constexpr (kMode == kBuild) build_chunk(p);  // published by iteration p's barrier
+      }
+      cp_async_commit();  // possibly empty: the waits count groups
     }
-    cp_async_commit();  // possibly empty: the waits count groups
-  }
-  for (int idx = 0; idx < nc; ++idx) {
-    cp_async_wait<NST - 2>();  // entry idx has landed
-    __syncthreads();  // ... for every thread, and every thread is done with entry idx - 1
-    if (idx + NST - 1 < nc) {  // into entry idx - 1's stage
-      load_chunk(idx + NST - 1);
-      if constexpr (kMode == kBuild) build_chunk(idx + NST - 1);
-    }
-    cp_async_commit();
-    const T* sw = reinterpret_cast<const T*>(smem + (idx % NST) * STAGE);
-    const T* sm = reinterpret_cast<const T*>(smem + (idx % NST) * STAGE + TAB);
-    // each of the warp's rows' nonzero columns: lanes 0-15 row a, 16-31 row
-    // a + 1, one bit per column
-    unsigned bal[kMpWarpRows / 2];
+    for (int idx = 0; idx < nc; ++idx) {
+      cp_async_wait<NST - 2>();  // entry idx has landed
+      __syncthreads();  // ... for every thread, and every thread is done with entry idx - 1
+      if (idx + NST - 1 < nc) {  // into entry idx - 1's stage
+        load_chunk(idx + NST - 1);
+        if constexpr (kMode == kBuild) build_chunk(idx + NST - 1);
+      }
+      cp_async_commit();
+      const T* sw = reinterpret_cast<const T*>(smem + (idx % NST) * STAGE);
+      const T* sm = reinterpret_cast<const T*>(smem + (idx % NST) * STAGE + TAB);
+      // each of the warp's rows' nonzero columns: lanes 0-15 row a, 16-31 row
+      // a + 1, one bit per column
+      unsigned bal[kMpWarpRows / 2];
 #pragma unroll
-    for (int p = 0; p < kMpWarpRows / 2; ++p) {
-      const int r = wr0 + 2 * p + (lane >> 4);
-      bool nz = false;
+      for (int p = 0; p < kMpWarpRows / 2; ++p) {
+        const int r = wr0 + 2 * p + (lane >> 4);
+        bool nz = false;
 #pragma unroll
-      for (int n = 0; n < E; ++n) nz |= to_f32(sm[(n * RB + r) * kMpChunk + (lane & 15)]) != 0.0f;
-      bal[p] = __ballot_sync(0xffffffffu, nz);
-    }
+        for (int n = 0; n < E; ++n) nz |= to_f32(sm[(n * RB + r) * kMpChunk + (lane & 15)]) != 0.0f;
+        bal[p] = __ballot_sync(0xffffffffu, nz);
+      }
 #pragma unroll
-    for (int a = 0; a < kMpWarpRows; ++a) {
-      unsigned mk = (bal[a >> 1] >> ((a & 1) * 16)) & 0xffffu;
-      const T* mrow = sm + (wr0 + a) * kMpChunk;
-      while (mk) {
-        const int j = __ffs(mk) - 1;
-        mk &= mk - 1u;
-        float v[CPL];
+      for (int a = 0; a < kMpWarpRows; ++a) {
+        unsigned mk = (bal[a >> 1] >> ((a & 1) * 16)) & 0xffffu;
+        const T* mrow = sm + (wr0 + a) * kMpChunk;
+        while (mk) {
+          const int j = __ffs(mk) - 1;
+          mk &= mk - 1u;
+          float v[CPL];
 #pragma unroll
-        for (int p = 0; p < NP; ++p)
-          load_vec<VEC>(sw + j * F + p * 32 * VEC + lane * VEC, v + p * VEC);
+          for (int p = 0; p < NP; ++p)
+            load_vec<VEC>(sw + j * F + p * 32 * VEC + lane * VEC, v + p * VEC);
 #pragma unroll
-        for (int n = 0; n < E; ++n) {
-          const float m = to_f32(mrow[n * RB * kMpChunk + j]);
+          for (int n = 0; n < E; ++n) {
+            const float m = to_f32(mrow[n * RB * kMpChunk + j]);
 #pragma unroll
-          for (int q = 0; q < CPL; ++q) hacc[n][a][q] = fmaf(m, v[q], hacc[n][a][q]);
+            for (int q = 0; q < CPL; ++q) hacc[n][a][q] = fmaf(m, v[q], hacc[n][a][q]);
+          }
         }
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // phase 2, or the next segment, reuses the stages
+    if (kMode != kPairs || p_next >= p_hi) break;
   }
-  cp_async_wait<0>();
-  __syncthreads();  // phase 2 reuses the stages
 
-  // h_n rounded to T, into shared memory
+  // h_n rounded to T, into shared memory; kPairs in bfloat16: h_hi = bf16(h)
+  // in part 0 and h_lo = bf16(h - h_hi) in part 1 (h - h_hi is exact)
 #pragma unroll
   for (int n = 0; n < E; ++n)
 #pragma unroll
     for (int a = 0; a < kMpWarpRows; ++a)
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
-        store_vec<VEC>(s_h + (size_t)(n * RB + wr0 + a) * HS + p * 32 * VEC + lane * VEC,
-                       &hacc[n][a][p * VEC]);
+      for (int p = 0; p < NP; ++p) {
+        T* dst = s_h + (size_t)(n * RB + wr0 + a) * HS + p * 32 * VEC + lane * VEC;
+        if constexpr (NH == 2) {
+          float hi[VEC], rest[VEC];
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) {
+            hi[q] = round_to<T>(hacc[n][a][p * VEC + q]);
+            rest[q] = hacc[n][a][p * VEC + q] - hi[q];
+          }
+          store_vec<VEC>(dst, hi);
+          store_vec<VEC>(dst + (size_t)E * RB * HS, rest);
+        } else {
+          store_vec<VEC>(dst, &hacc[n][a][p * VEC]);
+        }
+      }
   __syncthreads();
 
   // -- phase 2: acc = sum_n h_n @ W_n[:, slice], for each of the block's slices ------
@@ -539,19 +675,24 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
 #pragma unroll  // all of a channel's B fragments in flight at once
         for (int k0 = 0; k0 < F; k0 += 16) {
           // physical k0 + t4 .. + 3 is logical (2t, 2t+1, 2t+8, 2t+9) in both operands
-          unsigned a[2][4];
+          unsigned a[NH][2][4];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const uint2 x = *reinterpret_cast<const uint2*>(hn + (mt * 16 + g) * HS + k0);
-            const uint2 y = *reinterpret_cast<const uint2*>(hn + (mt * 16 + g + 8) * HS + k0);
-            a[mt][0] = x.x, a[mt][1] = y.x, a[mt][2] = x.y, a[mt][3] = y.y;
-          }
+          for (int hp = 0; hp < NH; ++hp)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const __nv_bfloat16* hr = hn + (size_t)hp * E * RB * HS;
+              const uint2 x = *reinterpret_cast<const uint2*>(hr + (mt * 16 + g) * HS + k0);
+              const uint2 y = *reinterpret_cast<const uint2*>(hr + (mt * 16 + g + 8) * HS + k0);
+              a[hp][mt][0] = x.x, a[hp][mt][1] = y.x, a[hp][mt][2] = x.y, a[hp][mt][3] = y.y;
+            }
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             const uint2 b = __ldg(reinterpret_cast<const uint2*>(
                 wt + ((size_t)n * F + wc0 + nt * 8 + g) * F + k0 + t4));
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma_bf16(d[mt][nt], a[mt], b.x, b.y);
+            for (int hp = 0; hp < NH; ++hp)
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) mma_bf16(d[mt][nt], a[hp][mt], b.x, b.y);
           }
         }
       }
@@ -691,9 +832,13 @@ inline int sm_count() {
 template <int F, int E, typename T, int kMode>
 cudaError_t launch_mp(const T* M, const unsigned* occ, const int* lo, const int* ids,
                       const T* table, const T* w, const float* inv, void* out, int tiles, int B,
-                      int W, int n_table, int act, const ChebBuild& bld, cudaStream_t stream) {
+                      int W, int n_table, int act, const ChebBuild& bld, const PairList& prs,
+                      cudaStream_t stream) {
   const size_t smem = mp_smem_bytes<F, E, T, kMode>(W, bld.K, bld.degree);
   if (B % kMpRows != 0 || smem > kMaxSmem || (kMode != kBuild && occ == nullptr))
+    return cudaErrorInvalidValue;
+  if (kMode == kPairs && (prs.row_ptr == nullptr || prs.cols == nullptr || ids != nullptr ||
+                          W != B || B / kMpChunk > 32 || prs.P < 0 || prs.P >= (1 << 26)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(mp_banded_kernel<F, E, T, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -709,7 +854,7 @@ cudaError_t launch_mp(const T* M, const unsigned* occ, const int* lo, const int*
   const int spb = row_blocks >= 2 * sm_count() ? mp_slices<F>() : 1;
   const int blocks = row_blocks * (mp_slices<F>() / spb);
   mp_banded_kernel<F, E, T, kMode><<<blocks, kMpThreads, smem, stream>>>(
-      M, occ, lo, ids, table, w, inv, out, B, W, n_table, act, spb, bld);
+      M, occ, lo, ids, table, w, inv, out, B, W, n_table, act, spb, bld, prs);
   return cudaGetLastError();
 }
 
@@ -719,14 +864,15 @@ template <typename T, int kMode>
 cudaError_t launch_mp_any(int F, int E, const T* M, const unsigned* occ, const int* lo,
                           const int* ids, const T* table, const T* w, const float* inv,
                           void* out, int tiles, int B, int W, int n_table, int act,
-                          const ChebBuild& bld, cudaStream_t s) {
+                          const ChebBuild& bld, cudaStream_t s,
+                          const PairList& prs = PairList{}) {
   if (tiles < 1 || B < 1 || W < 1 || W % kMpChunk != 0 || n_table < 1 ||
       (kMode != kPartial && (n_table < B || n_table % B != 0)))
     return cudaErrorInvalidValue;
 #define NMR_MP_CASE(FF, EE)                                                                  \
   if (F == FF && E == EE)                                                                    \
     return launch_mp<FF, EE, T, kMode>(M, occ, lo, ids, table, w, inv, out, tiles, B, W,     \
-                                       n_table, act, bld, s);
+                                       n_table, act, bld, prs, s);
 #define NMR_MP_F(FF) NMR_MP_CASE(FF, 1) NMR_MP_CASE(FF, 2) NMR_MP_CASE(FF, 3) NMR_MP_CASE(FF, 4)
   NMR_MP_F(64)
   NMR_MP_F(128)

@@ -26,7 +26,8 @@ stages only the chunks that hold a nonzero.
 ``apply_blocksparse`` (``nmrgnn_tpu/models/infer.py:51-124``) serves a
 structure whose band is too wide for the banded paths: it builds the
 block-sparse adjacency of the active (row block, col block) pairs once per
-forward and runs one block-sparse MP layer per ``params["mp"]`` entry. Its
+forward and runs one block-sparse MP layer per ``params["mp"]`` entry,
+each given the adjacency's block occupancy, made once per forward. Its
 numerics are its own: the exact edge stage in float32 at either compute
 type, and a float32 readout.
 
@@ -69,6 +70,7 @@ from ..ops.banded import (
 )
 from ..ops.blocksparse import (
     BlockStructure,
+    block_occupancy,
     block_structure,
     build_block_adjacency,
     build_block_adjacency_plain,
@@ -364,8 +366,9 @@ def apply_blocksparse(
     (``:115-123``). With ``use_kernels`` the adjacency build and the MP
     layers go through ``build_block_adjacency`` and ``mp_blocksparse``
     (``group`` > 1: ``mp_blocksparse_grouped``, for a structure built
-    with that ``group``); ``use_kernels=False`` runs their plain
-    versions."""
+    with that ``group``), all layers given the block occupancy that
+    ``block_occupancy`` makes once for this structure and frame;
+    ``use_kernels=False`` runs their plain versions."""
     atoms, nlist, edges, inv_degree = graph
     n = atoms.shape[0]
     cd = compute_dtype(config)
@@ -377,10 +380,13 @@ def apply_blocksparse(
     pad = struct.n_padded - n
     nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad)).to(cd)
     inv_p = nnf.pad(inv_degree, (0, pad))
+    # the kernels' occupancy; on the CPU the plain layers read all of A
+    occ = (block_occupancy(nlist, edges, struct)
+           if use_kernels and nodes.is_cuda and params["mp"] else None)
     for p in params["mp"]:
         if use_kernels:
             nodes = mp_blocksparse(A, struct, nodes, p["w"], inv_p, config.mp_activation,
-                                   group=group)
+                                   group=group, occupancy=occ)
         else:
             nodes = mp_blocksparse_plain(A, struct, nodes, p["w"], inv_p, config.mp_activation)
     return readout(params, config.replace(compute_dtype="float32"), atoms, nodes[:n].float())

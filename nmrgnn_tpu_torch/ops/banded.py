@@ -978,11 +978,14 @@ def build_band_fused(
     Replaces ``_fused_edge_band_kernel`` (nmrgnn_tpu/ops/banded.py:
     1107-1254). On the card, a block runs the EdgeFC MLP for 128 edge
     slots out of shared memory and writes their band rows; the [N, K, H]
-    activations never reach device memory. In bfloat16 it rounds each
-    product's operands to bfloat16 and keeps them in float32, so each
-    product is exact and every sum float32, as ``ops/edge.py``'s
-    ``as_operand`` does. It is bound by the EdgeFC products (2*N*K*H*H
-    per hidden layer, float32 CUDA cores)."""
+    activations never reach device memory. Two blocks share an SM. In
+    float32 each hidden layer's kernel streams through a ``cp.async`` ring
+    into 8 x 8 register tiles on the CUDA cores; in bfloat16 the
+    activations are held as bfloat16 and the hidden layers run on the
+    tensor cores (``mma.sync``, each product exact, float32 sums, as
+    ``ops/edge.py``'s ``as_operand`` computes them). It is bound by the
+    EdgeFC products (2*N*K*H*H per hidden layer; float32 CUDA cores, or
+    bfloat16 tensor cores)."""
     if not _on_cuda(edges, "build_band_fused"):
         return build_band_fused_plain(
             nlist, edges, edge_fc_params, plan, rbf_low=rbf_low,
@@ -1018,6 +1021,8 @@ def build_band_fused(
     act = _act_code(activation_name)
     out_bf16 = _bf16_flag("out_dtype", out_dtype)
     compute_bf16 = _bf16_flag("compute_dtype", compute_dtype)
+    if compute_bf16:  # the tensor cores' B fragments: [Lh, H_out, H_in], k contiguous
+        wh = wh.transpose(1, 2).to(torch.bfloat16).contiguous()
     pad = plan.n_padded - n
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     edges_p = nnf.pad(edges, (0, 0, 0, pad))

@@ -18,24 +18,35 @@ The structure (``block_structure``, ``remap_frame``) is host-side numpy, as
 in the JAX package; ``struct_on_device`` copies its pair arrays, with the
 CSR offsets of each row block's pairs, to the card once.
 
-Each wrapper takes the plain PyTorch version for a tensor on the CPU and
-launches its CUDA kernel (``csrc/blocksparse.cu``) for a tensor on the
-card; it never falls back from the card to the plain version. Each counts
-its launches in ``.launches``.
+About a fifth of the (pair, 32-row slab, 16-column chunk) pieces of A
+hold a nonzero at 100,000 atoms, so the MP kernel stages only those: it
+reads the block occupancy, one bit per (pair, slab, chunk)
+(``block_occupancy``, made once per structure and frame by the forward
+from nlist, the distances and the pairs; ``block_occupancy_from_adjacency``
+for a call with the JAX package's signature, one pass over A).
 
-======================  ============================================  ==========
-wrapper                 replaces (TPU kernel)                         bound
-======================  ============================================  ==========
-build_block_adjacency   _build_adj_kernel, blocksparse.py:215-293     bytes (A)
-mp_blocksparse          _mp_bs_kernel, blocksparse.py:301-338,        bytes (A)
-                        446-504
-mp_blocksparse_grouped  _mp_bs_kernel_grouped, blocksparse.py:341     bytes (A)
-======================  ============================================  ==========
+Each wrapper takes the plain PyTorch version for a tensor on the CPU and
+launches its CUDA kernel (``csrc/blocksparse.cu``; the MP layer is
+``csrc/mp.cuh``'s kernel in its kPairs mode) for a tensor on the card; it
+never falls back from the card to the plain version. Each counts its
+launches in ``.launches``.
+
+==============================  ========================================  ==============
+wrapper                         replaces (TPU kernel)                     bound
+==============================  ========================================  ==============
+build_block_adjacency           _build_adj_kernel, blocksparse.py:215-293 bytes (A)
+mp_blocksparse                  _mp_bs_kernel, blocksparse.py:301-338,    operations
+                                446-504                                   (f32; bf16:
+                                                                          bytes)
+mp_blocksparse_grouped          _mp_bs_kernel_grouped, blocksparse.py:341 as above
+block_occupancy                 none (feeds B11 / B12)                    bytes (nlist)
+block_occupancy_from_adjacency  none (feeds B11 / B12)                    bytes (A)
+==============================  ========================================  ==============
 
 ``mp_blocksparse`` and ``mp_blocksparse_grouped`` launch one kernel: G
 pairs a grid step is how the TPU kernel amortises its steps, and on the
 card it computes the same function on a structure built with ``group=G``
-(the extra pairs are padding and add zeros).
+(the extra pairs are padding, never staged, and give the same bits).
 """
 from __future__ import annotations
 
@@ -48,8 +59,8 @@ import torch.nn.functional as nnf
 
 from . import _cuda
 from .activations import ACTIVATION_CODES, get_activation
-from .banded import (_MAX_E, _MP_CHUNK, _MP_F, _check, _dtype_suffix, _long, _mp_shape_ok,
-                     _on_cuda)
+from .banded import (_MAX_E, _MP_CHUNK, _MP_F, _MP_ROWS, _check, _dtype_suffix, _long,
+                     _mp_shape_ok, _mp_weights, _on_cuda, _pack_bits, occupancy_bits)
 
 
 class BlockStructure(NamedTuple):
@@ -245,6 +256,80 @@ def build_block_adjacency_plain(
     return A.to(out_dtype)
 
 
+# The block occupancy: which (32-row slab, 16-column chunk) pieces of each
+# pair's block hold a nonzero. The MP kernel stages and multiplies only
+# those of a block's slab (``csrc/mp.cuh``, kPairs); here one bit per
+# (pair, slab, chunk), int32 [P, pair_words(B)], bit s * (B / 16) + c of
+# a pair's words for slab s and chunk c (one word at B = 128).
+
+_MAX_PAIR_B = 512  # block size the MP kernel's chunk list takes (B / 16 <= 32)
+
+
+def _pair_bits(block_size: int) -> int:
+    """Occupancy bits of a pair: (slabs) x (chunks)."""
+    return (block_size // _MP_ROWS) * (block_size // _MP_CHUNK)
+
+
+def pair_words(block_size: int) -> int:
+    """Occupancy words of a pair of ``block_size`` x ``block_size``."""
+    return (_pair_bits(block_size) + 31) // 32
+
+
+def block_occupancy_plain(
+    nlist: torch.Tensor,   # i32[N, K], N <= n_padded
+    edges: torch.Tensor,   # f32[N, K] distances, 0 on padding slots
+    struct: BlockStructure,
+) -> torch.Tensor:
+    """int32 [P, pair_words(B)]: a slot of row rB + b with a positive
+    distance and target t occupies chunk (b // 32, (t % B) // 16) of the
+    first valid pair (in pair order) of row block r whose col is t // B,
+    the pair into which ``build_block_adjacency`` adds it. Exact for the
+    forwards' edge values, which are zero where the distance is not
+    positive."""
+    B, nb, P = struct.block_size, struct.nb, struct.n_pairs
+    dev = edges.device
+    n, k = nlist.shape
+    nch = B // _MP_CHUNK
+    bits = torch.zeros((P, _pair_bits(B)), dtype=torch.bool, device=dev)
+    vidx = torch.nonzero(_long(struct.pair_valid, dev) != 0).squeeze(1)
+    if vidx.numel():
+        keys = _long(struct.pair_rows, dev)[vidx] * nb + _long(struct.pair_cols, dev)[vidx]
+        order = torch.sort(keys, stable=True).indices
+        skeys, spair = keys[order], vidx[order]
+        t = nlist.to(torch.int64)
+        row = torch.arange(n, device=dev)[:, None].expand(n, k)
+        hit = (edges > 0) & (t >= 0) & (t < nb * B)
+        key = (row // B) * nb + t.clamp(0, nb * B - 1) // B
+        pos = torch.searchsorted(skeys, key.reshape(-1)).clamp(max=skeys.numel() - 1)
+        ok = hit.reshape(-1) & (skeys[pos] == key.reshape(-1))
+        bit = ((row % B) // _MP_ROWS * nch + (t % B) // _MP_CHUNK).reshape(-1)
+        bits[spair[pos][ok], bit[ok]] = True
+    return _pack_bits(bits)
+
+
+def block_occupancy_from_adjacency_plain(A: torch.Tensor) -> torch.Tensor:
+    """int32 [P, pair_words(B)]: the (slab, chunk) pieces of each pair's
+    block of A [P, E, B, B] that hold a nonzero (in any channel)."""
+    P, E, B, _ = A.shape
+    nz = (A != 0).any(1).view(P, B // _MP_ROWS, _MP_ROWS, B // _MP_CHUNK, _MP_CHUNK)
+    return _pack_bits(nz.any(4).any(2).reshape(P, -1))
+
+
+def _occupied_blocks(A: torch.Tensor, occupancy) -> torch.Tensor:
+    """A with the pieces ``occupancy`` leaves out set to zero (A itself when
+    it is None): what the MP kernel reads of A."""
+    if occupancy is None:
+        return A
+    P, E, B, _ = A.shape
+    if tuple(occupancy.shape) != (P, pair_words(B)):
+        raise ValueError(f"occupancy of shape {tuple(occupancy.shape)} does not match A "
+                         f"{tuple(A.shape)}")
+    bits = occupancy_bits(occupancy.to(A.device), _pair_bits(B) * _MP_CHUNK)
+    keep = bits.view(P, B // _MP_ROWS, 1, B // _MP_CHUNK, 1).expand(
+        P, B // _MP_ROWS, _MP_ROWS, B // _MP_CHUNK, _MP_CHUNK).reshape(P, 1, B, B)
+    return A * keep.to(A.dtype)
+
+
 def mp_blocksparse_plain(
     A: torch.Tensor,           # [P, E, B, B], in nodes.dtype
     struct: BlockStructure,
@@ -252,6 +337,7 @@ def mp_blocksparse_plain(
     w: torch.Tensor,           # [F, F, E]
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
+    occupancy=None,            # i32[P, pair_words(B)], or None
 ) -> torch.Tensor:
     """One MP layer (activation(aggregate) + residual) over the pairs, in
     ``nodes.dtype``: operands in that type, products and sums in float32,
@@ -259,7 +345,9 @@ def mp_blocksparse_plain(
     type), the residual added in float32 and the sum rounded once
     (``_mp_bs_kernel``, :327-338). _PLAIN_PAIR_CHUNK pairs at a time go
     into h [nb, E, B, F] with ``index_add_``: unchunked, the [P, E, B, F]
-    products of 100,000 atoms would take 8.7 GB in float32."""
+    products of 100,000 atoms would take 8.7 GB in float32. Given an
+    ``occupancy``, A is read through it, as the kernel reads it."""
+    A = _occupied_blocks(A, occupancy)
     P, E, B, _ = A.shape
     nb, F = struct.nb, nodes.shape[-1]
     dev, cd = nodes.device, nodes.dtype
@@ -279,12 +367,14 @@ def mp_blocksparse_plain(
 # Kernel wrappers.
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_MP_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_MP_ARGS = [_P] * 8 + [_I] * 6 + [_P]
 _SIGNATURES = {
     "nmr_error_string": (ctypes.c_char_p, [_I]),
     "nmr_build_block_adjacency": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "nmr_mp_blocksparse": (_I, _MP_ARGS),
     "nmr_mp_blocksparse_bf16": (_I, _MP_ARGS),
+    "nmr_block_occupancy": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "nmr_block_occupancy_from_adjacency": (_I, [_P, _P, _I, _I, _I, _I, _P]),
 }
 
 
@@ -341,16 +431,82 @@ def build_block_adjacency(
 build_block_adjacency.launches = 0
 
 
-def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what) -> torch.Tensor:
-    """Checks and launches the block-sparse MP layer of
-    ``csrc/blocksparse.cu``."""
+def block_occupancy(
+    nlist: torch.Tensor,     # i32[N, K], N <= n_padded
+    edges: torch.Tensor,     # f32[N, K] distances, 0 on padding slots
+    struct: BlockStructure,  # pair arrays as numpy or int32 tensors on the card
+) -> torch.Tensor:
+    """int32 [P, pair_words(B)]: the block occupancy of the adjacency that
+    ``build_block_adjacency`` makes from (nlist, the forward's edge values)
+    on this structure (``block_occupancy_plain`` says which bits). The
+    forward makes it once per structure and frame and hands it to every
+    layer.
+
+    A kernel of the port with no TPU counterpart: it feeds the MP kernel
+    that replaces B11 and B12 (``csrc/mp.cuh``, kPairs). On the card one
+    thread takes a slot, scans its row block's pairs for the target's col
+    block and sets the bit with an atomic OR into zeroed words; bound by
+    reading nlist and the distances."""
+    if not _on_cuda(edges, "block_occupancy"):
+        return block_occupancy_plain(nlist, edges, struct)
+    dev = edges.device
+    n, k = nlist.shape
+    B = struct.block_size
+    _check("nlist", nlist, torch.int32, (n, k), dev)
+    _check("edges", edges, torch.float32, (n, k), dev)
+    if B % _MP_ROWS or B > _MAX_PAIR_B or n > struct.n_padded:
+        raise NotImplementedError(f"block_occupancy kernel takes B a multiple of {_MP_ROWS} "
+                                  f"up to {_MAX_PAIR_B}")
+    s = _device_struct(struct, dev)
+    occ = torch.zeros((s.n_pairs, pair_words(B)), dtype=torch.int32, device=dev)
+    _launch("nmr_block_occupancy", dev, nlist.data_ptr(), edges.data_ptr(),
+            s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
+            occ.data_ptr(), n, k, s.nb, B, s.n_pairs)
+    block_occupancy.launches += 1
+    return occ
+
+
+block_occupancy.launches = 0
+
+
+def block_occupancy_from_adjacency(A: torch.Tensor) -> torch.Tensor:
+    """int32 [P, pair_words(B)]: the block occupancy of A [P, E, B, B] read
+    from A itself, for an MP call given no occupancy (the JAX package's
+    signature).
+
+    A kernel of the port with no TPU counterpart, feeding the MP kernel
+    (``csrc/mp.cuh``, kPairs): one block a pair, one pass over A; bound by
+    reading A."""
+    if not _on_cuda(A, "block_occupancy_from_adjacency"):
+        return block_occupancy_from_adjacency_plain(A)
+    dev = A.device
+    P, E, B, _ = A.shape
+    suffix = _dtype_suffix("A", A.dtype)
+    _check("A", A, A.dtype, (P, E, B, B), dev)
+    if B % _MP_ROWS or B > _MAX_PAIR_B or P < 1:
+        raise NotImplementedError(f"block_occupancy_from_adjacency kernel takes B a multiple "
+                                  f"of {_MP_ROWS} up to {_MAX_PAIR_B}")
+    occ = torch.empty((P, pair_words(B)), dtype=torch.int32, device=dev)
+    _launch("nmr_block_occupancy_from_adjacency", dev, A.data_ptr(), occ.data_ptr(), P, E, B,
+            int(suffix != ""))
+    block_occupancy_from_adjacency.launches += 1
+    return occ
+
+
+block_occupancy_from_adjacency.launches = 0
+
+
+def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what,
+               occupancy) -> torch.Tensor:
+    """Checks and launches the block-sparse MP layer (``csrc/mp.cuh``'s
+    kernel in its kPairs mode, ``csrc/blocksparse.cu``)."""
     dev = nodes.device
     P, E, B, _ = A.shape
     n_table, F = nodes.shape
-    if not _mp_shape_ok(F, E, B, B):  # a pair's B columns stream as the band's W do
+    if not _mp_shape_ok(F, E, B, B) or B > _MAX_PAIR_B:  # a pair's B columns are its window
         raise NotImplementedError(
             f"{what} kernel takes F in {_MP_F}, E <= {_MAX_E} and B a multiple of "
-            f"{_MP_CHUNK} and of the rows per block")
+            f"{_MP_CHUNK} and of the rows per block, up to {_MAX_PAIR_B}")
     if B != struct.block_size or n_table != struct.n_padded or P != struct.n_pairs:
         raise ValueError(f"A of shape {tuple(A.shape)} and nodes of {tuple(nodes.shape)} do "
                          f"not match the structure")
@@ -361,13 +517,17 @@ def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what) -> torch.
     act = ACTIVATION_CODES.get(activation_name)
     if act is None:
         raise ValueError(f"unknown activation {activation_name!r}")
-    w_t = w.permute(2, 0, 1).to(nodes.dtype).contiguous()  # [E, F, F]
-    _check("w", w_t, nodes.dtype, (E, F, F), dev)
+    w_t = _mp_weights(w, nodes.dtype, E, F, dev)
     s = _device_struct(struct, dev)
+    if occupancy is None:
+        occ = block_occupancy_from_adjacency(A)
+    else:
+        occ = occupancy
+        _check("occupancy", occ, torch.int32, (P, pair_words(B)), dev)
     out = torch.empty((n_table, F), dtype=nodes.dtype, device=dev)
-    _launch("nmr_mp_blocksparse" + suffix, dev, A.data_ptr(), s.row_ptr.data_ptr(),
-            s.pair_cols.data_ptr(), nodes.data_ptr(), w_t.data_ptr(), inv_degree.data_ptr(),
-            out.data_ptr(), P, s.nb, E, B, F, act)
+    _launch("nmr_mp_blocksparse" + suffix, dev, A.data_ptr(), occ.data_ptr(),
+            s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
+            inv_degree.data_ptr(), out.data_ptr(), P, s.nb, E, B, F, act)
     return out
 
 
@@ -379,25 +539,32 @@ def mp_blocksparse(
     inv_degree: torch.Tensor,  # f32[N_pad]
     activation_name: str = "softplus",
     group: int = 1,
+    occupancy=None,            # i32[P, pair_words(B)] from block_occupancy, or None
 ) -> torch.Tensor:
     """One MP layer (activation(aggregate) + residual) over the active
     pairs, in ``nodes.dtype`` (float32, or bfloat16 with float32 sums).
     ``group`` > 1 goes through ``mp_blocksparse_grouped``, for a structure
-    built with that ``group``.
+    built with that ``group``. ``occupancy`` is A's block occupancy
+    (``block_occupancy``); without it the kernel's wrapper derives it from
+    A (``block_occupancy_from_adjacency``).
 
     Replaces ``_mp_bs_kernel`` (nmrgnn_tpu/ops/blocksparse.py:301-338,
-    446-504). On the card a block takes a few rows of one row block and
-    all F columns, loops over the row block's pairs (CSR offsets), staging
-    each pair's node rows and A columns through two shared-memory stages
-    with ``cp.async`` and skipping all-zero A chunks, then the weights, and
-    applies the epilogue. Its bound is reading A; the kernel spends its
-    time on the float32 FMAs of the nonzero chunks and on staging every
-    chunk."""
+    446-504). On the card (``csrc/mp.cuh``, kPairs) a block takes 32 rows
+    of one row block, lists the (pair, 16-column chunk) pieces of A its
+    rows occupy over the row block's pairs (CSR offsets), stages only those
+    (node rows and A chunk, ``cp.async``, 4 stages in float32, 6 in
+    bfloat16) and walks their nonzeros with ``fmaf`` in ascending order;
+    h stays float32 into the product with the weights (float32: CUDA
+    cores; bfloat16: h split into two bfloat16 halves on the tensor
+    cores), then the epilogue. In float32 the second product bounds it; in
+    bfloat16 the bytes of the occupied chunks and of W."""
     if not _on_cuda(nodes, "mp_blocksparse"):
-        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name)
+        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name, occupancy)
     if group > 1:
-        return mp_blocksparse_grouped(A, struct, nodes, w, inv_degree, activation_name, group)
-    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse")
+        return mp_blocksparse_grouped(A, struct, nodes, w, inv_degree, activation_name, group,
+                                      occupancy)
+    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse",
+                     occupancy)
     mp_blocksparse.launches += 1
     return out
 
@@ -413,6 +580,7 @@ def mp_blocksparse_grouped(
     inv_degree: torch.Tensor,
     activation_name: str = "softplus",
     group: int = 4,
+    occupancy=None,
 ) -> torch.Tensor:
     """``mp_blocksparse`` over a structure whose rows' pair runs are padded
     to a multiple of ``group``; the same function.
@@ -421,19 +589,23 @@ def mp_blocksparse_grouped(
     341-443), which takes G pairs of one row block a grid step to amortise
     the TPU's per-step cost. On the card it launches ``mp_blocksparse``'s
     kernel: a block already walks all of its row block's pairs, and a
-    padding pair (A = 0) adds zeros. Bound as ``mp_blocksparse``."""
+    padding pair (A = 0) occupies nothing, so it is never staged and the
+    result equals ``mp_blocksparse``'s on the group-1 structure bit for
+    bit. Bound as ``mp_blocksparse``."""
     if not _on_cuda(nodes, "mp_blocksparse_grouped"):
-        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name)
+        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name, occupancy)
     if group < 1 or A.shape[0] % group:
         raise ValueError(f"{A.shape[0]} pairs are not whole groups of {group}")
-    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse_grouped")
+    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse_grouped",
+                     occupancy)
     mp_blocksparse_grouped.launches += 1
     return out
 
 
 mp_blocksparse_grouped.launches = 0
 
-KERNEL_WRAPPERS = (build_block_adjacency, mp_blocksparse, mp_blocksparse_grouped)
+KERNEL_WRAPPERS = (build_block_adjacency, mp_blocksparse, mp_blocksparse_grouped,
+                   block_occupancy, block_occupancy_from_adjacency)
 
 
 def reset_launch_counts() -> None:

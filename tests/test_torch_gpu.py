@@ -955,3 +955,201 @@ def test_exact_bf16_serving_on_the_other_paths(dev):
     got = batch.predict_frames(frames)
     in_band(got)
     assert banded.mp_banded.launches in (L, 3 * L)  # batched, or frame by frame past the budget
+
+
+# -- the block-sparse MP layer on mp.cuh's kernel (kPairs) and its block
+# -- occupancy; the fused exact edge stage at every shape it takes
+
+
+@pytest.mark.parametrize("block_size,group,dtype", [
+    (128, 1, torch.float32), (128, 4, torch.bfloat16), (64, 2, torch.float32),
+    (256, 1, torch.bfloat16),
+])
+def test_block_occupancy_kernels_match_plain(dev, block_size, group, dtype):
+    """Both block-occupancy kernels equal their plain versions and each
+    other word for word; every nonzero of A lies in a marked piece, padding
+    pairs are empty; a structure given as numpy equals one on the card."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    nlist, dists, efeat, *_ = make_case(700, 16, 8, 3, seed=block_size + group,
+                                        banded_nlist=True)
+    s = blocksparse.block_structure(nlist, dists, block_size, pair_rounding=32, group=group)
+    sd = blocksparse.struct_on_device(s, dev)
+    nl, d, ef = _on(dev, nlist, dists, efeat)
+    A = blocksparse.build_block_adjacency(nl, ef, sd, out_dtype=dtype)
+    before = (blocksparse.block_occupancy.launches,
+              blocksparse.block_occupancy_from_adjacency.launches)
+    occ = blocksparse.block_occupancy(nl, d, sd)
+    from_a = blocksparse.block_occupancy_from_adjacency(A)
+    torch.cuda.synchronize()
+    assert (blocksparse.block_occupancy.launches,
+            blocksparse.block_occupancy_from_adjacency.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert torch.equal(occ, blocksparse.block_occupancy_plain(nl, d, sd))
+    assert torch.equal(from_a, blocksparse.block_occupancy_from_adjacency_plain(A))
+    assert torch.equal(occ, from_a) and occ.any()
+    assert not occ[torch.as_tensor(s.pair_valid == 0, device=dev)].any()
+    assert torch.equal(blocksparse.block_occupancy(nl, d, s), occ)
+
+
+@pytest.mark.parametrize("f,e,dtype,act", [
+    (256, 3, torch.float32, "softplus"), (256, 3, torch.bfloat16, "softplus"),
+    (128, 1, torch.float32, "relu"), (64, 4, torch.bfloat16, "tanh"),
+    (128, 2, torch.bfloat16, "linear"),
+])
+def test_mp_blocksparse_at_every_occupancy(dev, f, e, dtype, act):
+    """B11 (group-1 structure) and B12 (group-4) given an empty, the real
+    (from nlist) and a full occupancy, each against the plain version read
+    through the same occupancy (the MP tolerances of
+    test_mp_blocksparse_kernels_match_plain), and B12 equal to B11 bit for
+    bit at each; the real and the full occupancy give the same bits."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    n = 700
+    s1, sd1, nl, ef, x, wt, iv = _block_case(dev, n, 16, f, e, f + e, True, 1)
+    s4, sd4, *_ = _block_case(dev, n, 16, f, e, f + e, True, 4)
+    d = _on(dev, make_case(n, 16, f, e, f + e, True)[1])[0]
+    x = x.to(dtype)
+    outs = {}
+    for grp, sd in ((1, sd1), (4, sd4)):
+        A = blocksparse.build_block_adjacency(nl, ef, sd, out_dtype=dtype)
+        real = blocksparse.block_occupancy(nl, d, sd)
+        for name, occ in (("empty", torch.zeros_like(real)), ("real", real),
+                          ("full", torch.full_like(real, -1))):
+            got = blocksparse.mp_blocksparse(A, sd, x, wt, iv, act, group=grp, occupancy=occ)
+            want = blocksparse.mp_blocksparse_plain(A, sd, x, wt, iv, act, occupancy=occ)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+            else:
+                torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                           atol=BF16_STEP * float(want.float().abs().max()))
+            outs[grp, name] = got
+    for name in ("empty", "real", "full"):
+        assert torch.equal(outs[4, name], outs[1, name]), name
+    assert torch.equal(outs[1, "full"], outs[1, "real"])
+    if act == "softplus" and dtype == torch.float32:  # h = 0: softplus(0) + nodes
+        torch.testing.assert_close(outs[1, "empty"], torch.log(torch.tensor(2.0)) + x,
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mp_blocksparse_row_block_past_one_segment(dev, dtype):
+    """Row block 0 holds 300 pairs, so at a full occupancy a block lists
+    2,400 (pair, chunk) entries, past one segment of the kernel's list:
+    the layer still equals its plain version and the real occupancy's."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    nbk, k, f, e = 300, 16, 64, 1
+    n = nbk * 128
+    rng = np.random.default_rng(3)
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-40, 40, (n, k)), 0, n - 1)
+    cols = (np.arange(128)[:, None] * k + np.arange(k)) % nbk  # row block 0: every col block
+    nlist[:128] = cols * 128 + rng.integers(0, 128, (128, k))
+    nlist = nlist.astype(np.int32)
+    dists = rng.uniform(0.01, 0.2, (n, k)).astype(np.float32)
+    efeat = rng.normal(size=(n, k, e)).astype(np.float32)
+    s = blocksparse.block_structure(nlist, dists, 128, pair_rounding=32)
+    assert int(s.pair_rows[s.pair_valid == 1].tolist().count(0)) == nbk
+    sd = blocksparse.struct_on_device(s, dev)
+    nodes = rng.normal(size=(n, f)).astype(np.float32)
+    w = (rng.normal(size=(f, f, e)) / np.sqrt(f)).astype(np.float32)
+    nl, d, ef, x, wt, iv = _on(dev, nlist, dists, efeat, nodes, w, inv_degree_from_nlist(nlist))
+    x = x.to(dtype)
+    A = blocksparse.build_block_adjacency(nl, ef, sd, out_dtype=dtype)
+    real = blocksparse.block_occupancy(nl, d, sd)
+    full = torch.full_like(real, -1)
+    got = blocksparse.mp_blocksparse(A, sd, x, wt, iv, occupancy=full)
+    _mp_close(got, blocksparse.mp_blocksparse_plain(A, sd, x, wt, iv), dtype)
+    assert torch.equal(got, blocksparse.mp_blocksparse(A, sd, x, wt, iv, occupancy=real))
+
+
+@pytest.mark.parametrize("k,e,hidden", [
+    (8, 1, 0), (16, 2, 1), (32, 3, 2), (16, 4, 3), (8, 3, 3), (32, 1, 1), (16, 3, 3),
+])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_every_shape(dev, k, e, hidden, compute_dtype):
+    """The fused exact edge stage at K in {8, 16, 32}, E in 1-4 and 0-3
+    hidden layers, on a graph with padded rows (400 atoms in 512 rows),
+    against its plain version: float32 within 1e-5 (the float32 output);
+    bfloat16 operands within one bfloat16 step of M's scale (the bfloat16
+    output: the EdgeFC sums are taken in another order on the tensor
+    cores)."""
+    nlist, dists, *_ = make_case(400, k, 8, e, seed=k + e + hidden, banded_nlist=True)
+    cfg = ModelConfig(edge_feature_size=e, edge_fc_layers=hidden + 1)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(k + hidden), device=dev)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    assert plan.n_padded > nlist.shape[0]
+    nl, d = _on(dev, nlist, dists)
+    out_dtype = compute_dtype
+    kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation,
+              out_dtype=out_dtype, compute_dtype=compute_dtype)
+    got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)
+    want = banded.build_band_fused_plain(nl, d, params["edge_fc"], plan, **kw)
+    assert got.dtype == out_dtype
+    if compute_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                   atol=BF16_STEP * float(want.float().abs().max()))
+    rows = torch.arange(plan.num_tiles * plan.block_rows, device=dev).view(
+        plan.num_tiles, 1, plan.block_rows, 1)
+    assert not got.masked_select(rows >= nlist.shape[0]).any()  # padded rows stay zero
+
+
+@pytest.mark.parametrize("cut", [1, 2, 4])
+def test_band_writers_take_any_window(dev, cut):
+    """The band-row writer B2, B3 and B4 share (common.cuh's band_row) at
+    a window cut by 1, 2 and 4 columns, so W % 4 is 3, 2 and 0 (stores one
+    by one, and 4 at a time): each build against its plain version,
+    indices past the cut dropped, within the tolerances above."""
+    nlist, dists, efeat, *_ = make_case(400, 16, 8, 3, seed=cut, banded_nlist=True)
+    cfg = ModelConfig(edge_feature_size=3)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(cut), device=dev)
+    plan = banded.band_plan(nlist, dists)
+    plan = banded.plan_on_device(plan._replace(window=plan.window - cut), dev)
+    nl, d, ef = _on(dev, nlist, dists, efeat)
+    got = banded.build_band(nl, ef, plan)
+    assert got.shape[-1] == plan.window
+    _close(got, banded.build_band_plain(nl, ef, plan), torch.float32)
+    cheb = make_cheb(3, seed=cut)
+    dev_cheb = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
+    for dt in (torch.float32, torch.bfloat16):
+        _close(banded.build_band_poly(nl, d, dev_cheb, plan, out_dtype=dt),
+               banded.build_band_poly_plain(nl, d, cheb, plan, out_dtype=dt), dt)
+        kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
+                  activation_name=cfg.fc_activation, out_dtype=dt, compute_dtype=dt)
+        got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)
+        want = banded.build_band_fused_plain(nl, d, params["edge_fc"], plan, **kw)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                       atol=BF16_STEP * float(want.float().abs().max()))
+
+
+def test_blocksparse_occupancy_and_fused_wrappers_raise(dev):
+    """What the new kernels' wrappers refuse: a block size the occupancy
+    kernels do not take, an occupancy of another shape or type, a K the
+    fused build's 128-slot blocks do not divide."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    s, sd, nl, ef, x, wt, iv = _block_case(dev, 300, 7, 64, 3, 5, False, 1)
+    d = torch.ones(nl.shape, dtype=torch.float32, device=dev)
+    odd = blocksparse.block_structure(nl.cpu().numpy(), d.cpu().numpy(), 48)
+    with pytest.raises(NotImplementedError):  # B = 48
+        blocksparse.block_occupancy(nl, d, odd)
+    with pytest.raises(TypeError):  # float64 distances
+        blocksparse.block_occupancy(nl, d.double(), sd)
+    A = blocksparse.build_block_adjacency(nl, ef, sd)
+    occ = blocksparse.block_occupancy(nl, d, sd)
+    with pytest.raises(ValueError):
+        blocksparse.mp_blocksparse(A, sd, x, wt, iv, occupancy=occ[:-1].contiguous())
+    with pytest.raises(TypeError):
+        blocksparse.mp_blocksparse(A, sd, x, wt, iv, occupancy=occ.long())
+    nlist, dists, *_ = make_case(256, 12, 8, 3, seed=1, banded_nlist=True)
+    cfg = ModelConfig()
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    with pytest.raises(NotImplementedError):  # K = 12 does not divide 128
+        banded.build_band_fused(*_on(dev, nlist, dists), params["edge_fc"], plan,
+                                rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high)
