@@ -9,22 +9,25 @@ Phases, in order; any failure exits non-zero and prints no result:
  2. Build the kernels from nmrgnn_tpu_torch/csrc/ with nvcc (sm_90a), one
     nvcc per source, all started together.
  3. Hold each kernel against its plain PyTorch version on the card, at the
-    shapes of phase 4's graph, and time both with CUDA events. float32:
-    rtol/atol 1e-5 for the band builds, 2e-4 for the MP layers. bfloat16:
-    the builds within one bfloat16 step (both round the same float32 sum
-    once), the MP layers within one step of h (rounded to bfloat16 between
-    the products, after float32 sums taken in another order) relative to
-    the output's scale, plus one rounding of the output. The class kernels
-    run once per window class. The band occupancy kernels equal their plain
-    versions exactly, and the occupancy from nlist covers every nonzero of
-    the band. The MP kernel is given the occupancy as the forwards give
-    it; its line also prints the time of the dense-band kernel it
-    replaced, the share of (32-row block, 16-column chunk) pairs it loads,
-    its blocks a launch and, as library_ms, one torch.bmm of the dense
-    band against its windows (a yardstick the port never calls), and its
-    device time given an empty, the real and a full occupancy
-    (torch.profiler). The fused exact edge stage (B3) is also timed alone
-    (torch.profiler), beside the kernel it replaced, with the hidden EdgeFC
+    shapes of phase 4's graph, and time both with CUDA events. The band
+    builds from edge values (B2) and Chebyshev ones (B4, B8) equal their
+    plain versions bit for bit (the same float32 values summed in slot
+    order and rounded once), in float32 and bfloat16, and are also timed
+    alone (torch.profiler) beside the kernels they replaced (REPLACED_MS)
+    and, as library_ms, torch.zeros of their bands (the write alone: a
+    yardstick, not the same function). The fused exact edge stage (B3):
+    float32 rtol/atol 1e-5. The MP layers: float32 2e-4; bfloat16 within
+    one step of h (rounded to bfloat16 between the products, after float32
+    sums taken in another order) relative to the output's scale, plus one
+    rounding of the output. The class kernels run once per window class.
+    The band occupancy kernels equal their plain versions exactly, and the
+    occupancy from nlist covers every nonzero of the band. The MP kernel
+    is given the occupancy as the forwards give it; its line also prints
+    the share of (32-row block, 16-column chunk) pairs it loads, its
+    blocks a launch and, as library_ms, one torch.bmm of the dense band
+    against its windows (a yardstick the port never calls), and its device
+    time given an empty, the real and a full occupancy (torch.profiler).
+    B3 is also timed alone (torch.profiler), with the hidden EdgeFC
     products through torch.matmul (cuBLAS, TF32 off) on the [N * K, H]
     RBF activations as library_ms: a yardstick, not the same function.
  4. The main paths, each driven with the launch counts set to 0 just
@@ -59,7 +62,9 @@ Phases, in order; any failure exits non-zero and prints no result:
     same extra lines as phase 3's MP kernel), and mp_banded_hbm_cls per
     window class against its plain version; the fused exact edge stage
     against its plain version at its shapes, alone and a call, with phase
-    3's yardstick.
+    3's yardstick; B2 (float32), B4 and B8 (bfloat16) at its shapes, bit
+    for bit, alone and a call, beside the kernels they replaced and
+    torch.zeros of their bands.
     ServingModel on 3 frames: exact peaks equal the plain gather forward
     within rtol/atol 5e-4, with 1 fused build and 4 mp_banded_hbm per
     frame; fast peaks within the fast band of the exact ones, per frame on
@@ -91,12 +96,13 @@ Phases, in order; any failure exits non-zero and prints no result:
     covers every nonzero of A and equals A's own), mp_blocksparse (B11) on
     the group-1 structure and mp_blocksparse_grouped (B12) on the group-4
     structure, given the occupancy as the forward gives it, against theirs
-    (phase 3's MP tolerances), alone and a call, beside the kernel they
-    replaced, with the share of (pair, 32-row slab, 16-column chunk)
-    pieces they load and their device time at an empty / real / full
-    occupancy, and B12 equal
-    to B11 bit for bit; a call with the JAX signature (the occupancy
-    derived from A) equal to B11 bit for bit. Serving the 3 frames: exact
+    (phase 3's MP tolerances), alone and a call, with the share of (pair,
+    32-row slab, 16-column chunk) pieces they load and their device time
+    at an empty / real / full occupancy, and B12 equal to B11 bit for bit;
+    a call with the JAX signature (the occupancy derived from A) equal to
+    B11 bit for bit. The block occupancy from A alone by the profiler
+    (with the launches it recorded) and by CUDA events around one call,
+    each as a rate of reading A. Serving the 3 frames: exact
     peaks equal the plain gather forward within rtol/atol 5e-4, fast peaks
     within the fast band of them, 1 B10, 1 block occupancy and 4 B12 per
     frame; whether frames 2-3 were remapped or rebuilt. Exact serving of a
@@ -111,7 +117,7 @@ Phases, in order; any failure exits non-zero and prints no result:
     a. mp_banded_poly_fused (B13, the Chebyshev build fused with MP layer
        1) in float32 and bfloat16: M against the plain build (1e-5, or one
        bfloat16 step), nodes_1 against mp_banded_plain on that band (phase
-       3's MP tolerances), and the difference from build_band_poly +
+       3's MP tolerances), and equal bit for bit to build_band_poly +
        mp_banded run serially on the card; B13 timed beside that pair, in
        turns, at phase 4's and at phase 5's shapes.
     b. apply_banded(fused_first=True, cheb=...) on phase 4's 3 frames at
@@ -121,13 +127,15 @@ Phases, in order; any failure exits non-zero and prints no result:
        peaks. Forward times beside the serial forward's, in turns; with
        --profile, their breakdowns.
     c. build_band_tracedlo and build_band_poly_tracedlo (B7) with the
-       plan's lo as a tensor, equal to build_band / build_band_poly; with
-       nlist - m and lo - m (m: half the padded rows, whole tiles) equal
-       to them and to their plain versions. The composition of a 2-way
-       row split at m (nmrgnn_tpu/parallel/halo.py:609-645): the interior
-       band through mp_banded_partial on table[:m] plus the halo band
-       through it on table[m:] equals one mp_banded_partial over the full
-       band within phase 3's MP tolerance; 2 builds and 2 partial layers.
+       plan's lo as a tensor, equal to build_band / build_band_poly and to
+       their plain versions bit for bit (timed alone and a call as phase 3
+       times the builds); with nlist - m and lo - m (m: half the padded
+       rows, whole tiles) equal to them. The composition of a 2-way row
+       split at m (nmrgnn_tpu/parallel/halo.py:609-645): the interior and
+       halo bands equal their plain versions; the interior band through
+       mp_banded_partial on table[:m] plus the halo band through it on
+       table[m:] equals one mp_banded_partial over the full band within
+       phase 3's MP tolerance; 2 builds and 2 partial layers.
     d. Exact serving of a compute_dtype="bfloat16" config: the fused exact
        edge stage in bfloat16 against its plain version (one bfloat16 step
        of M's scale: the EdgeFC sums are taken in another order, so an
@@ -174,22 +182,17 @@ TRAJ_FRAMES = 8
 GLOBULE_ATOMS = 100_000
 REPEATS = 20
 MP_ROWS = 32  # rows per block of the MP kernel (csrc/mp.cuh)
-# The time of the kernel design each row's kernel replaced, as this
-# script measured it (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6),
-# printed beside this run's: a call (CUDA events) of the MP kernel that
-# multiplied the dense band (B1, B6 as 3 class launches and B13 at 2,482
-# atoms, B5 and B9 as 3 class launches at 44,676), of the fused edge stage
-# with one block an SM (B3 at 2,482 atoms; alone, profiler, at 44,676) and
-# of the block-sparse MP kernel that staged every chunk (B11 / B12 at
-# 100,000 atoms).
+# The times of the kernels this version's band builds replaced (one block
+# a band row; the parent tree of the row-group design), measured on the
+# card by tools/ab_band_builds.py in the call that compared the two trees
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): (a call, CUDA
+# events; alone, torch.profiler) in ms, printed beside this run's. B2 and
+# B7a in float32, B4, B7b and B8 (3 class launches) in bfloat16.
 REPLACED_MS = {
-    "mp_banded": 0.2584, "mp_banded_bf16": 0.2702, "mp_banded_partial": 0.3877,
-    "mp_banded_hbm": 2.7289, "mp_banded_hbm_bf16": 2.7292, "mp_banded_hbm_cls": 2.5704,
-    "mp_banded_poly_fused": 0.2809, "mp_banded_poly_fused_bf16": 0.3123,
-    "build_band_fused": 0.2551, "build_band_fused_bf16": 0.2604,
-    "build_band_fused_44676_alone": 3.3193,
-    "mp_blocksparse": 6.7209, "mp_blocksparse_bf16": 7.0094,
-    "mp_blocksparse_grouped": 6.8592, "mp_blocksparse_grouped_bf16": 7.1247,
+    "build_band": (0.0618, 0.0097), "build_band_44676": (0.2235, 0.1764),
+    "build_band_poly": (0.1228, 0.0110), "build_band_poly_44676": (0.1843, 0.1541),
+    "build_band_poly_cls": (0.2492, 0.0155), "build_band_poly_cls_44676": (0.3110, 0.1494),
+    "build_band_tracedlo": (0.0476, 0.0097), "build_band_poly_tracedlo": (0.1026, 0.0110),
 }
 
 # Element mix of a hydrogenated protein (fractions of all atoms).
@@ -381,7 +384,24 @@ def _bound(flops, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
 
 
 def _replaced(name: str) -> str:
-    return f"; replaced kernel {REPLACED_MS[name]:.4f} ms" if name in REPLACED_MS else ""
+    call, alone = REPLACED_MS[name]
+    return f"; replaced kernel a call {call:.4f} ms, alone {alone:.4f} ms"
+
+
+def _build_timing(dev, name: str, shapes, dtype, parent=None) -> dict:
+    """A band build's timing arguments for ``check``: its kernel alone,
+    torch.zeros of each of its bands (the write alone: a yardstick, not the
+    same function) and, given ``parent``, the replaced kernel's times
+    (``REPLACED_MS[parent]``)."""
+    import torch
+
+    shapes = shapes if isinstance(shapes, list) else [shapes]
+    return dict(
+        alone="build_band_poly_kernel" if "poly" in name else "build_band_kernel",
+        library=lambda: [torch.zeros(sh, dtype=dtype, device=dev) for sh in shapes],
+        library_alone="Fill",
+        extra=("; library: torch.zeros of the band (a yardstick: the write alone)"
+               + ("" if parent is None else _replaced(parent))))
 
 
 def _edgefc_yardstick(params, cfg, edges, dtype):
@@ -430,9 +450,14 @@ def _mp_load(bands, F: int):
                                        f"chunks, {'+'.join(map(str, blocks))} blocks a launch")
 
 
-def _kernel_device_ms(fn, key: str, runs: int = 10):
-    """Device time a call of ``fn`` spends in the kernels whose name holds
-    ``key`` (torch.profiler), or None where the profiler records none."""
+def _kernel_launches_ms(fn, key: str, runs: int = 10):
+    """(device time a call of ``fn`` spends in the kernels whose name holds
+    ``key``, the launches of them the profiler recorded) over ``runs``
+    calls (torch.profiler); the time is None where it records none. The
+    time is per recorded launch times the launches a call makes: the
+    profiler can miss a launch (it recorded 9 of 10 calls' launches of a
+    1.4 ms kernel on the card), and dividing by the calls would then
+    report a time too short by that share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -442,9 +467,17 @@ def _kernel_device_ms(fn, key: str, runs: int = 10):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if key in e.key]
     us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if key in e.key)
-    return us / runs / 1e3 if us else None
+             for e in rows)
+    n = sum(e.count for e in rows)
+    return (us / n * max(1, round(n / runs)) / 1e3 if us else None), n
+
+
+def _kernel_device_ms(fn, key: str, runs: int = 10):
+    """Device time a call of ``fn`` spends in the kernels whose name holds
+    ``key`` (torch.profiler), or None where the profiler records none."""
+    return _kernel_launches_ms(fn, key, runs)[0]
 
 
 def _occupancy_split(label: str, layer, occ) -> dict:
@@ -528,7 +561,8 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
     from nmrgnn_tpu_torch.data.pdb import read_structure
     from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
     from nmrgnn_tpu_torch.models import gnn
-    from nmrgnn_tpu_torch.models.infer import apply_banded, apply_banded_hbm_classes
+    from nmrgnn_tpu_torch.models.infer import (_edge_features, apply_banded,
+                                               apply_banded_hbm_classes)
     from nmrgnn_tpu_torch.models.serving import ServingModel
     from nmrgnn_tpu_torch.ops import banded
 
@@ -574,8 +608,44 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
         alone="fused_edge_band_kernel", library=_edgefc_yardstick(params, cfg, gt.edges, f32),
         row=False, phase=5, repeats=5, inner=3,
         extra=f"; library: the {Lh} hidden EdgeFC products alone (torch.matmul, a "
-              f"yardstick); replaced kernel alone {REPLACED_MS['build_band_fused_44676_alone']:.4f} ms",
-    ), bf16: banded.build_band_poly(gt.nlist, gt.edges, cheb_d, plan_d, bf16)}
+              f"yardstick)",
+    )}
+    # the band builds at the supercell's shapes, each against its plain
+    # version bit for bit: B2 (float32, the unfused exact branch), B4 and
+    # B8 (bfloat16, the fast forwards)
+    big = dict(row=False, phase=5, repeats=5, inner=3, tol=0.0, exact=True)
+    deg = cheb_d.coeffs.shape[0] - 1
+    cheb_flops = N * K * (deg - 1) * (2 + 2 * E) + N * K * 2 * E
+    cheb_in = N * K * 8 + (deg + 1) * E * 4
+    e_feat = _edge_features(params, cfg, gt.edges)
+    check(
+        "build_band", "nmrgnn_tpu/ops/banded.py:484",
+        lambda: banded.build_band(gt.nlist, e_feat, plan_d),
+        lambda: banded.build_band_plain(gt.nlist, e_feat, plan_d),
+        flops=2 * real_edges * E, nbytes=N * K * 4 * (1 + E) + T * 4 + T * E * B * W * 4,
+        **big, **_build_timing(dev, "build_band", (T, E, B, W), f32, "build_band_44676"),
+    )
+    del e_feat
+    bands[bf16] = check(
+        "build_band_poly", "nmrgnn_tpu/ops/banded.py:1268",
+        lambda: banded.build_band_poly(gt.nlist, gt.edges, cheb_d, plan_d, bf16),
+        lambda: banded.build_band_poly_plain(gt.nlist, gt.edges, cheb_d, plan_d, bf16),
+        flops=cheb_flops, nbytes=cheb_in + T * 4 + T * E * B * W * 2, source="poly.cu",
+        dtype="bfloat16", **big,
+        **_build_timing(dev, "build_band_poly", (T, E, B, W), bf16, "build_band_poly_44676"),
+    )
+    check(
+        "build_band_poly_cls", "nmrgnn_tpu/ops/banded.py:1645",
+        lambda: [banded.build_band_poly_cls(gt.nlist, gt.edges, cheb_d, c, B, plan.n_padded,
+                                            bf16) for c in cls_d.classes],
+        lambda: [banded.build_band_poly_cls_plain(gt.nlist, gt.edges, cheb_d, c, B,
+                                                  plan.n_padded, bf16) for c in cls_d.classes],
+        flops=cheb_flops, source="poly.cu", dtype="bfloat16", **big,
+        nbytes=cheb_in + sum(len(c.ids) * (8 + E * B * c.window * 2) for c in cls_plan.classes),
+        **_build_timing(dev, "build_band_poly_cls", [(len(c.ids), E, B, c.window)
+                                                     for c in cls_plan.classes], bf16,
+                        "build_band_poly_cls_44676"),
+    )
     nodes = nnf.pad(gnn.dense(params["embed"], gt.atoms), (0, 0, 0, plan.n_padded - N))
     inv_p = nnf.pad(gt.inv_degree, (0, plan.n_padded - N))
     w0 = params["mp"][0]["w"]
@@ -603,9 +673,9 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
             # inv_degree once, the weights once, the output once
             nbytes=(row_chunks * 16 * E * eb + occ.numel() * 4 + T * 4
                     + plan.n_padded * F * eb * 2 + F * F * E * eb + plan.n_padded * 4),
-            peak=peak, source="hbm.cu", dtype=tag,
+            peak=peak, source="hbm.cu", dtype=tag, phase=5,
             library=lambda M=M, win=win: torch.bmm(M.view(T, E * B, W), win),
-            extra=f"; band {nnz} nonzeros of {M.numel()}{load}{_replaced(name)}",
+            extra=f"; band {nnz} nonzeros of {M.numel()}{load}",
         )
         del win
         Mc = [banded.build_band_poly_cls(gt.nlist, gt.edges, cheb_d, c, B, plan.n_padded, dt)
@@ -617,7 +687,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
             lambda Mc=Mc, table=table: [banded.mp_banded_hbm_cls_plain(m, c, B, table, w0,
                                                                        inv_p, act)
                                         for m, c in zip(Mc, cls_d.classes)],
-            **tol, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16,
+            **tol, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16, phase=5,
             flops=sum(2 * int((m != 0).sum()) * F + 2 * len(c.ids) * E * B * F * F
                       for m, c in zip(Mc, cls_plan.classes)),
             # each class's occupied band chunks, occupancy, ids and lo, and
@@ -626,7 +696,7 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
                     + sum(o.numel() * 4 + len(c.ids) * (8 + B * F * eb)
                           for o, c in zip(occ_cls, cls_plan.classes))
                     + plan.n_padded * (F * eb + 4) + F * F * E * eb),
-            extra=cls_load + (_replaced("mp_banded_hbm_cls") if dt == bf16 else ""),
+            extra=cls_load,
         )
 
     split = {tag: _occupancy_split(
@@ -1038,6 +1108,20 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
             print(f"phase 7: the block occupancy from nlist covers every nonzero of A; equal to "
                   f"A's own: {bool(torch.equal(from_a, occs[4]))}")
             del from_a
+            # its time alone (profiler, per recorded launch) against CUDA events
+            # around one call, each as a rate of reading A
+            from_a_fn = lambda: bs.block_occupancy_from_adjacency(A[4])  # noqa: E731
+            prof_ms, prof_n = _kernel_launches_ms(
+                from_a_fn, "block_occupancy_from_adjacency_kernel", runs=10)
+            one_ms = _time_ms(from_a_fn, repeats=10, inner=1)
+            a_bytes = a_elems[4] * eb
+            from_a_timing = {"profiler_ms": prof_ms, "profiler_launches_of_10": prof_n,
+                             "events_one_call_ms": one_ms, "a_bytes": a_bytes}
+            print(f"phase 7: block_occupancy_from_adjacency: profiler {prof_ms:.4f} ms a call "
+                  f"({prof_n} launches recorded for 10 calls; A read at "
+                  f"{a_bytes / prof_ms / 1e9:.3f} TB/s), CUDA events around one call "
+                  f"{one_ms:.4f} ms ({a_bytes / one_ms / 1e9:.3f} TB/s); the card's "
+                  f"published rate {PEAK_HBM_BYTES / 1e12:.2f} TB/s")
         table = nodes.to(dt)
         mp_tol = (dict(tol=2e-4) if dt == f32
                   else dict(rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP))
@@ -1066,7 +1150,7 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
                 extra=f"; group-{grp} structure, A {nnz} nonzeros of {a_elems[grp]}; loads "
                       f"{pieces[grp] / (structs[grp].n_pairs * n_bits):.1%} of the (pair, "
                       f"{MP_ROWS}-row slab, 16-column chunk) pieces ({pieces[grp]}), "
-                      f"{nb * (B // MP_ROWS)} blocks a launch{_replaced(wrapper.__name__ + sfx)}",
+                      f"{nb * (B // MP_ROWS)} blocks a launch",
             )
         if not torch.equal(outs[4], outs[1]):
             diff = float((outs[4].float() - outs[1].float()).abs().max())
@@ -1194,6 +1278,7 @@ def _phase7(args, dev, params, cfg, small_graphs, small_peaks, check, counts, ex
                  if args.profile else None)
     ex, fa = served["exact"]["launches"], served["fast"]["launches"]
     return {
+        "from_adjacency_timing": from_a_timing,
         "N": N, "windows": windows, "nb": nb, "nonzero_chunk_share": chunk_share,
         "pairs": {str(g): s.n_pairs for g, s in structs.items()}, "real_pairs": real,
         "launches": {
@@ -1286,11 +1371,13 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
             nbytes=(cheb_in + T * 4 + n_pad * F * eb * 2 + F * F * E * eb + n_pad * 4
                     + T * E * B * W * eb),
             peak=peak, source="fused_first.cu", dtype=tag, phase=8,
-            extra=f"; M vs plain build {m_err:.3e}"
-                  f"{_replaced('mp_banded_poly_fused' + ('' if dt == f32 else '_bf16'))}",
+            extra=f"; M vs plain build {m_err:.3e}",
         )
         ser_err = (float((M.float() - M_ser.float()).abs().max()),
                    float((got.float() - ser.float()).abs().max()))
+        if not (torch.equal(M, M_ser) and torch.equal(got, ser)):
+            raise SystemExit(f"chip_smoke: B13 [{tag}] differs from B4 + B1 on the card: M "
+                             f"{ser_err[0]:.3e}, nodes_1 {ser_err[1]:.3e}")
         ms_fused, ms_serial = in_turns((lambda f=fused: f(), lambda s=serial: s()))
         T_l = large["plan"].num_tiles
         lt = large["nodes"].to(dt)
@@ -1380,14 +1467,14 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
     for name, (dt, build, plain, ref, line, eb, flops, in_bytes, src) in builds.items():
         tag = "float32" if dt == f32 else "bfloat16"
         full = check(name, line, lambda b=build: b(nl_p, lo), lambda p=plain: p(nl_p, lo),
-                     **build_tol[dt], flops=flops, nbytes=in_bytes + T * E * B * W * eb,
-                     source=src, dtype=tag, phase=8)
+                     tol=0.0, exact=True, flops=flops, nbytes=in_bytes + T * E * B * W * eb,
+                     source=src, dtype=tag, phase=8,
+                     **_build_timing(dev, name, (T, E, B, W), dt, name))
         if not torch.equal(full, ref):
             raise SystemExit(f"chip_smoke: {name} with the plan's lo differs from its build")
         shifted = build(nl_p - m, lo - m)
         torch.cuda.synchronize()
-        shift_err = close(shifted, plain(nl_p - m, lo - m), **build_tol[dt])
-        if not torch.equal(shifted, full):
+        if not (torch.equal(shifted, full) and torch.equal(shifted, plain(nl_p - m, lo - m))):
             raise SystemExit(f"chip_smoke: {name} with indices shifted by -{m} differs")
         table = nodes.to(dt)
         want = banded.mp_banded_partial(full[: m // B].contiguous(), plan.lo[: m // B], table, w0)
@@ -1403,14 +1490,16 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
         expect(got_launches, **{name: 2, "mp_banded_partial": 2, "band_occupancy_from_band": 2})
         launches["band_occupancy_from_band"] = got_launches["band_occupancy_from_band"]
         launches[name] = got_launches[name]
-        halo_err = close(M_halo, plain(nl_p[:m] - m, lo_halo, m), **build_tol[dt])
+        if not (torch.equal(M_halo, plain(nl_p[:m] - m, lo_halo, m))
+                and torch.equal(M_int, plain(nl_p[:m], lo_int, m))):
+            raise SystemExit(f"chip_smoke: {name}'s interior or halo band differs from its "
+                             f"plain version")
         err = close(acc, want, **mp_tol[dt])
-        split[name] = {"shifted_vs_plain": shift_err, "halo_vs_plain": halo_err,
-                       "split_vs_full": err, "halo_nonzeros": int((M_halo != 0).sum())}
+        split[name] = {"split_vs_full": err, "halo_nonzeros": int((M_halo != 0).sum())}
         print(f"phase 8c: {name} [{tag}]: with the plan's lo equal to its build; indices and lo "
-              f"shifted by -{m}: equal to it, {shift_err:.3e} from the plain version; 2-way "
-              f"split at m={m}: launches { {k: v for k, v in got_launches.items() if v} }, halo "
-              f"band {split[name]['halo_nonzeros']} nonzeros ({halo_err:.3e} from plain), "
+              f"shifted by -{m}: equal to it and to the plain version; 2-way split at m={m}: "
+              f"launches { {k: v for k, v in got_launches.items() if v} }, interior and halo "
+              f"bands ({split[name]['halo_nonzeros']} nonzeros) equal to their plain versions, "
               f"max |interior + halo - full| {err:.3e}")
         del full, shifted, M_int, M_halo, acc, want, table
 
@@ -1431,7 +1520,7 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
         dtype="bfloat16", phase=8, alone="fused_edge_band_kernel",
         library=_edgefc_yardstick(params, cfg, gt.edges, bf16),
         extra=f"; library: the {Lh} hidden EdgeFC products alone in bfloat16 (torch.matmul, a "
-              f"yardstick){_replaced('build_band_fused_bf16')}",
+              f"yardstick)",
     )
     _reset_counts()
     model16 = ServingModel(params, cfg16, device=dev)
@@ -1545,14 +1634,16 @@ def main(argv=None) -> int:
 
     def check(name, line, got_fn, want_fn, *, tol, flops, nbytes, peak=PEAK_F32_FLOPS,
               rtol=None, tol_of_max=0.0, source="banded.cu", dtype="float32", row=True,
-              extra="", repeats=REPEATS, inner=10, phase=3, library=None, alone=None):
+              extra="", repeats=REPEATS, inner=10, phase=3, library=None, alone=None,
+              exact=False, library_alone=None):
         """Compare kernel and plain version (tensors or lists of them, one
-        per window class) within rtol (default tol) and atol = tol +
+        per window class): equal bit for bit with ``exact`` (and for
+        integer outputs), else within rtol (default tol) and atol = tol +
         tol_of_max * max|plain|; time both (the median of ``repeats`` runs
         of ``inner`` calls), ``library`` (one PyTorch call, a yardstick
         the port never calls) where given, and the device time of the
-        kernels named ``alone`` in a call (torch.profiler) where given;
-        record the row."""
+        kernels named ``alone`` (and ``library_alone`` in the yardstick)
+        in a call (torch.profiler) where given; record the row."""
         got, want = got_fn(), want_fn()
         torch.cuda.synchronize()
         got = list(got) if isinstance(got, (list, tuple)) else [got]
@@ -1562,28 +1653,34 @@ def main(argv=None) -> int:
         err = 0.0
         for g, w in zip(got, want):
             err = max(err, float((g.float() - w.float()).abs().max()))
-            if not w.is_floating_point() and not torch.equal(g, w):
-                raise SystemExit(f"chip_smoke: {name} differs from its plain version")
+            if (exact or not w.is_floating_point()) and not torch.equal(g, w):
+                raise SystemExit(f"chip_smoke: {name} differs from its plain version (max "
+                                 f"{err:.3e})")
             torch.testing.assert_close(g.float(), w.float(), rtol=tol if rtol is None else rtol,
                                        atol=atol)
         del want, w  # the plain outputs, before the timing runs allocate more
         ms, plain_ms = _time_ms(got_fn, repeats, inner), _time_ms(want_fn, repeats, inner)
         lib_ms = None if library is None else _time_ms(library, repeats, inner)
         alone_ms = None if alone is None else _kernel_device_ms(got_fn, alone)
+        lib_alone = None if library_alone is None else _kernel_device_ms(library, library_alone)
         bound_ms, bound_by = _bound(flops, nbytes, peak)
-        print(f"phase {phase}: {name} [{dtype}]: max|kernel-plain|={err:.3e} (atol {atol:.3g}) "
-              f"kernel {ms:.4f} ms"
-              f"{'' if alone is None else ' (alone ' + (f'{alone_ms:.4f} ms' if alone_ms else 'not measured') + ')'}"
+        timed = lambda t: f"{t:.4f} ms" if t else "not measured"  # noqa: E731
+        print(f"phase {phase}: {name} [{dtype}]: "
+              + ("equal bit for bit, " if exact else f"max|kernel-plain|={err:.3e} "
+                 f"(atol {atol:.3g}) ")
+              + f"kernel {ms:.4f} ms"
+              f"{'' if alone is None else f' (alone {timed(alone_ms)})'}"
               f", plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {_flops(flops) / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
               f"{'' if lib_ms is None else f', library {lib_ms:.4f} ms'}"
+              f"{'' if library_alone is None else f' (alone {timed(lib_alone)})'}"
               f"{f', {len(got)} launches' if len(got) > 1 else ''}{extra}")
         rec = {
             "name": name, "route": "cuda", "source": f"nmrgnn_tpu_torch/csrc/{source}",
             "replaces": line, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "dtype": dtype, "calls_per_timing": len(got),
-            "alone_ms": alone_ms,
+            "alone_ms": alone_ms, "library_alone_ms": lib_alone, "phase": phase,
         }
         checks.append(rec)
         if row:
@@ -1603,15 +1700,16 @@ def main(argv=None) -> int:
         tol=1e-5, flops=fused_flops, nbytes=fused_bytes, alone="fused_edge_band_kernel",
         library=_edgefc_yardstick(params, cfg, gt.edges, f32),
         extra=f"; {transc / 1e6:.1f} M transcendentals; library: the {Lh} hidden EdgeFC "
-              f"products alone (torch.matmul, a yardstick){_replaced('build_band_fused')}",
+              f"products alone (torch.matmul, a yardstick)",
     )
     e_feat = _edge_features(params, cfg, gt.edges)
     check(
         "build_band", "nmrgnn_tpu/ops/banded.py:484",
         lambda: banded.build_band(gt.nlist, e_feat, plan_d),
         lambda: banded.build_band_plain(gt.nlist, e_feat, plan_d),
-        tol=1e-5, flops=2 * real_edges * E,
-        nbytes=N * K * 4 + N * K * E * 4 + T * 4 + m_bytes,
+        tol=0.0, exact=True, flops=2 * real_edges * E,
+        nbytes=N * K * 4 + N * K * E * 4 + T * 4 + m_bytes, **_build_timing(
+            dev, "build_band", (T, E, B, W), f32, "build_band"),
     )
     nodes = torch.nn.functional.pad(gnn.dense(params["embed"], gt.atoms),
                                     (0, 0, 0, plan.n_padded - N))
@@ -1663,7 +1761,7 @@ def main(argv=None) -> int:
         tol=2e-4, flops=mp_flops, nbytes=mp_bytes(4), source="hbm.cu",
         library=bmm(M, nodes),
         extra=f"; band {nnz} nonzeros of {M.numel()}, dense products "
-              f"{dense_flops / 1e9:.3f} GFLOP{load}{_replaced('mp_banded')}",
+              f"{dense_flops / 1e9:.3f} GFLOP{load}",
     )
 
     # the fast path's kernels: the Chebyshev builds (bfloat16 on the path,
@@ -1671,16 +1769,16 @@ def main(argv=None) -> int:
     deg = cheb.degree
     cheb_flops = N * K * (deg - 1) * (2 + 2 * E) + N * K * 2 * E
     cheb_in = N * K * 8 + cheb.coeffs.size * 4
-    build_tol = dict(rtol=BF16_STEP, tol=1e-5)  # one bfloat16 step; float32: 1e-5
     Mp, Mcls = {}, {}
     for dt, tag, eb in ((bf16, "bfloat16", 2), (f32, "float32", 4)):
         Mp[dt] = check(
             "build_band_poly", "nmrgnn_tpu/ops/banded.py:1268",
             lambda dt=dt: banded.build_band_poly(gt.nlist, gt.edges, cheb_d, plan_d, dt),
             lambda dt=dt: banded.build_band_poly_plain(gt.nlist, gt.edges, cheb_d, plan_d, dt),
-            **(build_tol if dt == bf16 else dict(tol=1e-5)), flops=cheb_flops,
+            tol=0.0, exact=True, flops=cheb_flops,
             nbytes=cheb_in + T * 4 + T * E * B * W * eb, source="poly.cu", dtype=tag,
-            row=dt == bf16,
+            row=dt == bf16, **_build_timing(dev, "build_band_poly", (T, E, B, W), dt,
+                                            "build_band_poly" if dt == bf16 else None),
         )
         cls_bytes = sum(len(c.ids) * (8 + E * B * c.window * eb) for c in cls_plan.classes)
         Mcls[dt] = check(
@@ -1691,8 +1789,11 @@ def main(argv=None) -> int:
             lambda dt=dt: [banded.build_band_poly_cls_plain(gt.nlist, gt.edges, cheb_d, c, B,
                                                             plan.n_padded, dt)
                            for c in cls_d.classes],
-            **(build_tol if dt == bf16 else dict(tol=1e-5)), flops=cheb_flops,
+            tol=0.0, exact=True, flops=cheb_flops,
             nbytes=cheb_in + cls_bytes, source="poly.cu", dtype=tag, row=dt == bf16,
+            **_build_timing(dev, "build_band_poly_cls", [(len(c.ids), E, B, c.window)
+                                                         for c in cls_plan.classes], dt,
+                            "build_band_poly_cls" if dt == bf16 else None),
         )
     occ_cls = [banded.band_occupancy(gt.nlist, gt.edges, c.lo, c.window, B, plan.n_padded,
                                      ids=c.ids) for c in cls_d.classes]
@@ -1717,7 +1818,7 @@ def main(argv=None) -> int:
                                         for m, c in zip(Mcls[dt], cls_d.classes)],
             tol=2e-4, tol_of_max=BF16_STEP if dt == bf16 else 0.0, flops=part_flops,
             nbytes=part_bytes, peak=peak, source="hbm.cu", dtype=tag, row=dt == bf16,
-            extra=cls_load + (_replaced("mp_banded_partial") if dt == bf16 else ""),
+            extra=cls_load,
         )
     nodes16 = nodes.to(bf16)
     nnz16 = int((Mp[bf16] != 0).sum())
@@ -1728,7 +1829,7 @@ def main(argv=None) -> int:
         rtol=BF16_STEP, tol=0.0, tol_of_max=2 * BF16_STEP,
         flops=2 * nnz16 * F + 2 * T * E * B * F * F, nbytes=mp_bytes(2), peak=PEAK_BF16_FLOPS,
         source="hbm.cu", dtype="bfloat16", library=bmm(Mp[bf16], nodes16),
-        extra=f"; band {nnz16} nonzeros{load}{_replaced('mp_banded_bf16')}",
+        extra=f"; band {nnz16} nonzeros{load}",
     )
     split = {tag: _occupancy_split(
         f"phase 3: mp_banded [{tag}]",

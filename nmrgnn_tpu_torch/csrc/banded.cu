@@ -34,34 +34,56 @@ namespace {
 //   M[t, n, b, w] = sum_k e[tB + b, k, n] * [nlist[tB + b, k] == lo[t] + w]
 // with lo read from device memory, so any caller-given window start works;
 // an index outside [lo[t], lo[t] + W), negative ones included, matches no
-// column. One block per band row; its K indices and K x E values sit in
-// shared memory, and the threads walk the W columns 4 at a time
-// (common.cuh's band_row), so every store is coalesced; the float32 sum is rounded once to OutT. Bound: the M write
-// (T*E*B*W values of OutT); the compares are K per column.
-
-constexpr int kBuildThreads = 128;
-constexpr int kMaxK = 128;
+// column. Bound: the M write (T*E*B*W values of OutT; the band is more
+// than 97% zeros); the reads of nlist and e are a few percent of it.
+//
+// A block takes `rows` rows of one tile (4 with 128 threads; common.cuh's
+// band_group_ok, band_threads): their rows * K indices and rows * K * E
+// values, consecutive in nlist and e, come in one coalesced pass of
+// 16-byte loads (4-byte ones where rows * K or rows * K * E is not a
+// multiple of 4) into shared memory, then one barrier, then common.cuh's
+// band_rows writes the rows, a warp a row, 16 bytes a lane a store,
+// walking only the slots that land in a pass's columns. One block a row
+// with 128 threads, each summing 4 columns over all K slots and storing
+// 8 bytes in bfloat16, took 0.1146 ms alone for the 44,676-atom band in
+// bfloat16; this design 0.0915 (tools/ab_band_builds.py, NVIDIA H100
+// 80GB HBM3, 700 W).
 
 template <int E, typename OutT>
-__global__ void __launch_bounds__(kBuildThreads)
+__global__ void __launch_bounds__(kBandMaxThreads)
     build_band_kernel(const int* __restrict__ nlist,  // [T*B, K]
                       const float* __restrict__ e,    // [T*B, K, E]
                       const int* __restrict__ lo,     // [T]
                       OutT* __restrict__ M,           // [T, E, B, W]
-                      int B, int K, int W) {
-  __shared__ int s_rel[kMaxK];
-  __shared__ float s_e[kMaxK * E];
-  const int row = blockIdx.x;
-  const int t = row / B;
-  const int b = row - t * B;
+                      int B, int K, int W, int rows) {
+  extern __shared__ float4 smem4[];
+  const int n = rows * K;
+  float* s_e = reinterpret_cast<float*>(smem4);  // [rows * K * E]
+  int* s_rel = reinterpret_cast<int*>(s_e + n * E);  // [rows * K]
+  const int groups = B / rows;
+  const int t = blockIdx.x / groups;
+  const int b0 = (blockIdx.x - t * groups) * rows;
+  const size_t slot0 = ((size_t)t * B + b0) * K;  // a multiple of rows * K
   const int base = lo[t];
-  for (int i = threadIdx.x; i < K; i += kBuildThreads)
-    s_rel[i] = nlist[(size_t)row * K + i] - base;
-  for (int i = threadIdx.x; i < K * E; i += kBuildThreads)
-    s_e[i] = e[(size_t)row * K * E + i];
+  const int* g_nl = nlist + slot0;
+  const float* g_e = e + slot0 * E;
+  if ((n & 3) == 0) {
+    for (int j = threadIdx.x; j < n / 4; j += blockDim.x) {
+      const int4 v = reinterpret_cast<const int4*>(g_nl)[j];
+      reinterpret_cast<int4*>(s_rel)[j] = make_int4(v.x - base, v.y - base, v.z - base, v.w - base);
+    }
+  } else {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) s_rel[j] = g_nl[j] - base;
+  }
+  if (((n * E) & 3) == 0) {
+    for (int j = threadIdx.x; j < n * E / 4; j += blockDim.x)
+      reinterpret_cast<float4*>(s_e)[j] = reinterpret_cast<const float4*>(g_e)[j];
+  } else {
+    for (int j = threadIdx.x; j < n * E; j += blockDim.x) s_e[j] = g_e[j];
+  }
   __syncthreads();
-  band_row<E, OutT>(s_rel, s_e, K, W, M + ((size_t)t * E * B + b) * W, (size_t)B * W,
-                    threadIdx.x, kBuildThreads);
+  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)t * E * B + b0) * W, (size_t)B * W,
+                     threadIdx.x, blockDim.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -113,7 +135,7 @@ __global__ void __launch_bounds__(kBuildThreads)
 // gap, not its square; biases, activations (accurate expf, log1pf, tanhf),
 // the final layer and the d > 0 mask in float32; the band rows summed in
 // float32 in slot order (duplicate indices add) and rounded once to
-// OutT by common.cuh's band_row, the writer of every band build.
+// OutT by common.cuh's band_rows, the writer of every band build.
 
 constexpr int kH = 128;
 constexpr int kSlots = 128;
@@ -372,21 +394,19 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   }
   __syncthreads();
 
-  // The band rows, through the writer B2 and B4 share.
-  for (int a = 0; a < rows; ++a) {
-    const int row = row0 + a;
-    const int t = row / B;
-    const int b = row - t * B;
-    band_row<E, OutT>(s_rel + a * K, s_e + a * K * E, K, W, M + ((size_t)t * E * B + b) * W,
-                      (size_t)B * W, tid, kFusedThreads);
-  }
+  // The band rows (all of one tile: rows divides B), through the writer
+  // B2 and B4 share.
+  const int t = row0 / B;
+  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)t * E * B + (row0 - t * B)) * W,
+                     (size_t)B * W, tid, kFusedThreads);
 }
 
 template <int E, typename OutT>
 cudaError_t launch_build(const int* nlist, const float* e, const int* lo, void* M, int T,
-                         int B, int K, int W, cudaStream_t stream) {
-  build_band_kernel<E, OutT><<<T * B, kBuildThreads, 0, stream>>>(
-      nlist, e, lo, static_cast<OutT*>(M), B, K, W);
+                         int B, int K, int W, int rows, cudaStream_t stream) {
+  const size_t smem = (size_t)rows * K * (E + 1) * sizeof(float);  // at most 40 KB
+  build_band_kernel<E, OutT><<<T * (B / rows), band_threads(rows), smem, stream>>>(
+      nlist, e, lo, static_cast<OutT*>(M), B, K, W, rows);
   return cudaGetLastError();
 }
 
@@ -436,16 +456,17 @@ const char* nmr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The band build over T tiles with window starts lo (any int32 values);
-// out_bf16 selects the output type (0: float32, 1: bfloat16).
+// The band build over T tiles with window starts lo (any int32 values),
+// a block to each `rows` rows of a tile; out_bf16 selects the output type
+// (0: float32, 1: bfloat16).
 int nmr_build_band(const int* nlist, const float* e, const int* lo, void* M, int T, int B,
-                   int K, int E, int W, int out_bf16, void* stream) {
-  if (T < 1 || B < 1 || K < 1 || K > kMaxK || W < 1) return cudaErrorInvalidValue;
+                   int K, int E, int W, int rows, int out_bf16, void* stream) {
+  if (T < 1 || W < 1 || !band_group_ok(B, K, rows)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NMR_BUILD_CASE(EE)                                                             \
-  if (E == EE)                                                                         \
-    return out_bf16 ? launch_build<EE, __nv_bfloat16>(nlist, e, lo, M, T, B, K, W, s) \
-                    : launch_build<EE, float>(nlist, e, lo, M, T, B, K, W, s);
+#define NMR_BUILD_CASE(EE)                                                                   \
+  if (E == EE)                                                                               \
+    return out_bf16 ? launch_build<EE, __nv_bfloat16>(nlist, e, lo, M, T, B, K, W, rows, s) \
+                    : launch_build<EE, float>(nlist, e, lo, M, T, B, K, W, rows, s);
   NMR_BUILD_CASE(1)
   NMR_BUILD_CASE(2)
   NMR_BUILD_CASE(3)

@@ -1,7 +1,7 @@
 // Device code shared by banded.cu, poly.cu, hbm.cu, fused_first.cu and
 // blocksparse.cu: the activations, float32 / bfloat16 element access, the
 // cp.async staging, the tensor cores' bfloat16 product, the Chebyshev edge
-// stage and the band-row writer of the band builds.
+// stage, and the band-row writer and row groups of the band builds.
 //
 // bfloat16 follows the TPU kernels' mixed precision: operands are bf16,
 // products and sums are float32 (a bf16 x bf16 product is exact in f32),
@@ -146,48 +146,116 @@ __device__ __forceinline__ void cheb_edge(float dv, const float* c, int degree, 
 
 // -- band rows -------------------------------------------------------------
 
-// One band row: out[n * channel_stride + w] = sum of ev[k * E + n] over
-// the slots k with rel[k] == w, taken in slot order, for w in [0, W); the
-// float32 sum is rounded once to OutT. Duplicate indices add; indices
-// outside [0, W) (other windows, and -1 padding) match nothing. The one
-// band-row writer of B2, B3, B4, B7 and B8, so their bands agree bit for
-// bit: a thread sums 4 consecutive columns in one pass over the K slots
-// and stores them 16 bytes (8 in bfloat16) at a time where W is a
-// multiple of 4 (out 16-byte aligned), one by one otherwise.
+// Sixteen bytes of consecutive elements (16-byte aligned): 4 float32 or 8
+// bfloat16 values, each rounded to nearest even.
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[8]) {
+  unsigned u[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    u[j] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// The rows of a row group of one tile: for r in [0, rows) and w in
+// [0, W), out[n * channel_stride + r * W + w] = the sum of
+// ev[(r * K + k) * E + n] over the slots k of row r with rel[r * K + k]
+// == w, taken in slot order from 0 in float32 and rounded once to OutT.
+// Duplicate indices add; indices outside [0, W) (other windows, and -1
+// padding) match nothing, and their ev is never read. rel and ev lie in
+// shared memory. The one band-row writer of B2, B3, B4, B7 and B8, so
+// their bands agree bit for bit.
+//
+// The band is more than 97% zeros and bound by its write, so the stores
+// set the pace: a warp writes a row, a lane 16 bytes (a vector of 4
+// float32 or 8 bfloat16 columns) a store, a warp 32 vectors (128 or 256
+// consecutive columns) a pass. In each pass the warp finds, by a ballot
+// over the row's slots (32 a step), the slots whose index lands in its
+// columns, and walks them in slot order: the lane owning a slot's column
+// adds its E values. A row's K indices touch a few of its W / 4 or W / 8
+// vectors, so most stores are zeros computed with no compare. (Spreading
+// a row's passes over several warps measured slower on the card.) Where
+// W is not a multiple of the vector, out rows are not 16-byte aligned and
+// the values are stored one by one. Every warp of the block calls it
+// (nthreads a multiple of 32).
 template <int E, typename OutT>
-__device__ __forceinline__ void band_row(const int* rel, const float* ev, int K, int W,
-                                         OutT* out, size_t channel_stride, int tid,
-                                         int nthreads) {
-  const bool vec = (W & 3) == 0;
-  for (int w0 = tid * 4; w0 < W; w0 += nthreads * 4) {
-    float acc[E][4];
+__device__ __forceinline__ void band_rows(const int* rel, const float* ev, int rows, int K,
+                                          int W, OutT* out, size_t channel_stride, int tid,
+                                          int nthreads) {
+  constexpr int V = 16 / (int)sizeof(OutT);
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = tid & 31;
+  const int nvec = (W + V - 1) / V;
+  const bool vec = W % V == 0;
+  for (int r = tid >> 5; r < rows; r += nthreads >> 5) {
+    const int* rr = rel + r * K;
+    const float* er = ev + (size_t)r * K * E;
+    OutT* orow = out + (size_t)r * W;
+    for (int v0 = 0; v0 < nvec; v0 += 32) {
+      const int w0 = (v0 + lane) * V;
+      float acc[E][V];
 #pragma unroll
-    for (int n = 0; n < E; ++n)
+      for (int n = 0; n < E; ++n)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[n][q] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int dq = rel[k] - w0;
-      if (static_cast<unsigned>(dq) < 4u) {
+        for (int q = 0; q < V; ++q) acc[n][q] = 0.0f;
+      for (int k0 = 0; k0 < K; k0 += 32) {
+        const int c = k0 + lane < K ? rr[k0 + lane] : -1;
+        unsigned hits = __ballot_sync(
+            kAll, static_cast<unsigned>(c) < static_cast<unsigned>(W) &&
+                      static_cast<unsigned>(c - v0 * V) < static_cast<unsigned>(32 * V));
+        while (hits) {  // the pass's slots, in slot order
+          const int j = __ffs(hits) - 1;
+          hits &= hits - 1;
+          const int dq = __shfl_sync(kAll, c, j) - w0;
+          if (static_cast<unsigned>(dq) < static_cast<unsigned>(V)) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (dq == q) {
+            for (int q = 0; q < V; ++q)
+              if (dq == q) {
 #pragma unroll
-            for (int n = 0; n < E; ++n) acc[n][q] += ev[k * E + n];
+                for (int n = 0; n < E; ++n) acc[n][q] += er[(k0 + j) * E + n];
+              }
           }
+        }
       }
-    }
+      if (w0 < W) {
 #pragma unroll
-    for (int n = 0; n < E; ++n) {
-      OutT* o = out + n * channel_stride + w0;
-      if (vec) {
-        store4(o, make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]));
-      } else {
+        for (int n = 0; n < E; ++n) {
+          OutT* o = orow + n * channel_stride + w0;
+          if (vec) {
+            store_vec(o, acc[n]);
+          } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (w0 + q < W) o[q] = from_f32<OutT>(acc[n][q]);
+            for (int q = 0; q < V; ++q)
+              if (w0 + q < W) o[q] = from_f32<OutT>(acc[n][q]);
+          }
+        }
       }
     }
   }
+}
+
+// -- band builds (banded.cu, poly.cu) ---------------------------------------
+
+// A block of the band builds B2, B4, B7 and B8 takes `rows` rows of one
+// tile (rows divides the tile's B rows; ops/banded.py's build_rows picks
+// 4, which measured best or near it on the card at 2,482 and 44,676 atoms
+// among 1 to 32), stages their rows * K slots (window-relative index and E values)
+// in shared memory and writes them with band_rows, with band_threads(rows)
+// threads: a warp a row up to 8 rows, 2 warps at least, 256 at most.
+constexpr int kBandMaxThreads = 256;
+constexpr int kBandMaxRows = 16;
+constexpr int kBandMaxK = 128;
+
+__host__ __device__ constexpr int band_threads(int rows) {
+  return rows >= 8 ? kBandMaxThreads : (rows > 2 ? 32 * rows : 64);
+}
+
+__host__ __device__ constexpr bool band_group_ok(int B, int K, int rows) {
+  return rows >= 1 && rows <= kBandMaxRows && B % rows == 0 && K >= 1 && K <= kBandMaxK;
 }
 
 }  // namespace

@@ -433,16 +433,32 @@ def build_band_tracedlo_plain(
     out_dtype=torch.float32,
 ) -> torch.Tensor:
     """M [T, E, B, W] in ``out_dtype`` by a one-hot compare against
-    lo_t + w and a float32 contraction over K, rounded once. An index
-    outside [lo_t, lo_t + W), negative ones included, matches nothing."""
+    lo_t + w, summed over K in slot order in float32 and rounded once. An
+    index outside [lo_t, lo_t + W), negative ones included, matches
+    nothing."""
     m, k = nlist.shape
     T = _tiles_of(m, block_rows)
     e = edge_feats.shape[-1]
-    dev = edge_feats.device
-    rel = nlist.to(torch.int64).view(T, block_rows, k) - _long(lo, dev)[:, None, None]
-    mask = (rel[..., None] == torch.arange(window, device=dev)).to(torch.float32)
-    M = torch.einsum("tbkw,tbke->tebw", mask, edge_feats.float().view(T, block_rows, k, e))
-    return M.to(out_dtype).contiguous()
+    ev = edge_feats.float().view(T, block_rows, k, e).permute(0, 3, 1, 2)  # [T, E, B, K]
+    return _band_in_slot_order(nlist.reshape(T, block_rows, k), _long(lo, edge_feats.device), ev,
+                               window, out_dtype)
+
+
+def _band_in_slot_order(nlist_t, lo, ev, window: int, out_dtype) -> torch.Tensor:
+    """M [Tg, E, B, W] from tiles nlist_t [Tg, B, K], window starts lo [Tg]
+    and edge values ev [Tg, E, B, K]: slot by slot in slot order, each
+    slot's values added in float32 to the column its index matches (none
+    outside [lo, lo + W)), from 0, then rounded once to ``out_dtype``, as
+    the TPU kernels (``_poly_build_tile``, :1440-1448) and the CUDA builds
+    (``csrc/common.cuh``'s ``band_rows``) sum them, bit for bit."""
+    rel = nlist_t.to(torch.int64) - lo[:, None, None]
+    cols = torch.arange(window, device=ev.device)
+    tg, e, b, k = ev.shape
+    acc = torch.zeros((tg, e, b, window), dtype=torch.float32, device=ev.device)
+    for j in range(k):
+        mask = (rel[:, :, j, None] == cols).to(torch.float32)  # [Tg, B, W]
+        acc += mask[:, None] * ev[..., j, None]
+    return acc.to(out_dtype)
 
 
 def build_band_plain(
@@ -670,17 +686,9 @@ def poly_edge_values(cheb: EdgeCheb, d: torch.Tensor) -> torch.Tensor:
 
 def _poly_band(nlist_t, d_t, lo, cheb: EdgeCheb, window: int, out_dtype) -> torch.Tensor:
     """M [Tg, E, B, W] from tiles nlist_t / d_t [Tg, B, K] with window
-    starts lo [Tg]: the band accumulated slot by slot in slot order, as
-    ``_poly_build_tile`` (:1440-1448) does, in float32, then cast."""
-    e = poly_edge_values(cheb, d_t).permute(0, 3, 1, 2)  # [Tg, E, B, K]
-    rel = nlist_t.to(torch.int64) - lo[:, None, None]
-    cols = torch.arange(window, device=d_t.device)
-    tg, b, k = nlist_t.shape
-    acc = torch.zeros((tg, e.shape[1], b, window), dtype=torch.float32, device=d_t.device)
-    for j in range(k):
-        mask = (rel[:, :, j, None] == cols).to(torch.float32)  # [Tg, B, W]
-        acc += mask[:, None] * e[..., j, None]
-    return acc.to(out_dtype)
+    starts lo [Tg]: the Chebyshev edge values summed in slot order."""
+    ev = poly_edge_values(cheb, d_t).permute(0, 3, 1, 2)  # [Tg, E, B, K]
+    return _band_in_slot_order(nlist_t, lo, ev, window, out_dtype)
 
 
 def _padded_tiles(nlist, edges, block_rows: int, n_padded: int):
@@ -770,7 +778,7 @@ _FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 7 + [_F32] * 3 + [_I, _I, _P]
 _SIGNATURES = {
     "banded": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_build_band": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "nmr_build_band": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         "nmr_build_band_fused": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _P],
@@ -779,7 +787,7 @@ _SIGNATURES = {
     "poly": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
         "nmr_build_band_poly": (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _F32, _F32, _F32, _I, _P],
         ),
     },
@@ -810,6 +818,18 @@ _MP_F = (64, 128, 256)
 _MP_CHUNK = 16      # window columns of an occupancy bit
 _MP_ROWS = 32       # rows per block of the MP kernel
 _POLY_MAX_COEFFS = 1024  # (degree + 1) * E the Chebyshev build stages
+_BUILD_ROWS = 4  # rows of a tile a block of the band builds takes
+
+
+def build_rows(block_rows: int) -> int:
+    """Rows of one tile a block of the band builds (``csrc/banded.cu``,
+    ``csrc/poly.cu``) takes: 4 (the best or near it on the card among 1
+    to 32, at 2,482 and at 44,676 atoms), or the largest power of two
+    below it that divides ``block_rows``."""
+    rows = _BUILD_ROWS
+    while block_rows % rows:
+        rows //= 2
+    return rows
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -894,7 +914,7 @@ def _launch_build(nlist, edge_feats, lo, window: int, block_rows: int,
     out_bf16 = _bf16_flag("out_dtype", out_dtype)
     M = torch.empty((T, e, block_rows, window), dtype=out_dtype, device=dev)
     _launch("nmr_build_band", dev, nlist.data_ptr(), edge_feats.data_ptr(), lo.data_ptr(),
-            M.data_ptr(), T, block_rows, k, e, window, out_bf16)
+            M.data_ptr(), T, block_rows, k, e, window, build_rows(block_rows), out_bf16)
     return M
 
 
@@ -908,8 +928,10 @@ def build_band(
     band of the MP operator, summed in float32 and rounded once.
 
     Replaces ``_build_band_kernel`` (nmrgnn_tpu/ops/banded.py:484-548). On
-    the card, one block per band row compares the row's K indices with
-    each window column; it is bound by writing M (T*E*B*W values)."""
+    the card, a block stages the indices and values of ``build_rows`` rows
+    of a tile and a warp writes each row, 16 bytes a lane, comparing only
+    the columns its indices reach; it is bound by writing M (T*E*B*W
+    values)."""
     if not _on_cuda(edge_feats, "build_band"):
         return build_band_plain(nlist, edge_feats, plan, out_dtype)
     dev = edge_feats.device
@@ -1176,7 +1198,7 @@ def _launch_poly(nlist, edges, cheb: EdgeCheb, lo, ids, tiles: int, window: int,
     _launch("nmr_build_band_poly", edges.device, nlist_p.data_ptr(), edges_p.data_ptr(),
             lo.data_ptr(), None if ids is None else ids.data_ptr(), coeffs.data_ptr(),
             M.data_ptr(), tiles, n_padded // block_rows, block_rows, nlist.shape[1], e, window,
-            *scalars, out_bf16, source="poly")
+            build_rows(block_rows), *scalars, out_bf16, source="poly")
     return M
 
 
@@ -1191,9 +1213,10 @@ def build_band_poly(
     raw distances, through the Chebyshev-compressed edge stage.
 
     Replaces ``_poly_band_kernel`` + ``_poly_build_tile`` (nmrgnn_tpu/ops/
-    banded.py:1268-1290, 1418-1448). On the card, one block per band row
-    evaluates its K slots' recurrence into shared memory and writes the
-    row's W columns; it is bound by writing M."""
+    banded.py:1268-1290, 1418-1448). On the card, a block takes
+    ``build_rows`` rows of a tile, every thread evaluating a slot's
+    recurrence into shared memory, and a warp writes each row, 16 bytes a
+    lane; it is bound by writing M."""
     if not _on_cuda(edges, "build_band_poly"):
         return build_band_poly_plain(nlist, edges, cheb, plan, out_dtype)
     M = _launch_poly(nlist, edges, cheb, _device_lo(plan, edges.device), None,

@@ -75,7 +75,7 @@ def test_build_band_kernel_matches_plain(dev, n, k, e, seed):
     got = banded.build_band(nl, ef, plan)
     torch.cuda.synchronize()
     assert banded.build_band.launches == before + 1
-    torch.testing.assert_close(got, banded.build_band_plain(nl, ef, plan), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, banded.build_band_plain(nl, ef, plan))  # the same slot-order sums
 
 
 @pytest.mark.parametrize("f,e,act", [
@@ -190,7 +190,7 @@ def test_build_band_poly_kernel_matches_plain(dev, e, k, dtype):
     got = banded.build_band_poly(nl, d, dev_cheb, plan, out_dtype=dtype)
     torch.cuda.synchronize()
     assert banded.build_band_poly.launches == before + 1 and got.dtype == dtype
-    _close(got, banded.build_band_poly_plain(nl, d, cheb, plan, out_dtype=dtype), dtype)
+    assert torch.equal(got, banded.build_band_poly_plain(nl, d, cheb, plan, out_dtype=dtype))
 
 
 @pytest.mark.parametrize("e,dtype", [(3, torch.bfloat16), (1, torch.float32),
@@ -207,15 +207,15 @@ def test_build_band_poly_cls_kernel_matches_plain(dev, e, dtype):
                                          cls_plan.n_padded, out_dtype=dtype)
         want = banded.build_band_poly_cls_plain(nl, d, cheb, c, cls_plan.block_rows,
                                                 cls_plan.n_padded, out_dtype=dtype)
-        _close(got, want, dtype)
+        assert torch.equal(got, want)
     # a tile id out of range reads nothing: that tile's band is zero
     c = cls_plan.classes[0]
     bad = c._replace(ids=np.array([cls_plan.num_tiles] + list(c.ids[1:]), np.int32))
     got = banded.build_band_poly_cls(nl, d, cheb, bad, cls_plan.block_rows,
                                      cls_plan.n_padded, out_dtype=dtype)
     assert float(got[0].abs().max()) == 0.0
-    _close(got[1:], banded.build_band_poly_cls_plain(
-        nl, d, cheb, c, cls_plan.block_rows, cls_plan.n_padded, out_dtype=dtype)[1:], dtype)
+    assert torch.equal(got[1:], banded.build_band_poly_cls_plain(
+        nl, d, cheb, c, cls_plan.block_rows, cls_plan.n_padded, out_dtype=dtype)[1:])
 
 
 @pytest.mark.parametrize("f,e,dtype", [
@@ -689,10 +689,11 @@ def test_tracedlo_builds_with_shifted_indices(dev, e, dtype):
         shifted = build(nl_p - m, lo - m)
         torch.cuda.synchronize()
         assert torch.equal(shifted, full), name
-        _close(shifted, plain(nl_p - m, lo - m), dtype)
+        assert torch.equal(shifted, plain(nl_p - m, lo - m)), name
         M_int = build(nl_p[:m].contiguous(), lo_int)
         M_halo = build(nl_p[:m] - m, lo_halo)
-        _close(M_halo, plain(nl_p[:m] - m, lo_halo), dtype)
+        assert torch.equal(M_int, plain(nl_p[:m].contiguous(), lo_int)), name
+        assert torch.equal(M_halo, plain(nl_p[:m] - m, lo_halo)), name
         acc = (banded.mp_banded_partial(M_int, lo_int, table[:m].contiguous(), w)
                + banded.mp_banded_partial(M_halo, lo_halo, table[m:].contiguous(), w))
         want = banded.mp_banded_partial(full[: m // B].contiguous(), plan.lo[: m // B], table, w)
@@ -1098,10 +1099,11 @@ def test_fused_kernel_every_shape(dev, k, e, hidden, compute_dtype):
 
 @pytest.mark.parametrize("cut", [1, 2, 4])
 def test_band_writers_take_any_window(dev, cut):
-    """The band-row writer B2, B3 and B4 share (common.cuh's band_row) at
+    """The band-row writer B2, B3 and B4 share (common.cuh's band_rows) at
     a window cut by 1, 2 and 4 columns, so W % 4 is 3, 2 and 0 (stores one
-    by one, and 4 at a time): each build against its plain version,
-    indices past the cut dropped, within the tolerances above."""
+    by one, and 16 bytes at a time in float32): each build against its
+    plain version, indices past the cut dropped; B2 and B4 equal to it,
+    B3 within the tolerances above."""
     nlist, dists, efeat, *_ = make_case(400, 16, 8, 3, seed=cut, banded_nlist=True)
     cfg = ModelConfig(edge_feature_size=3)
     params = gnn.init_params(cfg, torch.Generator().manual_seed(cut), device=dev)
@@ -1110,12 +1112,12 @@ def test_band_writers_take_any_window(dev, cut):
     nl, d, ef = _on(dev, nlist, dists, efeat)
     got = banded.build_band(nl, ef, plan)
     assert got.shape[-1] == plan.window
-    _close(got, banded.build_band_plain(nl, ef, plan), torch.float32)
+    assert torch.equal(got, banded.build_band_plain(nl, ef, plan))
     cheb = make_cheb(3, seed=cut)
     dev_cheb = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
     for dt in (torch.float32, torch.bfloat16):
-        _close(banded.build_band_poly(nl, d, dev_cheb, plan, out_dtype=dt),
-               banded.build_band_poly_plain(nl, d, cheb, plan, out_dtype=dt), dt)
+        assert torch.equal(banded.build_band_poly(nl, d, dev_cheb, plan, out_dtype=dt),
+                           banded.build_band_poly_plain(nl, d, cheb, plan, out_dtype=dt))
         kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
                   activation_name=cfg.fc_activation, out_dtype=dt, compute_dtype=dt)
         got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)
@@ -1153,3 +1155,165 @@ def test_blocksparse_occupancy_and_fused_wrappers_raise(dev):
     with pytest.raises(NotImplementedError):  # K = 12 does not divide 128
         banded.build_band_fused(*_on(dev, nlist, dists), params["edge_fc"], plan,
                                 rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high)
+
+
+# -- the band builds by row group (csrc/banded.cu, csrc/poly.cu: B2, B4, B7, B8)
+
+
+def _build_inputs(n, k, e, seed, block_rows):
+    """A banded graph with duplicate indices, a row of one index K times,
+    padding slots, distances past the Chebyshev domain and an all-padding
+    tile (rows [block_rows, 2 block_rows): index -1, distance 0), with edge
+    values zero on padding."""
+    rng = np.random.default_rng(seed)
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-60, 60, (n, k)), 0, n - 1)
+    nlist = nlist.astype(np.int32)
+    if k > 1:
+        nlist[:, 0] = nlist[:, 1]  # duplicate indices
+    nlist[7, :] = 0                # one index K times
+    dists = rng.uniform(0.01, 0.45, (n, k)).astype(np.float32)  # d_hi is 0.35
+    dists[rng.uniform(size=(n, k)) < 0.2] = 0.0
+    nlist[block_rows:2 * block_rows] = -1
+    dists[block_rows:2 * block_rows] = 0.0
+    efeat = rng.normal(size=(n, k, e)).astype(np.float32) * (dists > 0)[..., None]
+    return nlist, dists, efeat
+
+
+def _every_build(dev, nlist, dists, efeat, cheb, block_rows, dtype, window_cut=0):
+    """(name, kernel band, plain band) of B2, B4, B8 (each window class, one
+    id out of range), B7a and B7b (the plan's window starts, and indices
+    and starts shifted by -m, negative)."""
+    plan = banded.band_plan(nlist, dists, block_rows=block_rows)
+    plan = plan._replace(window=plan.window - window_cut)
+    B, W, npad = plan.block_rows, plan.window, plan.n_padded
+    dplan = banded.plan_on_device(plan, dev)
+    nl, d, ef = _on(dev, nlist, dists, efeat)
+    dc = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
+    out = [("B2", banded.build_band(nl, ef, dplan, out_dtype=dtype),
+            banded.build_band_plain(nl, ef, dplan, out_dtype=dtype)),
+           ("B4", banded.build_band_poly(nl, d, dc, dplan, out_dtype=dtype),
+            banded.build_band_poly_plain(nl, d, cheb, dplan, out_dtype=dtype))]
+    cls_plan = banded.band_plan_classes(nlist, dists, block_rows=block_rows)
+    for c in cls_plan.classes:
+        c = c._replace(window=c.window - window_cut)
+        got = banded.build_band_poly_cls(nl, d, dc, c, B, npad, out_dtype=dtype)
+        out.append((f"B8 @ {c.window}", got, banded.build_band_poly_cls_plain(
+            nl, d, cheb, c, B, npad, out_dtype=dtype)))
+        bad = c._replace(ids=np.concatenate([[cls_plan.num_tiles + 3], c.ids[1:]]).astype(
+            np.int32))
+        got = banded.build_band_poly_cls(nl, d, dc, bad, B, npad, out_dtype=dtype)
+        want = out[-1][2].clone()
+        want[0] = 0  # a tile id out of range reads nothing
+        out.append((f"B8 @ {c.window}, bad id", got, want))
+    pad = npad - nlist.shape[0]
+    nl_p, d_p, e_p = _on(dev, np.pad(nlist, ((0, pad), (0, 0)), constant_values=-1),
+                         np.pad(dists, ((0, pad), (0, 0))),
+                         np.pad(efeat, ((0, pad), (0, 0), (0, 0))))
+    m = (npad // 2 + B - 1) // B * B
+    lo = torch.as_tensor(plan.lo, dtype=torch.int32, device=dev)
+    for shift in (0, m):
+        out.append((f"B7a, lo - {shift}",
+                    banded.build_band_tracedlo(nl_p - shift, e_p, lo - shift, W, B, dtype),
+                    banded.build_band_tracedlo_plain(nl_p - shift, e_p, lo - shift, W, B,
+                                                     dtype)))
+        out.append((f"B7b, lo - {shift}",
+                    banded.build_band_poly_tracedlo(nl_p - shift, d_p, dc, lo - shift, W, B,
+                                                    dtype),
+                    banded.build_band_poly_tracedlo_plain(nl_p - shift, d_p, cheb, lo - shift,
+                                                          W, B, dtype)))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("e,k", [(1, 1), (2, 3), (3, 16), (4, 32), (1, 128), (4, 128), (3, 3)])
+@pytest.mark.parametrize("block_rows", [128, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_builds_equal_plain_bitwise(dev, e, k, block_rows, dtype):
+    """B2, B4, B7a, B7b and B8 equal their plain versions bit for bit: the
+    same float32 values summed in slot order from 0 and rounded once."""
+    nlist, dists, efeat = _build_inputs(700, k, e, seed=e * 131 + k, block_rows=block_rows)
+    cheb = make_cheb(e, degree=96, seed=k)
+    for name, got, want in _every_build(dev, nlist, dists, efeat, cheb, block_rows, dtype):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert torch.equal(got, want), name
+
+
+def _max_degree(e):
+    return banded._POLY_MAX_COEFFS // e - 1
+
+
+@pytest.mark.parametrize("e", [1, 2, 3, 4])
+@pytest.mark.parametrize("which", ["one", "96", "largest"])
+def test_chebyshev_builds_every_degree(dev, e, which):
+    """B4 and B7b at degree 1, 96 and the largest (degree + 1) * E the
+    kernel stages (1024), in float32 and bfloat16, bit for bit."""
+    degree = {"one": 1, "96": 96, "largest": _max_degree(e)}[which]
+    nlist, dists, _ = _build_inputs(300, 16, e, seed=degree, block_rows=128)
+    cheb = make_cheb(e, degree=degree, seed=e)
+    plan = banded.band_plan(nlist, dists)
+    dplan = banded.plan_on_device(plan, dev)
+    nl, d = _on(dev, nlist, dists)
+    pad = plan.n_padded - nlist.shape[0]
+    nl_p, d_p = nnf_pad_rows(nl, d, pad)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(banded.build_band_poly(nl, d, cheb, dplan, out_dtype=dtype),
+                           banded.build_band_poly_plain(nl, d, cheb, dplan, out_dtype=dtype))
+        assert torch.equal(
+            banded.build_band_poly_tracedlo(nl_p, d_p, cheb, dplan.lo, plan.window, 128, dtype),
+            banded.build_band_poly_tracedlo_plain(nl_p, d_p, cheb, dplan.lo, plan.window, 128,
+                                                  dtype))
+
+
+def nnf_pad_rows(nl, d, pad):
+    """nlist and distances padded by ``pad`` rows (-1, 0)."""
+    return (torch.nn.functional.pad(nl, (0, 0, 0, pad), value=-1),
+            torch.nn.functional.pad(d, (0, 0, 0, pad)))
+
+
+@pytest.mark.parametrize("cut", [0, 7, 4])  # W % 8 of 0, 1 and 4
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_builds_any_window_and_small_tiles(dev, cut, dtype):
+    """Every build at windows cut by 0, 7 and 4 columns (W % 8 of 0, 1 and
+    4: 16-byte stores, or one value at a time), and the caller-given-start
+    builds with 8 and 6 rows a tile (a block takes 4 and 2 rows), window
+    starts shifted negative: bit for bit equal to their plain versions."""
+    nlist, dists, efeat = _build_inputs(520, 16, 3, seed=cut, block_rows=128)
+    cheb = make_cheb(3, degree=64, seed=cut)
+    for name, got, want in _every_build(dev, nlist, dists, efeat, cheb, 128, dtype, cut):
+        assert got.shape[-1] % 8 == (-cut) % 8, name
+        assert torch.equal(got, want), name
+    nl, d, ef = _on(dev, nlist[:504], dists[:504], efeat[:504])
+    for rows in (8, 6):
+        t = 504 // rows
+        lo = torch.as_tensor(np.arange(t) * rows - 40 - 300, dtype=torch.int32, device=dev)
+        W = 96 - cut
+        assert torch.equal(banded.build_band_tracedlo(nl - 300, ef, lo, W, rows, dtype),
+                           banded.build_band_tracedlo_plain(nl - 300, ef, lo, W, rows, dtype))
+        assert torch.equal(
+            banded.build_band_poly_tracedlo(nl - 300, d, cheb, lo, W, rows, dtype),
+            banded.build_band_poly_tracedlo_plain(nl - 300, d, cheb, lo, W, rows, dtype))
+
+
+def test_band_build_wrappers_raise_past_the_kernels_limits(dev):
+    """What the build kernels do not take: K > 128, E > 4, (degree + 1) * E
+    > 1024, degree 0, a row count that is not whole tiles, an output type
+    other than float32 or bfloat16."""
+    nlist, dists, efeat = _build_inputs(256, 129, 3, seed=1, block_rows=128)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    nl, d, ef = _on(dev, nlist, dists, efeat)
+    with pytest.raises(NotImplementedError):  # K = 129
+        banded.build_band(nl, ef, plan)
+    with pytest.raises(NotImplementedError):
+        banded.build_band_poly(nl, d, make_cheb(3), plan)
+    nl, d, ef = nl[:, :16].contiguous(), d[:, :16].contiguous(), ef[:, :16].contiguous()
+    with pytest.raises(NotImplementedError):  # E = 5
+        banded.build_band(nl, torch.zeros(256, 16, 5, device=dev), plan)
+    with pytest.raises(NotImplementedError):  # (degree + 1) * E = 1026
+        banded.build_band_poly(nl, d, make_cheb(3, degree=_max_degree(3) + 1), plan)
+    with pytest.raises(NotImplementedError):  # degree 0
+        banded.build_band_poly(nl, d, make_cheb(3, degree=0), plan)
+    with pytest.raises(ValueError):  # 256 rows are not whole 96-row tiles
+        banded.build_band_tracedlo(nl, ef, torch.zeros(3, dtype=torch.int32, device=dev), 128,
+                                   96)
+    with pytest.raises(TypeError):
+        banded.build_band_poly(nl, d, make_cheb(3), plan, out_dtype=torch.float16)
