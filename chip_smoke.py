@@ -144,10 +144,36 @@ Phases, in order; any failure exits non-zero and prints no result:
        ServingModel(precision="exact") on the 3 frames, 1 fused build and 4
        bfloat16 MP layers a frame, peaks in the fast band of phase 4a's
        float32 exact peaks; the forward's time beside the float32 one.
- 9. One JSON line listing every kernel of the paths (a counterpart of
+ 9. The training path at the bundled baseline's width (ModelConfig():
+    F=256, E=3, H=128, K=16, 4 EdgeFC, 4 MP and 4 FC layers, random weights
+    from --seed, learning rate 1e-3), the CLI's batch_size 8 and pad_to 256,
+    mp_path="banded":
+    a. the fragments of phase 4's 3-frame structure (fragment size 256)
+       written to a TFRecord by write_structure_fragments and read back
+       (read_fragments, split_dataset with 10% validation);
+    b. on one 8 x 256 batch, the training forward and backward with the
+       kernels (build_band_df, mp_banded_df) and with the plain versions
+       under autograd on the card, from the same params, noise and dropout
+       mask, the noise of one real slot set so that its noised distance is
+       below 0 (the band's occupancy must come from the distances before
+       the noise): peaks within rtol/atol 5e-4, loss within rel 1e-5, each
+       gradient leaf within 1e-3 of its max |g|; 1 build_band, 1
+       band_occupancy and 4 mp_banded launches a step (required);
+    c. Trainer.fit for 3 epochs from init_state: every loss and validation
+       metric finite, epoch 3's loss below epoch 1's; save_model, then
+       load_model gives the same peaks;
+    d. one training step (forward, backward, Adam) timed with CUDA events
+       (median) beside the same step on the "gather" path; its split into
+       forward, backward and optimizer (CUDA events); 3 resident steps run
+       with CUDA's sync debug mode at "error" (no host sync a step,
+       required); steps and fragments a second of a resident epoch; with
+       --profile, the device time of the B2 + B1 kernels, the idle share
+       of the step and the host's time by operator.
+10. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
-    and times.
-10. The last line: {"ok": true, "device": {...}}.
+    and times; B2, B1 and the band occupancy also with their launches a
+    training step (train_launches).
+11. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -156,6 +182,7 @@ This script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -352,6 +379,8 @@ def _profile_forward(fn, fwd_ms: float, label: str, runs: int = 5):
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops repeat their kernels' device time
+        if e.key.startswith("Optimizer."):
+            continue  # torch.optim's range ("Optimizer.step#Adam.step"), not a kernel
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -367,6 +396,29 @@ def _profile_forward(fn, fwd_ms: float, label: str, runs: int = 5):
     for r in rows[:12]:
         print(f"  {r['ms']:.4f} ms  x{r['calls']:g}  {r['kernel']}")
     return {"busy_ms": busy, "rows": rows}
+
+
+def _host_ops(fn, label: str, runs: int = 5, top: int = 12):
+    """The host's time a call of ``fn`` by operator (torch.profiler's self
+    CPU time), the largest first: where the host's share of a call goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(({"op": e.key[:70], "ms": e.self_cpu_time_total / runs / 1e3,
+                    "calls": e.count / runs} for e in prof.key_averages()),
+                  key=lambda r: -r["ms"])
+    total = sum(r["ms"] for r in rows)
+    print(f"profiler ({label}, host): {total:.3f} ms of operators' self CPU time a call "
+          f"(profiler on)")
+    for r in rows[:top]:
+        print(f"  {r['ms']:.3f} ms  x{r['calls']:g}  {r['op']}")
+    return {"self_cpu_ms": total, "rows": rows[:top]}
 
 
 def _flops(flops) -> float:
@@ -1548,6 +1600,197 @@ def _phase8(args, dev, params, cfg, small, large, check, counts, expect) -> dict
     }
 
 
+def _phase9(args, dev, counts, expect) -> dict:
+    """The training path at the baseline's full width (see the module's
+    docstring, phase 9). Returns its results."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig, TrainConfig
+    from nmrgnn_tpu_torch.data.dataset import (FragmentLoader, batch_samples, read_fragments,
+                                               split_dataset)
+    from nmrgnn_tpu_torch.data.fragment import write_structure_fragments
+    from nmrgnn_tpu_torch.data.pdb import read_structure
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.library import load_model, save_model
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.infer import apply_banded_fragments
+    from nmrgnn_tpu_torch.train.trainer import Trainer, fold_sample_weight
+    from nmrgnn_tpu_torch.train.losses import name_loss
+
+    cfg = ModelConfig(learning_rate=1e-3)
+    tcfg = TrainConfig(batch_size=8, pad_to=256, mp_path="banded", seed=args.seed, epochs=3,
+                       validation=0.1)
+    B, N = tcfg.batch_size, tcfg.pad_to
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = os.path.join(tmp, "synthetic.pdb")
+        write_synthetic_pdb(pdb, n_atoms=N_ATOMS, seed=args.seed, frames=N_FRAMES)
+        records = os.path.join(tmp, "fragments.tfrecord")
+        t0 = time.perf_counter()
+        written = write_structure_fragments(records, read_structure(pdb), fragment_size=N)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_read = sum(1 for _ in read_fragments(records))
+        train, val = split_dataset([records], tcfg.validation)
+        read_s = time.perf_counter() - t0
+    if n_read != written or len(train) + len(val) != written:
+        raise SystemExit(f"chip_smoke: wrote {written} fragments, read {n_read}")
+    print(f"phase 9a: {written} fragments of {N} atoms written in {write_s:.2f} s, read back "
+          f"({n_read}) and split in {read_s:.2f} s: {len(train)} train, {len(val)} validation")
+
+    trainer = Trainer(cfg, tcfg, device=dev)
+    if not trainer.use_banded:
+        raise SystemExit("chip_smoke: the trainer did not resolve to the banded path")
+    state = trainer.init_state(torch.Generator().manual_seed(args.seed))
+    n_params = gnn.count_params(state.params)
+    g_np, y_np, w_np = batch_samples(train[:B], N)
+    graph, y, w = trainer._to_device(g_np, y_np, w_np)
+    K = graph.nlist.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    noise = torch.randn((B, N, K), generator=gen, device=dev)
+    keep = torch.rand((B, N, cfg.atom_feature_size // 2), generator=gen, device=dev) \
+        < 1.0 - cfg.dropout_rate
+    # a real slot whose noised distance falls below 0: it still carries its
+    # message (the mask is the distances' before the noise)
+    real = torch.nonzero(graph.edges[0] > 0)[0]
+    noise[0, real[0], real[1]] = -(graph.edges[0, real[0], real[1]] / cfg.noise) - 1.0
+    if not float(graph.edges[0, real[0], real[1]] + cfg.noise * noise[0, real[0], real[1]]) < 0:
+        raise SystemExit("chip_smoke: the occupancy-trap slot is not below 0")
+    leaves = gnn.trainable_leaves(state.params)
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def loss_grads(use_kernels):
+        peaks = apply_banded_fragments(state.params, cfg, graph, training=True, noise=noise,
+                                       dropout_mask=keep, use_kernels=use_kernels)
+        loss = name_loss(fold_sample_weight(y, w).reshape(-1, 3), peaks.reshape(-1),
+                         trainer.loss_idx)
+        return peaks.detach(), loss.detach(), torch.autograd.grad(loss, leaves)
+
+    _reset_counts()
+    peaks_k, loss_k, grads_k = loss_grads(True)
+    torch.cuda.synchronize()
+    step_launches = counts()
+    print(f"phase 9b: launches a training step {dict((k, v) for k, v in step_launches.items() if v)}")
+    expect(step_launches, build_band=1, band_occupancy=1, mp_banded=len(state.params["mp"]))
+    peaks_p, loss_p, grads_p = loss_grads(False)
+    torch.testing.assert_close(peaks_k, peaks_p, rtol=5e-4, atol=5e-4)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not np.isfinite(float(loss_k)) or loss_rel > 1e-5:
+        raise SystemExit(f"chip_smoke: training loss {float(loss_k)} vs plain {float(loss_p)}")
+    worst_grad = 0.0
+    for i, (gk, gp) in enumerate(zip(grads_k, grads_p)):
+        scale = float(gp.abs().max())
+        err = float((gk - gp).abs().max())
+        if not torch.isfinite(gk).all() or err > 1e-3 * scale:
+            raise SystemExit(f"chip_smoke: gradient leaf {i} {tuple(gp.shape)}: max |kernels - "
+                             f"plain| {err:.3e} > 1e-3 x {scale:.3e}")
+        worst_grad = max(worst_grad, err / max(scale, 1e-30))
+    peak_err = float((peaks_k - peaks_p).abs().max())
+    print(f"phase 9b: {n_params} parameters; kernels vs plain on one {B} x {N} batch (noise and "
+          f"dropout on, one real slot noised below 0): peaks max |diff| {peak_err:.3e} (rtol/atol "
+          f"5e-4), loss {float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_rel:.2e}, tol "
+          f"1e-5), gradients max |diff| / max |g| {worst_grad:.2e} over {len(leaves)} leaves "
+          f"(tol 1e-3)")
+
+    # -- 9c: fit -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    state = trainer.fit(train, val, state=state, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    hist = state.history
+    bad = [k for k, v in hist.items() if not np.all(np.isfinite(v))]
+    if bad or len(hist["loss"]) != tcfg.epochs:
+        raise SystemExit(f"chip_smoke: non-finite or missing history {bad}: {hist}")
+    if not hist["loss"][-1] < hist["loss"][0]:
+        raise SystemExit(f"chip_smoke: training loss did not fall: {hist['loss']}")
+    print(f"phase 9c: fit {tcfg.epochs} epochs in {fit_s:.2f} s (host clock, first-call "
+          f"costs included): loss {[round(v, 4) for v in hist['loss']]}, val_loss "
+          f"{[round(v, 4) for v in hist['val_loss']]}, val_h_rmsd "
+          f"{[round(v, 4) for v in hist['val_h_rmsd']]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_model(tmp, state.params, cfg)
+        loaded, cfg_loaded = load_model(tmp, device=dev)
+    with torch.no_grad():
+        want = apply_banded_fragments(state.params, cfg, graph)
+        got = apply_banded_fragments(loaded, cfg_loaded, graph)
+    if cfg_loaded != cfg or not torch.equal(got, want):
+        raise SystemExit("chip_smoke: save_model -> load_model changed the peaks")
+    print("phase 9c: save_model -> load_model: config and peaks equal")
+
+    # -- 9d: times -----------------------------------------------------------------
+    opt = trainer.optimizer(state)
+    step = lambda tr: tr.train_step(state, opt, graph, y, w, gen)  # noqa: E731
+    gather = Trainer(cfg, dataclasses.replace(tcfg, mp_path="gather"), device=dev)
+    step_ms = {"banded": _time_ms(lambda: step(trainer), 10, 5),
+               "gather": _time_ms(lambda: step(gather), 10, 5)}
+    split_ms = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(12):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = trainer.loss_fn(state.params, graph, y, w, gen)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, gnn.trainable_leaves(state.params))
+        ev[2].record()
+        for t, g in zip(gnn.trainable_leaves(state.params), grads):
+            t.grad = g
+        opt.step()
+        ev[3].record()
+        ev[3].synchronize()
+        for k, a, b in zip(split_ms, ev, ev[1:]):
+            split_ms[k].append(a.elapsed_time(b))
+    split_ms = {k: float(np.median(v[2:])) for k, v in split_ms.items()}
+    # a resident step makes the host wait for the device nowhere (the JAX
+    # package's compiled epoch: one loss readback an epoch)
+    dg, dy, dw = trainer._resident_dataset(train)
+    rows = trainer._batch_rows(np.arange(3 * B))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ib in rows:
+            step_loss = trainer.train_step(state, opt, Graph(*[a[ib] for a in dg]), dy[ib],
+                                           dw[ib], gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"phase 9d: {len(rows)} resident steps ran with no host sync (sync debug mode "
+          f"\"error\"); last loss {float(step_loss):.4f}")
+    loader = FragmentLoader(train, pad_to=N, batch_size=B, seed=args.seed)
+    epoch_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, steps = trainer._train_epoch(state, opt, loader, train, gen)
+        epoch_s.append(time.perf_counter() - t0)
+    epoch_s = float(np.median(epoch_s))
+    print(f"phase 9d: one training step (forward + backward + Adam, {B} x {N}) on the card "
+          f"{step_ms['banded']:.4f} ms banded, {step_ms['gather']:.4f} ms on the gather path "
+          f"(a yardstick; median of 10 runs of 5, CUDA events); split (CUDA events, median of "
+          f"10): forward {split_ms['forward']:.4f} ms, backward {split_ms['backward']:.4f} ms, "
+          f"optimizer {split_ms['optimizer']:.4f} ms")
+    print(f"phase 9d: a resident epoch of {steps} steps in {epoch_s * 1e3:.2f} ms (host clock, "
+          f"median of 3): {steps / epoch_s:.1f} steps/s, {len(train) / epoch_s:.1f} fragments/s")
+    profile = None
+    if args.profile:
+        profile = _profile_forward(lambda: step(trainer), step_ms["banded"], "training step")
+        if profile is not None:
+            fwd_kernels = sum(r["ms"] for r in profile["rows"]
+                              if any(k in r["kernel"] for k in
+                                     ("build_band_kernel", "mp_banded_kernel",
+                                      "band_occupancy")))
+            print(f"profiler (training step): B2 + B1 + occupancy kernels {fwd_kernels:.4f} ms "
+                  f"of {profile['busy_ms']:.4f} ms of kernels")
+            profile["b2_b1_ms"] = fwd_kernels
+        profile = profile or {}
+        profile["host_ops"] = _host_ops(lambda: step(trainer), "training step")
+    return {
+        "fragments": written, "train": len(train), "val": len(val), "parameters": n_params,
+        "launches": step_launches, "peaks_max_abs_err": peak_err, "loss_rel_err": loss_rel,
+        "grad_max_rel_err": worst_grad, "history": hist, "fit_s": fit_s, "step_ms": step_ms,
+        "step_split_ms": split_ms, "epoch_s": epoch_s, "epoch_steps": steps,
+        "steps_per_s": steps / epoch_s, "fragments_per_s": len(train) / epoch_s,
+        "profile": profile,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1995,6 +2238,16 @@ def main(argv=None) -> int:
                  plan_d=plan_d, cheb=cheb_d, nodes=nodes, inv_p=inv_p)
     last = _phase8(args, dev, params, cfg, small, large_inputs, check, counts, expect)
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    training = _phase9(args, dev, counts, expect)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    checks.append({"name": "training_step", "phase": 9,
+                   "max_abs_err": training["peaks_max_abs_err"],
+                   "loss_rel_err": training["loss_rel_err"],
+                   "grad_max_rel_err": training["grad_max_rel_err"]})
+    for k in kernels:
+        if k["name"] in ("build_band", "mp_banded", "band_occupancy"):
+            k["train_launches"] = training["launches"][k["name"]]
     for k in kernels:
         for phase in (large, wide, last):
             if k["name"] in phase["launches"]:
@@ -2013,7 +2266,7 @@ def main(argv=None) -> int:
                 "plain_forward_ms": plain_fwd_ms, "predict_wall_ms": predict_ms,
                 "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,
-                "wide": wide, "last_kernels": last,
+                "wide": wide, "last_kernels": last, "training": training,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,9 @@ use and bound with ``ctypes`` (``ops/_cuda.py``).
 
 This package never imports JAX, flax or ``nmrgnn_tpu``.
 """
-from .config import ModelConfig
+from .config import ModelConfig, TrainConfig
 from .graph import Graph, inv_degree_from_nlist, pad_graph
 
 __version__ = "0.1.0"
 
-__all__ = ["ModelConfig", "Graph", "inv_degree_from_nlist", "pad_graph", "__version__"]
+__all__ = ["ModelConfig", "TrainConfig", "Graph", "inv_degree_from_nlist", "pad_graph", "__version__"]

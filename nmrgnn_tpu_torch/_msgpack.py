@@ -1,11 +1,15 @@
-"""A small msgpack reader for the subset flax's ``serialization.to_bytes``
-writes: maps, arrays, str, bin, ext, nil, bools, ints and floats.
+"""A small msgpack reader and writer for the subset flax's
+``serialization.to_bytes`` writes: maps, arrays, str, bin, ext, nil, bools,
+ints and floats.
 
 flax stores each array as ext type 1 whose payload is itself msgpack:
 ``[shape, dtype name, raw little-endian bytes]``. ``unpackb`` returns the
 ext payload as ``ExtType(code, data)``, like ``msgpack.unpackb``;
 ``restore_arrays`` turns flax's array ext values into numpy arrays and
 maps keyed "0".."n-1" (flax's encoding of lists) into lists.
+``state_dict`` is its inverse (lists as such maps, arrays as flax's ext
+values) and ``packb`` writes the result, so flax's ``from_bytes`` reads
+what the port writes.
 """
 from __future__ import annotations
 
@@ -118,3 +122,89 @@ def restore_arrays(tree):
             return [restore_arrays(tree[str(i)]) for i in range(len(keys))]
         return {k: restore_arrays(v) for k, v in tree.items()}
     return tree
+
+
+def _pack_len(out: bytearray, n: int, fix_base, fix_max: int, codes) -> None:
+    """A length header: the fix form up to ``fix_max`` (when ``fix_base`` is
+    given), else the 8/16/32-bit ``codes`` (None where the type has no
+    such form)."""
+    if fix_base is not None and n <= fix_max:
+        out.append(fix_base | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(out: bytearray, obj) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, (int, np.integer)):
+        v = int(obj)
+        if 0 <= v <= 0x7F:
+            out.append(v)
+        elif -32 <= v < 0:
+            out.append(v & 0xFF)
+        elif v >= 0:
+            out.append(0xCF)
+            out += struct.pack(">Q", v)
+        else:
+            out.append(0xD3)
+            out += struct.pack(">q", v)
+    elif isinstance(obj, (float, np.floating)):
+        out.append(0xCB)
+        out += struct.pack(">d", float(obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, ExtType):
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(obj.data) in fixext:
+            out.append(fixext[len(obj.data)])
+        else:
+            _pack_len(out, len(obj.data), None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", obj.code)
+        out += obj.data
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    else:
+        raise TypeError(f"cannot msgpack {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode one object (None, bool, int, float, str, bytes, ExtType,
+    list/tuple, dict)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def _ndarray_ext(a: np.ndarray) -> ExtType:
+    a = np.ascontiguousarray(a)
+    return ExtType(_FLAX_NDARRAY_EXT, packb([list(a.shape), a.dtype.name, a.tobytes()]))
+
+
+def state_dict(tree):
+    """Nested dicts and lists of numpy arrays as flax's state dict: lists
+    as maps keyed "0".."n-1", arrays as flax's ndarray ext values."""
+    if isinstance(tree, dict):
+        return {str(k): state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): state_dict(v) for i, v in enumerate(tree)}
+    return _ndarray_ext(np.asarray(tree))

@@ -1,5 +1,5 @@
-"""User-facing entry points (``nmrgnn_tpu/library.py:95-149``): load the
-bundled model, turn a structure into a graph, sanity-check peaks.
+"""User-facing entry points (``nmrgnn_tpu/library.py:79-149``): save and
+load a model, turn a structure into a graph, sanity-check peaks.
 
 The bundled weights are read by path from the JAX package's directory
 (``nmrgnn_tpu/models/baseline/``: ``config.json`` and flax-msgpack
@@ -38,6 +38,18 @@ def params_from_numpy(tree, device="cuda"):
 
 def _shapes(tree):
     return tree_map(lambda t: tuple(t.shape), tree)
+
+
+def save_model(path: str, params, config: ModelConfig) -> None:
+    """Write ``params.msgpack`` (flax's msgpack layout, so the JAX
+    package's ``load_model`` reads it) and ``config.json`` into the
+    directory ``path``. The peak standards are saved with the params."""
+    os.makedirs(path, exist_ok=True)
+    tree = tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(), params)
+    with open(os.path.join(path, "params.msgpack"), "wb") as f:
+        f.write(_msgpack.packb(_msgpack.state_dict(tree)))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        f.write(config.to_json())
 
 
 def load_model(model_file: Optional[str] = None, device="cuda") -> Tuple[dict, ModelConfig]:

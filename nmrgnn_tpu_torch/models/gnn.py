@@ -14,7 +14,18 @@ dict of tensors in the JAX package's layout.
 
 Parameter layout: {"embed": {"kernel"}, "edge_fc": [{"kernel", "bias"}],
 "mp": [{"w": [F, F, E]}], "fc": [...], "out": {...}, "peak_std",
-"peak_avg"}. Training (noise, dropout) is a later slice.
+"peak_avg"}.
+
+Training mode (``training=True``, ``nmrgnn_tpu/models/gnn.py:144-236``)
+adds Gaussian noise of std ``config.noise`` to the distances before the
+RBF, the padding mask still taken from the distances before the noise, and
+dropout of rate ``config.dropout_rate`` after the FC block. Torch cannot
+draw JAX's threefry numbers, so the training forwards take the draws as
+tensors: ``noise`` (standard normal, the shape of ``edges``) and
+``dropout_mask`` (bool, True = keep, the shape of the FC block's output).
+A draw not given is taken from ``generator`` (a ``torch.Generator`` on the
+graph's device). peak_std and peak_avg are frozen: no gradient reaches
+them (``trainable_mask``).
 
 ``config.compute_dtype`` ("float32" or "bfloat16") sets the operand type
 of the products, with float32 sums, as in the JAX package: the edge stage,
@@ -120,46 +131,152 @@ def init_params(
     return tree_map(lambda t: t.to(dev), params)
 
 
-def edge_features(params: Params, config: ModelConfig, edges: torch.Tensor) -> torch.Tensor:
-    """f32[N, K, E]: RBF + EdgeFC, masked by ``edges > 0`` before and after;
-    the EdgeFC products in the compute type."""
+def edge_features(params: Params, config: ModelConfig, edges: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """f32[N, K, E]: RBF + EdgeFC, masked by ``edges > 0`` (or by ``mask``,
+    f32[N, K, 1]) before and after; the EdgeFC products in the compute
+    type."""
     return edge.edge_features(edges, params["edge_fc"], rbf_low=config.rbf_low,
                               rbf_high=config.rbf_high,
                               activation_name=config.fc_activation,
-                              compute_dtype=compute_dtype(config))
+                              compute_dtype=compute_dtype(config), mask=mask)
 
 
 def readout(params: Params, config: ModelConfig, atoms: torch.Tensor,
-            nodes: torch.Tensor, head_dtype=torch.float32) -> torch.Tensor:
-    """FC block (products in the compute type), per-element head (products
-    in ``head_dtype``) and de-standardization -> peaks f32[N]."""
+            nodes: torch.Tensor, head_dtype=torch.float32,
+            dropout_mask=None) -> torch.Tensor:
+    """FC block (products in the compute type), dropout where
+    ``dropout_mask`` is given (kept values scaled by 1 / keep), per-element
+    head (products in ``head_dtype``) and de-standardization by the frozen
+    standards -> peaks f32[N]."""
     fc_act = get_activation(config.fc_activation)
     cd = compute_dtype(config)
     for p in params["fc"][:-1]:
         nodes = dense(p, nodes, fc_act, cd) + nodes
     nodes = dense(params["fc"][-1], nodes, fc_act, cd)
+    if dropout_mask is not None:
+        keep = 1.0 - config.dropout_rate
+        nodes = torch.where(dropout_mask, nodes / keep, torch.zeros_like(nodes))
     full_peaks = dense(params["out"], nodes, compute_dtype=head_dtype)
-    return torch.sum(
-        full_peaks * atoms * params["peak_std"] + atoms * params["peak_avg"], dim=-1
-    )
+    peak_std, peak_avg = params["peak_std"].detach(), params["peak_avg"].detach()
+    return torch.sum(full_peaks * atoms * peak_std + atoms * peak_avg, dim=-1)
 
 
-def apply(params: Params, config: ModelConfig, graph: Graph) -> torch.Tensor:
-    """Inference-mode forward for one graph of tensors; peaks f32[N].
-    The plain gather forward: the reference every faster path is held to."""
+def _draw(given, shape, what: str, draw, generator):
+    """A training draw: ``given`` (checked against ``shape``), else one
+    from ``generator``."""
+    if given is not None:
+        if tuple(given.shape) != tuple(shape):
+            raise ValueError(f"{what} has shape {tuple(given.shape)}, expected {tuple(shape)}")
+        return given
+    if generator is None:
+        raise ValueError(f"training=True needs {what} or a generator")
+    return draw(generator)
+
+
+def training_draws(config: ModelConfig, edges: torch.Tensor, readout_shape,
+                   noise=None, dropout_mask=None, generator=None):
+    """(noise or None, dropout_mask or None) of a training forward: the
+    given tensors, or draws from ``generator`` on the device of ``edges``
+    (standard normal of the shape of ``edges``; keep with probability
+    1 - dropout_rate, of ``readout_shape``). None where the config turns
+    noise (``noise`` 0) or dropout off."""
+    dev = edges.device
+    if config.noise > 0:
+        noise = _draw(noise, edges.shape, "noise", lambda g: torch.randn(
+            tuple(edges.shape), generator=g, device=dev), generator)
+    else:
+        noise = None
+    if config.dropout:
+        keep = 1.0 - config.dropout_rate
+        dropout_mask = _draw(dropout_mask, readout_shape, "dropout_mask", lambda g: torch.rand(
+            tuple(readout_shape), generator=g, device=dev) < keep, generator)
+    else:
+        dropout_mask = None
+    return noise, dropout_mask
+
+
+def noised(config: ModelConfig, edges: torch.Tensor, noise) -> torch.Tensor:
+    """The distances a training forward expands: ``edges`` plus
+    ``config.noise`` times the standard-normal ``noise`` (None: ``edges``)."""
+    return edges if noise is None else edges + config.noise * noise
+
+
+def apply(params: Params, config: ModelConfig, graph: Graph, *, training: bool = False,
+          noise=None, dropout_mask=None, generator=None) -> torch.Tensor:
+    """Forward for one graph of tensors; peaks f32[N]. The plain gather
+    forward: the reference every faster path is held to. ``training=True``
+    applies the distance noise and the readout dropout (draws: see the
+    module's docstring; ``dropout_mask`` is [N, F // 2])."""
     atoms, nlist, edges, inv_degree = graph
     mp_act = get_activation(config.mp_activation)
     cd = compute_dtype(config)
-    e = edge_features(params, config, edges)
+    mask = (edges > 0).to(torch.float32)[..., None]
+    if training:
+        noise, dropout_mask = training_draws(
+            config, edges, (edges.shape[0], config.atom_feature_size // 2), noise,
+            dropout_mask, generator)
+    else:
+        noise = dropout_mask = None
+    e = edge_features(params, config, noised(config, edges, noise), mask=mask)
     nodes = dense(params["embed"], atoms)
     for p in params["mp"]:
         nodes = mp_layer(p["w"], nodes, nlist, e, inv_degree, mp_act, cd) + nodes
-    return readout(params, config, atoms, nodes)
+    return readout(params, config, atoms, nodes, dropout_mask=dropout_mask)
+
+
+def flatten_batch(graph: Graph) -> Graph:
+    """A batch Graph[B, N, ...] as one graph of B * N rows, fragment b's
+    neighbor indices moved by b * N (its padding slots too: their distance
+    0 masks them)."""
+    atoms, nlist, edges, inv_degree = graph
+    B, N, _ = nlist.shape
+    offs = (torch.arange(B, dtype=nlist.dtype, device=nlist.device) * N)[:, None, None]
+    flat = lambda a: a.reshape((B * N,) + tuple(a.shape[2:]))  # noqa: E731
+    return Graph(flat(atoms), flat(nlist + offs), flat(edges), flat(inv_degree))
+
+
+def apply_batched(params: Params, config: ModelConfig, graph: Graph, *,
+                  training: bool = False, noise=None, dropout_mask=None,
+                  generator=None) -> torch.Tensor:
+    """``apply`` over a leading batch axis: Graph[B, N, ...] -> f32[B, N].
+    The fragments run as one graph of B * N rows (``flatten_batch``), each
+    row's sums as in ``apply``. Draws are per fragment: ``noise``
+    [B, N, K], ``dropout_mask`` [B, N, F // 2]."""
+    B, N = graph.nlist.shape[:2]
+    flat = lambda a: None if a is None else a.reshape((B * N,) + tuple(a.shape[2:]))  # noqa: E731
+    if training:
+        noise, dropout_mask = training_draws(
+            config, graph.edges, (B, N, config.atom_feature_size // 2), noise, dropout_mask,
+            generator)
+    peaks = apply(params, config, flatten_batch(graph), training=training, noise=flat(noise),
+                  dropout_mask=flat(dropout_mask))
+    return peaks.view(B, N)
+
+
+def trainable_mask(params: Params) -> Params:
+    """Tree of bools: True for the trainable leaves (not peak_std and
+    peak_avg, frozen buffers as in the reference)."""
+    return {k: tree_map(lambda _: k not in ("peak_std", "peak_avg"), v)
+            for k, v in params.items()}
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a params tree, dict keys in sorted order and list
+    items in order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def trainable_leaves(params: Params) -> list:
+    """The trainable tensors of a params tree (``tree_leaves`` without
+    peak_std and peak_avg): the order the optimizer's state keeps."""
+    return tree_leaves({k: v for k, v in params.items() if k not in ("peak_std", "peak_avg")})
 
 
 def count_params(params: Params) -> int:
     """Trainable parameters (peak_std / peak_avg are frozen buffers)."""
-    sizes = []
-    trainable = {k: v for k, v in params.items() if k not in ("peak_std", "peak_avg")}
-    tree_map(lambda t: sizes.append(int(np.prod(tuple(t.shape)))), trainable)
-    return sum(sizes)
+    return sum(int(np.prod(tuple(t.shape))) for t in trainable_leaves(params))

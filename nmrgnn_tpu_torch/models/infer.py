@@ -23,6 +23,16 @@ once (``band_occupancy``, from nlist, the distances and the window starts)
 and hands it to every MP layer that reads the band, so the MP kernel
 stages only the chunks that hold a nonzero.
 
+``apply_banded_fragments`` and ``apply_banded_trainable``
+(``nmrgnn_tpu/models/infer.py:536-686``) are the differentiable banded
+forwards of training: a batch of padded fragments laid end to end
+(``fragment_band_plan``: the window is the fragment, so the plan is
+static), or one graph with its band plan. The band build and the MP layers
+go through the ``*_df`` wrappers of ``ops/banded.py`` (the kernels
+forward, plain PyTorch backward), the band and the MP layers in float32
+whatever the compute type; the occupancy comes from the distances before
+the training noise, which mask the band.
+
 ``apply_blocksparse`` (``nmrgnn_tpu/models/infer.py:51-124``) serves a
 structure whose band is too wide for the banded paths: it builds the
 block-sparse adjacency of the active (row block, col block) pairs once per
@@ -57,7 +67,9 @@ from ..ops.banded import (
     build_band_poly_cls,
     build_band_poly_cls_plain,
     build_band_poly_plain,
+    build_band_df,
     mp_banded,
+    mp_banded_df,
     mp_banded_hbm,
     mp_banded_hbm_cls,
     mp_banded_hbm_cls_plain,
@@ -80,19 +92,22 @@ from ..ops.blocksparse import (
 )
 from ..ops.edge import edge_features as _edge_stage
 from ..ops.edgefn import EdgeCheb
-from .gnn import compute_dtype, dense, readout
+from .gnn import compute_dtype, dense, flatten_batch, noised, readout, training_draws
 from .gnn import edge_features as _edge_features
 
 __all__ = ["_edge_features", "_readout", "precompute_band", "apply_banded",
            "apply_banded_classes", "apply_banded_hbm_classes", "apply_banded_frames",
+           "fragment_band_plan", "apply_banded_fragments", "apply_banded_trainable",
            "precompute_structure", "apply_blocksparse"]
 
 
-def _readout(params, config: ModelConfig, atoms, nodes) -> torch.Tensor:
+def _readout(params, config: ModelConfig, atoms, nodes, dropout_mask=None) -> torch.Tensor:
     """The banded forwards' readout: the FC block AND the per-element head
     in the compute type (``nmrgnn_tpu/models/infer.py:148-170``), unlike
-    the gather forward, whose head is float32."""
-    return readout(params, config, atoms, nodes, head_dtype=compute_dtype(config))
+    the gather forward, whose head is float32; dropout where
+    ``dropout_mask`` is given."""
+    return readout(params, config, atoms, nodes, head_dtype=compute_dtype(config),
+                   dropout_mask=dropout_mask)
 
 
 def precompute_band(graph: Graph, block_rows: int = 128) -> BandPlan:
@@ -334,6 +349,117 @@ def apply_banded_frames(
                        _occupancy(params["mp"], nlist_b, edges_b, big_plan, use_kernels))
     nodes = nodes.view(fr, npad, F)[:, :n].reshape(fr * n, F).float()
     return _readout(params, config, atoms.reshape(fr * n, -1), nodes).view(fr, n)
+
+
+def fragment_band_plan(batch_size: int, pad_to: int, block_rows: int = 128) -> BandPlan:
+    """The static band plan of ``batch_size`` fragments padded to ``pad_to``
+    atoms and laid end to end, fragment b's indices moved by b * pad_to:
+    every tile of fragment b reads only rows [b * pad_to, (b + 1) *
+    pad_to), so the window is the fragment and lo = b * pad_to for its
+    tiles, whatever the topology."""
+    if pad_to % block_rows:
+        raise ValueError(f"pad_to={pad_to} must be a multiple of {block_rows}")
+    lo = np.repeat(np.arange(batch_size, dtype=np.int64) * pad_to, pad_to // block_rows)
+    return BandPlan(lo=lo.astype(np.int32), window=pad_to, block_rows=block_rows,
+                    n_padded=batch_size * pad_to)
+
+
+def _trainable_mp(params, config: ModelConfig, nlist, edges, e, plan: BandPlan, nodes, inv_p,
+                  use_kernels: bool) -> torch.Tensor:
+    """The band of the edge features ``e`` and the MP layers over the
+    padded node table, differentiable: with ``use_kernels`` through
+    ``build_band_df`` and ``mp_banded_df`` (all layers given the band's
+    occupancy from ``edges``, the distances before any noise), else through
+    the plain versions under autograd. All in float32."""
+    if use_kernels:
+        M = build_band_df(nlist, e, plan)
+        occ = _occupancy(params["mp"], nlist, edges, plan, True)
+        for p in params["mp"]:
+            nodes = mp_banded_df(M, plan, nodes, p["w"], inv_p, config.mp_activation, occ)
+        return nodes
+    M = build_band_plain(nlist, e, plan)
+    for p in params["mp"]:
+        nodes = mp_banded_plain(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+    return nodes
+
+
+def apply_banded_fragments(
+    params,
+    config: ModelConfig,
+    graph: Graph,
+    *,
+    training: bool = False,
+    noise=None,
+    dropout_mask=None,
+    generator=None,
+    plan: BandPlan = None,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Differentiable banded forward over a batch of padded fragments:
+    Graph[B, N, ...] -> peaks f32[B, N]; the math of ``gnn.apply_batched``
+    with the MP layers on the band of the flattened batch
+    (``fragment_band_plan(B, N)`` unless ``plan`` is given).
+
+    ``training=True`` adds the distance noise and the readout dropout; the
+    draws are per fragment, ``noise`` [B, N, K] and ``dropout_mask``
+    [B, N, F // 2], or drawn from ``generator``. The padding mask and the
+    band's occupancy come from the distances before the noise. With
+    ``use_kernels`` (the default) the band build and MP layers are
+    ``build_band_df`` and ``mp_banded_df`` (the kernels on the card);
+    ``use_kernels=False`` runs the plain versions under autograd."""
+    atoms, nlist, edges, inv_degree = graph
+    B, N, K = nlist.shape
+    plan = fragment_band_plan(B, N) if plan is None else plan
+    if plan.n_padded != B * N or plan.window != N:
+        raise ValueError(f"plan {plan.n_padded} rows, window {plan.window} for {B} x {N}")
+    plan = plan_on_device(plan, atoms.device)
+    if training:
+        noise, dropout_mask = training_draws(
+            config, edges, (B, N, config.atom_feature_size // 2), noise, dropout_mask,
+            generator)
+    else:
+        noise = dropout_mask = None
+    flat_g = flatten_batch(graph)
+    flat = lambda a: None if a is None else a.reshape((B * N,) + tuple(a.shape[2:]))  # noqa: E731
+    mask = (flat_g.edges > 0).to(torch.float32)[..., None]
+    e = _edge_features(params, config, noised(config, flat_g.edges, flat(noise)), mask=mask)
+    nodes = _trainable_mp(params, config, flat_g.nlist, flat_g.edges, e, plan,
+                          dense(params["embed"], flat_g.atoms), flat_g.inv_degree, use_kernels)
+    return _readout(params, config, flat_g.atoms, nodes, flat(dropout_mask)).view(B, N)
+
+
+def apply_banded_trainable(
+    params,
+    config: ModelConfig,
+    graph: Graph,
+    plan: BandPlan,
+    *,
+    training: bool = False,
+    noise=None,
+    dropout_mask=None,
+    generator=None,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Differentiable banded forward of one graph with its band plan;
+    peaks f32[N] for the unpadded atoms. The numerics of ``gnn.apply``
+    with the MP layers on the band (``build_band_df``, ``mp_banded_df``);
+    ``training=True`` as ``apply_banded_fragments`` (``noise`` [N, K],
+    ``dropout_mask`` [N, F // 2])."""
+    atoms, nlist, edges, inv_degree = graph
+    n = atoms.shape[0]
+    plan = plan_on_device(plan, atoms.device)
+    if training:
+        noise, dropout_mask = training_draws(
+            config, edges, (n, config.atom_feature_size // 2), noise, dropout_mask, generator)
+    else:
+        noise = dropout_mask = None
+    mask = (edges > 0).to(torch.float32)[..., None]
+    e = _edge_features(params, config, noised(config, edges, noise), mask=mask)
+    pad = plan.n_padded - n
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
+    nodes = _trainable_mp(params, config, nlist, edges, e, plan, nodes,
+                          nnf.pad(inv_degree, (0, pad)), use_kernels)
+    return _readout(params, config, atoms, nodes[:n], dropout_mask)
 
 
 def precompute_structure(

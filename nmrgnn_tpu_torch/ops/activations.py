@@ -15,12 +15,30 @@ import torch
 ACTIVATION_CODES = {None: 0, "linear": 0, "relu": 1, "softplus": 2, "tanh": 3}
 
 
+class _Softplus(torch.autograd.Function):
+    """softplus with the gradient sigmoid(x), as ``jax.nn.softplus`` has it
+    (0.5 at 0, where the gradient of the expression itself would be
+    clamp's 1 plus abs's 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.sigmoid(x)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Softplus.apply(x)
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, min=0.0)
+    return torch.relu(x)  # gradient 0 at 0, as jax.nn.relu
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:

@@ -1527,6 +1527,175 @@ def band_occupancy_from_band(M: torch.Tensor) -> torch.Tensor:
 
 band_occupancy_from_band.launches = 0
 
+# ---------------------------------------------------------------------------
+# Differentiable wrappers (``nmrgnn_tpu/ops/banded.py:897-1104``): training
+# through the kernels. Each is a ``torch.autograd.Function`` whose forward is
+# the kernel wrapper above (the CUDA kernel on the card, the plain version on
+# the CPU) and whose backward is the JAX package's backward form in plain
+# PyTorch. The JAX package computes those backwards in XLA, outside any
+# Pallas kernel:
+#   * a band build's backward reads the band's cotangent back at each slot:
+#     de[i, k, :] = dM[tile(i), :, i % B, nlist[i, k] - lo[tile(i)]] where
+#     that column lies in the window, else 0 (a gather along the window axis);
+#   * an MP layer's backward is the VJP of its plain version in float32
+#     (``mp_banded_plain``, ``mp_banded_partial_plain``), recomputed under
+#     autograd: band-form products and a window scatter-add, no [N, K, F]
+#     gather.
+# Operands are made contiguous inside the forwards: the kernels take
+# contiguous, aligned tensors, and autograd may hand views.
+
+
+def _band_vjp(gM: torch.Tensor, nlist: torch.Tensor, lo_rows: torch.Tensor,
+              window: int) -> torch.Tensor:
+    """de f32[N, K, E] from the band's cotangent gM [T, E, B, W]: row i's
+    slot k reads gM at its tile's column nlist[i, k] - lo_rows[i] when that
+    lies in [0, W), and is 0 otherwise."""
+    n, k = nlist.shape
+    T, E, B, W = gM.shape
+    rel = nlist.to(torch.int64) - lo_rows[:, None]
+    valid = (rel >= 0) & (rel < window)
+    gmr = gM.float().permute(0, 2, 3, 1).reshape(T * B, W, E)[:n]       # [N, W, E]
+    de = torch.gather(gmr, 1, rel.clamp(0, window - 1)[..., None].expand(n, k, E))
+    return de * valid[..., None].to(de.dtype)
+
+
+class _BuildBandDF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, edge_feats, nlist, plan, out_dtype):
+        ctx.save_for_backward(nlist)
+        ctx.plan = plan
+        return build_band(nlist, edge_feats.contiguous(), plan, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gM):
+        (nlist,) = ctx.saved_tensors
+        plan = ctx.plan
+        lo_rows = _long(plan.lo, nlist.device).repeat_interleave(plan.block_rows)[:nlist.shape[0]]
+        return _band_vjp(gM, nlist, lo_rows, plan.window), None, None, None
+
+
+def build_band_df(
+    nlist: torch.Tensor,       # i32[N, K]
+    edge_feats: torch.Tensor,  # f32[N, K, E], differentiated
+    plan: BandPlan,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """``build_band`` with a gradient to ``edge_feats``
+    (``nmrgnn_tpu/ops/banded.py:1015-1054``): forward B2, backward the
+    window gather of ``_band_vjp``."""
+    return _BuildBandDF.apply(edge_feats, nlist.to(torch.int32).contiguous(), plan, out_dtype)
+
+
+class _BuildBandTracedloDF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, edge_feats, nlist, lo, window, block_rows, out_dtype):
+        ctx.save_for_backward(nlist, lo)
+        ctx.window, ctx.block_rows = window, block_rows
+        return build_band_tracedlo(nlist, edge_feats.contiguous(), lo, window, block_rows,
+                                   out_dtype)
+
+    @staticmethod
+    def backward(ctx, gM):
+        nlist, lo = ctx.saved_tensors
+        lo_rows = lo.repeat_interleave(ctx.block_rows)
+        return _band_vjp(gM, nlist, lo_rows, ctx.window), None, None, None, None, None
+
+
+def build_band_tracedlo_df(
+    nlist: torch.Tensor,       # i32[M, K], M a multiple of block_rows
+    edge_feats: torch.Tensor,  # f32[M, K, E], differentiated
+    lo,                        # i32[M / block_rows] window starts (any values)
+    window: int,
+    block_rows: int = 128,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """``build_band_tracedlo`` with a gradient to ``edge_feats``
+    (``nmrgnn_tpu/ops/banded.py:958-1001``): forward B7a, backward the
+    window gather of ``_band_vjp`` with the caller's window starts."""
+    lo = _long(lo, edge_feats.device)
+    if lo.shape != (_tiles_of(nlist.shape[0], block_rows),):
+        raise ValueError(f"{lo.shape[0]} window starts for {nlist.shape[0]} rows")
+    return _BuildBandTracedloDF.apply(edge_feats, nlist.to(torch.int32).contiguous(), lo,
+                                      window, block_rows, out_dtype)
+
+
+def _plain_vjp(fn, inputs, needs, g):
+    """The cotangents of ``fn(*inputs)`` (float32 copies, recomputed under
+    autograd) against ``g``, for the inputs ``needs`` marks; None for the
+    others."""
+    with torch.enable_grad():
+        xs = [x.detach().float().requires_grad_(need) for x, need in zip(inputs, needs)]
+        out = fn(*xs)
+        wanted = [x for x, need in zip(xs, needs) if need]
+        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)) if wanted else ())
+    return [next(grads) if need else None for need in needs]
+
+
+class _MPBandedDF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, M, nodes, w, inv_degree, plan, activation_name, occupancy):
+        ctx.save_for_backward(M, nodes, w, inv_degree)
+        ctx.plan, ctx.activation_name = plan, activation_name
+        return mp_banded(M.contiguous(), plan, nodes.contiguous(), w, inv_degree.contiguous(),
+                         activation_name, occupancy)
+
+    @staticmethod
+    def backward(ctx, g):
+        M, nodes, w, inv_degree = ctx.saved_tensors
+        plan, act = ctx.plan, ctx.activation_name
+        grads = _plain_vjp(lambda M, nodes, w, inv: mp_banded_plain(M, plan, nodes, w, inv, act),
+                           (M, nodes, w, inv_degree), ctx.needs_input_grad[:4], g)
+        out = [None if d is None else d.to(x.dtype) for d, x in zip(grads, (M, nodes, w, inv_degree))]
+        return (*out, None, None, None)
+
+
+def mp_banded_df(
+    M: torch.Tensor,           # [T, E, B, W]
+    plan: BandPlan,
+    nodes: torch.Tensor,       # [N_pad, F]
+    w: torch.Tensor,           # [F, F, E]
+    inv_degree: torch.Tensor,  # f32[N_pad]
+    activation_name: str = "softplus",
+    occupancy=None,            # int32 [T * B, NW] (band_occupancy), or None
+) -> torch.Tensor:
+    """``mp_banded`` with gradients to M, nodes, w and inv_degree (those
+    autograd asks for) (``nmrgnn_tpu/ops/banded.py:1057-1091``): forward
+    B1, backward the VJP of ``mp_banded_plain`` in float32, as
+    ``jax.vjp`` of ``mp_banded_xla``. ``occupancy`` must cover every
+    nonzero of M (``band_occupancy`` from the distances before any
+    training noise): the backward reads all of M."""
+    return _MPBandedDF.apply(M, nodes, w, inv_degree, plan, activation_name, occupancy)
+
+
+class _MPBandedPartialDF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, M, table, w, lo, occupancy):
+        ctx.save_for_backward(M, table, w, lo)
+        return mp_banded_partial(M.contiguous(), lo, table.contiguous(), w, occupancy)
+
+    @staticmethod
+    def backward(ctx, g):
+        M, table, w, lo = ctx.saved_tensors
+        grads = _plain_vjp(lambda M, table, w: mp_banded_partial_plain(M, lo, table, w),
+                           (M, table, w), ctx.needs_input_grad[:3], g)
+        out = [None if d is None else d.to(x.dtype) for d, x in zip(grads, (M, table, w))]
+        return (*out, None, None)
+
+
+def mp_banded_partial_df(
+    M: torch.Tensor,      # [T, E, B, W]
+    lo,                   # i32[T] window starts
+    table: torch.Tensor,  # [Nt, F]
+    w: torch.Tensor,      # [F, F, E]
+    occupancy=None,       # int32 [T * B, NW], or None
+) -> torch.Tensor:
+    """``mp_banded_partial`` with gradients to M, table and w
+    (``nmrgnn_tpu/ops/banded.py:924-955``): forward B6, backward the VJP
+    of ``mp_banded_partial_plain`` in float32 (``mp_banded_partial_xla``'s,
+    :897-917)."""
+    return _MPBandedPartialDF.apply(M, table, w, _long(lo, table.device), occupancy)
+
+
 KERNEL_WRAPPERS = (build_band, build_band_tracedlo, build_band_fused, mp_banded,
                    build_band_poly, build_band_poly_tracedlo, mp_banded_poly_fused,
                    build_band_poly_cls, mp_banded_partial, mp_banded_hbm, mp_banded_hbm_cls,

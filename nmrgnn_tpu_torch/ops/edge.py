@@ -32,12 +32,19 @@ def edge_features(
     rbf_high: float,
     activation_name: str = "softplus",
     compute_dtype=torch.float32,
+    mask=None,
 ) -> torch.Tensor:
     """f32[N, K, E]: (edge_fc_layers - 1) x Dense(H, act), then a linear
     Dense(E), over the H-wide RBF expansion; the products' operands in
-    ``compute_dtype``, biases and activations in float32."""
+    ``compute_dtype``, biases and activations in float32.
+
+    ``mask`` (f32[N, K, 1]) overrides the padding mask ``edges > 0``: a
+    caller that adds training noise to the distances passes the mask of
+    the distances before the noise, as the reference masks them
+    (``nmrgnn_tpu/models/infer.py:127-139``)."""
     act = get_activation(activation_name)
-    mask = (edges > 0).to(torch.float32)[..., None]
+    if mask is None:
+        mask = (edges > 0).to(torch.float32)[..., None]
     h = edge_fc_params[-1]["kernel"].shape[0]
     x = rbf_expand(edges, rbf_low, rbf_high, h) * mask
     op = lambda a: as_operand(a, compute_dtype)  # noqa: E731

@@ -1317,3 +1317,146 @@ def test_band_build_wrappers_raise_past_the_kernels_limits(dev):
                                    96)
     with pytest.raises(TypeError):
         banded.build_band_poly(nl, d, make_cheb(3), plan, out_dtype=torch.float16)
+
+
+# -- the training step: the differentiable wrappers and the Trainer ----------------
+
+
+def _grads(fn, inputs, cot):
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*xs)
+    return out.detach(), torch.autograd.grad(out, xs, cot)
+
+
+def _close_rel(got, want, tol):
+    scale = float(want.float().abs().max()) + 1e-9
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("n,f", [(300, 128), (517, 256), (256, 64)])
+def test_band_df_wrappers_gradients_equal_plain(dev, n, f):
+    """build_band_df, build_band_tracedlo_df, mp_banded_df and
+    mp_banded_partial_df on the card (kernels forward, plain backward)
+    against autograd through the plain versions on the card."""
+    nlist, dists, efeat, nodes, w, inv = make_case(n, 16, f, 3, seed=n, banded_nlist=True)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    pad = plan.n_padded - n
+    nl, ef, d = _on(dev, nlist, efeat, dists)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    gM = torch.randn((plan.num_tiles, 3, plan.block_rows, plan.window), generator=gen,
+                     device=dev)
+    M, (de,) = _grads(lambda e: banded.build_band_df(nl, e, plan), [ef], gM)
+    M_p, (de_p,) = _grads(lambda e: banded.build_band_plain(nl, e, plan), [ef], gM)
+    assert torch.equal(M, M_p)
+    _close_rel(de, de_p, 1e-5)
+    nl_p = torch.nn.functional.pad(nl, (0, 0, 0, pad), value=-1) - 128
+    ef_p = torch.nn.functional.pad(ef, (0, 0, 0, 0, 0, pad))
+    Mt, (det,) = _grads(lambda e: banded.build_band_tracedlo_df(nl_p, e, plan.lo, plan.window),
+                        [ef_p], gM)
+    Mt_p, (det_p,) = _grads(lambda e: banded.build_band_tracedlo_plain(
+        nl_p, e, plan.lo, plan.window), [ef_p], gM)
+    assert torch.equal(Mt, Mt_p)
+    _close_rel(det, det_p, 1e-5)
+    x = torch.from_numpy(np.pad(nodes, ((0, pad), (0, 0)))).to(dev)
+    wt = torch.from_numpy(w).to(dev)
+    iv = torch.from_numpy(np.pad(inv, (0, pad))).to(dev)
+    g = torch.randn(x.shape, generator=gen, device=dev)
+    occ = banded.band_occupancy(nl, d, plan.lo, plan.window, plan.block_rows,
+                                plan.n_padded)
+    out, grads = _grads(lambda *a: banded.mp_banded_df(a[0], plan, a[1], a[2], a[3],
+                                                       "softplus", occ), [M, x, wt, iv], g)
+    out_p, grads_p = _grads(lambda *a: banded.mp_banded_plain(a[0], plan, a[1], a[2], a[3]),
+                            [M, x, wt, iv], g)
+    _close_rel(out, out_p, 2e-4)
+    for a, b in zip(grads, grads_p):
+        _close_rel(a, b, 1e-4)
+    out, grads = _grads(lambda *a: banded.mp_banded_partial_df(a[0], plan.lo, a[1], a[2]),
+                        [M, x, wt], g)
+    out_p, grads_p = _grads(lambda *a: banded.mp_banded_partial_plain(a[0], plan.lo, a[1], a[2]),
+                            [M, x, wt], g)
+    _close_rel(out, out_p, 2e-4)
+    for a, b in zip(grads, grads_p):
+        _close_rel(a, b, 1e-4)
+
+
+def _fragment_batch(dev, b=4, n=128, k=16, seed=0):
+    """A batch of b random fragments of n atoms, half of them padding rows."""
+    rng = np.random.default_rng(seed)
+    real = n // 2
+    nlist = np.zeros((b, n, k), np.int32)
+    nlist[:, :real] = rng.integers(0, real, (b, real, k))
+    dists = np.zeros((b, n, k), np.float32)
+    dists[:, :real] = rng.uniform(0.08, 0.3, (b, real, k))
+    atoms = np.zeros((b, n, 10), np.float32)
+    atoms[:, :real, 4] = 1.0  # hydrogen: an element with shift standards
+    inv = np.stack([inv_degree_from_nlist(x) for x in nlist])
+    return Graph(*[torch.from_numpy(a).to(dev) for a in (atoms, nlist, dists, inv)])
+
+
+def test_training_forward_keeps_a_noised_real_slot(dev):
+    """A real slot whose noised distance falls to <= 0 still carries its
+    message: the band's occupancy comes from the distances before the
+    noise. Kernels against the plain versions, value and gradients."""
+    from nmrgnn_tpu_torch.models.infer import apply_banded_fragments
+
+    cfg = ModelConfig(atom_feature_size=128, edge_hidden_size=32, mp_layers=2, fc_layers=2,
+                      edge_fc_layers=2, dropout=False)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = _fragment_batch(dev)
+    noise = torch.zeros(g.edges.shape, device=dev)
+    noise[0, :8, :] = -(g.edges[0, :8, :] / cfg.noise) - 1.0  # 128 real slots below 0
+    assert bool((g.edges[0, :8] + cfg.noise * noise[0, :8] < 0).all())
+    leaves = gnn.trainable_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    res = []
+    for use_kernels in (True, False):
+        peaks = apply_banded_fragments(params, cfg, g, training=True, noise=noise,
+                                       use_kernels=use_kernels)
+        res.append((peaks.detach(), torch.autograd.grad(peaks.sum(), leaves)))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=5e-4, atol=5e-4)
+    for a, b in zip(res[0][1], res[1][1]):
+        _close_rel(a, b, 1e-3)
+    clean = apply_banded_fragments(params, cfg, g).detach()
+    assert not torch.allclose(res[0][0][0, :8], clean[0, :8])
+
+
+def test_trainer_step_on_the_card(dev):
+    """One Trainer step on "cuda" on the banded path: its launches, a finite
+    loss, and params that moved; the loss equal to the gather path's from the
+    same state (rel 1e-5) and the params after Adam within a tenth of its
+    step (1e-4 at lr 1e-3)."""
+    from nmrgnn_tpu_torch.config import TrainConfig
+    from nmrgnn_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(atom_feature_size=128, edge_hidden_size=32, mp_layers=2, fc_layers=2,
+                      edge_fc_layers=2, learning_rate=1e-3, noise=0.0, dropout=False)
+    g = _fragment_batch(dev)
+    y = torch.zeros(g.nlist.shape[:2] + (3,), device=dev)
+    y[..., 0] = torch.rand(g.nlist.shape[:2], generator=torch.Generator(device=dev).manual_seed(2),
+                           device=dev) * 10  # varied: Pearson's r of constant labels has no gradient
+    y[..., 1] = 1.0
+    y[:, :64, 2] = 1.0
+    w = torch.ones(g.nlist.shape[:2], device=dev)
+    after, losses = {}, {}
+    for path in ("banded", "gather"):
+        tr = Trainer(cfg, TrainConfig(batch_size=4, pad_to=128, mp_path=path))
+        assert tr.use_banded == (path == "banded")
+        state = tr.init_state(torch.Generator().manual_seed(1))
+        before = [t.detach().clone() for t in gnn.trainable_leaves(state.params)]
+        opt = tr.optimizer(state)
+        banded.reset_launch_counts()
+        loss = tr.train_step(state, opt, g, y, w)
+        torch.cuda.synchronize()
+        if path == "banded":
+            assert (banded.build_band.launches, banded.band_occupancy.launches,
+                    banded.mp_banded.launches) == (1, 1, 2)
+        assert torch.isfinite(loss)
+        losses[path] = float(loss)
+        now = gnn.trainable_leaves(state.params)
+        assert all(not torch.equal(a, b) for a, b in zip(before, now))
+        after[path] = [t.detach() for t in now]
+    assert losses["banded"] == pytest.approx(losses["gather"], rel=1e-5)
+    for a, b in zip(after["banded"], after["gather"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    assert Trainer(cfg, TrainConfig(batch_size=4, pad_to=128)).use_banded  # "auto" on the card
