@@ -169,11 +169,51 @@ Phases, in order; any failure exits non-zero and prints no result:
        required); steps and fragments a second of a resident epoch; with
        --profile, the device time of the B2 + B1 kernels, the idle share
        of the step and the host's time by operator.
-10. One JSON line listing every kernel of the paths (a counterpart of
+10. The attention family (AMPLayer) at the baseline's width and depth
+    (ModelConfig(mp_type="attention"): F=256, E=3, H=128, K=16, 4 EdgeFC,
+    4 MP and 4 FC layers, random weights from --seed):
+    a. ServingModel on phase 4's 3 frames must resolve "banded_attn": 4
+       build_band (B2, E=1, from the softmax weights), 4
+       mp_banded_partial (B6) and 1 band occupancy launches a frame
+       (required); exact peaks equal the "gather" forward within rtol/atol
+       2e-4; apply_banded_attention driven directly against its plain
+       versions (2e-4); B2 on the layer-1 softmax band bit for bit and B6
+       at E=1 (float32 and bfloat16, phase 3's MP tolerances) against
+       their plain versions, timed as phase 3 times them; fast and exact
+       bfloat16 serving with the same launches, following the exact peaks
+       (Pearson r > 0.9999, mean |diff| < 1 ppm; the fast band's
+       elementwise bound is printed, not gated: on these random weights
+       the JAX package's own bfloat16 forward leaves it at a few atoms),
+       and their forwards within the fast band (mean under 0.05 ppm) of
+       their plain versions; predict_frames on the 3 frames with one launch set for
+       the batch, equal to per-frame predict within 2e-4. The forwards
+       timed with CUDA events (exact, its plain versions, fast, exact
+       bfloat16, gather), with --profile broken down with the idle share.
+    b. A random organic molecule of fewer than 17 atoms, served with the
+       RCM reorder: its padding slots name the old row 0's new place (not
+       row 0), and "banded_attn" equals "gather" within 2e-4.
+    c. The 44,676-atom supercell must resolve "gather" (the JAX package's
+       rule); finite peaks, the gather forward timed.
+    d. Gradients of a loss through apply_banded_attention(differentiable=
+       True, noise and dropout on) on phase 4's frame, kernels vs plain,
+       each leaf within 1e-6 of its max (the last EdgeFC bias, whose
+       gradient the softmax makes 0 on a graph with no padding slot, of
+       the largest leaf's) (4 B2, 4 B6, 1 occupancy); 320
+       organic molecules written by write_organic_fragments, Trainer.fit
+       for 2 epochs on the gather path (batch 8, pad_to 64): finite, the
+       loss falls; 3 resident steps with no host sync; the step timed.
+    e. neighbors_device and fragment_device (one fragment of 256 atoms
+       every 64 atoms) on the 2,482- and 44,676-atom coordinates, timed
+       beside neighbors_host (host clock); the neighbor sets equal the
+       host's wherever the 16th and 17th distances differ by more than
+       0.05 A, the distances within 0.02 A.
+11. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
     and times; B2, B1 and the band occupancy also with their launches a
-    training step (train_launches).
-11. The last line: {"ok": true, "device": {...}}.
+    training step (train_launches); B2 and B6 at one edge channel as
+    build_band_attn and mp_banded_partial_attn with their launches in
+    phase 10a's serving, and the band occupancy's there (attn_launches).
+12. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -569,6 +609,24 @@ def _in_fast_band(got, want, what: str, mean_atol=None) -> str:
     return f"r={r:.7f}, max |diff| {diff.max():.4f} ppm, mean {diff.mean():.4f} ppm"
 
 
+def _near_exact(got, want, what: str) -> str:
+    """Fail unless bfloat16 attention peaks ``got`` follow the float32
+    ones: Pearson r above the fast band's 0.9999 and a mean |difference|
+    under its 1.0 ppm. The fast band's elementwise rtol 0.05 / atol 1.0
+    ppm is the JAX package's own for its trained model; on the random
+    attention weights of phase 10 (peaks of hundreds of ppm) the JAX
+    package's own bfloat16 forward leaves it at a few atoms
+    (tools/attention_fast_band.py), so the worst atom is printed, not
+    gated."""
+    diff = np.abs(got - want)
+    r = _pearson(got, want)
+    if not np.all(np.isfinite(got)) or r <= FAST_MIN_R or diff.mean() >= FAST_ATOL:
+        raise SystemExit(f"chip_smoke: {what}: r={r:.7f}, mean |diff| {diff.mean():.4f}")
+    out = int((diff > FAST_ATOL + FAST_RTOL * np.abs(want)).sum())
+    return (f"r={r:.7f}, mean |diff| {diff.mean():.4f} ppm, max {diff.max():.4f} ppm, "
+            f"{out} of {len(got)} atoms outside rtol 0.05 / atol 1.0")
+
+
 def _wall_ms(model, g, runs: int) -> float:
     """Median host-clock time of ``model.predict(g)``, in ms."""
     walls = []
@@ -889,7 +947,8 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
         "frame_wall_s": {"exact": exact_s, "fast": fast_s, "exact_bf16": bf16_s},
         "fast_branches": branches, "forward_breakdown": breakdown,
         "mp_occupancy_split_ms": split,
-    }, dict(gt=gt, plan=plan, plan_d=plan_d, nodes=nodes, inv_p=inv_p)
+    }, dict(gt=gt, plan=plan, plan_d=plan_d, nodes=nodes, inv_p=inv_p, graph=graphs[0],
+            coords=struct.coords[0])
 
 
 def _phase6(args, dev, params, cfg, counts, expect) -> dict:
@@ -1791,6 +1850,340 @@ def _phase9(args, dev, counts, expect) -> dict:
     }
 
 
+def _phase10(args, dev, small, large, check, counts, expect) -> dict:
+    """The attention family at the baseline's width (see the module's
+    docstring, phase 10). ``small``: phase 4's inputs (its 3 frames, their
+    RCM order and the 2,482-atom coordinates); ``large``: phase 5's (the
+    supercell's frame 0 and coordinates). Returns its results."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig, TrainConfig
+    from nmrgnn_tpu_torch.data.dataset import read_fragments, split_dataset
+    from nmrgnn_tpu_torch.data.device_graph import fragment_device
+    from nmrgnn_tpu_torch.data.embeddings import load_standards
+    from nmrgnn_tpu_torch.data.neighbors import neighbors_device, neighbors_host
+    from nmrgnn_tpu_torch.data.organic import random_molecule, write_organic_fragments
+    from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
+    from nmrgnn_tpu_torch.graph import Graph, inv_degree_from_nlist
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.infer import (_edge_features, apply_banded_attention,
+                                               padding_rows)
+    from nmrgnn_tpu_torch.models.serving import CHEB_DEGREE, ServingModel
+    from nmrgnn_tpu_torch.ops import banded
+    from nmrgnn_tpu_torch.ops.edgefn import fit_edge_chebyshev
+    from nmrgnn_tpu_torch.ops.message_passing import attention_weights
+    from nmrgnn_tpu_torch.train.trainer import Trainer
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = ModelConfig(mp_type="attention")
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(args.seed), load_standards(),
+                             device=dev)
+    L = cfg.mp_layers
+    graphs = small["graphs"]
+    n_params = gnn.count_params(params)
+
+    # -- 10a: serving the 2,482-atom frames --------------------------------------
+    _reset_counts()
+    model = ServingModel(params, cfg, device=dev)
+    peaks, frame_s = [], []
+    for g in graphs:
+        t0 = time.perf_counter()
+        peaks.append(model.predict(g))
+        frame_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    exact_launches = counts()
+    if model._resolved != "banded_attn":
+        raise SystemExit(f"chip_smoke: the attention model resolved {model._resolved!r}")
+    plan = model._plan
+    print(f"phase 10a: attention model, {n_params} parameters (F={cfg.atom_feature_size} "
+          f"E={cfg.edge_feature_size} H={cfg.edge_hidden_size} K={cfg.neighbor_number}, "
+          f"{L} MP layers, random weights from --seed); {len(graphs)} frames of "
+          f"{graphs[0].nlist.shape[0]} atoms through {model._resolved!r} (T={plan.num_tiles}, "
+          f"W={plan.window}), launches {exact_launches}, per-frame wall ms "
+          f"{[round(t * 1e3, 3) for t in frame_s]}")
+    nf = len(graphs)
+    expect(exact_launches, build_band=L * nf, mp_banded_partial=L * nf, band_occupancy=nf)
+    gather = ServingModel(params, cfg, device=dev)
+    gather._resolved = "gather"
+    worst = 0.0
+    for f, (g, p) in enumerate(zip(graphs, peaks)):
+        ref = gather.predict(g)
+        if p.shape != ref.shape or not np.all(np.isfinite(p)):
+            raise SystemExit(f"chip_smoke: attention frame {f}: peaks not finite")
+        np.testing.assert_allclose(p, ref, rtol=2e-4, atol=2e-4)
+        worst = max(worst, float(np.max(np.abs(p - ref))))
+    if np.array_equal(peaks[0], peaks[1]):
+        raise SystemExit("chip_smoke: jittered frames gave identical attention peaks")
+    print(f"phase 10a: exact peaks finite, max|banded_attn - gather| = {worst:.3e} (rtol/atol "
+          f"2e-4)")
+
+    # the forward on frame 0 directly, and its kernels against their plain versions
+    g_rcm = permute_graph(graphs[0], model._order, pin_zero=False)[0]
+    gt = _on_card(g_rcm, dev)
+    plan_d = banded.plan_on_device(plan, dev)
+    rows = padding_rows(g_rcm.nlist, g_rcm.edges)
+    T, B, W = plan.num_tiles, plan.block_rows, plan.window
+    N, K = g_rcm.nlist.shape
+    F = cfg.atom_feature_size
+    def fwd(c=cfg, **kw):
+        return apply_banded_attention(params, c, gt, plan_d, pad_rows=rows, **kw)
+
+    _reset_counts()
+    direct = fwd()
+    torch.cuda.synchronize()
+    direct_launches = counts()
+    expect(direct_launches, build_band=L, mp_banded_partial=L, band_occupancy=1)
+    plain = fwd(use_kernels=False)
+    torch.testing.assert_close(direct, plain, rtol=2e-4, atol=2e-4)
+    print(f"phase 10a: apply_banded_attention launches {direct_launches}; kernels vs plain max "
+          f"|diff| {float((direct - plain).abs().max()):.3e} (rtol/atol 2e-4)")
+    e = _edge_features(params, cfg, gt.edges)
+    nodes = torch.nn.functional.pad(gnn.dense(params["embed"], gt.atoms),
+                                    (0, 0, 0, plan.n_padded - N))
+    p0 = params["mp"][0]
+    a = attention_weights(p0["wq"], p0["wk"], nodes[:N], e, gt.inv_degree)
+    a_band = torch.where(gt.edges > 0, a, 0.0)[..., None].contiguous()
+    real_edges = int((g_rcm.edges > 0).sum())
+    M = check(
+        "build_band_attn", "nmrgnn_tpu/ops/banded.py:484",
+        lambda: banded.build_band(gt.nlist, a_band, plan_d),
+        lambda: banded.build_band_plain(gt.nlist, a_band, plan_d),
+        tol=0.0, exact=True, flops=2 * real_edges,
+        nbytes=N * K * 8 + T * 4 + T * B * W * 4, phase=10,
+        **_build_timing(dev, "build_band", (T, 1, B, W), f32))
+    occ = banded.band_occupancy(gt.nlist, gt.edges, plan_d.lo, W, B, plan.n_padded)
+    _, _, row_chunks, load = _mp_load([(occ, B, W)], F)
+    wv = p0["wv"][:, :, None]
+    for dt, tag, eb, peak in ((f32, "float32", 4, PEAK_F32_FLOPS),
+                              (bf16, "bfloat16", 2, PEAK_BF16_FLOPS)):
+        Md, table = M.to(dt), nodes.to(dt)
+        nnz = int((Md != 0).sum())
+        check(
+            "mp_banded_partial_attn", "nmrgnn_tpu/ops/banded.py:833",
+            lambda Md=Md, table=table: banded.mp_banded_partial(Md, plan_d.lo, table, wv, occ),
+            lambda Md=Md, table=table: banded.mp_banded_partial_plain(Md, plan_d.lo, table, wv),
+            tol=2e-4, tol_of_max=BF16_STEP if dt == bf16 else 0.0,
+            flops=2 * nnz * F + 2 * T * B * F * F,
+            nbytes=(row_chunks * 16 * eb + occ.numel() * 4 + T * 4 + T * B * F * 4
+                    + plan.n_padded * F * eb + F * F * eb),
+            peak=peak, source="hbm.cu", dtype=tag, row=dt == f32, phase=10,
+            extra=f"; E=1, band {nnz} nonzeros{load}")
+
+    # fast and exact bfloat16 serving, and predict_frames
+    cheb = fit_edge_chebyshev(params["edge_fc"], rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
+                              rbf_count=cfg.edge_hidden_size, activation=cfg.fc_activation,
+                              degree=CHEB_DEGREE)
+    cheb_d = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    served = {}
+    for tag, kw in (("fast", dict(precision="fast")), ("exact_bf16", {})):
+        _reset_counts()
+        m = ServingModel(params, cfg16 if tag == "exact_bf16" else cfg, device=dev, **kw)
+        served[tag] = [m.predict(g) for g in graphs]
+        torch.cuda.synchronize()
+        launches = counts()
+        expect(launches, build_band=L * nf, mp_banded_partial=L * nf, band_occupancy=nf)
+        for f, p in enumerate(served[tag]):
+            print(f"phase 10a: {tag} frame {f} ({m._resolved}) vs exact frame {f}: "
+                  f"{_near_exact(p, peaks[f], f'attention {tag} frame {f}')}")
+        # the kernels against their plain versions in the same arithmetic
+        ch = cheb_d if tag == "fast" else None
+        print(f"phase 10a: {tag} forward, kernels vs plain: " + _in_fast_band(
+            fwd(cfg16, cheb=ch).cpu().numpy(),
+            fwd(cfg16, cheb=ch, use_kernels=False).cpu().numpy(),
+            f"attention {tag} kernels vs plain", 0.05))
+    _reset_counts()
+    batch = ServingModel(params, cfg, device=dev).predict_frames(graphs)
+    torch.cuda.synchronize()
+    frames_launches = counts()
+    expect(frames_launches, build_band=L, mp_banded_partial=L, band_occupancy=1)
+    np.testing.assert_allclose(batch, np.stack(peaks), rtol=2e-4, atol=2e-4)
+    print(f"phase 10a: predict_frames of {nf} frames: launches {frames_launches}, max "
+          f"|batch - per-frame predict| {float(np.max(np.abs(batch - np.stack(peaks)))):.3e} "
+          f"(rtol/atol 2e-4)")
+
+    fwd_fns = {
+        "exact": lambda: fwd(),
+        "exact_plain": lambda: fwd(use_kernels=False),
+        "fast": lambda: fwd(cfg16, cheb=cheb_d),
+        "exact_bf16": lambda: fwd(cfg16),
+        "gather": lambda: gnn.apply(params, cfg, gt),
+    }
+    fwd_ms = {k: _time_ms(f, 10) for k, f in fwd_fns.items()}
+    predict_ms = {"exact": _wall_ms(model, graphs[-1], 10)}
+    print("phase 10a: forwards on the card (median of 10, CUDA events): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in fwd_ms.items())
+          + f"; predict() wall {predict_ms['exact']:.3f} ms (host clock)")
+    breakdown = ({k: _profile_forward(fwd_fns[k], fwd_ms[k], f"attention {k}")
+                  for k in ("exact", "fast", "gather")} if args.profile else None)
+
+    # -- 10b: the padding row of a small molecule ------------------------------------
+    rng = np.random.default_rng(args.seed)
+    while True:
+        coords_m, elem = random_molecule(rng)
+        if coords_m.shape[0] < cfg.neighbor_number + 1:
+            break
+    nl_m, d_m = neighbors_host(coords_m, cfg.neighbor_number)
+    mol = Graph(np.eye(cfg.num_elements, dtype=np.float32)[elem], nl_m.astype(np.int32),
+                (d_m * 0.1).astype(np.float32), inv_degree_from_nlist(nl_m))
+    m = ServingModel(params, cfg, device=dev)
+    got = m.predict(mol)
+    gm = ServingModel(params, cfg, device=dev)
+    gm._resolved = "gather"
+    want = gm.predict(mol)
+    mol_rcm = permute_graph(mol, m._order, pin_zero=False)[0]
+    pad_at = padding_rows(mol_rcm.nlist, mol_rcm.edges).tolist()
+    if m._resolved != "banded_attn" or pad_at == [0] or not pad_at:
+        raise SystemExit(f"chip_smoke: the molecule resolved {m._resolved!r} with padding "
+                         f"rows {pad_at}")
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    print(f"phase 10b: a molecule of {mol.nlist.shape[0]} atoms "
+          f"({int((mol.edges == 0).sum())} padding slots, which name row {pad_at} after the "
+          f"RCM reorder): max|banded_attn - gather| {float(np.max(np.abs(got - want))):.3e} "
+          f"(rtol/atol 2e-4)")
+
+    # -- 10c: the 44,676-atom supercell --------------------------------------------------
+    big = ServingModel(params, cfg, device=dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    big_peaks = big.predict(large["graph"])
+    big_wall = time.perf_counter() - t0
+    big_launches = counts()
+    if big._resolved != "gather" or any(big_launches.values()):
+        raise SystemExit(f"chip_smoke: the supercell resolved {big._resolved!r}, launches "
+                         f"{big_launches}")
+    if not np.all(np.isfinite(big_peaks)):
+        raise SystemExit("chip_smoke: supercell attention peaks not finite")
+    big_gt = _on_card(large["graph"], dev)
+    big_ms = _time_ms(lambda: gnn.apply(params, cfg, big_gt), 3, 2)
+    print(f"phase 10c: {large['graph'].nlist.shape[0]} atoms resolve {big._resolved!r} (the "
+          f"E=1 band past the node-table budget); peaks finite, first predict() "
+          f"{big_wall * 1e3:.1f} ms (host clock), the gather forward {big_ms:.4f} ms (median "
+          f"of 3, CUDA events)")
+
+    # -- 10d: training ----------------------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    cfg_t = cfg.replace(learning_rate=1e-3)
+    noise = torch.randn((N, K), generator=gen, device=dev)
+    keep = torch.rand((N, F // 2), generator=gen, device=dev) < 1.0 - cfg.dropout_rate
+    wts = torch.rand((N,), generator=gen, device=dev)
+    leaves = gnn.trainable_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    grads, peaks_d = [], []
+    for use_kernels in (True, False):
+        _reset_counts()
+        out = apply_banded_attention(params, cfg_t, gt, plan_d, pad_rows=rows,
+                                     differentiable=True, training=True, noise=noise,
+                                     dropout_mask=keep, use_kernels=use_kernels)
+        grads.append(torch.autograd.grad((out * wts).sum(), leaves))
+        peaks_d.append(out.detach())
+        if use_kernels:
+            torch.cuda.synchronize()
+            df_launches = counts()
+    for t in leaves:
+        t.requires_grad_(False)
+    expect(df_launches, build_band=L, mp_banded_partial=L, band_occupancy=1)
+    torch.testing.assert_close(peaks_d[0], peaks_d[1], rtol=2e-4, atol=2e-4)
+    # the last EdgeFC bias moves every real key of a row alike, to which the
+    # softmax is blind: with no padding slot in the graph its gradient is 0
+    # but for rounding, so it is held to the largest gradient's scale
+    blind = id(params["edge_fc"][-1]["bias"])
+    top = max(float(g.abs().max()) for g in grads[1])
+    worst_grad = 0.0
+    for i, (t, gk, gp) in enumerate(zip(leaves, *grads)):
+        scale = top if id(t) == blind else float(gp.abs().max())
+        err = float((gk - gp).abs().max())
+        if not torch.isfinite(gk).all() or err > 1e-6 * scale:
+            raise SystemExit(f"chip_smoke: attention gradient leaf {i} {tuple(gp.shape)}: max "
+                             f"|kernels - plain| {err:.3e} > 1e-6 x {scale:.3e}")
+        worst_grad = max(worst_grad, err / max(scale, 1e-30))
+    print(f"phase 10d: differentiable apply_banded_attention (noise and dropout on) launches "
+          f"{df_launches}; gradients kernels vs plain max |diff| / max |g| {worst_grad:.2e} "
+          f"over {len(leaves)} leaves (tol 1e-6)")
+    tcfg = TrainConfig(batch_size=8, pad_to=64, seed=args.seed, epochs=2, validation=0.1)
+    with tempfile.TemporaryDirectory() as tmp:
+        records = os.path.join(tmp, "organic.tfrecord")
+        t0 = time.perf_counter()
+        written = write_organic_fragments(records, n_molecules=320, seed=args.seed)
+        write_s = time.perf_counter() - t0
+        train, val = split_dataset([records], tcfg.validation)
+        if len(list(read_fragments(records))) != written:
+            raise SystemExit("chip_smoke: organic fragments not read back")
+    trainer = Trainer(cfg_t, tcfg, device=dev)
+    if trainer.use_banded:
+        raise SystemExit("chip_smoke: the attention trainer took the banded path")
+    state = trainer.init_state(torch.Generator().manual_seed(args.seed))
+    t0 = time.perf_counter()
+    state = trainer.fit(train, val, state=state, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    hist = state.history
+    if not all(np.all(np.isfinite(v)) for v in hist.values()) or not \
+            hist["loss"][-1] < hist["loss"][0]:
+        raise SystemExit(f"chip_smoke: attention training: {hist}")
+    opt = trainer.optimizer(state)
+    dg, dy, dw = trainer._resident_dataset(train)
+    idx = trainer._batch_rows(np.arange(3 * tcfg.batch_size))
+    batch = lambda ib: (Graph(*[a[ib] for a in dg]), dy[ib], dw[ib])  # noqa: E731
+    step_ms = _time_ms(lambda: trainer.train_step(state, opt, *batch(idx[0]), gen), 10, 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ib in idx:
+            last = trainer.train_step(state, opt, *batch(ib), gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"phase 10d: {written} organic molecules written in {write_s:.2f} s ({len(train)} "
+          f"train, {len(val)} validation); fit {tcfg.epochs} epochs on the gather path in "
+          f"{fit_s:.2f} s: loss {[round(v, 4) for v in hist['loss']]}, val_loss "
+          f"{[round(v, 4) for v in hist['val_loss']]}; {len(idx)} resident steps with no host "
+          f"sync (last loss {float(last):.4f}); one step ({tcfg.batch_size} x {tcfg.pad_to}) "
+          f"{step_ms:.4f} ms (median of 10 runs of 5, CUDA events)")
+
+    # -- 10e: device graph builds -------------------------------------------------------
+    builds = {}
+    for label, coords in ((str(N), small["coords"]), (str(large["coords"].shape[0]),
+                                                       large["coords"])):
+        k = cfg.neighbor_number
+        c_d = torch.as_tensor(np.asarray(coords, np.float32), device=dev)
+        knn_ms = _time_ms(lambda: neighbors_device(c_d, k), 3, 1)
+        seeds = torch.arange(0, c_d.shape[0], 64, device=dev)
+        frag_ms = _time_ms(lambda: fragment_device(c_d, seeds, 256, k), 3, 1)
+        t0 = time.perf_counter()
+        neighbors_host(np.asarray(coords, np.float32), k)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        hi, hd = neighbors_host(np.asarray(coords, np.float32), k + 1)
+        nl_d, d_d = (t.cpu().numpy() for t in neighbors_device(c_d, k))
+        clear = hd[:, k] - hd[:, k - 1] > 0.05
+        bad = sum(set(nl_d[i]) != set(hi[i, :k]) for i in np.flatnonzero(clear))
+        d_err = float(np.max(np.abs(np.sort(d_d, 1) - hd[:, :k])))
+        if bad or d_err > 0.02:
+            raise SystemExit(f"chip_smoke: neighbors_device at {label} atoms: {bad} rows' sets "
+                             f"differ from the host's, distances off by {d_err:.3e} A")
+        members, nbr, dist, weight = fragment_device(c_d, seeds, 256, k)
+        if int(nbr.max()) >= 256 or not bool((dist > 0).all()):
+            raise SystemExit(f"chip_smoke: fragment_device at {label} atoms out of range")
+        builds[label] = {"neighbors_device_ms": knn_ms, "fragment_device_ms": frag_ms,
+                         "fragments": int(seeds.numel()), "neighbors_host_ms": host_ms,
+                         "rows_checked": int(clear.sum()), "max_dist_err": d_err}
+        print(f"phase 10e: {label} atoms: neighbors_device {knn_ms:.4f} ms, fragment_device "
+              f"({seeds.numel()} fragments of 256) {frag_ms:.4f} ms (median of 3, CUDA events); "
+              f"neighbors_host {host_ms:.2f} ms (host clock); sets equal the host's on "
+              f"the {int(clear.sum())} of {len(clear)} rows whose 16th and 17th distances "
+              f"differ by > 0.05 A, distances within {d_err:.2e} A")
+    return {
+        "parameters": n_params, "launches": exact_launches, "direct_launches": direct_launches,
+        "frames_launches": frames_launches, "df_launches": df_launches,
+        "padding_rows": pad_at, "max_gather_diff": worst, "forward_ms": fwd_ms,
+        "predict_wall_ms": predict_ms, "frame_wall_s": frame_s, "forward_breakdown": breakdown,
+        "supercell": {"path": big._resolved, "gather_ms": big_ms, "first_predict_s": big_wall},
+        "grad_max_rel_err": worst_grad, "training": {
+            "molecules": written, "history": hist, "fit_s": fit_s, "step_ms": step_ms},
+        "graph_builds": builds,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2241,6 +2634,10 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     training = _phase9(args, dev, counts, expect)
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    attention = _phase10(args, dev, dict(graphs=graphs, coords=struct.coords[0]), large_inputs,
+                         check, counts, expect)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     checks.append({"name": "training_step", "phase": 9,
                    "max_abs_err": training["peaks_max_abs_err"],
                    "loss_rel_err": training["loss_rel_err"],
@@ -2248,6 +2645,10 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in ("build_band", "mp_banded", "band_occupancy"):
             k["train_launches"] = training["launches"][k["name"]]
+        if k["name"] in ("build_band_attn", "mp_banded_partial_attn"):
+            k["launches"] = attention["launches"][k["name"][:-len("_attn")]]
+        if k["name"] == "band_occupancy":
+            k["attn_launches"] = attention["launches"]["band_occupancy"]
     for k in kernels:
         for phase in (large, wide, last):
             if k["name"] in phase["launches"]:
@@ -2267,6 +2668,7 @@ def main(argv=None) -> int:
                 "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,
                 "wide": wide, "last_kernels": last, "training": training,
+                "attention": attention,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,10 @@ toward the degree, and degree 0 gives inv_degree 0.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 class Graph(NamedTuple):
@@ -46,6 +47,19 @@ def pad_graph(g: Graph, pad_to: int) -> Graph:
     )
 
 
+def pad_graph_np(atoms, nlist, edges, inv_degree, pad_to: int):
+    """``pad_graph`` on the four arrays, returned as a tuple."""
+    return tuple(pad_graph(Graph(atoms, nlist, edges, inv_degree), pad_to))
+
+
+def atom_mask(g: Graph):
+    """f32[..., N]: 1 for real atoms (a nonzero one-hot row), 0 for padding;
+    a tensor for a tensor graph, else a numpy array."""
+    if isinstance(g.atoms, torch.Tensor):
+        return (g.atoms.sum(-1) > 0).to(torch.float32)
+    return (np.sum(np.asarray(g.atoms), axis=-1) > 0).astype(np.float32)
+
+
 def bucket_size(
     n: int,
     buckets=(256, 512, 768, 1024, 1536, 2048, 2560, 3072, 4096, 6144, 8192,
@@ -56,3 +70,24 @@ def bucket_size(
         if n <= b:
             return b
     return ((n + 1023) // 1024) * 1024
+
+
+def ring_graph(
+    n: int = 5,
+    k: int = 2,
+    num_elements: int = 16,
+    edge_value: float = 1.0,
+    elements: Optional[list] = None,
+) -> Graph:
+    """The reference's 5-node ring test fixture (numpy arrays): node i's
+    neighbors are (i - 1, i + 1, i + 3, ...) mod n in its k slots, every
+    distance ``edge_value``, inv_degree 1 / k; element (3 i + 2) mod
+    ``num_elements`` unless ``elements`` is given."""
+    if elements is None:
+        elements = [(3 * i + 2) % num_elements for i in range(n)]
+    atoms = np.zeros((n, num_elements), dtype=np.float32)
+    atoms[np.arange(n), np.asarray(elements) % num_elements] = 1.0
+    nlist = ((np.arange(n)[:, None] + np.arange(-1, 2 * k - 1, 2)[None, :]) % n).astype(np.int32)
+    edges = np.full((n, k), edge_value, dtype=np.float32)
+    inv_degree = np.full((n,), 1.0 / k, dtype=np.float32)
+    return Graph(atoms, nlist, edges, inv_degree)

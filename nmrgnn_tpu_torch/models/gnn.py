@@ -14,7 +14,10 @@ dict of tensors in the JAX package's layout.
 
 Parameter layout: {"embed": {"kernel"}, "edge_fc": [{"kernel", "bias"}],
 "mp": [{"w": [F, F, E]}], "fc": [...], "out": {...}, "peak_std",
-"peak_avg"}.
+"peak_avg"}. An ``mp_type="attention"`` model (the AMPLayer family) holds
+``{"wq": [F, E], "wk": [E, E], "wv": [F, F]}`` per MP layer instead, and
+its layers are ``ops.message_passing.amp_layer``, float32 whatever the
+compute type (``nmrgnn_tpu/models/gnn.py:192-200``).
 
 Training mode (``training=True``, ``nmrgnn_tpu/models/gnn.py:144-236``)
 adds Gaussian noise of std ``config.noise`` to the distances before the
@@ -45,7 +48,7 @@ from ..graph import Graph
 from ..ops import edge
 from ..ops.edge import as_operand
 from ..ops.activations import get_activation
-from ..ops.message_passing import mp_layer
+from ..ops.message_passing import amp_layer, mp_layer
 
 Params = Dict[str, Any]
 
@@ -98,19 +101,20 @@ def init_params(
     """Keras-default initialization (glorot-uniform kernels, zero biases),
     drawn on the CPU from ``generator`` and moved to ``device``. The MP
     weight w[F, F, E] takes the rank-3 glorot fan of Keras: fan_in = F*F,
-    fan_out = E*F. ``peak_standards`` maps element index -> (name, avg,
-    std); peak_std defaults to 1 and peak_avg to 0."""
-    if config.mp_type != "bilinear":
-        raise NotImplementedError(
-            "mp_type='attention' is a later slice of the port (ROADMAP queue A3/A6)"
-        )
+    fan_out = E*F; an attention model's wq [F, E], wk [E, E] and wv [F, F]
+    take their own two dimensions as fans. ``peak_standards`` maps element
+    index -> (name, avg, std); peak_std defaults to 1 and peak_avg to 0."""
     dev = resolve_device(device)
     F, E, H, V = (config.atom_feature_size, config.edge_feature_size,
                   config.edge_hidden_size, config.num_elements)
     edge_fc = [_dense_init(generator, H, H) for _ in range(config.edge_fc_layers - 1)]
     edge_fc.append(_dense_init(generator, H, E))
-    mp = [{"w": _glorot(generator, (F, F, E), F * F, E * F)}
-          for _ in range(config.mp_layers)]
+    if config.mp_type == "attention":
+        mp = [{"wq": _glorot(generator, (F, E), F, E), "wk": _glorot(generator, (E, E), E, E),
+               "wv": _glorot(generator, (F, F), F, F)} for _ in range(config.mp_layers)]
+    else:
+        mp = [{"w": _glorot(generator, (F, F, E), F * F, E * F)}
+              for _ in range(config.mp_layers)]
     fc = [_dense_init(generator, F, F) for _ in range(config.fc_layers - 1)]
     fc.append(_dense_init(generator, F, F // 2))
     peak_std = torch.ones((V,), dtype=torch.float32)
@@ -221,7 +225,11 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, training: bool =
     e = edge_features(params, config, noised(config, edges, noise), mask=mask)
     nodes = dense(params["embed"], atoms)
     for p in params["mp"]:
-        nodes = mp_layer(p["w"], nodes, nlist, e, inv_degree, mp_act, cd) + nodes
+        if config.mp_type == "attention":
+            upd = amp_layer(p["wq"], p["wk"], p["wv"], nodes, nlist, e, inv_degree, mp_act)
+        else:
+            upd = mp_layer(p["w"], nodes, nlist, e, inv_degree, mp_act, cd)
+        nodes = upd + nodes
     return readout(params, config, atoms, nodes, dropout_mask=dropout_mask)
 
 

@@ -23,6 +23,15 @@ once (``band_occupancy``, from nlist, the distances and the window starts)
 and hands it to every MP layer that reads the band, so the MP kernel
 stages only the chunks that hold a nonzero.
 
+``apply_banded_attention`` (``nmrgnn_tpu/models/infer.py:444-533``) serves
+the attention family (AMPLayer) on the band: per MP layer the softmax
+weights of the real slots make a one-channel band (``build_band``, E=1),
+``mp_banded_partial`` multiplies it with the node table and wv, and the
+padding slots' softmax mass comes back as one rank-1 term per distinct
+row that padding slots name, as ``gnn.apply`` sends it.
+``apply_banded_attention_frames`` runs it over a stack of frames laid end
+to end, as ``apply_banded_frames`` does.
+
 ``apply_banded_fragments`` and ``apply_banded_trainable``
 (``nmrgnn_tpu/models/infer.py:536-686``) are the differentiable banded
 forwards of training: a batch of padded fragments laid end to end
@@ -69,6 +78,7 @@ from ..ops.banded import (
     build_band_poly_plain,
     build_band_df,
     mp_banded,
+    mp_banded_partial_df,
     mp_banded_df,
     mp_banded_hbm,
     mp_banded_hbm_cls,
@@ -91,12 +101,14 @@ from ..ops.blocksparse import (
     struct_on_device,
 )
 from ..ops.edge import edge_features as _edge_stage
-from ..ops.edgefn import EdgeCheb
+from ..ops.edgefn import EdgeCheb, eval_edge_chebyshev_device
+from ..ops.message_passing import attention_weights
 from .gnn import compute_dtype, dense, flatten_batch, noised, readout, training_draws
 from .gnn import edge_features as _edge_features
 
 __all__ = ["_edge_features", "_readout", "precompute_band", "apply_banded",
            "apply_banded_classes", "apply_banded_hbm_classes", "apply_banded_frames",
+           "padding_rows", "apply_banded_attention", "apply_banded_attention_frames",
            "fragment_band_plan", "apply_banded_fragments", "apply_banded_trainable",
            "precompute_structure", "apply_blocksparse"]
 
@@ -309,6 +321,22 @@ def apply_banded_hbm_classes(
     return _readout(params, config, atoms, nodes[:n].float())
 
 
+def _frames_end_to_end(nlist, edges, plan: BandPlan):
+    """(nlist, edges, plan) of a stack of frames [Fr, N, K] laid end to
+    end, each padded to ``plan.n_padded`` rows: frame f's indices and
+    window starts move by f * n_padded, its padded rows hold index -1 (no
+    row) and distance 0."""
+    fr, n = nlist.shape[:2]
+    npad = plan.n_padded
+    offsets = torch.arange(fr, device=nlist.device, dtype=torch.int32)[:, None, None] * npad
+    nlist_p = nnf.pad(nlist, (0, 0, 0, npad - n), value=-1)
+    nlist_b = torch.where(nlist_p >= 0, nlist_p + offsets, nlist_p).reshape(fr * npad, -1)
+    lo_b = plan_on_device(plan, nlist.device).lo[None, :] + offsets[:, 0]
+    big_plan = plan._replace(lo=lo_b.reshape(-1).contiguous(), n_padded=fr * npad)
+    edges_b = nnf.pad(edges, (0, 0, 0, npad - n)).reshape(fr * npad, -1)
+    return nlist_b.contiguous(), edges_b, big_plan
+
+
 def apply_banded_frames(
     params,
     config: ModelConfig,
@@ -330,16 +358,9 @@ def apply_banded_frames(
     ``apply_banded``'s."""
     atoms, nlist, edges, inv_degree = graphs
     fr, n = atoms.shape[:2]
-    dev = atoms.device
     npad = plan.n_padded
     pad = npad - n
-    offsets = torch.arange(fr, device=dev, dtype=torch.int32)[:, None, None] * npad
-    nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
-    nlist_b = torch.where(nlist_p >= 0, nlist_p + offsets, nlist_p).reshape(fr * npad, -1)
-    lo_b = plan_on_device(plan, dev).lo[None, :] + offsets[:, 0]
-    big_plan = plan._replace(lo=lo_b.reshape(-1).contiguous(), n_padded=fr * npad)
-    nlist_b = nlist_b.contiguous()
-    edges_b = nnf.pad(edges, (0, 0, 0, pad)).reshape(fr * npad, -1)
+    nlist_b, edges_b, big_plan = _frames_end_to_end(nlist, edges, plan)
     M = _band(params, config, nlist_b, edges_b, big_plan, use_kernels, True, cheb)
     F = params["embed"]["kernel"].shape[-1]
     nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
@@ -349,6 +370,143 @@ def apply_banded_frames(
                        _occupancy(params["mp"], nlist_b, edges_b, big_plan, use_kernels))
     nodes = nodes.view(fr, npad, F)[:, :n].reshape(fr * n, F).float()
     return _readout(params, config, atoms.reshape(fr * n, -1), nodes).view(fr, n)
+
+
+def padding_rows(nlist, edges) -> np.ndarray:
+    """int64[P]: the distinct rows, sorted, that the padding slots of a
+    graph name (slots with distance <= 0 and an index >= 0; a negative
+    index names no row). One row in practice: 0 as the graph is built, or
+    where the RCM permutation sent row 0. Found on the host; tensors are
+    copied there (one wait for the device)."""
+    if isinstance(nlist, torch.Tensor):
+        nlist, edges = nlist.cpu().numpy(), edges.cpu().numpy()
+    nl = np.asarray(nlist)
+    return np.unique(nl[(np.asarray(edges) <= 0) & (nl >= 0)]).astype(np.int64)
+
+
+def _padding_slots(nlist, real, rows: torch.Tensor) -> torch.Tensor:
+    """f32[N, K, P]: slot (i, j) -> 1 at the position of its row among
+    ``rows`` (sorted) where it is a padding slot naming one of them, else 0."""
+    P = rows.shape[0]
+    pos = torch.searchsorted(rows, nlist.long()).clamp(max=P - 1)
+    hit = ~real & (rows[pos] == nlist.long())
+    return nnf.one_hot(pos, P).to(torch.float32) * hit[..., None].to(torch.float32)
+
+
+def apply_banded_attention(
+    params,
+    config: ModelConfig,
+    graph: Graph,
+    plan: BandPlan,
+    *,
+    use_kernels: bool = True,
+    differentiable: bool = False,
+    training: bool = False,
+    noise=None,
+    dropout_mask=None,
+    generator=None,
+    cheb: EdgeCheb = None,
+    pad_rows=None,
+) -> torch.Tensor:
+    """Attention-family (AMPLayer) forward on the band; peaks f32[N] for
+    the unpadded atoms, the numerics of ``gnn.apply``.
+
+    With softmax weights a[i, j] the layer is act(sum_j a[i, j] *
+    nodes[nlist[i, j]] @ wv): a banded aggregation with one edge channel
+    followed by a dense [F, F] product. Per MP layer: the weights in
+    float32 (``attention_weights``); the real slots' weights built into an
+    E=1 band (``build_band``, or ``build_band_df`` when ``differentiable``);
+    ``mp_banded_partial`` (``mp_banded_partial_df``) with wv[:, :, None];
+    then, for each row p that padding slots name (``pad_rows``, sorted;
+    None: ``padding_rows`` of the graph, which waits for the device), the
+    rank-1 term c_p[i] * (nodes[p] @ wv), c_p[i] the weight of row i's
+    padding slots that name p; then the activation and the residual. The
+    JAX package adds the padding mass at row 0 (``infer.py:515-526``), which
+    equals this only where padding slots name row 0: after the RCM
+    permutation they name the old row 0's new place.
+
+    The band's occupancy is made once per forward from nlist and the
+    distances before any noise (every layer's band has the same nonzero
+    slots) and handed to every partial product. The band, the node table
+    and wv go to the compute type; the query, keys, logits, softmax and the
+    padding term stay float32. The edge stage is the exact one or, given
+    ``cheb``, its Chebyshev evaluation (``eval_edge_chebyshev_device``);
+    both plain PyTorch, since the keys need the [N, K, E] features.
+    ``training=True`` adds the distance noise and the readout dropout
+    (``noise`` [N, K], ``dropout_mask`` [N, F // 2], or drawn from
+    ``generator``). ``use_kernels=False`` runs the plain versions (under
+    autograd)."""
+    atoms, nlist, edges, inv_degree = graph
+    n = atoms.shape[0]
+    dev = atoms.device
+    cd = compute_dtype(config)
+    mp_act = get_activation(config.mp_activation)
+    plan = plan_on_device(plan, dev)
+    if training:
+        noise, dropout_mask = training_draws(
+            config, edges, (n, config.atom_feature_size // 2), noise, dropout_mask, generator)
+    else:
+        noise = dropout_mask = None
+    real = edges > 0  # the distances before the noise
+    mask = real.to(torch.float32)[..., None]
+    d = noised(config, edges, noise)
+    if cheb is not None:
+        e = eval_edge_chebyshev_device(cheb, d) * mask
+    else:
+        e = _edge_features(params, config, d, mask=mask)
+    if use_kernels:
+        build = build_band_df if differentiable else build_band
+        partial = mp_banded_partial_df if differentiable else mp_banded_partial
+    else:
+        build, partial = build_band_plain, mp_banded_partial_plain
+    occ = _occupancy(params["mp"], nlist, edges, plan, use_kernels)
+    if pad_rows is None:
+        pad_rows = padding_rows(nlist, edges)
+    rows = torch.as_tensor(pad_rows, dtype=torch.int64).to(dev)
+    slots = _padding_slots(nlist, real, rows) if rows.numel() else None
+    pad = plan.n_padded - n
+    nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
+    for p in params["mp"]:
+        a = attention_weights(p["wq"], p["wk"], nodes[:n], e, inv_degree)  # [n, K]
+        M = build(nlist, torch.where(real, a, 0.0)[..., None], plan, out_dtype=cd)
+        upd = partial(M, plan.lo, nodes.to(cd), p["wv"][:, :, None], occ)[:n]
+        if slots is not None:
+            c = torch.einsum("ij,ijp->ip", a, slots)           # [n, P]
+            upd = upd + c @ (nodes[rows] @ p["wv"])
+        nodes = nodes + nnf.pad(mp_act(upd), (0, 0, 0, pad))
+    return _readout(params, config, atoms, nodes[:n], dropout_mask)
+
+
+def apply_banded_attention_frames(
+    params,
+    config: ModelConfig,
+    graphs: Graph,
+    plan: BandPlan,
+    cheb: EdgeCheb = None,
+    use_kernels: bool = True,
+    pad_rows=None,
+) -> torch.Tensor:
+    """``apply_banded_attention`` over a stack of same-atom frames; peaks
+    f32[Fr, N]. The frames are laid end to end, each padded to
+    ``plan.n_padded`` rows (``plan`` covers every frame): frame f's indices
+    and window starts move by f * n_padded and its padded rows hold index
+    -1 (no row) and distance 0, so each kernel is launched once a layer for
+    the whole batch. ``pad_rows``: per frame, the rows its padding slots
+    name (None: found from the graphs, which waits for the device); frame
+    f's move by f * n_padded too."""
+    atoms, nlist, edges, inv_degree = graphs
+    fr, n = atoms.shape[:2]
+    npad = plan.n_padded
+    flat = lambda a: nnf.pad(a, (0, 0) * (a.dim() - 2) + (0, npad - n)).reshape(  # noqa: E731
+        (fr * npad,) + tuple(a.shape[2:]))
+    if pad_rows is None:
+        pad_rows = [padding_rows(nl, d) for nl, d in zip(nlist, edges)]
+    rows = np.concatenate([np.asarray(r, np.int64) + f * npad for f, r in enumerate(pad_rows)])
+    nlist_b, edges_b, big_plan = _frames_end_to_end(nlist, edges, plan)
+    big = Graph(flat(atoms), nlist_b, edges_b, flat(inv_degree))
+    peaks = apply_banded_attention(params, config, big, big_plan, use_kernels=use_kernels,
+                                   cheb=cheb, pad_rows=np.unique(rows))
+    return peaks.view(fr, npad)[:, :n]
 
 
 def fragment_band_plan(batch_size: int, pad_to: int, block_rows: int = 128) -> BandPlan:

@@ -23,6 +23,14 @@ numerics, a structure takes; the Hopper kernels take any window.
 where the budget would refuse it), ``mode="blocksparse"`` the block-sparse
 one.
 
+An attention-family model (``mp_type="attention"``) ignores ``mode``, as
+in the JAX package: it resolves to ``"banded_attn"``
+(``apply_banded_attention``: one E=1 band a layer) when the band plan
+passes the node-table budget with one edge channel and no fused-build
+check (``_plan_if_attn``), else to ``"gather"`` (``gnn.apply``). The port
+keeps this rule on the CPU too, where the JAX package serves the family
+through "gather". Another non-bilinear ``mp_type`` resolves to "gather".
+
 Each later frame verifies the cached band plan against its own neighbor
 lists (``plan_covers``) and rebuilds it only when a real neighbor escapes
 its window; a frame whose new plan escapes the budget that chose the path
@@ -47,10 +55,11 @@ that the cached class plan does not cover take the uniform forward, as in
 the JAX package. "fast" serves on the CPU too, through the plain versions
 of the kernels.
 
-``predict_frames`` serves a batch of frames of a "banded" structure in one
-forward over their union plan (``apply_banded_frames``) with one readback,
-and the other paths frame by frame; ``predict_trajectory`` overlaps the
-host's graph builds with the forwards.
+``predict_frames`` serves a batch of frames of a "banded" or
+"banded_attn" structure in one forward over their union plan
+(``apply_banded_frames``, ``apply_banded_attention_frames``) with one
+readback, and the other paths frame by frame; ``predict_trajectory``
+overlaps the host's graph builds with the forwards.
 """
 from __future__ import annotations
 
@@ -82,13 +91,17 @@ from ..ops.banded import (
 )
 from ..ops.blocksparse import BlockStructure, block_structure, remap_frame, struct_on_device
 from ..ops.edgefn import EdgeCheb, fit_edge_chebyshev
+from . import gnn
 from .gnn import tree_map
 from .infer import (
     apply_banded,
+    apply_banded_attention,
+    apply_banded_attention_frames,
     apply_banded_classes,
     apply_banded_frames,
     apply_banded_hbm_classes,
     apply_blocksparse,
+    padding_rows,
 )
 
 CHEB_DEGREE = 64  # the Chebyshev fit the JAX package serves with
@@ -126,8 +139,6 @@ class ServingModel:
             raise ValueError(f"unknown precision {precision!r}")
         if mode not in ("auto", "banded", "blocksparse"):
             raise ValueError(f"unknown serving mode {mode!r}")
-        if config.mp_type != "bilinear":
-            raise NotImplementedError("attention-family serving is ROADMAP queue A6")
         if precision == "fast" and config.compute_dtype == "float32":
             config = config.replace(compute_dtype="bfloat16")
         self.device = resolve_device(device)
@@ -199,10 +210,27 @@ class ServingModel:
                 return plan
         return None
 
+    def _plan_if_attn(self, g: Graph) -> Optional[BandPlan]:
+        """A band plan for the attention band (one channel, no fused
+        build) within the node-table budget, trying half-height tiles for
+        wide bands; None if neither fits."""
+        cfg, b = self.config, self._dtype_bytes()
+        for block_rows in (self.block_size, self.block_size // 2):
+            plan = band_plan(g.nlist, g.edges, block_rows=block_rows)
+            if plan_fits_vmem(plan, cfg.atom_feature_size, n_edge_channels=1, dtype_bytes=b):
+                return plan
+        return None
+
     def _resolve_mode(self, g: Graph) -> str:
         """"banded", "banded_hbm" or "blocksparse" (a band past both
-        budgets), fixed until a frame escapes its budget."""
+        budgets); "banded_attn" or "gather" for a non-bilinear model;
+        fixed until a frame escapes its budget."""
         if self._resolved is not None:
+            return self._resolved
+        if self.config.mp_type != "bilinear":
+            plan = self._plan_if_attn(g) if self.config.mp_type == "attention" else None
+            self._resolved = "gather" if plan is None else "banded_attn"
+            self._plan = plan
             return self._resolved
         if self.mode != "auto":
             self._resolved = self.mode
@@ -225,6 +253,8 @@ class ServingModel:
         if self._plan is None or not plan_covers(self._plan, g.nlist, g.edges):
             if self._resolved == "banded_hbm":
                 plan = self._plan_if_hbm(g)
+            elif self._resolved == "banded_attn":
+                plan = self._plan_if_attn(g)
             else:
                 plan = self._plan_if_fits(g)
             if plan is None and self.mode == "banded":
@@ -319,6 +349,9 @@ class ServingModel:
         device."""
         g = self._prepare(Graph(*[np.asarray(a) for a in graph]))
         mode = self._resolve_mode(g)
+        if mode == "gather":
+            with torch.no_grad():
+                return gnn.apply(self.params, self.config, self._to_device(g)), self._inverse
         if mode == "blocksparse":
             struct = self._device_plan("struct", self._block_struct(g))
             peaks = apply_blocksparse(self.params, self.config, self._to_device(g), struct,
@@ -331,6 +364,12 @@ class ServingModel:
             return self._predict_async(graph)
         gt = self._to_device(g)
         plan_d = self._device_plan("plan", plan)
+        if mode == "banded_attn":
+            cheb = self._edge_cheb() if self.precision == "fast" else None
+            with torch.no_grad():
+                peaks = apply_banded_attention(self.params, self.config, gt, plan_d, cheb=cheb,
+                                               pad_rows=padding_rows(g.nlist, g.edges))
+            return peaks, self._inverse
         hbm = mode == "banded_hbm"
         if self.precision == "exact":
             return apply_banded(self.params, self.config, gt, plan_d, hbm_table=hbm), self._inverse
@@ -360,8 +399,10 @@ class ServingModel:
         in the same order), in one forward over a union band plan and one
         readback. The union plan is kept in its own slot, never in place of
         the single-frame plan. Falls back to per-frame ``predict`` when the
-        path is not "banded" or the union plan escapes its budget. Both
-        precisions take the uniform forward here, as in the JAX package."""
+        path is not "banded" or "banded_attn", or the union plan escapes its
+        budget (for "banded_attn" the node-table budget with one channel and
+        no fused-build check). Both precisions take the uniform forward
+        here, as in the JAX package."""
         gs = [Graph(*[np.asarray(a) for a in g]) for g in graphs]
         if self.reorder:
             if self._order is None or self._order.shape[0] != gs[0].atoms.shape[0]:
@@ -369,8 +410,10 @@ class ServingModel:
             pairs = [permute_graph(g, self._order, pin_zero=False) for g in gs]
             gs = [p[0] for p in pairs]
             self._inverse = pairs[0][1]
-        if self._resolve_mode(gs[0]) != "banded":
+        mode = self._resolve_mode(gs[0])
+        if mode not in ("banded", "banded_attn"):
             return np.stack([self.predict(g) for g in graphs])
+        attn = mode == "banded_attn"
         stack = Graph(*[np.stack([getattr(g, f) for g in gs]) for f in Graph._fields])
         plan = None
         for cand in (self._frames_plan, self._plan):
@@ -386,15 +429,23 @@ class ServingModel:
             # a union window one bucket wider than frame 0's plan may pass
             # the budget that chose the path: serve frame by frame then
             cfg, b = self.config, self._dtype_bytes()
-            if not (plan_fits_vmem(union, cfg.atom_feature_size, cfg.edge_feature_size,
-                                   dtype_bytes=b)
-                    and fused_build_ok(union, cfg.edge_hidden_size, cfg.edge_feature_size,
-                                       stack.nlist.shape[-1], out_bytes=b)):
+            if not (plan_fits_vmem(union, cfg.atom_feature_size,
+                                   1 if attn else cfg.edge_feature_size, dtype_bytes=b)
+                    and (attn or fused_build_ok(union, cfg.edge_hidden_size,
+                                                cfg.edge_feature_size, stack.nlist.shape[-1],
+                                                out_bytes=b))):
                 return np.stack([self.predict(g) for g in graphs])
             plan = self._frames_plan = union
         cheb = self._edge_cheb() if self.precision == "fast" else None
-        peaks = apply_banded_frames(self.params, self.config, self._to_device(stack),
-                                    self._device_plan("frames", plan), cheb=cheb)
+        plan_d, stack_d = self._device_plan("frames", plan), self._to_device(stack)
+        with torch.no_grad():
+            if attn:
+                peaks = apply_banded_attention_frames(
+                    self.params, self.config, stack_d, plan_d, cheb=cheb,
+                    pad_rows=[padding_rows(g.nlist, g.edges) for g in gs])
+            else:
+                peaks = apply_banded_frames(self.params, self.config, stack_d, plan_d,
+                                            cheb=cheb)
         return self._finalize(peaks, self._inverse if self.reorder else None)
 
     def predict_trajectory(

@@ -1460,3 +1460,144 @@ def test_trainer_step_on_the_card(dev):
     for a, b in zip(after["banded"], after["gather"]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     assert Trainer(cfg, TrainConfig(batch_size=4, pad_to=128)).use_banded  # "auto" on the card
+
+
+# -- the attention family: B2 and B6 at one edge channel, the forward, the
+# -- padding row, and the device k-NN
+
+def _softmax_band_case(dev, n=700, k=16, f=256, seed=0):
+    """A banded graph with padding slots (index 0, distance 0), the real
+    slots' softmax weights of random logits as one edge channel, a node
+    table and wv [F, F, 1] on the card."""
+    rng = np.random.default_rng(seed)
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-40, 40, (n, k)), 0, n - 1)
+    nlist = nlist.astype(np.int32)
+    dists = rng.uniform(0.05, 0.2, (n, k)).astype(np.float32)
+    pad = rng.uniform(size=(n, k)) < 0.2
+    dists[pad], nlist[pad] = 0.0, 0
+    logits = rng.normal(size=(n, k)).astype(np.float32)
+    a = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    a_band = np.where(dists > 0, a, 0.0).astype(np.float32)[..., None]
+    plan = banded.band_plan(nlist, dists)
+    nodes = rng.normal(size=(plan.n_padded, f)).astype(np.float32)
+    wv = (rng.normal(size=(f, f, 1)) / np.sqrt(f)).astype(np.float32)
+    nl, d, ab, x, w = _on(dev, nlist, dists, a_band, nodes, wv)
+    return nl, d, ab, x, w, banded.plan_on_device(plan, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_band_kernels_match_plain(dev, dtype):
+    """B2 on the softmax weights (E = 1) equals its plain version bit for
+    bit; B6 at E = 1, F = 256 against its plain version (the MP
+    tolerances), given the occupancy from nlist and the distances."""
+    nl, d, ab, x, w, plan = _softmax_band_case(dev)
+    before = (banded.build_band.launches, banded.mp_banded_partial.launches)
+    M = banded.build_band(nl, ab, plan, out_dtype=dtype)
+    assert torch.equal(M, banded.build_band_plain(nl, ab, plan, out_dtype=dtype))
+    assert M.shape[1] == 1
+    occ = banded.band_occupancy(nl, d, plan.lo, plan.window, plan.block_rows, plan.n_padded)
+    assert torch.equal(occ, banded.band_occupancy_from_band(M))
+    table = x.to(dtype)
+    got = banded.mp_banded_partial(M, plan.lo, table, w, occ)
+    torch.cuda.synchronize()
+    assert (banded.build_band.launches, banded.mp_banded_partial.launches) == (
+        before[0] + 1, before[1] + 1)
+    _mp_close(got, banded.mp_banded_partial_plain(M, plan.lo, table, w), dtype)
+
+
+def _attention_model(dev, f=256, mp_layers=4, **kw):
+    cfg = ModelConfig(atom_feature_size=f, mp_layers=mp_layers, mp_type="attention", **kw)
+    return cfg, gnn.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_banded_attention_forward_on_the_card(dev, compute_dtype):
+    """apply_banded_attention with the kernels: 4 B2, 4 B6 and 1 band
+    occupancy launches a forward of 4 MP layers, equal to the plain
+    versions (float32 2e-4; bfloat16 the fast band) and, in float32, to the
+    gather forward; its gradients through the differentiable wrappers
+    within 1e-6 of their max of the plain versions' (the last EdgeFC
+    bias, which the softmax makes 0 but for rounding on a graph whose rows
+    all have real slots, of the largest leaf's)."""
+    from nmrgnn_tpu_torch.models.infer import apply_banded_attention
+
+    cfg, params = _attention_model(dev, compute_dtype=compute_dtype, noise=0.0, dropout=False)
+    nlist, dists, *_ = make_case(700, 16, 8, 1, seed=4, banded_nlist=True)
+    nlist[dists == 0] = 0
+    atoms = np.eye(10, dtype=np.float32)[np.random.default_rng(0).integers(0, 10, 700)]
+    g = Graph(*_on(dev, atoms, nlist, dists, inv_degree_from_nlist(nlist)))
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    banded.reset_launch_counts()
+    got = apply_banded_attention(params, cfg, g, plan)
+    torch.cuda.synchronize()
+    assert (banded.build_band.launches, banded.mp_banded_partial.launches,
+            banded.band_occupancy.launches, banded.band_occupancy_from_band.launches) == (
+        4, 4, 1, 0)
+    plain = apply_banded_attention(params, cfg, g, plan, use_kernels=False)
+    if compute_dtype == "float32":
+        torch.testing.assert_close(got, plain, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(got, gnn.apply(params, cfg, g), rtol=2e-4, atol=2e-4)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), rtol=0.05, atol=1.0)
+        return
+    leaves = gnn.trainable_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    grads = [torch.autograd.grad(apply_banded_attention(
+        params, cfg, g, plan, differentiable=True, use_kernels=k).sum(), leaves)
+        for k in (True, False)]
+    top = max(float(b.abs().max()) for b in grads[1])
+    blind = id(params["edge_fc"][-1]["bias"])
+    for t, a, b in zip(leaves, *grads):
+        scale = top if id(t) == blind else float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * scale)
+
+
+def test_attention_padding_row_served_on_the_card(dev):
+    """A molecule of fewer than 17 atoms served with the RCM reorder: the
+    padding slots name the old row 0's new place; "banded_attn" equals
+    "gather" within 2e-4."""
+    from nmrgnn_tpu_torch.data.neighbors import neighbors_host
+    from nmrgnn_tpu_torch.data.organic import random_molecule
+
+    cfg, params = _attention_model(dev)
+    for seed in range(50):
+        coords, elem = random_molecule(np.random.default_rng(seed))
+        if coords.shape[0] < 17:
+            break
+    nlist, d = neighbors_host(coords, 16)
+    g = Graph(np.eye(10, dtype=np.float32)[elem], nlist.astype(np.int32),
+              (d * 0.1).astype(np.float32), inv_degree_from_nlist(nlist))
+    model = ServingModel(params, cfg, device=dev)
+    got = model.predict(g)
+    assert model._resolved == "banded_attn" and model._order[0] != 0
+    gather = ServingModel(params, cfg, device=dev)
+    gather._resolved = "gather"
+    np.testing.assert_allclose(got, gather.predict(g), rtol=2e-4, atol=2e-4)
+
+
+def test_neighbors_device_on_the_card(dev):
+    """neighbors_device on the card: the host's neighbor sets wherever the
+    k-th and (k+1)-th distances differ by more than 0.05 A (the formula's
+    float32 cancellation, about 1e-2 A at these magnitudes), distances
+    within 0.02 A; fragment_device's members (the seed first) and
+    neighbor lists in range."""
+    from nmrgnn_tpu_torch.data.device_graph import fragment_device
+    from nmrgnn_tpu_torch.data.neighbors import neighbors_device, neighbors_host
+
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(0, 40, (3000, 3)).astype(np.float32)
+    k = 16
+    nl, d = neighbors_device(torch.from_numpy(coords).to(dev), k)
+    nl, d = nl.cpu().numpy(), d.cpu().numpy()
+    hi, hd = neighbors_host(coords, k + 1)
+    clear = hd[:, k] - hd[:, k - 1] > 0.05
+    assert clear.mean() > 0.5
+    for i in np.flatnonzero(clear):
+        assert set(nl[i]) == set(hi[i, :k])
+    np.testing.assert_allclose(np.sort(d, 1), np.sort(hd[:, :k], 1), rtol=0, atol=0.02)
+    members, nbr, dist, weight = fragment_device(torch.from_numpy(coords).to(dev),
+                                                 torch.arange(0, 3000, 500, device=dev), 256, k)
+    assert members.shape == (6, 256) and nbr.shape == (6, 256, k)
+    assert int(nbr.max()) < 256 and bool((dist > 0).all())
+    assert torch.equal(members[:, 0].long().cpu(), torch.arange(0, 3000, 500))

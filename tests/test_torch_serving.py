@@ -159,8 +159,10 @@ def test_serving_rejects_later_slices(bundled):
     assert ServingModel(params, cfg, device="cpu", mode="blocksparse").mode == "blocksparse"
     with pytest.raises(ValueError, match="unknown serving mode"):
         ServingModel(params, cfg, device="cpu", mode="gather")
-    with pytest.raises(NotImplementedError):
-        ServingModel(params, cfg.replace(mp_type="attention"), device="cpu")
+    # the attention family now serves (tests/test_torch_attention_serving.py)
+    acfg = cfg.replace(mp_type="attention")
+    aparams = gnn.init_params(acfg, torch.Generator().manual_seed(0), device="cpu")
+    assert ServingModel(aparams, acfg, device="cpu").config.mp_type == "attention"
     # exact serving keeps a bfloat16 config's compute type, as the JAX
     # package does (tests/test_torch_exact_bf16.py)
     exact16 = ServingModel(params, cfg.replace(compute_dtype="bfloat16"), device="cpu")
