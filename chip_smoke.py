@@ -207,13 +207,42 @@ Phases, in order; any failure exits non-zero and prints no result:
        beside neighbors_host (host clock); the neighbor sets equal the
        host's wherever the 16th and 17th distances differ by more than
        0.05 A, the distances within 0.02 A.
-11. One JSON line listing every kernel of the paths (a counterpart of
+11. Widths the kernels are not instantiated for, and the CLI:
+    a. for each of C5_CONFIGS ({F=96, E=8, H=64}, {F=32, E=64, H=256},
+       {F=256, E=8, H=128, K=12}; random weights): ServingModel
+       (mode="banded") serves phase 4's 3 frames (at K = 12, graphs of 12
+       neighbors) at "exact" and "fast": the MP and build kernels launch
+       (node tables padded to the MP kernel's width, channels in groups,
+       the EdgeFC padded to 128 or 256 wide) and no plain version of a
+       kernel is called (every ``*_plain`` function wrapped and counted);
+       exact peaks within 5e-4 of the plain gather forward on the card,
+       fast ones in the JAX package's fast band of it. Training: one
+       batch of 8 fragments of 256 atoms through apply_banded_fragments,
+       kernels vs plain gradients within 1e-3 of each leaf's max, no
+       plain version in the forward; then 3 Trainer steps on the path the
+       JAX package's rule gives (banded for F = 256, gather for the F not
+       a multiple of 128). The first configuration also at 44,676 atoms
+       ("banded_hbm", within 5e-4 of the gather forward).
+    b. the CLI (``python -m nmrgnn_tpu_torch.cli``) as subprocesses, the
+       independent ones at once: eval-struct on phase 4's PDB (gather;
+       --fast at exact with --profile; --fast at fast) and --fast on the
+       44,676-atom supercell, each row's peak within 0.01 (the files
+       round to 0.01) of the in-process forward; make-fragments -> train
+       (2 epochs, the baseline config, --tensorboard: events read back;
+       the banded step) -> train --load (1 more epoch) -> eval-tfrecords
+       (within 5e-4 of the plain gather forward); hyper (3 trials, 1
+       epoch, --seed 0: trial 0 is F=256 E=8 H=64 on the banded step).
+       Each command's wall time (host clock, process start included).
+12. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
     and times; B2, B1 and the band occupancy also with their launches a
     training step (train_launches); B2 and B6 at one edge channel as
     build_band_attn and mp_banded_partial_attn with their launches in
-    phase 10a's serving, and the band occupancy's there (attn_launches).
-12. The last line: {"ok": true, "device": {...}}.
+    phase 10a's serving, and the band occupancy's there (attn_launches);
+    every kernel row whose wrapper ran in phase 11a with its calls there
+    by configuration (width_launches; a call at E > 4 launches the kernel
+    once per channel group of 4, 2 at F = 512).
+13. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -2184,6 +2213,431 @@ def _phase10(args, dev, small, large, check, counts, expect) -> dict:
     }
 
 
+# Phase 11a's configurations: widths the kernels are not instantiated for
+# (node tables padded to the MP kernel's width, edge channels in groups,
+# EdgeFC widths padded, K = 12 not dividing the fused build's slots).
+C5_CONFIGS = (
+    dict(atom_feature_size=96, edge_feature_size=8, edge_hidden_size=64),
+    dict(atom_feature_size=32, edge_feature_size=64, edge_hidden_size=256),
+    dict(atom_feature_size=256, edge_feature_size=8, edge_hidden_size=128, neighbor_number=12),
+)
+C5_HBM = 0  # the configuration also served at 44,676 atoms ("banded_hbm")
+
+
+def _c5_label(kw) -> str:
+    return (f"F={kw['atom_feature_size']} E={kw['edge_feature_size']} "
+            f"H={kw['edge_hidden_size']} K={kw.get('neighbor_number', 16)}")
+
+
+class _PlainCalls:
+    """Counts the calls of every plain version of the port's kernels (each
+    ``*_plain`` function of ops/banded.py and ops/blocksparse.py, and the
+    references to them in models/infer.py and models/serving.py) made while
+    it is entered. The training backward's recomputation under autograd
+    (``banded._plain_vjp``, the JAX package's XLA backward) is counted
+    apart, as ``vjp``."""
+
+    MODULES = ("nmrgnn_tpu_torch.ops.banded", "nmrgnn_tpu_torch.ops.blocksparse",
+               "nmrgnn_tpu_torch.models.infer", "nmrgnn_tpu_torch.models.serving")
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self.vjp, self._depth, self._saved = {}, 0, 0, []
+        for name in self.MODULES:
+            mod = importlib.import_module(name)
+            for attr, fn in list(vars(mod).items()):
+                if attr.endswith("_plain") and callable(fn):
+                    self._saved.append((mod, attr, fn))
+                    setattr(mod, attr, self._counted(attr, fn))
+        banded = importlib.import_module(self.MODULES[0])
+        vjp = banded._plain_vjp
+
+        def counted_vjp(*a, **k):
+            self.vjp += 1
+            self._depth += 1
+            try:
+                return vjp(*a, **k)
+            finally:
+                self._depth -= 1
+
+        self._saved.append((banded, "_plain_vjp", vjp))
+        banded._plain_vjp = counted_vjp
+        return self
+
+    def _counted(self, name, fn):
+        def counted(*a, **k):
+            if not self._depth:
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self._saved):
+            setattr(mod, attr, fn)
+        return False
+
+
+def _phase11a(args, dev, small, large, counts) -> dict:
+    """Serving and training at widths the kernels are not instantiated for
+    (C5_CONFIGS), through the kernels: launches, no plain version, peaks
+    against the plain gather forward, training gradients kernels vs plain;
+    one configuration at 44,676 atoms."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig, TrainConfig
+    from nmrgnn_tpu_torch.data.dataset import batch_samples, split_dataset
+    from nmrgnn_tpu_torch.data.embeddings import load_standards
+    from nmrgnn_tpu_torch.data.fragment import write_structure_fragments
+    from nmrgnn_tpu_torch.data.parse import structure2graph
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.infer import apply_banded_fragments
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+    from nmrgnn_tpu_torch.train.losses import name_loss
+    from nmrgnn_tpu_torch.train.trainer import Trainer, fold_sample_weight
+
+    out = {}
+    for ci, kw in enumerate(C5_CONFIGS):
+        label = _c5_label(kw)
+        cfg = ModelConfig(**kw)
+        k = cfg.neighbor_number
+        params = gnn.init_params(cfg, torch.Generator().manual_seed(args.seed + ci),
+                                 load_standards(), device=dev)
+        graphs = small["graphs"] if k == 16 else [
+            structure2graph(small["struct"], k, frame=f) for f in range(N_FRAMES)]
+        with torch.no_grad():
+            ref = [gnn.apply(params, cfg, _on_card(g, dev)).cpu().numpy() for g in graphs]
+        rec = {"serving": {}, "launches": {}}
+        for precision in ("exact", "fast"):
+            model = ServingModel(params, cfg, device=dev, mode="banded", precision=precision)
+            _reset_counts()
+            t0 = time.perf_counter()
+            with _PlainCalls() as plain:
+                peaks = [model.predict(g) for g in graphs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: v for n, v in counts().items() if v}
+            mp = launches.get("mp_banded", 0) + launches.get("mp_banded_partial", 0)
+            if plain.calls or mp < cfg.mp_layers * len(graphs):
+                raise SystemExit(f"chip_smoke: 11a {label} {precision}: plain calls "
+                                 f"{plain.calls}, launches {launches}")
+            for f, (p, r) in enumerate(zip(peaks, ref)):
+                if precision == "exact":
+                    err = float(np.abs(p - r).max())
+                    if not np.all(np.isfinite(p)) or not np.allclose(p, r, rtol=5e-4,
+                                                                     atol=5e-4):
+                        raise SystemExit(f"chip_smoke: 11a {label} exact frame {f}: max "
+                                         f"|served - gather| {err:.3e}")
+                    agree = f"max |served - gather| {err:.3e} (rtol/atol 5e-4)"
+                else:
+                    agree = _in_fast_band(p, r, f"11a {label} fast frame {f}")
+            predict_ms = _wall_ms(model, graphs[-1], 5)
+            rec["serving"][precision] = {"path": model._resolved, "agree_last": agree,
+                                         "wall_s": wall, "launches": launches,
+                                         "predict_wall_ms": predict_ms}
+            for n, v in launches.items():
+                rec["launches"][n] = rec["launches"].get(n, 0) + v
+            print(f"phase 11a: {label} {precision}: path {model._resolved}, {len(graphs)} frames "
+                  f"in {wall:.2f} s (first calls), then predict() {predict_ms:.3f} ms wall "
+                  f"(median of 5, host clock); launches {launches}, no plain version called; "
+                  f"frame {len(graphs) - 1} vs the plain gather forward: {agree}")
+
+        # training: the fragments of phase 4's structure at this K
+        with tempfile.TemporaryDirectory() as tmp:
+            recs = os.path.join(tmp, "f.tfrecord")
+            write_structure_fragments(recs, small["struct"], frames=range(1),
+                                      fragment_size=256, neighbor_number=k)
+            train, _ = split_dataset([recs], 0.0)
+        tcfg = TrainConfig(batch_size=8, pad_to=256, seed=args.seed)
+        trainer = Trainer(cfg, tcfg, device=dev)
+        state = trainer.init_state(torch.Generator().manual_seed(args.seed))
+        graph, y, w = trainer._to_device(*batch_samples(train[:8], 256))
+        leaves = gnn.trainable_leaves(state.params)
+        for t in leaves:
+            t.requires_grad_(True)
+
+        def loss_grads(use_kernels):
+            peaks = apply_banded_fragments(state.params, cfg, graph, use_kernels=use_kernels)
+            loss = name_loss(fold_sample_weight(y, w).reshape(-1, 3), peaks.reshape(-1),
+                             trainer.loss_idx)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        _reset_counts()
+        with _PlainCalls() as plain:
+            loss_k, grads_k = loss_grads(True)
+        torch.cuda.synchronize()
+        df_launches = {n: v for n, v in counts().items() if v}
+        loss_p, grads_p = loss_grads(False)
+        if plain.calls or df_launches.get("mp_banded", 0) != cfg.mp_layers:
+            raise SystemExit(f"chip_smoke: 11a {label} training forward: plain calls "
+                             f"{plain.calls}, launches {df_launches}")
+        worst = 0.0
+        for i, (gk, gp) in enumerate(zip(grads_k, grads_p)):
+            scale = float(gp.abs().max())
+            err = float((gk - gp).abs().max())
+            if not torch.isfinite(gk).all() or err > 1e-3 * scale:
+                raise SystemExit(f"chip_smoke: 11a {label} gradient leaf {i}: max |kernels - "
+                                 f"plain| {err:.3e} > 1e-3 x {scale:.3e}")
+            worst = max(worst, err / max(scale, 1e-30))
+        _reset_counts()
+        opt = trainer.optimizer(state)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        losses = [float(trainer.train_step(state, opt, graph, y, w, gen)) for _ in range(3)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        step_launches = {n: v for n, v in counts().items() if v}
+        if not np.all(np.isfinite(losses)) or (
+                trainer.use_banded and step_launches.get("mp_banded", 0) != 3 * cfg.mp_layers):
+            raise SystemExit(f"chip_smoke: 11a {label} steps: losses {losses}, launches "
+                             f"{step_launches}")
+        for n, v in step_launches.items():
+            rec["launches"][n] = rec["launches"].get(n, 0) + v
+        rec["training"] = {"path": "banded" if trainer.use_banded else "gather",
+                           "df_launches": df_launches, "step_launches": step_launches,
+                           "grad_max_rel_err": worst, "vjp_calls": plain.vjp,
+                           "loss_rel_err": abs(float(loss_k) - float(loss_p)) / abs(
+                               float(loss_p)), "losses": losses, "step_ms": step_ms}
+        print(f"phase 11a: {label} training: apply_banded_fragments launches {df_launches} "
+              f"(no plain version in the forward; {plain.vjp} plain VJPs in the backward, the "
+              f"JAX package's backward form), gradients kernels vs plain max |diff| / max |g| "
+              f"{worst:.2e} (tol 1e-3); 3 Trainer steps on the {rec['training']['path']} path "
+              f"(the JAX package's rule), losses {[round(x, 4) for x in losses]}, "
+              f"{step_ms:.1f} ms a step (host clock), launches {step_launches}")
+        out[label] = rec
+
+    # one configuration at 44,676 atoms
+    kw = C5_CONFIGS[C5_HBM]
+    label = _c5_label(kw)
+    cfg = ModelConfig(**kw)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(args.seed), load_standards(),
+                             device=dev)
+    g = large["graph"]
+    model = ServingModel(params, cfg, device=dev)
+    _reset_counts()
+    with _PlainCalls() as plain:
+        p = model.predict(g)
+    torch.cuda.synchronize()
+    launches = {n: v for n, v in counts().items() if v}
+    with torch.no_grad():
+        r = gnn.apply(params, cfg, _on_card(g, dev)).cpu().numpy()
+    err = float(np.abs(p - r).max())
+    if (model._resolved != "banded_hbm" or plain.calls or not launches.get("mp_banded_hbm")
+            or not np.allclose(p, r, rtol=5e-4, atol=5e-4)):
+        raise SystemExit(f"chip_smoke: 11a {label} at {len(p)} atoms: path {model._resolved}, "
+                         f"plain calls {plain.calls}, launches {launches}, max |diff| {err:.3e}")
+    fwd_ms = _wall_ms(model, g, 3)
+    out["supercell"] = {"config": label, "path": model._resolved, "launches": launches,
+                        "max_gather_diff": err, "predict_wall_ms": fwd_ms}
+    print(f"phase 11a: {label} at {len(p)} atoms: path {model._resolved}, launches {launches}, "
+          f"no plain version called, max |served - gather| {err:.3e} (rtol/atol 5e-4), "
+          f"predict() {fwd_ms:.2f} ms wall (median of 3, host clock)")
+    return out
+
+
+def _cli(*args, log: str, device: str = "cuda") -> subprocess.Popen:
+    """Start ``python -m nmrgnn_tpu_torch.cli *args --device device`` in
+    the directory of ``log``, its output in ``log``."""
+    import nmrgnn_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(nmrgnn_tpu_torch.__file__)))
+    path = [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    with open(log, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "nmrgnn_tpu_torch.cli", *args, "--device", device],
+            stdout=out, stderr=subprocess.STDOUT, cwd=os.path.dirname(log),
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(path)))
+
+
+def _wait_cli(procs: dict, timeout: float = 300) -> dict:
+    """Wait for every started CLI process ({name: (process, log, start)});
+    fail (killing the others) when one fails or the time runs out.
+    Returns {name: (seconds from its start to its exit, output)}."""
+    out, t0 = {}, time.perf_counter()
+    try:
+        while len(out) < len(procs):
+            for name, (proc, log, start) in procs.items():
+                if name in out or proc.poll() is None:
+                    continue
+                with open(log) as fh:
+                    text = fh.read()
+                if proc.returncode != 0:
+                    raise SystemExit(f"chip_smoke: CLI {name} exited {proc.returncode}:\n"
+                                     f"{text[-3000:]}")
+                out[name] = (time.perf_counter() - start, text)
+            if time.perf_counter() - t0 > timeout:
+                raise SystemExit(f"chip_smoke: CLI {sorted(set(procs) - set(out))} still "
+                                 f"running after {timeout} s")
+            time.sleep(0.05)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _read_rows(path: str):
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def _phase11b(args, dev, params, cfg, small, counts) -> dict:
+    """The port's CLI as subprocesses, against in-process results."""
+    import torch
+
+    from nmrgnn_tpu_torch.data.dataset import FragmentLoader, split_dataset
+    from nmrgnn_tpu_torch.data.parse import structure2graph
+    from nmrgnn_tpu_torch.data.pdb import read_structure
+    from nmrgnn_tpu_torch.data.tfrecord import read_tfrecord
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.library import load_model
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = os.path.join(tmp, "synthetic.pdb")
+        write_synthetic_pdb(pdb, n_atoms=N_ATOMS, seed=args.seed, frames=N_FRAMES)
+        big = os.path.join(tmp, "supercell.pdb")
+        write_supercell_pdb(big, grid=SUPERCELL_GRID, n_atoms=N_ATOMS, seed=args.seed)
+        frags = os.path.join(tmp, "frags.tfrecord")
+        run = lambda name, *a: (name, _cli(*a, log=os.path.join(tmp, f"{name}.log"),  # noqa
+                                           device=dev.type))
+        t0 = time.perf_counter()
+        first = dict([
+            run("eval-struct", "eval-struct", pdb, "plain.csv"),
+            run("eval-struct --fast exact", "eval-struct", pdb, "exact.csv", "--fast",
+                "--profile", "prof"),
+            run("eval-struct --fast fast", "eval-struct", pdb, "fast.csv", "--fast",
+                "--precision", "fast"),
+            run("eval-struct --fast 44,676", "eval-struct", big, "big.csv", "--fast"),
+            run("make-fragments", "make-fragments", pdb, frags),
+        ])
+        done = _wait_cli({n: (p, os.path.join(tmp, f"{n}.log"), t0) for n, p in first.items()})
+        t1 = time.perf_counter()
+        second = dict([
+            run("train", "train", frags, "model", "2", "--checkpoint-path", "ckpt",
+                "--tensorboard", "tb"),
+            run("hyper", "hyper", frags, "1", "--trials", "3", "--seed", "0", "--tuning_path",
+                "tuning"),
+        ])
+        done.update(_wait_cli({n: (p, os.path.join(tmp, f"{n}.log"), t1)
+                               for n, p in second.items()}))
+        t2 = time.perf_counter()
+        done.update(_wait_cli({"train --load": (
+            _cli("train", frags, "model2", "1", "--checkpoint-path", "ckpt", "--load",
+                 log=os.path.join(tmp, "train --load.log"), device=dev.type),
+            os.path.join(tmp, "train --load.log"), t2)}))
+        t3 = time.perf_counter()
+        done.update(_wait_cli({"eval-tfrecords": (
+            _cli("eval-tfrecords", frags, "--model-file", "model2",
+                 log=os.path.join(tmp, "eval-tfrecords.log"), device=dev.type),
+            os.path.join(tmp, "eval-tfrecords.log"), t3)}))
+        res["wall_s"] = {n: round(s, 2) for n, (s, _) in done.items()}
+        res["total_s"] = time.perf_counter() - t0
+
+        # eval-struct: rows and peaks against the in-process forwards
+        struct = read_structure(pdb)
+        header = ["index", "residues", "resids", "names", "peaks", "confident", "time",
+                  "frame"]
+        exact = ServingModel(params, cfg, device=dev)
+        fast = ServingModel(params, cfg, device=dev, precision="fast")
+        with torch.no_grad():
+            want = {
+                "plain.csv": [gnn.apply(params, cfg, _on_card(g, dev)).cpu().numpy()
+                              for g in small["graphs"]],
+                "exact.csv": [exact.predict(g) for g in small["graphs"]],
+                "fast.csv": [fast.predict(g) for g in small["graphs"]],
+            }
+        for name, ref in want.items():
+            h, rows = _read_rows(os.path.join(tmp, name))
+            got = np.array([float(r[4]) for r in rows]).reshape(N_FRAMES, N_ATOMS)
+            if h != header or len(rows) != N_FRAMES * N_ATOMS or [r[3] for r in rows[
+                    :N_ATOMS]] != list(struct.names):
+                raise SystemExit(f"chip_smoke: CLI {name}: header {h}, {len(rows)} rows")
+            err = float(np.abs(got - np.round(np.stack(ref), 2)).max())
+            if err > 0.01 + 1e-6:
+                raise SystemExit(f"chip_smoke: CLI {name}: peaks off the in-process ones by "
+                                 f"{err:.3e}")
+            res[name] = err
+        h, rows = _read_rows(os.path.join(tmp, "big.csv"))
+        g_big = structure2graph(read_structure(big), frame=0)
+        big_model = ServingModel(params, cfg, device=dev)
+        ref = np.round(big_model.predict(g_big), 2)
+        got = np.array([float(r[4]) for r in rows])
+        if len(rows) != len(ref) or float(np.abs(got - ref).max()) > 0.01 + 1e-6:
+            raise SystemExit(f"chip_smoke: CLI eval-struct --fast at {len(ref)} atoms: "
+                             f"{len(rows)} rows, peaks off by {np.abs(got - ref).max():.3e}")
+        res["big.csv"] = float(np.abs(got - ref).max())
+        if big_model._resolved != "banded_hbm":
+            raise SystemExit(f"chip_smoke: the supercell resolved {big_model._resolved}")
+        traces = os.listdir(os.path.join(tmp, "prof"))
+        trace_text = open(os.path.join(tmp, "prof", traces[0])).read() if traces else ""
+        if len(traces) != 1 or "mp_banded_kernel" not in trace_text:
+            raise SystemExit(f"chip_smoke: eval-struct --profile wrote {traces}")
+        res["profile_bytes"] = len(trace_text)
+
+        # train: the banded step, events read back, resumed, evaluated
+        train_log = done["train"][1]
+        if "training step: banded CUDA kernels" not in train_log:
+            raise SystemExit(f"chip_smoke: CLI train did not take the banded step:\n{train_log}")
+        (ev,) = [f for f in os.listdir(os.path.join(tmp, "tb")) if f.startswith("events")]
+        recs = list(read_tfrecord(os.path.join(tmp, "tb", ev), check_crc=True))
+        if len(recs) < 3 or not any(b"val_loss" in r for r in recs):
+            raise SystemExit(f"chip_smoke: --tensorboard wrote {len(recs)} events")
+        res["tensorboard_events"] = len(recs)
+        hist = __import__("pickle").load(open(os.path.join(tmp, "model2-history-0.pb"), "rb"))
+        if len(hist["loss"]) != 3:
+            raise SystemExit(f"chip_smoke: train --load history {hist}")
+        h, rows = _read_rows(os.path.join(tmp, "model2.csv"))
+        p2, c2 = load_model(os.path.join(tmp, "model2"), device=dev)
+        data = split_dataset([frags], 0.0, c2.num_elements)[0]
+        yhat = []
+        dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
+        with torch.no_grad():
+            for gb, yb, wb in FragmentLoader(data, pad_to=256, batch_size=8,
+                                             shuffle=False).batches():
+                gt = Graph(*[torch.as_tensor(np.asarray(a)).to(dev, dt)
+                             for a, dt in zip(gb, dtypes)])
+                pred = gnn.apply_batched(p2, c2, gt).cpu().numpy()
+                for b in range(yb.shape[0]):
+                    yhat.extend(pred[b][wb[b] > 0])
+        got = np.array([float(r[2]) for r in rows])
+        if h != ["element", "y", "yhat", "class", "name"] or len(rows) != len(yhat) or \
+                not np.allclose(got, yhat, rtol=5e-4, atol=5e-4):
+            raise SystemExit(f"chip_smoke: CLI eval-tfrecords: {len(rows)} rows vs "
+                             f"{len(yhat)}, the banded eval vs the plain gather forward")
+        res["eval_tfrecords_max_diff"] = float(np.abs(got - np.array(yhat)).max())
+        if not os.path.exists(os.path.join(tmp, "model2.md")):
+            raise SystemExit("chip_smoke: CLI eval-tfrecords wrote no markdown table")
+
+        # hyper: each trial's widths and path
+        hyper_log = done["hyper"][1]
+        trials = [ln for ln in hyper_log.splitlines() if ln.startswith("trial ")]
+        if len(trials) != 3 or "trial 0: F=256 E=8 H=64" not in trials[0] or \
+                "path=banded" not in trials[0]:
+            raise SystemExit(f"chip_smoke: CLI hyper trials {trials}")
+        for f in ("results.json", "best_config.json", os.path.join("best_model",
+                                                                   "params.msgpack")):
+            if not os.path.exists(os.path.join(tmp, "tuning", f)):
+                raise SystemExit(f"chip_smoke: CLI hyper wrote no {f}")
+        res["hyper_trials"] = trials
+    for name, (secs, _) in done.items():
+        print(f"phase 11b: CLI {name}: {secs:.1f} s wall (host clock, process start included)")
+    print(f"phase 11b: eval-struct peaks vs in-process (rounded to 0.01): "
+          f"{json.dumps({k: res[k] for k in ('plain.csv', 'exact.csv', 'fast.csv', 'big.csv')})}"
+          f"; --profile trace {res['profile_bytes']} bytes with the MP kernel; "
+          f"{res['tensorboard_events']} tfevents read back; eval-tfrecords (banded) vs the "
+          f"plain gather forward max |diff| {res['eval_tfrecords_max_diff']:.2e}")
+    for t in res["hyper_trials"]:
+        print(f"phase 11b: hyper {t}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2638,6 +3092,12 @@ def main(argv=None) -> int:
     attention = _phase10(args, dev, dict(graphs=graphs, coords=struct.coords[0]), large_inputs,
                          check, counts, expect)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    widths = _phase11a(args, dev, dict(graphs=graphs, struct=struct), large_inputs, counts)
+    print(f"phase 11a: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    cli_runs = _phase11b(args, dev, params, cfg, dict(graphs=graphs), counts)
+    print(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
     checks.append({"name": "training_step", "phase": 9,
                    "max_abs_err": training["peaks_max_abs_err"],
                    "loss_rel_err": training["loss_rel_err"],
@@ -2655,6 +3115,14 @@ def main(argv=None) -> int:
                 k["launches"] = phase["launches"][k["name"]]
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} was never launched on its path")
+        # phase 11a's calls of this wrapper (both types), by configuration
+        wrapper = k["name"]
+        by_width = {label: rec["launches"][wrapper] for label, rec in widths.items()
+                    if label != "supercell" and rec["launches"].get(wrapper)}
+        if widths["supercell"]["launches"].get(wrapper):
+            by_width["supercell " + widths["supercell"]["config"]] = \
+                widths["supercell"]["launches"][wrapper]
+        k["width_launches"] = by_width
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -2668,7 +3136,7 @@ def main(argv=None) -> int:
                 "frame_wall_s": {"exact": frame_s, "fast": fast_s}, "fast_branches": branches,
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,
                 "wide": wide, "last_kernels": last, "training": training,
-                "attention": attention,
+                "attention": attention, "widths": widths, "cli": cli_runs,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,8 +54,8 @@ __global__ void __launch_bounds__(kBandMaxThreads)
     build_band_kernel(const int* __restrict__ nlist,  // [T*B, K]
                       const float* __restrict__ e,    // [T*B, K, E]
                       const int* __restrict__ lo,     // [T]
-                      OutT* __restrict__ M,           // [T, E, B, W]
-                      int B, int K, int W, int rows) {
+                      OutT* __restrict__ M,           // [T, m_e, B, W] at the group
+                      int B, int K, int W, int rows, int es, int m_e) {
   extern __shared__ float4 smem4[];
   const int n = rows * K;
   float* s_e = reinterpret_cast<float*>(smem4);  // [rows * K * E]
@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(kBandMaxThreads)
   const size_t slot0 = ((size_t)t * B + b0) * K;  // a multiple of rows * K
   const int base = lo[t];
   const int* g_nl = nlist + slot0;
-  const float* g_e = e + slot0 * E;
+  const float* g_e = e + slot0 * es;
   if ((n & 3) == 0) {
     for (int j = threadIdx.x; j < n / 4; j += blockDim.x) {
       const int4 v = reinterpret_cast<const int4*>(g_nl)[j];
@@ -75,15 +75,15 @@ __global__ void __launch_bounds__(kBandMaxThreads)
   } else {
     for (int j = threadIdx.x; j < n; j += blockDim.x) s_rel[j] = g_nl[j] - base;
   }
-  if (((n * E) & 3) == 0) {
+  if (es == E && ((n * E) & 3) == 0) {
     for (int j = threadIdx.x; j < n * E / 4; j += blockDim.x)
       reinterpret_cast<float4*>(s_e)[j] = reinterpret_cast<const float4*>(g_e)[j];
-  } else {
-    for (int j = threadIdx.x; j < n * E; j += blockDim.x) s_e[j] = g_e[j];
+  } else {  // a channel group of wider edge values, or an odd count
+    for (int j = threadIdx.x; j < n * E; j += blockDim.x) s_e[j] = g_e[(j / E) * es + j % E];
   }
   __syncthreads();
-  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)t * E * B + b0) * W, (size_t)B * W,
-                     threadIdx.x, blockDim.x);
+  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)t * m_e * B + b0) * W,
+                     (size_t)B * W, threadIdx.x, blockDim.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -100,10 +100,11 @@ __global__ void __launch_bounds__(kBandMaxThreads)
 // issue slots in float32) on the same CUDA cores; the M write is the
 // byte term.
 //
-// A block takes 128 consecutive edge slots (128 / K atoms), 256 threads,
-// two blocks an SM (at most 128 registers a thread, at most 102 KB of
-// shared memory a block), so one block's RBF, activations and band
-// writes overlap the other's products. The compute type is a template
+// A block takes 128 consecutive edge slots (128 / K atoms; 64 slots at
+// H = 256, see "Widths" below), 256 threads, two blocks an SM (at most
+// 128 registers a thread, at most 102 KB of shared memory a block in
+// float32), so one block's RBF, activations and band writes overlap the
+// other's products. The compute type is a template
 // argument:
 //
 // float32 (CUDA cores, no TF32: the exact tolerance). The activations
@@ -137,19 +138,34 @@ __global__ void __launch_bounds__(kBandMaxThreads)
 // float32 in slot order (duplicate indices add) and rounded once to
 // OutT by common.cuh's band_rows, the writer of every band build.
 
-constexpr int kH = 128;
-constexpr int kSlots = 128;
+// Widths. More than 4 edge channels run as groups of 4 (the hidden
+// layers again for each group, the final kernel's columns of the group,
+// M's channels through its channel stride m_e). A block runs the EdgeFC
+// for kFusedOut / H consecutive edge
+// slots (128 at H = 128, 64 at H = 256), so that every width keeps the
+// same per-thread tiles; ops/banded.py pads other hidden widths up to one
+// of these with zero weights (exact: a padded unit's act(0) meets a zero
+// row of the next kernel, a padded RBF centre a zero row of the first).
+// The block takes `rows` whole atoms, rows * K <= its slots (rows the
+// largest power of two that fits and divides B): a K that does not divide
+// the slots leaves the last ones masked (distance 0, index -1).
+constexpr int kFusedOut = 128 * 128;  // slots x H of one block
 constexpr int kFusedThreads = 256;
-constexpr int kKC = 32;          // kernel rows of a ring stage (float32)
-constexpr int kWStages = 2;      // ring stages, one in flight
-constexpr int kXS = kH + 16;     // bfloat16 row stride (activations, kernel), elements
+constexpr int kWStages = 2;           // ring stages, one in flight (float32)
+
+template <int H>
+__host__ __device__ constexpr int fused_slots() { return kFusedOut / H; }
+template <int H>
+__host__ __device__ constexpr int fused_kc() { return H == 128 ? 32 : 16; }  // ring rows
+template <int H>
+__host__ __device__ constexpr int fused_xs() { return H + 16; }  // bfloat16 row stride
 
 // float32: xT and the ring; bfloat16: the activations and the layer's
-// kernel, [kSlots][kXS] and [kH][kXS].
-template <bool kTC>
+// kernel, [slots][H + 16] and [H][H + 16].
+template <bool kTC, int H>
 __host__ __device__ constexpr size_t fused_smem_bytes() {
-  return kTC ? (size_t)(kSlots + kH) * kXS * sizeof(__nv_bfloat16)
-             : (size_t)(kH * kSlots + kWStages * kKC * kH) * sizeof(float);
+  return kTC ? (size_t)(fused_slots<H>() + H) * fused_xs<H>() * sizeof(__nv_bfloat16)
+             : (size_t)(H * fused_slots<H>() + kWStages * fused_kc<H>() * H) * sizeof(float);
 }
 
 // f(std::integral_constant<int, act>()): the epilogues see the activation
@@ -165,7 +181,7 @@ __device__ __forceinline__ void with_activation(int act, Fn&& f) {
   }
 }
 
-template <int E, typename OutT, bool kTC>
+template <int E, typename OutT, bool kTC, int H>
 __global__ void __launch_bounds__(kFusedThreads, 2)
     fused_edge_band_kernel(const int* __restrict__ nlist,  // [N_pad, K]
                            const float* __restrict__ d,    // [N_pad, K]
@@ -173,35 +189,38 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
                            const void* __restrict__ wh_,   // f32 [Lh, H_in, H_out];
                                                            // kTC: bf16 [Lh, H_out, H_in]
                            const float* __restrict__ bh,   // [Lh, H]
-                           const float* __restrict__ wf,   // [H, E]
+                           const float* __restrict__ wf,   // [H, E] (the group's channels)
                            const float* __restrict__ bf,   // [E]
-                           OutT* __restrict__ M,           // [T, E, B, W]
+                           OutT* __restrict__ M,           // [T, m_e, B, W] at the group
                            int B, int K, int W, int n_hidden, float rbf_low, float gap,
-                           float inv_gap, int act) {
+                           float inv_gap, int act, int rows, int m_e) {
+  constexpr int SL = fused_slots<H>();
+  constexpr int KC = fused_kc<H>();
+  constexpr int XS = fused_xs<H>();
   extern __shared__ float4 smem4[];
-  __shared__ float s_d[kSlots];
-  __shared__ float s_mask[kSlots];
-  __shared__ int s_rel[kSlots];
-  __shared__ float s_e[kSlots * E];
-  __shared__ float s_wf[kH * E];
+  __shared__ float s_d[SL];
+  __shared__ float s_mask[SL];
+  __shared__ int s_rel[SL];
+  __shared__ float s_e[SL * E];
+  __shared__ float s_wf[H * E];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t slot0 = (size_t)blockIdx.x * kSlots;
-  const int rows = kSlots / K;
+  const int nsl = rows * K;  // the block's slots; the rest of SL masked
+  const size_t slot0 = (size_t)blockIdx.x * nsl;
   const int row0 = blockIdx.x * rows;
 
-  // float32: the hidden kernels' rows, chunk c = rows [16 c, +16) of all
-  // layers laid end to end; the first two in flight before anything else
-  float* xT = reinterpret_cast<float*>(smem4);  // [kH][kSlots]
-  float* wring = xT + kH * kSlots;              // [kWStages][kKC][kH]
+  // float32: the hidden kernels' rows, chunk c = rows [KC c, +KC) of all
+  // layers laid end to end; the first in flight before anything else
+  float* xT = reinterpret_cast<float*>(smem4);  // [H][SL]
+  float* wring = xT + H * SL;                   // [kWStages][KC][H]
   const float* wh = static_cast<const float*>(wh_);
-  const int total = kTC ? 0 : n_hidden * (kH / kKC);
+  const int total = kTC ? 0 : n_hidden * (H / KC);
   auto load_w = [&](int c) {
-    const float* g = wh + (size_t)c * kKC * kH;
-    float* st = wring + (c % kWStages) * kKC * kH;
-    for (int s = tid; s < kKC * kH / 4; s += kFusedThreads)
+    const float* g = wh + (size_t)c * KC * H;
+    float* st = wring + (c % kWStages) * KC * H;
+    for (int s = tid; s < KC * H / 4; s += kFusedThreads)
       cp_async16(st + s * 4, g + s * 4, true);
   };
   if constexpr (!kTC) {
@@ -211,49 +230,52 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
     }
   }
 
-  for (int s = tid; s < kSlots; s += kFusedThreads) {
-    const float dv = d[slot0 + s];
+  for (int s = tid; s < SL; s += kFusedThreads) {
+    const bool ok = s < nsl;
+    const float dv = ok ? d[slot0 + s] : 0.0f;
     s_d[s] = dv;
     s_mask[s] = dv > 0.0f ? 1.0f : 0.0f;
-    s_rel[s] = nlist[slot0 + s] - lo[(row0 + s / K) / B];
+    s_rel[s] = ok ? nlist[slot0 + s] - lo[(row0 + s / K) / B] : -1;
   }
-  for (int i = tid; i < kH * E; i += kFusedThreads)
+  for (int i = tid; i < H * E; i += kFusedThreads)
     s_wf[i] = kTC ? round_to<__nv_bfloat16>(wf[i]) : wf[i];
   __syncthreads();
 
   if constexpr (!kTC) {
     // RBF with centers h * gap + low (rounded as two operations, as the
     // TPU kernel computes them), divided by the gap, not the gap squared.
-    for (int i = tid; i < kH * kSlots; i += kFusedThreads) {
-      const int h = i / kSlots;
-      const int s = i - h * kSlots;
+    for (int i = tid; i < H * SL; i += kFusedThreads) {
+      const int h = i / SL;
+      const int s = i - h * SL;
       const float c = __fadd_rn(__fmul_rn((float)h, gap), rbf_low);
       const float x = s_d[s] - c;
       xT[i] = expf(-(x * x) * inv_gap) * s_mask[s];
     }
 
-    const int ty = tid % 16;
-    const int tx = tid / 16;
+    // thread (ty, tx): slots ty*4 + {0..3}, SL/2 + ty*4 + {0..3}; features
+    // tx*4 + {0..3}, H/2 + tx*4 + {0..3}
+    const int ty = tid % (SL / 8);
+    const int tx = tid / (SL / 8);
     for (int l = 0; l < n_hidden; ++l) {
       float acc[8][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-      for (int cl = 0; cl < kH / kKC; ++cl) {
-        const int c = l * (kH / kKC) + cl;
+      for (int cl = 0; cl < H / KC; ++cl) {
+        const int c = l * (H / KC) + cl;
         cp_async_wait<kWStages - 2>();  // chunk c has landed
         __syncthreads();  // ... for every thread; chunk c - 1's stage is free; xT published
         if (c + kWStages - 1 < total) load_w(c + kWStages - 1);
         cp_async_commit();
-        const float* sw = wring + (c % kWStages) * kKC * kH;
-        const float* xk = xT + cl * kKC * kSlots;
+        const float* sw = wring + (c % kWStages) * KC * H;
+        const float* xk = xT + cl * KC * SL;
 #pragma unroll 4
-        for (int k = 0; k < kKC; ++k) {
-          const float4 a0 = *reinterpret_cast<const float4*>(xk + k * kSlots + ty * 4);
-          const float4 a1 = *reinterpret_cast<const float4*>(xk + k * kSlots + 64 + ty * 4);
-          const float4 b0 = *reinterpret_cast<const float4*>(sw + k * kH + tx * 4);
-          const float4 b1 = *reinterpret_cast<const float4*>(sw + k * kH + 64 + tx * 4);
+        for (int k = 0; k < KC; ++k) {
+          const float4 a0 = *reinterpret_cast<const float4*>(xk + k * SL + ty * 4);
+          const float4 a1 = *reinterpret_cast<const float4*>(xk + k * SL + SL / 2 + ty * 4);
+          const float4 b0 = *reinterpret_cast<const float4*>(sw + k * H + tx * 4);
+          const float4 b1 = *reinterpret_cast<const float4*>(sw + k * H + H / 2 + tx * 4);
           const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
           const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -267,14 +289,13 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
       with_activation(act, [&](auto ka) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int f = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-          const float bias = bh[(size_t)l * kH + f];
+          const int f = (j < 4) ? tx * 4 + j : H / 2 + tx * 4 + (j - 4);
+          const float bias = bh[(size_t)l * H + f];
           float v[8];
 #pragma unroll
           for (int i = 0; i < 8; ++i) v[i] = activate(acc[i][j] + bias, decltype(ka)::value);
-          *reinterpret_cast<float4*>(xT + f * kSlots + ty * 4) =
-              make_float4(v[0], v[1], v[2], v[3]);
-          *reinterpret_cast<float4*>(xT + f * kSlots + 64 + ty * 4) =
+          *reinterpret_cast<float4*>(xT + f * SL + ty * 4) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(xT + f * SL + SL / 2 + ty * 4) =
               make_float4(v[4], v[5], v[6], v[7]);
         }
       });
@@ -283,39 +304,40 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
     __syncthreads();
 
     // Final linear layer H -> E, bias, then the d > 0 mask.
-    for (int o = tid; o < kSlots * E; o += kFusedThreads) {
-      const int n = o / kSlots;
-      const int s = o - n * kSlots;
+    for (int o = tid; o < SL * E; o += kFusedThreads) {
+      const int n = o / SL;
+      const int s = o - n * SL;
       float acc = 0.0f;
-      for (int k = 0; k < kH; ++k) acc = fmaf(xT[k * kSlots + s], s_wf[k * E + n], acc);
+      for (int k = 0; k < H; ++k) acc = fmaf(xT[k * SL + s], s_wf[k * E + n], acc);
       s_e[s * E + n] = (acc + bf[n]) * s_mask[s];
     }
   } else {
-    __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kSlots][kXS]
-    __nv_bfloat16* Ws = X + kSlots * kXS;  // [kH][kXS]: layer l's [H_out, H_in] kernel
+    __nv_bfloat16* X = reinterpret_cast<__nv_bfloat16*>(smem4);  // [SL][XS]
+    __nv_bfloat16* Ws = X + SL * XS;  // [H][XS]: layer l's [H_out, H_in] kernel
     const __nv_bfloat16* wt = static_cast<const __nv_bfloat16*>(wh_);
     auto load_wt = [&](int l) {
-      const __nv_bfloat16* g = wt + (size_t)l * kH * kH;
-      for (int s = tid; s < kH * kH / 8; s += kFusedThreads) {  // 16 bytes each
-        const int r = s / (kH / 8);
-        const int q = s - r * (kH / 8);
-        cp_async16(Ws + r * kXS + q * 8, g + r * kH + q * 8, true);
+      const __nv_bfloat16* g = wt + (size_t)l * H * H;
+      for (int s = tid; s < H * H / 8; s += kFusedThreads) {  // 16 bytes each
+        const int r = s / (H / 8);
+        const int q = s - r * (H / 8);
+        cp_async16(Ws + r * XS + q * 8, g + r * H + q * 8, true);
       }
     };
     if (n_hidden > 0) load_wt(0);  // in flight during the RBF
     cp_async_commit();
-    for (int i = tid; i < kH * kSlots; i += kFusedThreads) {
-      const int s = i / kH;
-      const int h = i - s * kH;
+    for (int i = tid; i < H * SL; i += kFusedThreads) {
+      const int s = i / H;
+      const int h = i - s * H;
       const float c = __fadd_rn(__fmul_rn((float)h, gap), rbf_low);
       const float x = s_d[s] - c;
-      X[s * kXS + h] = __float2bfloat16_rn(expf(-(x * x) * inv_gap) * s_mask[s]);
+      X[s * XS + h] = __float2bfloat16_rn(expf(-(x * x) * inv_gap) * s_mask[s]);
     }
     const int g = lane >> 2;
     const int t4 = (lane & 3) * 4;
     const int t2 = (lane & 3) * 2;
-    const int sm0 = (warp & 1) * 64;   // the warp's slots
-    const int fn0 = (warp >> 1) * 32;  // and features
+    constexpr int SG = SL / 64;          // warps along the slots
+    const int sm0 = (warp % SG) * 64;    // the warp's 64 slots
+    const int fn0 = (warp / SG) * 32;    // and 32 features
     for (int l = 0; l < n_hidden; ++l) {
       cp_async_wait<0>();
       __syncthreads();  // the RBF or the last epilogue, and layer l's kernel, are published
@@ -327,20 +349,19 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
 #pragma unroll 2
-      for (int k0 = 0; k0 < kH; k0 += 16) {
+      for (int k0 = 0; k0 < H; k0 += 16) {
         // physical k0 + t4 .. + 3 is logical (2t, 2t+1, 2t+8, 2t+9) in both operands
         unsigned a[4][4];
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
-          const __nv_bfloat16* xr = X + (sm0 + mt * 16 + g) * kXS + k0 + t4;
+          const __nv_bfloat16* xr = X + (sm0 + mt * 16 + g) * XS + k0 + t4;
           const uint2 x = *reinterpret_cast<const uint2*>(xr);
-          const uint2 y = *reinterpret_cast<const uint2*>(xr + 8 * kXS);
+          const uint2 y = *reinterpret_cast<const uint2*>(xr + 8 * XS);
           a[mt][0] = x.x, a[mt][1] = y.x, a[mt][2] = x.y, a[mt][3] = y.y;
         }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          const uint2 b =
-              *reinterpret_cast<const uint2*>(Ws + (fn0 + nt * 8 + g) * kXS + k0 + t4);
+          const uint2 b = *reinterpret_cast<const uint2*>(Ws + (fn0 + nt * 8 + g) * XS + k0 + t4);
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], a[mt], b.x, b.y);
         }
@@ -352,14 +373,14 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const int f = fn0 + nt * 8 + t2;
-          const float b0 = bh[(size_t)l * kH + f];
-          const float b1 = bh[(size_t)l * kH + f + 1];
+          const float b0 = bh[(size_t)l * H + f];
+          const float b1 = bh[(size_t)l * H + f + 1];
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
               const int s = sm0 + mt * 16 + g + half * 8;
-              *reinterpret_cast<__nv_bfloat162*>(X + s * kXS + f) = __floats2bfloat162_rn(
+              *reinterpret_cast<__nv_bfloat162*>(X + s * XS + f) = __floats2bfloat162_rn(
                   activate(acc[mt][nt][2 * half] + b0, decltype(ka)::value),
                   activate(acc[mt][nt][2 * half + 1] + b1, decltype(ka)::value));
             }
@@ -369,23 +390,27 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
     __syncthreads();
 
     // Final linear layer H -> E: a warp a slot at a time, lane l the terms
-    // k = 4l .. 4l + 3 (their kernel rows held in registers), summed over
+    // k = l * H / 32 .. (their kernel rows held in registers), summed over
     // the lanes; bias, then the d > 0 mask.
-    float wreg[4][E];
+    constexpr int KPL = H / 32;
+    float wreg[KPL][E];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < KPL; ++q)
 #pragma unroll
-      for (int n = 0; n < E; ++n) wreg[q][n] = s_wf[(lane * 4 + q) * E + n];
-    for (int s = warp; s < kSlots; s += kFusedThreads / 32) {
-      const uint2 u = *reinterpret_cast<const uint2*>(X + s * kXS + lane * 4);
-      const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-      const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-      const float xv[4] = {x01.x, x01.y, x23.x, x23.y};
+      for (int n = 0; n < E; ++n) wreg[q][n] = s_wf[(lane * KPL + q) * E + n];
+    for (int s = warp; s < SL; s += kFusedThreads / 32) {
+      float xv[KPL];
+#pragma unroll
+      for (int q = 0; q < KPL; q += 2) {
+        const float2 x2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(X + s * XS + lane * KPL + q));
+        xv[q] = x2.x, xv[q + 1] = x2.y;
+      }
 #pragma unroll
       for (int n = 0; n < E; ++n) {
         float acc = 0.0f;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc = fmaf(xv[q], wreg[q][n], acc);
+        for (int q = 0; q < KPL; ++q) acc = fmaf(xv[q], wreg[q][n], acc);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
         if (lane == 0) s_e[s * E + n] = (acc + bf[n]) * s_mask[s];
@@ -397,48 +422,53 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   // The band rows (all of one tile: rows divides B), through the writer
   // B2 and B4 share.
   const int t = row0 / B;
-  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)t * E * B + (row0 - t * B)) * W,
+  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)t * m_e * B + (row0 - t * B)) * W,
                      (size_t)B * W, tid, kFusedThreads);
 }
 
 template <int E, typename OutT>
 cudaError_t launch_build(const int* nlist, const float* e, const int* lo, void* M, int T,
-                         int B, int K, int W, int rows, cudaStream_t stream) {
+                         int B, int K, int W, int rows, int es, int m_e, cudaStream_t stream) {
   const size_t smem = (size_t)rows * K * (E + 1) * sizeof(float);  // at most 40 KB
   build_band_kernel<E, OutT><<<T * (B / rows), band_threads(rows), smem, stream>>>(
-      nlist, e, lo, static_cast<OutT*>(M), B, K, W, rows);
+      nlist, e, lo, static_cast<OutT*>(M), B, K, W, rows, es, m_e);
   return cudaGetLastError();
 }
 
-template <int E, typename OutT, bool kTC>
+template <int E, typename OutT, bool kTC, int H>
 cudaError_t launch_fused(const int* nlist, const float* d, const int* lo, const void* wh,
                          const float* bh, const float* wf, const float* bf, void* M,
                          int n_pad, int B, int K, int W, int n_hidden, float rbf_low,
-                         float gap, float inv_gap, int act, cudaStream_t stream) {
-  constexpr size_t smem = fused_smem_bytes<kTC>();
-  cudaError_t err = cudaFuncSetAttribute(fused_edge_band_kernel<E, OutT, kTC>,
+                         float gap, float inv_gap, int act, int rows, int m_e,
+                         cudaStream_t stream) {
+  constexpr size_t smem = fused_smem_bytes<kTC, H>();
+  if (rows * K > fused_slots<H>()) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fused_edge_band_kernel<E, OutT, kTC, H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && !kTC)  // two blocks of 102 KB an SM
-    err = cudaFuncSetAttribute(fused_edge_band_kernel<E, OutT, kTC>,
+  if (err == cudaSuccess)  // float32: two blocks of 96 KB an SM
+    err = cudaFuncSetAttribute(fused_edge_band_kernel<E, OutT, kTC, H>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const int blocks = (int)(((size_t)n_pad * K) / kSlots);
-  fused_edge_band_kernel<E, OutT, kTC><<<blocks, kFusedThreads, smem, stream>>>(
+  fused_edge_band_kernel<E, OutT, kTC, H><<<n_pad / rows, kFusedThreads, smem, stream>>>(
       nlist, d, lo, wh, bh, wf, bf, static_cast<OutT*>(M), B, K, W, n_hidden, rbf_low, gap,
-      inv_gap, act);
+      inv_gap, act, rows, m_e);
   return cudaGetLastError();
 }
 
 template <int E>
-cudaError_t launch_fused_any(int out_bf16, int compute_bf16, const int* nlist, const float* d,
-                             const int* lo, const void* wh, const float* bh, const float* wf,
-                             const float* bf, void* M, int n_pad, int B, int K, int W,
-                             int n_hidden, float rbf_low, float gap, float inv_gap, int act,
-                             cudaStream_t s) {
-#define NMR_FUSED_LAUNCH(OT, TC)                                                             \
-  return launch_fused<E, OT, TC>(nlist, d, lo, wh, bh, wf, bf, M, n_pad, B, K, W, n_hidden, \
-                                 rbf_low, gap, inv_gap, act, s)
+cudaError_t launch_fused_any(int out_bf16, int compute_bf16, int H, const int* nlist,
+                             const float* d, const int* lo, const void* wh, const float* bh,
+                             const float* wf, const float* bf, void* M, int n_pad, int B, int K,
+                             int W, int n_hidden, float rbf_low, float gap, float inv_gap,
+                             int act, int rows, int m_e, cudaStream_t s) {
+#define NMR_FUSED_LAUNCH(OT, TC)                                                               \
+  return H == 128 ? launch_fused<E, OT, TC, 128>(nlist, d, lo, wh, bh, wf, bf, M, n_pad, B, K, \
+                                                 W, n_hidden, rbf_low, gap, inv_gap, act,     \
+                                                 rows, m_e, s)                                \
+                  : launch_fused<E, OT, TC, 256>(nlist, d, lo, wh, bh, wf, bf, M, n_pad, B, K, \
+                                                 W, n_hidden, rbf_low, gap, inv_gap, act,     \
+                                                 rows, m_e, s)
   if (out_bf16) {
     if (compute_bf16) NMR_FUSED_LAUNCH(__nv_bfloat16, true);
     NMR_FUSED_LAUNCH(__nv_bfloat16, false);
@@ -458,15 +488,20 @@ const char* nmr_error_string(int code) {
 
 // The band build over T tiles with window starts lo (any int32 values),
 // a block to each `rows` rows of a tile; out_bf16 selects the output type
-// (0: float32, 1: bfloat16).
+// (0: float32, 1: bfloat16). A channel group of E channels: e and M point
+// at its first channel, es is e's channel count a slot, m_e M's a tile.
 int nmr_build_band(const int* nlist, const float* e, const int* lo, void* M, int T, int B,
-                   int K, int E, int W, int rows, int out_bf16, void* stream) {
-  if (T < 1 || W < 1 || !band_group_ok(B, K, rows)) return cudaErrorInvalidValue;
+                   int K, int E, int W, int rows, int out_bf16, int es, int m_e,
+                   void* stream) {
+  if (T < 1 || W < 1 || !band_group_ok(B, K, rows) || es < E || m_e < E)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NMR_BUILD_CASE(EE)                                                                   \
-  if (E == EE)                                                                               \
-    return out_bf16 ? launch_build<EE, __nv_bfloat16>(nlist, e, lo, M, T, B, K, W, rows, s) \
-                    : launch_build<EE, float>(nlist, e, lo, M, T, B, K, W, rows, s);
+#define NMR_BUILD_CASE(EE)                                                                  \
+  if (E == EE)                                                                              \
+    return out_bf16                                                                         \
+               ? launch_build<EE, __nv_bfloat16>(nlist, e, lo, M, T, B, K, W, rows, es, m_e, \
+                                                 s)                                         \
+               : launch_build<EE, float>(nlist, e, lo, M, T, B, K, W, rows, es, m_e, s);
   NMR_BUILD_CASE(1)
   NMR_BUILD_CASE(2)
   NMR_BUILD_CASE(3)
@@ -478,20 +513,24 @@ int nmr_build_band(const int* nlist, const float* e, const int* lo, void* M, int
 // The fused edge stage + band build; out_bf16 selects the output type,
 // compute_bf16 the EdgeFC products' operand type (0: float32, 1: bfloat16)
 // and the layout of the hidden kernels wh: float32 [Lh, H_in, H_out], or
-// bfloat16 [Lh, H_out, H_in].
+// bfloat16 [Lh, H_out, H_in]. H is 128 or 256; a block takes `rows` atoms
+// (rows * K <= 16384 / H, rows dividing B). A channel group of E channels:
+// wf [H, E] and bf [E] are its own, M points at its first channel and m_e
+// is M's channel count.
 int nmr_build_band_fused(const int* nlist, const float* d, const int* lo, const void* wh,
                          const float* bh, const float* wf, const float* bf, void* M,
                          int n_pad, int B, int K, int E, int W, int H, int n_hidden,
                          float rbf_low, float gap, float inv_gap, int act, int out_bf16,
-                         int compute_bf16, void* stream) {
-  if (H != kH || K < 1 || kSlots % K != 0 || B % (kSlots / K) != 0 || n_pad % B != 0 ||
-      W < 1 || n_hidden < 0)
+                         int compute_bf16, int rows, int m_e, void* stream) {
+  if ((H != 128 && H != 256) || K < 1 || rows < 1 || B % rows != 0 || n_pad % B != 0 ||
+      W < 1 || n_hidden < 0 || m_e < E)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NMR_FUSED_CASE(EE)                                                                \
-  if (E == EE)                                                                            \
-    return launch_fused_any<EE>(out_bf16, compute_bf16, nlist, d, lo, wh, bh, wf, bf, M,  \
-                                n_pad, B, K, W, n_hidden, rbf_low, gap, inv_gap, act, s);
+#define NMR_FUSED_CASE(EE)                                                                   \
+  if (E == EE)                                                                               \
+    return launch_fused_any<EE>(out_bf16, compute_bf16, H, nlist, d, lo, wh, bh, wf, bf, M,  \
+                                n_pad, B, K, W, n_hidden, rbf_low, gap, inv_gap, act, rows,  \
+                                m_e, s);
   NMR_FUSED_CASE(1)
   NMR_FUSED_CASE(2)
   NMR_FUSED_CASE(3)

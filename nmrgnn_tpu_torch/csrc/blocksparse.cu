@@ -79,8 +79,8 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ pair_rows,  // [P]
                      const int* __restrict__ pair_cols,  // [P]
                      const int* __restrict__ pair_valid, // [P]
-                     OutT* __restrict__ A,               // [P, E, B, B]
-                     int nb, int B, int K) {
+                     OutT* __restrict__ A,               // [P, m_e, B, B] at the group
+                     int nb, int B, int K, int es, int m_e) {
   const int p = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
   const int c = pair_cols[p];
   // uniform over the block, so every lane below takes part in the shuffles
   const bool valid = pair_valid[p] != 0 && r >= 0 && r < nb && c >= 0 && c < nb;
-  const size_t pair_base = (size_t)p * E * B * B;
+  const size_t pair_base = (size_t)p * m_e * B * B;
   const int col0 = c * B;
   for (int b = warp; b < B; b += kThreads / 32) {
     const size_t row = (size_t)r * B + b;
@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(kThreads)
           if (k < K) {
             rel = nlist[row * K + k] - col0;
 #pragma unroll
-            for (int n = 0; n < E; ++n) ev[n] = e[(row * K + k) * E + n];
+            for (int n = 0; n < E; ++n) ev[n] = e[(row * K + k) * es + n];
           }
           const int kn = min(32, K - k0);
           for (int j = 0; j < kn; ++j) {  // slot order
@@ -140,22 +140,24 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int E, typename OutT>
 cudaError_t launch_adj(const int* nlist, const float* e, const int* rows, const int* cols,
-                       const int* valid, OutT* A, int P, int nb, int B, int K,
+                       const int* valid, OutT* A, int P, int nb, int B, int K, int es, int m_e,
                        cudaStream_t stream) {
-  build_adj_kernel<E, OutT><<<P, kThreads, 0, stream>>>(nlist, e, rows, cols, valid, A, nb, B, K);
+  build_adj_kernel<E, OutT><<<P, kThreads, 0, stream>>>(nlist, e, rows, cols, valid, A, nb, B, K,
+                                                        es, m_e);
   return cudaGetLastError();
 }
 
 template <typename OutT>
 cudaError_t launch_adj_any(int E, const int* nlist, const float* e, const int* rows,
                            const int* cols, const int* valid, OutT* A, int P, int nb, int B,
-                           int K, cudaStream_t s) {
-  if (P < 1 || nb < 1 || B < 4 || B % 4 != 0 || K < 1) return cudaErrorInvalidValue;
+                           int K, int es, int m_e, cudaStream_t s) {
+  if (P < 1 || nb < 1 || B < 4 || B % 4 != 0 || K < 1 || es < E || m_e < E)
+    return cudaErrorInvalidValue;
   switch (E) {
-    case 1: return launch_adj<1, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, s);
-    case 2: return launch_adj<2, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, s);
-    case 3: return launch_adj<3, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, s);
-    case 4: return launch_adj<4, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, s);
+    case 1: return launch_adj<1, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, es, m_e, s);
+    case 2: return launch_adj<2, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, es, m_e, s);
+    case 3: return launch_adj<3, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, es, m_e, s);
+    case 4: return launch_adj<4, OutT>(nlist, e, rows, cols, valid, A, P, nb, B, K, es, m_e, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -225,39 +227,45 @@ const char* nmr_error_string(int code) {
 
 // A [P, E, B, B] (float32, or bfloat16 with out_bf16) from the padded
 // neighbor lists nlist [nb * B, K] (-1 on padded rows) and edge values
-// e [nb * B, K, E] (float32).
+// e [nb * B, K, es] (float32). A channel group of E channels: e and A
+// point at its first channel, es is e's channel count a slot, m_e A's.
 int nmr_build_block_adjacency(const int* nlist, const float* e, const int* pair_rows,
                               const int* pair_cols, const int* pair_valid, void* A, int P, int nb,
-                              int B, int K, int E, int out_bf16, void* stream) {
+                              int B, int K, int E, int out_bf16, int es, int m_e,
+                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
     return launch_adj_any<__nv_bfloat16>(E, nlist, e, pair_rows, pair_cols, pair_valid,
-                                         static_cast<__nv_bfloat16*>(A), P, nb, B, K, s);
+                                         static_cast<__nv_bfloat16*>(A), P, nb, B, K, es, m_e,
+                                         s);
   return launch_adj_any<float>(E, nlist, e, pair_rows, pair_cols, pair_valid,
-                               static_cast<float*>(A), P, nb, B, K, s);
+                               static_cast<float*>(A), P, nb, B, K, es, m_e, s);
 }
 
 // One block-sparse MP layer (activation(aggregate) + residual) over the nb
 // row blocks (mp.cuh's kPairs); the pairs of row block r are
 // [row_ptr[r], row_ptr[r + 1]) of the P pairs, occ their occupancy
 // [P, pair_words(B)]. w: [E, F_in, F_out] in float32, [E, F_out, F_in] in
-// bfloat16.
+// bfloat16. A channel group: A and w point at its first channel, m_e is
+// A's channel count, acc_in (or null) the earlier groups' float32 sum; inv
+// null writes the float32 sum [nb * B, F] (with acc_in) and no epilogue.
 int nmr_mp_blocksparse(const float* A, const unsigned* occ, const int* row_ptr,
                        const int* pair_cols, const float* nodes, const float* w,
-                       const float* inv, float* out, int P, int nb, int E, int B, int F, int act,
-                       void* stream) {
+                       const float* inv, void* out, int P, int nb, int E, int B, int F, int act,
+                       int m_e, const float* acc_in, void* stream) {
   return launch_mp_any<float, kPairs>(F, E, A, occ, nullptr, nullptr, nodes, w, inv, out, nb, B,
-                                      B, nb * B, act, ChebBuild{},
+                                      B, nb * B, act, m_e, acc_in, ChebBuild{},
                                       static_cast<cudaStream_t>(stream),
                                       PairList{row_ptr, pair_cols, P});
 }
 
 int nmr_mp_blocksparse_bf16(const __nv_bfloat16* A, const unsigned* occ, const int* row_ptr,
                             const int* pair_cols, const __nv_bfloat16* nodes,
-                            const __nv_bfloat16* w, const float* inv, __nv_bfloat16* out, int P,
-                            int nb, int E, int B, int F, int act, void* stream) {
+                            const __nv_bfloat16* w, const float* inv, void* out, int P, int nb,
+                            int E, int B, int F, int act, int m_e, const float* acc_in,
+                            void* stream) {
   return launch_mp_any<__nv_bfloat16, kPairs>(F, E, A, occ, nullptr, nullptr, nodes, w, inv, out,
-                                              nb, B, B, nb * B, act, ChebBuild{},
+                                              nb, B, B, nb * B, act, m_e, acc_in, ChebBuild{},
                                               static_cast<cudaStream_t>(stream),
                                               PairList{row_ptr, pair_cols, P});
 }

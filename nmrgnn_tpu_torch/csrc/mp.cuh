@@ -90,6 +90,14 @@
 //    sums n, then k, in ascending order, as the dense-band kernel did.
 // 4. The epilogue is float32, rounded once to T; the residual rows and
 //    inv_degree are read from device memory.
+// 5. Widths. The kernel is instantiated for F in {64, 128, 256} with
+//    E <= 4 and F = 512 with E <= 2 (h [E, 32, F] and its registers hold
+//    no more). ops/banded.py pads other F with zero columns and runs more
+//    channels as groups: M (and kBuild's m_out) and w point at a group's
+//    first channel, m_e is M's channel count, and acc_in, the float32 sum
+//    of the groups before (a kPartial launch's output, or kPairs' with
+//    inv null), is added to acc before the epilogue or the partial store.
+//    Each group restages the window rows, so E = 8 reads them twice.
 //
 // kPairs (B11, B12). The occupancy is one bit per (pair, 32-row slab,
 // 16-column chunk): bit s * (B / 16) + c of pair p's ceil(B * B / 512)
@@ -295,7 +303,7 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
 // Two blocks an SM for E <= 3 (at most 128 registers a thread), so that
 // one block's chunk loads overlap the other's second product.
 template <int F, int E, typename T, int kMode>
-__global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
+__global__ void __launch_bounds__(kMpThreads, E <= 3 && F <= 256 ? 2 : 1)
     mp_banded_kernel(const T* __restrict__ M,           // [tiles, E, B, W] (not kBuild);
                                                         // kPairs: A [P, E, B, B]
                      const unsigned* __restrict__ occ,  // [tiles * B, NW] (not kBuild);
@@ -306,9 +314,13 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
                      const T* __restrict__ w,           // [E, F, F] (see the note)
                      const float* __restrict__ inv,     // [n_table] (not kPartial)
                      void* __restrict__ out_,           // [tiles * B, F]: T, or float if partial
-                     int B, int W, int n_table, int act, int spb, ChebBuild bld,
-                     PairList prs) {
+                     int B, int W, int n_table, int act, int spb,
+                     int m_e,                           // channels of M (or m_out) a tile
+                     const float* acc_in,               // [tiles * B, F] float32, or null
+                     ChebBuild bld, PairList prs) {
   constexpr bool kPart = kMode == kPartial;
+  // kPairs without inv_degree is partial too (a channel group's sum)
+  const bool part = kPart || (kMode == kPairs && inv == nullptr);
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int RB = kMpRows;
   constexpr int FS = mp_slice<F>();
@@ -471,7 +483,7 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
         const int nr = s / seg;
         const int n = nr / RB;
         const int r = nr - n * RB;
-        const size_t o = ((size_t)(i * E + n) * B + r0 + r) * W + (size_t)c * kMpChunk;
+        const size_t o = ((size_t)(i * m_e + n) * B + r0 + r) * W + (size_t)c * kMpChunk;
         reinterpret_cast<float4*>(static_cast<char*>(bld.m_out) + o * ob)[s - nr * seg] =
             make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -513,7 +525,7 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
         const int q = s - nr * SEG_M;
         const int n = nr / RB;
         const int r = nr - n * RB;
-        const T* g = M + ((mt * E + n) * B + r0 + r) * W + w0;
+        const T* g = M + ((mt * m_e + n) * B + r0 + r) * W + w0;
         cp_async16(sm + (size_t)s * 16, reinterpret_cast<const char*>(g) + q * 16, true);
       }
     }
@@ -547,7 +559,7 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
       for (int n = 0; n < E; ++n) {
         sm[(n * RB + r) * kMpChunk + j] = from_f32<T>(acc[n]);
         if (writer) {
-          const size_t o = ((size_t)(i * E + n) * B + r0 + r) * W + w0 + j;
+          const size_t o = ((size_t)(i * m_e + n) * B + r0 + r) * W + w0 + j;
           if (bld.m_bf16)
             static_cast<__nv_bfloat16*>(bld.m_out)[o] = __float2bfloat16_rn(acc[n]);
           else
@@ -704,9 +716,13 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             const int col = wc0 + nt * 8 + t2;
-            const float x0 = d[mt][nt][2 * half], x1 = d[mt][nt][2 * half + 1];
+            float x0 = d[mt][nt][2 * half], x1 = d[mt][nt][2 * half + 1];
             const size_t o = (out_row0 + r) * F + col;
-            if constexpr (kPart) {
+            if (acc_in != nullptr) {  // the earlier channel groups' sum
+              const float2 a = *reinterpret_cast<const float2*>(acc_in + o);
+              x0 += a.x, x1 += a.y;
+            }
+            if (part) {
               *reinterpret_cast<float2*>(static_cast<float*>(out_) + o) = make_float2(x0, x1);
             } else {
               const size_t src = (size_t)tile * B + r0 + r;
@@ -797,7 +813,11 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 ? 2 : 1)
       for (int a = 0; a < TR; ++a) {
         const int r = rg * TR + a;
         const size_t o = (out_row0 + r) * F + col;
-        if constexpr (kPart) {
+        if (acc_in != nullptr) {  // the earlier channel groups' sum
+          const float4 a4 = load4(acc_in + o);
+          acc[a][0] += a4.x, acc[a][1] += a4.y, acc[a][2] += a4.z, acc[a][3] += a4.w;
+        }
+        if (part) {
           store4(static_cast<float*>(out_) + o,
                  make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
         } else {
@@ -832,10 +852,10 @@ inline int sm_count() {
 template <int F, int E, typename T, int kMode>
 cudaError_t launch_mp(const T* M, const unsigned* occ, const int* lo, const int* ids,
                       const T* table, const T* w, const float* inv, void* out, int tiles, int B,
-                      int W, int n_table, int act, const ChebBuild& bld, const PairList& prs,
-                      cudaStream_t stream) {
+                      int W, int n_table, int act, int m_e, const float* acc_in,
+                      const ChebBuild& bld, const PairList& prs, cudaStream_t stream) {
   const size_t smem = mp_smem_bytes<F, E, T, kMode>(W, bld.K, bld.degree);
-  if (B % kMpRows != 0 || smem > kMaxSmem || (kMode != kBuild && occ == nullptr))
+  if (B % kMpRows != 0 || smem > kMaxSmem || (kMode != kBuild && occ == nullptr) || m_e < E)
     return cudaErrorInvalidValue;
   if (kMode == kPairs && (prs.row_ptr == nullptr || prs.cols == nullptr || ids != nullptr ||
                           W != B || B / kMpChunk > 32 || prs.P < 0 || prs.P >= (1 << 26)))
@@ -854,17 +874,22 @@ cudaError_t launch_mp(const T* M, const unsigned* occ, const int* lo, const int*
   const int spb = row_blocks >= 2 * sm_count() ? mp_slices<F>() : 1;
   const int blocks = row_blocks * (mp_slices<F>() / spb);
   mp_banded_kernel<F, E, T, kMode><<<blocks, kMpThreads, smem, stream>>>(
-      M, occ, lo, ids, table, w, inv, out, B, W, n_table, act, spb, bld, prs);
+      M, occ, lo, ids, table, w, inv, out, B, W, n_table, act, spb, m_e, acc_in, bld, prs);
   return cudaGetLastError();
 }
 
-// Dispatch on the runtime (F, E) to the instantiated kernels. The full
+// Dispatch on the runtime (F, E) to the instantiated kernels: F in {64,
+// 128, 256} with E <= 4, and F = 512 with E <= 2 (its h registers and
+// shared memory hold two channels). ops/banded.py pads other widths up to
+// these and runs more channels as groups: M and w point at a group's first
+// channel, m_e is M's channel count, and acc_in (float32 [tiles * B, F],
+// or null) is the earlier groups' sum, added before the epilogue. The full
 // layer reads whole B-row tiles of the table; the partial one any rows.
 template <typename T, int kMode>
 cudaError_t launch_mp_any(int F, int E, const T* M, const unsigned* occ, const int* lo,
                           const int* ids, const T* table, const T* w, const float* inv,
-                          void* out, int tiles, int B, int W, int n_table, int act,
-                          const ChebBuild& bld, cudaStream_t s,
+                          void* out, int tiles, int B, int W, int n_table, int act, int m_e,
+                          const float* acc_in, const ChebBuild& bld, cudaStream_t s,
                           const PairList& prs = PairList{}) {
   if (tiles < 1 || B < 1 || W < 1 || W % kMpChunk != 0 || n_table < 1 ||
       (kMode != kPartial && (n_table < B || n_table % B != 0)))
@@ -872,11 +897,13 @@ cudaError_t launch_mp_any(int F, int E, const T* M, const unsigned* occ, const i
 #define NMR_MP_CASE(FF, EE)                                                                  \
   if (F == FF && E == EE)                                                                    \
     return launch_mp<FF, EE, T, kMode>(M, occ, lo, ids, table, w, inv, out, tiles, B, W,     \
-                                       n_table, act, bld, prs, s);
+                                       n_table, act, m_e, acc_in, bld, prs, s);
 #define NMR_MP_F(FF) NMR_MP_CASE(FF, 1) NMR_MP_CASE(FF, 2) NMR_MP_CASE(FF, 3) NMR_MP_CASE(FF, 4)
   NMR_MP_F(64)
   NMR_MP_F(128)
   NMR_MP_F(256)
+  NMR_MP_CASE(512, 1)
+  NMR_MP_CASE(512, 2)
 #undef NMR_MP_F
 #undef NMR_MP_CASE
   return cudaErrorInvalidValue;

@@ -58,9 +58,9 @@ __global__ void __launch_bounds__(kBandMaxThreads)
                            const int* __restrict__ lo,      // [Tg]
                            const int* __restrict__ ids,     // [Tg] tile ids, or null
                            const float* __restrict__ c,     // [degree + 1, E]
-                           OutT* __restrict__ M,            // [Tg, E, B, W]
+                           OutT* __restrict__ M,            // [Tg, m_e, B, W] at the group
                            int n_src, int B, int K, int W, int rows, int degree, float d_lo,
-                           float d_hi, float span) {
+                           float d_hi, float span, int m_e) {
   extern __shared__ float4 smem4[];
   const int nc = (degree + 1) * E;
   const int n = rows * K;
@@ -83,21 +83,21 @@ __global__ void __launch_bounds__(kBandMaxThreads)
       cheb_edge<E>(d[slot0 + s], s_c, degree, d_lo, d_hi, span, s_e + s * E);
   }
   __syncthreads();
-  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)i * E * B + b0) * W, (size_t)B * W,
-                     threadIdx.x, blockDim.x);
+  band_rows<E, OutT>(s_rel, s_e, rows, K, W, M + ((size_t)i * m_e * B + b0) * W,
+                     (size_t)B * W, threadIdx.x, blockDim.x);
 }
 
 template <int E, typename OutT>
 cudaError_t launch_poly(const int* nlist, const float* d, const int* lo, const int* ids,
                         const float* c, void* M, int tiles, int n_src, int B, int K, int W,
-                        int rows, int degree, float d_lo, float d_hi, float span,
+                        int rows, int degree, float d_lo, float d_hi, float span, int m_e,
                         cudaStream_t stream) {
   // at most 4 KB of coefficients and 40 KB of slots: under the 48 KB a
   // block gets without opting in
   const size_t smem = ((size_t)(degree + 1) * E + (size_t)rows * K * (E + 1)) * sizeof(float);
   build_band_poly_kernel<E, OutT><<<tiles * (B / rows), band_threads(rows), smem, stream>>>(
       nlist, d, lo, ids, c, static_cast<OutT*>(M), n_src, B, K, W, rows, degree, d_lo, d_hi,
-      span);
+      span, m_e);
   return cudaGetLastError();
 }
 
@@ -112,22 +112,24 @@ const char* nmr_error_string(int code) {
 // The Chebyshev band build over `tiles` grid tiles, a block to each `rows`
 // rows of a tile; `ids` maps grid tile i to the tile of the n_src tiles of
 // nlist and d whose rows it reads (null: tile i). out_bf16 selects the
-// output type (0: float32, 1: bfloat16).
+// output type (0: float32, 1: bfloat16). A channel group of E channels: c
+// [degree + 1, E] is its own, M points at its first channel and m_e is M's
+// channel count.
 int nmr_build_band_poly(const int* nlist, const float* d, const int* lo, const int* ids,
                         const float* c, void* M, int tiles, int n_src, int B, int K, int E,
                         int W, int rows, int degree, float d_lo, float d_hi, float span,
-                        int out_bf16, void* stream) {
+                        int out_bf16, int m_e, void* stream) {
   if (tiles < 1 || n_src < 1 || W < 1 || degree < 1 || (degree + 1) * E > kPolyMaxCoeffs ||
-      !band_group_ok(B, K, rows))
+      !band_group_ok(B, K, rows) || m_e < E)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NMR_POLY_CASE(EE)                                                                   \
   if (E == EE)                                                                              \
     return out_bf16 ? launch_poly<EE, __nv_bfloat16>(nlist, d, lo, ids, c, M, tiles, n_src,  \
                                                      B, K, W, rows, degree, d_lo, d_hi, span, \
-                                                     s)                                     \
+                                                     m_e, s)                                \
                     : launch_poly<EE, float>(nlist, d, lo, ids, c, M, tiles, n_src, B, K,   \
-                                             W, rows, degree, d_lo, d_hi, span, s);
+                                             W, rows, degree, d_lo, d_hi, span, m_e, s);
   NMR_POLY_CASE(1)
   NMR_POLY_CASE(2)
   NMR_POLY_CASE(3)

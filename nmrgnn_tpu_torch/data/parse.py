@@ -26,6 +26,12 @@ def atoms_one_hot(elements, num_elements: int = len(ELEMENTS)) -> np.ndarray:
     return out
 
 
+def inv_degree_np(nlist: np.ndarray) -> np.ndarray:
+    """f32 1 / count(nlist > 0) over the last axis, 0 for isolated atoms
+    (``nmrgnn_tpu/data/parse.py:34``)."""
+    return inv_degree_from_nlist(nlist)
+
+
 def parse_structure(
     struct: Structure, neighbor_number: int = 16, frame: int = 0,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -24,6 +24,18 @@ class Graph(NamedTuple):
     edges: object       # f32[N, K]
     inv_degree: object  # f32[N]
 
+    @property
+    def num_atoms(self) -> int:
+        return self.atoms.shape[-2]
+
+    @property
+    def num_neighbors(self) -> int:
+        return self.nlist.shape[-1]
+
+    @property
+    def num_elements(self) -> int:
+        return self.atoms.shape[-1]
+
 
 def inv_degree_from_nlist(nlist) -> np.ndarray:
     """1/degree, where degree counts slots with ``nlist > 0`` and degree 0

@@ -1,4 +1,5 @@
-"""User-facing entry points (``nmrgnn_tpu/library.py:79-149``): save and
+"""User-facing entry points (``nmrgnn_tpu/library.py``): runtime checks,
+the bundled model, a model and trainer factory, the data split, save and
 load a model, turn a structure into a graph, sanity-check peaks.
 
 The bundled weights are read by path from the JAX package's directory
@@ -25,6 +26,59 @@ from .models.gnn import init_params, tree_map
 
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE_DIR = os.path.join(_REPO_DIR, "nmrgnn_tpu", "models", "baseline")
+
+
+def setup_optimizations(debug_nans: bool = False, enable_x64: bool = False) -> None:
+    """Runtime switches (``nmrgnn_tpu/library.py:24-35``).
+
+    ``debug_nans`` turns on ``torch.autograd.set_detect_anomaly``: a
+    backward pass that produces NaN raises and names the forward operation
+    that made it (the counterpart of ``jax_debug_nans``; forward values are
+    not checked). ``enable_x64`` is accepted and changes nothing: PyTorch
+    has float64 without a switch, and the port makes every tensor in the
+    type it names, as the JAX package's typed arrays keep theirs under x64
+    (setting float64 as the default type would change the port's
+    numerics, and the kernels take float32 and bfloat16 only)."""
+    if debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+
+
+def load_baseline() -> str:
+    """Path of the bundled model directory (``nmrgnn_tpu/library.py:38``)."""
+    return BASELINE_DIR
+
+
+def build_GNNModel(
+    config: Optional[ModelConfig] = None,
+    metrics: bool = True,
+    loss_balance: float = 1.0,
+    rng: Optional[torch.Generator] = None,
+    device="cuda",
+):
+    """(params, Trainer): initial weights drawn from ``rng`` (a
+    ``torch.Generator``, default seeded with 0) with the element standards,
+    and a ``Trainer`` with Adam, ``name_loss(loss_balance)`` and the
+    standard metric suite, both on ``device`` (``nmrgnn_tpu/library.py:
+    45-65``). ``metrics`` is accepted for signature parity: the Trainer
+    always computes the suite."""
+    from .config import TrainConfig
+    from .train.trainer import Trainer
+
+    config = config or ModelConfig()
+    trainer = Trainer(config, TrainConfig(loss_balance=loss_balance), device=device)
+    rng = rng if rng is not None else torch.Generator().manual_seed(0)
+    params = init_params(config, rng, load_standards(), device=device)
+    return params, trainer
+
+
+def load_data(tfrecords, validation: float, embeddings=None, scale: bool = False):
+    """(train samples, validation samples) with the reference's per-file
+    take/skip split (``nmrgnn_tpu/library.py:68-76``). ``embeddings`` and
+    ``scale`` are accepted for signature parity: the labels are already in
+    ppm (the reference's scaling branch is dead code)."""
+    from .data.dataset import split_dataset
+
+    return split_dataset(list(tfrecords), validation)
 
 
 def params_from_numpy(tree, device="cuda"):

@@ -38,6 +38,11 @@ one kernel (``apply_banded(fused_first=True)``), and the ``*_tracedlo``
 builds take a caller-given window start per tile (the partitioned
 forward's interior and halo bands, whose indices may be shifted negative).
 
+The kernels are instantiated for a few widths; the wrappers adapt every
+other width exactly (the width helpers below: the node table padded, edge
+channels in groups, the EdgeFC padded), so every configuration the JAX
+package's path rule sends to a kernel runs through it on the card.
+
 Each wrapper below takes the plain PyTorch version for a tensor on the CPU
 and launches its CUDA kernel (``csrc/banded.cu``, ``poly.cu``,
 ``hbm.cu``, ``fused_first.cu``) for a tensor on the card; it never falls
@@ -771,24 +776,24 @@ def build_band_poly_cls_plain(
 # Kernel wrappers.
 
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_MP_ARGS = [_P] * 8 + [_I] * 7 + [_P]
-_PARTIAL_ARGS = [_P] * 6 + [_I] * 6 + [_P]
+_MP_ARGS = [_P] * 8 + [_I] * 8 + [_P, _P]
+_PARTIAL_ARGS = [_P] * 6 + [_I] * 7 + [_P, _P]
 _OCC_FROM_BAND_ARGS = [_P, _P] + [_I] * 4 + [_P]
-_FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 7 + [_F32] * 3 + [_I, _I, _P]
+_FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 7 + [_F32] * 3 + [_I, _I, _I, _P, _P]
 _SIGNATURES = {
     "banded": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_build_band": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "nmr_build_band": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
         "nmr_build_band_fused": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _P],
+                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _I, _I, _P],
         ),
     },
     "poly": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
         "nmr_build_band_poly": (
             _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _F32, _F32, _F32, _I, _P],
+                 _F32, _F32, _F32, _I, _I, _P],
         ),
     },
     "hbm": {
@@ -810,15 +815,112 @@ _SIGNATURES = {
 # Element types the MP and band-build kernels take, and the suffix of
 # their entry points.
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-_MAX_E = 4          # edge channels the kernels are instantiated for
-_MAX_K = 128        # neighbor slots build_band takes
-_FUSED_H = 128      # EdgeFC width the fused kernel takes
-_FUSED_SLOTS = 128  # edge slots per block of the fused kernel
-_MP_F = (64, 128, 256)
+_MAX_E = 4          # edge channels a launch takes (more run as channel groups)
+_MAX_K = 128        # neighbor slots the band builds take
+_FUSED_H = (128, 256)  # EdgeFC widths the fused kernel is instantiated for
+_FUSED_OUT = 128 * 128  # edge slots x H of one block of the fused kernel
+_MP_F = (64, 128, 256, 512)  # node widths the MP kernel is instantiated for
+_MP_WIDE_E = 2      # edge channels a launch takes at F = 512
 _MP_CHUNK = 16      # window columns of an occupancy bit
 _MP_ROWS = 32       # rows per block of the MP kernel
 _POLY_MAX_COEFFS = 1024  # (degree + 1) * E the Chebyshev build stages
 _BUILD_ROWS = 4  # rows of a tile a block of the band builds takes
+
+
+# -- Widths ------------------------------------------------------------------
+# The kernels are instantiated for a few widths. Every other width that the
+# JAX package's path rule sends to a kernel is adapted to them exactly, on
+# the card, by these plain functions on tensors:
+# * node features F: the node table and w are zero-padded to the next width
+#   of _MP_F (a padded input column meets a zero row of w) and the output
+#   is sliced back (its padded columns hold act(0) + 0);
+# * edge channels E: a launch takes at most _MAX_E channels (_MP_WIDE_E at
+#   F = 512); more run as channel groups. The builds write each group's
+#   channels of one M; an MP layer runs its groups' partial sums in order,
+#   each launch adding the float32 sum of the groups before it (acc_in),
+#   and the last launch ends in the epilogue;
+# * the EdgeFC width H of the fused build: zero-padded to 128 or 256 (a
+#   padded hidden unit's act(0) meets a zero row of the next kernel, a
+#   padded RBF centre a zero row of the first), the RBF spacing kept from
+#   the true H.
+
+
+def channel_groups(n: int, size: int = _MAX_E) -> list:
+    """[(c0, c1), ...]: ``n`` channels in groups of at most ``size``, in
+    order."""
+    return [(c0, min(c0 + size, n)) for c0 in range(0, n, size)]
+
+
+def mp_width(F: int) -> int:
+    """The MP kernel's width a node table of ``F`` features is padded to."""
+    for f in _MP_F:
+        if F <= f:
+            return f
+    raise NotImplementedError(f"the MP kernel takes up to {_MP_F[-1]} node features, not {F}")
+
+
+def mp_group_size(F: int) -> int:
+    """Edge channels one MP launch takes at padded width ``F``."""
+    return _MP_WIDE_E if F > 256 else _MAX_E
+
+
+def pad_columns(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with its last axis zero-padded to ``width`` (``x`` itself
+    when it is that wide)."""
+    return x if x.shape[-1] == width else nnf.pad(x, (0, width - x.shape[-1]))
+
+
+def pad_mp_weights(w: torch.Tensor, width: int) -> torch.Tensor:
+    """MP weights [F, F, E] zero-padded to [width, width, E]."""
+    f = w.shape[0]
+    return w if f == width else nnf.pad(w, (0, 0, 0, width - f, 0, width - f))
+
+
+def fused_width(H: int) -> int:
+    """The fused kernel's EdgeFC width a width ``H`` is padded to."""
+    for h in _FUSED_H:
+        if H <= h:
+            return h
+    raise NotImplementedError(f"the fused build takes an EdgeFC up to {_FUSED_H[-1]} wide, "
+                              f"not {H}")
+
+
+def pad_edge_fc(edge_fc_params: Sequence[dict], width: int) -> list:
+    """EdgeFC parameters (``models/gnn`` layout: hidden kernels [H, H],
+    the final one [H, E]) with H zero-padded to ``width``: every hidden
+    kernel's rows and columns and bias, the final kernel's rows."""
+    out = []
+    for p in edge_fc_params[:-1]:
+        k = p["kernel"]
+        out.append({"kernel": nnf.pad(k, (0, width - k.shape[1], 0, width - k.shape[0])),
+                    "bias": pad_columns(p["bias"], width)})
+    k = edge_fc_params[-1]["kernel"]
+    out.append({"kernel": nnf.pad(k, (0, 0, 0, width - k.shape[0])),
+                "bias": edge_fc_params[-1]["bias"]})
+    return out
+
+
+def fused_rows(K: int, H: int, block_rows: int) -> int:
+    """Atoms a block of the fused kernel takes at padded width ``H``: the
+    largest power of two whose K slots fit its 16384 / H and that divides
+    the tile's rows; a K that does not divide the slots leaves the last
+    ones masked."""
+    rows = _FUSED_OUT // H // K
+    rows = 1 << (rows.bit_length() - 1) if rows else 0
+    while rows and block_rows % rows:
+        rows //= 2
+    if not rows:
+        raise NotImplementedError(f"the fused build takes K <= {_FUSED_OUT // H} at H = {H}")
+    return rows
+
+
+def poly_group_size(degree: int) -> int:
+    """Edge channels one Chebyshev build launch takes at ``degree``: its
+    (degree + 1) * E coefficients stay within _POLY_MAX_COEFFS."""
+    size = min(_MAX_E, _POLY_MAX_COEFFS // (degree + 1))
+    if size < 1:
+        raise NotImplementedError(f"the Chebyshev builds take degree < {_POLY_MAX_COEFFS}")
+    return size
 
 
 def build_rows(block_rows: int) -> int:
@@ -880,11 +982,17 @@ def _device_index(name: str, a, length: int, device) -> torch.Tensor:
     return t
 
 
-def _mp_shape_ok(F: int, E: int, B: int, W: int) -> bool:
-    """Whether the MP kernel (``csrc/mp.cuh``) takes these widths: F in
-    _MP_F, E <= 4, B a multiple of the rows per block, W of the chunk."""
-    return (F in _MP_F and 1 <= E <= _MAX_E and B % _MP_ROWS == 0
-            and W % _MP_CHUNK == 0)
+def _mp_tiles_ok(B: int, W: int) -> bool:
+    """Whether the MP kernel (``csrc/mp.cuh``) takes these tiles: B a
+    multiple of the rows per block, W of the chunk (any F and E, through
+    the width helpers above)."""
+    return B % _MP_ROWS == 0 and W % _MP_CHUNK == 0
+
+
+def _at(t: torch.Tensor, axis: int, c0: int) -> int:
+    """The address of index ``c0`` along ``axis`` of ``t`` (a channel
+    group's first channel)."""
+    return t.data_ptr() + c0 * t.stride(axis) * t.element_size()
 
 
 def _act_code(activation_name: str) -> int:
@@ -909,12 +1017,15 @@ def _launch_build(nlist, edge_feats, lo, window: int, block_rows: int,
     _check("nlist", nlist, torch.int32, (m, k), dev)
     _check("edge_feats", edge_feats, torch.float32, (m, k, e), dev)
     _check("lo", lo, torch.int32, (T,), dev)
-    if not (1 <= e <= _MAX_E and 1 <= k <= _MAX_K):
-        raise NotImplementedError(f"build_band kernel takes E <= {_MAX_E}, K <= {_MAX_K}")
+    if not 1 <= k <= _MAX_K:
+        raise NotImplementedError(f"build_band kernel takes K <= {_MAX_K}")
     out_bf16 = _bf16_flag("out_dtype", out_dtype)
     M = torch.empty((T, e, block_rows, window), dtype=out_dtype, device=dev)
-    _launch("nmr_build_band", dev, nlist.data_ptr(), edge_feats.data_ptr(), lo.data_ptr(),
-            M.data_ptr(), T, block_rows, k, e, window, build_rows(block_rows), out_bf16)
+    for c0, c1 in channel_groups(e):
+        _launch("nmr_build_band", dev, nlist.data_ptr(),
+                _at(edge_feats, 2, c0), lo.data_ptr(), _at(M, 1, c0), T, block_rows, k,
+                c1 - c0, window,
+                build_rows(block_rows), out_bf16, e, e)
     return M
 
 
@@ -1007,7 +1118,9 @@ def build_band_fused(
     tensor cores (``mma.sync``, each product exact, float32 sums, as
     ``ops/edge.py``'s ``as_operand`` computes them). It is bound by the
     EdgeFC products (2*N*K*H*H per hidden layer; float32 CUDA cores, or
-    bfloat16 tensor cores)."""
+    bfloat16 tensor cores). The EdgeFC is zero-padded to the kernel's
+    width (128 or 256), more than 4 channels run as groups, and a K that
+    does not divide a block's slots leaves its last slots masked."""
     if not _on_cuda(edges, "build_band_fused"):
         return build_band_fused_plain(
             nlist, edges, edge_fc_params, plan, rbf_low=rbf_low,
@@ -1017,29 +1130,28 @@ def build_band_fused(
     dev = edges.device
     n, k = nlist.shape
     B, W, T = plan.block_rows, plan.window, plan.num_tiles
+    h, e = edge_fc_params[-1]["kernel"].shape
+    gap = (rbf_high - rbf_low) / (h - 1)  # the RBF spacing of the true width
+    hp = fused_width(h)
+    rows = fused_rows(k, hp, B)
+    if hp != h:
+        edge_fc_params = pad_edge_fc(edge_fc_params, hp)
     hidden, final = list(edge_fc_params[:-1]), edge_fc_params[-1]
-    h, e = final["kernel"].shape
     _check("nlist", nlist, torch.int32, (n, k), dev)
     _check("edges", edges, torch.float32, (n, k), dev)
-    if (h != _FUSED_H or not 1 <= e <= _MAX_E or _FUSED_SLOTS % k
-            or B % (_FUSED_SLOTS // k) or n > plan.n_padded):
-        raise NotImplementedError(
-            f"build_band_fused kernel takes H == {_FUSED_H}, E <= {_MAX_E}, "
-            f"K dividing {_FUSED_SLOTS} and B a multiple of {_FUSED_SLOTS}/K"
-        )
+    if n > plan.n_padded:
+        raise ValueError(f"{n} rows, the plan {plan.n_padded}")
     if hidden:
         wh = torch.stack([p["kernel"] for p in hidden]).contiguous()
         bh = torch.stack([p["bias"] for p in hidden]).contiguous()
     else:  # never read with no hidden layer
-        wh = torch.zeros((1, h, h), dtype=torch.float32, device=dev)
-        bh = torch.zeros((1, h), dtype=torch.float32, device=dev)
+        wh = torch.zeros((1, hp, hp), dtype=torch.float32, device=dev)
+        bh = torch.zeros((1, hp), dtype=torch.float32, device=dev)
     lh = len(hidden)
-    _check("hidden kernels", wh, torch.float32, (max(lh, 1), h, h), dev)
-    _check("hidden biases", bh, torch.float32, (max(lh, 1), h), dev)
-    wf = final["kernel"].contiguous()
-    bf = final["bias"].contiguous()
-    _check("final kernel", wf, torch.float32, (h, e), dev)
-    _check("final bias", bf, torch.float32, (e,), dev)
+    _check("hidden kernels", wh, torch.float32, (max(lh, 1), hp, hp), dev)
+    _check("hidden biases", bh, torch.float32, (max(lh, 1), hp), dev)
+    _check("final kernel", final["kernel"].contiguous(), torch.float32, (hp, e), dev)
+    _check("final bias", final["bias"].contiguous(), torch.float32, (e,), dev)
     act = _act_code(activation_name)
     out_bf16 = _bf16_flag("out_dtype", out_dtype)
     compute_bf16 = _bf16_flag("compute_dtype", compute_dtype)
@@ -1049,13 +1161,15 @@ def build_band_fused(
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     edges_p = nnf.pad(edges, (0, 0, 0, pad))
     lo = _device_lo(plan, dev)
-    gap = (rbf_high - rbf_low) / (h - 1)
     M = torch.empty((T, e, B, W), dtype=out_dtype, device=dev)
-    _launch("nmr_build_band_fused", dev, nlist_p.data_ptr(), edges_p.data_ptr(),
-            lo.data_ptr(), wh.data_ptr(), bh.data_ptr(), wf.data_ptr(), bf.data_ptr(),
-            M.data_ptr(), plan.n_padded, B, k, e, W, h, lh,
-            float(np.float32(rbf_low)), float(np.float32(gap)),
-            float(np.float32(1.0 / gap)), act, out_bf16, compute_bf16)
+    for c0, c1 in channel_groups(e):  # the hidden layers run again for each group
+        wf = final["kernel"][:, c0:c1].contiguous()
+        bf = final["bias"][c0:c1].contiguous()
+        _launch("nmr_build_band_fused", dev, nlist_p.data_ptr(), edges_p.data_ptr(),
+                lo.data_ptr(), wh.data_ptr(), bh.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                _at(M, 1, c0), plan.n_padded, B, k, c1 - c0, W, hp, lh,
+                float(np.float32(rbf_low)), float(np.float32(gap)),
+                float(np.float32(1.0 / gap)), act, out_bf16, compute_bf16, rows, e)
     build_band_fused.launches += 1
     return M
 
@@ -1085,38 +1199,62 @@ def _mp_occupancy(M, occupancy) -> torch.Tensor:
 
 def _mp_operands(nodes, w, inv_degree, E: int, B: int, W: int, activation_name, what):
     """Checks of a full MP layer's operands on the card (``csrc/mp.cuh``):
-    (entry-point suffix, activation code, w in the kernel's layout)."""
+    (entry-point suffix, activation code, the node table padded to the
+    kernel's width, w in the kernel's layout at that width)."""
     dev = nodes.device
     n_table, F = nodes.shape
-    if not _mp_shape_ok(F, E, B, W):
+    if not _mp_tiles_ok(B, W):
         raise NotImplementedError(
-            f"{what} kernel takes F in {_MP_F}, E <= {_MAX_E}, B a multiple "
-            f"of the rows per block, W a multiple of {_MP_CHUNK}"
-        )
+            f"{what} kernel takes B a multiple of the rows per block, W a multiple of "
+            f"{_MP_CHUNK}")
     if n_table % B:
         raise ValueError(f"the node table's {n_table} rows are not whole {B}-row tiles")
     suffix = _dtype_suffix("nodes", nodes.dtype)
     _check("nodes", nodes, nodes.dtype, (n_table, F), dev)
     _check("inv_degree", inv_degree, torch.float32, (n_table,), dev)
-    return suffix, _act_code(activation_name), _mp_weights(w, nodes.dtype, E, F, dev)
+    fp = mp_width(F)
+    return (suffix, _act_code(activation_name), pad_columns(nodes, fp),
+            _mp_weights(pad_mp_weights(w, fp), nodes.dtype, E, fp, dev))
+
+
+def _mp_partials(M, occ, lo, table, w_t, groups, suffix: str):
+    """float32 [Tg * B, F]: the partial MP sums of M's channel ``groups``
+    over ``table`` (the kernel's width), each launch adding the sum of the
+    groups before it; None for no group."""
+    Tg, E, B, W = M.shape
+    n_table, fp = table.shape
+    acc = None
+    for c0, c1 in groups:
+        nxt = torch.empty((Tg * B, fp), dtype=torch.float32, device=table.device)
+        _launch("nmr_mp_banded_partial" + suffix, table.device, _at(M, 1, c0), occ.data_ptr(),
+                lo.data_ptr(), table.data_ptr(), _at(w_t, 0, c0), nxt.data_ptr(), Tg, c1 - c0,
+                B, W, fp, n_table, E, None if acc is None else acc.data_ptr(), source="hbm")
+        acc = nxt
+    return acc
 
 
 def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what,
                occupancy) -> torch.Tensor:
     """Checks and launches the MP layer of ``csrc/hbm.cu`` over M's grid
-    tiles (``ids`` None: tile i updates tile i)."""
+    tiles (``ids`` None: tile i updates tile i), its channel groups but the
+    last as partial sums and the last with the epilogue."""
     dev = nodes.device
     Tg, E, B, W = M.shape
     n_table, F = nodes.shape
-    suffix, act, w_t = _mp_operands(nodes, w, inv_degree, E, B, W, activation_name, what)
+    suffix, act, table, w_t = _mp_operands(nodes, w, inv_degree, E, B, W, activation_name,
+                                           what)
+    fp = table.shape[1]
     _check("M", M, nodes.dtype, (Tg, E, B, W), dev)
     occ = _mp_occupancy(M, occupancy)
-    out = torch.empty((Tg * B, F), dtype=nodes.dtype, device=dev)
-    _launch("nmr_mp_banded" + suffix, dev, M.data_ptr(), occ.data_ptr(), lo.data_ptr(),
-            None if ids is None else ids.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
-            inv_degree.data_ptr(), out.data_ptr(), Tg, E, B, W, F, n_table, act,
-            source="hbm")
-    return out
+    groups = channel_groups(E, mp_group_size(fp))
+    acc = _mp_partials(M, occ, lo, table, w_t, groups[:-1], suffix)
+    c0, c1 = groups[-1]
+    out = torch.empty((Tg * B, fp), dtype=nodes.dtype, device=dev)
+    _launch("nmr_mp_banded" + suffix, dev, _at(M, 1, c0), occ.data_ptr(), lo.data_ptr(),
+            None if ids is None else ids.data_ptr(), table.data_ptr(), _at(w_t, 0, c0),
+            inv_degree.data_ptr(), out.data_ptr(), Tg, c1 - c0, B, W, fp, n_table, act, E,
+            None if acc is None else acc.data_ptr(), source="hbm")
+    return out if fp == F else out[:, :F].contiguous()
 
 
 def _mp_layer(M, plan: BandPlan, nodes, w, inv_degree, activation_name, what,
@@ -1174,12 +1312,9 @@ def _poly_inputs(nlist, edges, cheb: EdgeCheb, n_padded: int, what: str):
     _check("edges", edges, torch.float32, (n, k), dev)
     coeffs = torch.as_tensor(cheb.coeffs, dtype=torch.float32, device=dev).contiguous()
     deg1, e = coeffs.shape
-    if (not 1 <= e <= _MAX_E or not 1 <= k <= _MAX_K or n > n_padded or deg1 < 2
-            or deg1 * e > _POLY_MAX_COEFFS):
-        raise NotImplementedError(
-            f"{what} kernel takes E <= {_MAX_E}, K <= {_MAX_K}, degree >= 1 "
-            f"and (degree + 1) * E <= {_POLY_MAX_COEFFS}"
-        )
+    if not 1 <= k <= _MAX_K or n > n_padded or deg1 < 2:
+        raise NotImplementedError(f"{what} kernel takes K <= {_MAX_K} and degree >= 1")
+    poly_group_size(deg1 - 1)
     pad = n_padded - n
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     return (nnf.pad(nlist, (0, 0, 0, pad), value=-1), nnf.pad(edges, (0, 0, 0, pad)), coeffs,
@@ -1192,14 +1327,25 @@ def _launch_poly(nlist, edges, cheb: EdgeCheb, lo, ids, tiles: int, window: int,
     over ``tiles`` grid tiles (``ids`` None: tile i reads tile i)."""
     nlist_p, edges_p, coeffs, scalars = _poly_inputs(nlist, edges, cheb, n_padded,
                                                      "build_band_poly")
-    out_bf16 = _bf16_flag("out_dtype", out_dtype)
-    e = coeffs.shape[1]
-    M = torch.empty((tiles, e, block_rows, window), dtype=out_dtype, device=edges.device)
-    _launch("nmr_build_band_poly", edges.device, nlist_p.data_ptr(), edges_p.data_ptr(),
-            lo.data_ptr(), None if ids is None else ids.data_ptr(), coeffs.data_ptr(),
-            M.data_ptr(), tiles, n_padded // block_rows, block_rows, nlist.shape[1], e, window,
-            build_rows(block_rows), *scalars, out_bf16, source="poly")
+    M = torch.empty((tiles, coeffs.shape[1], block_rows, window), dtype=out_dtype,
+                    device=edges.device)
+    _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, ids, M,
+                 channel_groups(coeffs.shape[1], poly_group_size(scalars[0])), n_padded)
     return M
+
+
+def _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, ids, M, groups, n_padded: int):
+    """Launches the Chebyshev band build of ``csrc/poly.cu`` for M's
+    channel ``groups``, each with its own coefficients' columns, into M
+    (its dtype) over M's grid tiles (``ids`` None: tile i reads tile i)."""
+    tiles, e, B, W = M.shape
+    out_bf16 = _bf16_flag("out_dtype", M.dtype)
+    for c0, c1 in groups:
+        c = coeffs[:, c0:c1].contiguous()
+        _launch("nmr_build_band_poly", M.device, nlist_p.data_ptr(), edges_p.data_ptr(),
+                lo.data_ptr(), None if ids is None else ids.data_ptr(), c.data_ptr(),
+                _at(M, 1, c0), tiles, n_padded // B, B, nlist_p.shape[1], c1 - c0, W,
+                build_rows(B), *scalars, out_bf16, e, source="poly")
 
 
 def build_band_poly(
@@ -1294,16 +1440,36 @@ def mp_banded_poly_fused(
     e = coeffs.shape[1]
     if n_pad != plan.n_padded:
         raise ValueError(f"nodes has {n_pad} rows, the plan {plan.n_padded}")
-    suffix, act, w_t = _mp_operands(nodes, w, inv_degree, e, B, W, activation_name,
-                                    "mp_banded_poly_fused")
+    suffix, act, table, w_t = _mp_operands(nodes, w, inv_degree, e, B, W, activation_name,
+                                           "mp_banded_poly_fused")
+    fp = table.shape[1]
     m_bf16 = _bf16_flag("out_dtype", out_dtype)
     lo = _device_lo(plan, dev)
     M = torch.empty((T, e, B, W), dtype=out_dtype, device=dev)
-    out = torch.empty((T * B, F), dtype=nodes.dtype, device=dev)
+    groups = channel_groups(e, min(mp_group_size(fp), poly_group_size(scalars[0])))
+    acc = None
+    if len(groups) > 1:
+        # the groups but the last: B4's kernel builds their channels (in
+        # nodes.dtype for the layer, as the fused kernel rounds its float32
+        # band), the partial layer sums them
+        head = groups[:-1]
+        _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, None, M, head, n_pad)
+        Mh = M
+        if out_dtype != nodes.dtype:
+            Mh = torch.empty((T, head[-1][1], B, W), dtype=nodes.dtype, device=dev)
+            _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, None, Mh, head, n_pad)
+        occ = band_occupancy(nlist_p, edges_p, lo, W, B, n_pad)
+        acc = _mp_partials(Mh, occ, lo, table, w_t, head, suffix)
+    c0, c1 = groups[-1]
+    c = coeffs[:, c0:c1].contiguous()
+    out = torch.empty((T * B, fp), dtype=nodes.dtype, device=dev)
     _launch("nmr_mp_banded_poly_fused" + suffix, dev, nlist_p.data_ptr(), edges_p.data_ptr(),
-            coeffs.data_ptr(), lo.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
-            inv_degree.data_ptr(), out.data_ptr(), M.data_ptr(), T, e, B, W, F,
-            nlist.shape[1], *scalars, m_bf16, act, source="fused_first")
+            c.data_ptr(), lo.data_ptr(), table.data_ptr(), _at(w_t, 0, c0),
+            inv_degree.data_ptr(), out.data_ptr(), _at(M, 1, c0), T, c1 - c0, B, W, fp,
+            nlist.shape[1], *scalars, m_bf16, act, e, None if acc is None else acc.data_ptr(),
+            source="fused_first")
+    if fp != F:
+        out = out[:, :F].contiguous()
     mp_banded_poly_fused.launches += 1
     return M, out
 
@@ -1362,11 +1528,10 @@ def mp_banded_partial(
     dev = table.device
     T, E, B, W = M.shape
     n_table, F = table.shape
-    if not _mp_shape_ok(F, E, B, W):
+    if not _mp_tiles_ok(B, W):
         raise NotImplementedError(
-            f"mp_banded_partial kernel takes F in {_MP_F}, E <= {_MAX_E}, B a multiple "
-            f"of the rows per block, W a multiple of {_MP_CHUNK}"
-        )
+            f"mp_banded_partial kernel takes B a multiple of the rows per block, W a multiple "
+            f"of {_MP_CHUNK}")
     suffix = _dtype_suffix("table", table.dtype)
     _check("M", M, table.dtype, (T, E, B, W), dev)
     _check("table", table, table.dtype, (n_table, F), dev)
@@ -1375,12 +1540,13 @@ def mp_banded_partial(
         if lo_np.size and (lo_np.min() < 0 or lo_np.max() + W > n_table):
             raise ValueError("windows must lie inside the table")
     lo = _device_index("lo", lo, T, dev)
-    w_t = _mp_weights(w, table.dtype, E, F, dev)
+    fp = mp_width(F)
+    w_t = _mp_weights(pad_mp_weights(w, fp), table.dtype, E, fp, dev)
     occ = _mp_occupancy(M, occupancy)
-    out = torch.empty((T * B, F), dtype=torch.float32, device=dev)
-    _launch("nmr_mp_banded_partial" + suffix, dev, M.data_ptr(), occ.data_ptr(),
-            lo.data_ptr(), table.data_ptr(), w_t.data_ptr(), out.data_ptr(), T, E, B, W, F,
-            n_table, source="hbm")
+    out = _mp_partials(M, occ, lo, pad_columns(table, fp), w_t,
+                       channel_groups(E, mp_group_size(fp)), suffix)
+    if fp != F:
+        out = out[:, :F].contiguous()
     mp_banded_partial.launches += 1
     return out
 

@@ -59,8 +59,9 @@ import torch.nn.functional as nnf
 
 from . import _cuda
 from .activations import ACTIVATION_CODES, get_activation
-from .banded import (_MAX_E, _MP_CHUNK, _MP_F, _MP_ROWS, _check, _dtype_suffix, _long,
-                     _mp_shape_ok, _mp_weights, _on_cuda, _pack_bits, occupancy_bits)
+from .banded import (_MP_CHUNK, _MP_ROWS, _at, _check, _dtype_suffix, _long, _mp_tiles_ok,
+                     _mp_weights, _on_cuda, _pack_bits, channel_groups, mp_group_size,
+                     mp_width, occupancy_bits, pad_columns, pad_mp_weights)
 
 
 class BlockStructure(NamedTuple):
@@ -367,10 +368,10 @@ def mp_blocksparse_plain(
 # Kernel wrappers.
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_MP_ARGS = [_P] * 8 + [_I] * 6 + [_P]
+_MP_ARGS = [_P] * 8 + [_I] * 7 + [_P, _P]
 _SIGNATURES = {
     "nmr_error_string": (ctypes.c_char_p, [_I]),
-    "nmr_build_block_adjacency": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "nmr_build_block_adjacency": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "nmr_mp_blocksparse": (_I, _MP_ARGS),
     "nmr_mp_blocksparse_bf16": (_I, _MP_ARGS),
     "nmr_block_occupancy": (_I, [_P] * 6 + [_I] * 5 + [_P]),
@@ -412,18 +413,18 @@ def build_block_adjacency(
     B = struct.block_size
     _check("nlist", nlist, torch.int32, (n, k), dev)
     _check("edge_feats", edge_feats, torch.float32, (n, k, e), dev)
-    if not (1 <= e <= _MAX_E and k >= 1 and B % 4 == 0 and n <= struct.n_padded):
-        raise NotImplementedError(
-            f"build_block_adjacency kernel takes E <= {_MAX_E} and B a multiple of 4")
+    if not (k >= 1 and B % 4 == 0 and n <= struct.n_padded):
+        raise NotImplementedError("build_block_adjacency kernel takes B a multiple of 4")
     suffix = _dtype_suffix("out_dtype", out_dtype)
     s = _device_struct(struct, dev)
     pad = struct.n_padded - n
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     e_p = nnf.pad(edge_feats, (0, 0, 0, 0, 0, pad))
     A = torch.empty((s.n_pairs, e, B, B), dtype=out_dtype, device=dev)
-    _launch("nmr_build_block_adjacency", dev, nlist_p.data_ptr(), e_p.data_ptr(),
-            s.pair_rows.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
-            A.data_ptr(), s.n_pairs, s.nb, B, k, e, int(suffix != ""))
+    for c0, c1 in channel_groups(e):
+        _launch("nmr_build_block_adjacency", dev, nlist_p.data_ptr(), _at(e_p, 2, c0),
+                s.pair_rows.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
+                _at(A, 1, c0), s.n_pairs, s.nb, B, k, c1 - c0, int(suffix != ""), e, e)
     build_block_adjacency.launches += 1
     return A
 
@@ -503,10 +504,10 @@ def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what,
     dev = nodes.device
     P, E, B, _ = A.shape
     n_table, F = nodes.shape
-    if not _mp_shape_ok(F, E, B, B) or B > _MAX_PAIR_B:  # a pair's B columns are its window
+    if not _mp_tiles_ok(B, B) or B > _MAX_PAIR_B:  # a pair's B columns are its window
         raise NotImplementedError(
-            f"{what} kernel takes F in {_MP_F}, E <= {_MAX_E} and B a multiple of "
-            f"{_MP_CHUNK} and of the rows per block, up to {_MAX_PAIR_B}")
+            f"{what} kernel takes B a multiple of {_MP_CHUNK} and of the rows per block, up "
+            f"to {_MAX_PAIR_B}")
     if B != struct.block_size or n_table != struct.n_padded or P != struct.n_pairs:
         raise ValueError(f"A of shape {tuple(A.shape)} and nodes of {tuple(nodes.shape)} do "
                          f"not match the structure")
@@ -517,18 +518,28 @@ def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what,
     act = ACTIVATION_CODES.get(activation_name)
     if act is None:
         raise ValueError(f"unknown activation {activation_name!r}")
-    w_t = _mp_weights(w, nodes.dtype, E, F, dev)
+    fp = mp_width(F)
+    table = pad_columns(nodes, fp)
+    w_t = _mp_weights(pad_mp_weights(w, fp), nodes.dtype, E, fp, dev)
     s = _device_struct(struct, dev)
     if occupancy is None:
         occ = block_occupancy_from_adjacency(A)
     else:
         occ = occupancy
         _check("occupancy", occ, torch.int32, (P, pair_words(B)), dev)
-    out = torch.empty((n_table, F), dtype=nodes.dtype, device=dev)
-    _launch("nmr_mp_blocksparse" + suffix, dev, A.data_ptr(), occ.data_ptr(),
-            s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), nodes.data_ptr(), w_t.data_ptr(),
-            inv_degree.data_ptr(), out.data_ptr(), P, s.nb, E, B, F, act)
-    return out
+    # channel groups but the last: partial sums (no inv_degree), chained
+    groups = channel_groups(E, mp_group_size(fp))
+    acc = None
+    for i, (c0, c1) in enumerate(groups):
+        last = i == len(groups) - 1
+        out = torch.empty((n_table, fp), dtype=nodes.dtype if last else torch.float32,
+                          device=dev)
+        _launch("nmr_mp_blocksparse" + suffix, dev, _at(A, 1, c0), occ.data_ptr(),
+                s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), table.data_ptr(),
+                _at(w_t, 0, c0), inv_degree.data_ptr() if last else None, out.data_ptr(), P,
+                s.nb, c1 - c0, B, fp, act, E, None if acc is None else acc.data_ptr())
+        acc = out
+    return out if fp == F else out[:, :F].contiguous()
 
 
 def mp_blocksparse(

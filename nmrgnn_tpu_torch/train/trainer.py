@@ -18,8 +18,10 @@ NaN recovery, metric moments summed over an epoch, checkpoint and resume.
     Otherwise the loader's batches are copied in one by one.
   * Checkpoints: the model through ``library.save_model`` (readable by
     both packages), the optimizer, EMA and schedule state in the port's own
-    ``train_state.pt`` (``torch.save``; the JAX package pickles optax
-    state, which torch cannot read).
+    ``train_state.pt`` (``torch.save``). ``load_train_checkpoint`` also
+    resumes a directory the JAX package's Trainer wrote: its optax Adam
+    state (``opt_state.msgpack``), EMA (``ema.msgpack``) and schedule
+    (``train_state.pkl``).
 
 Entry points run on ``device`` ("cuda" by default, raising without a
 card); the CPU runs the kernels' plain versions.
@@ -29,6 +31,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import pickle
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +43,8 @@ from ..config import ModelConfig, TrainConfig
 from ..data.dataset import FragmentLoader, Sample, pad_sample
 from ..data.embeddings import load_embeddings, load_standards
 from ..graph import Graph
-from ..library import load_model, save_model
+from .. import _msgpack
+from ..library import load_model, params_from_numpy, save_model
 from ..models import gnn
 from ..models.infer import apply_banded_fragments, fragment_band_plan
 from ..ops.banded import plan_fits_vmem, plan_on_device
@@ -49,6 +54,12 @@ from .metrics import METRIC_SPECS, type_mask
 # metric moments: enough to finalize rmsd / corr / count over an epoch
 _MOMENT_NAMES = ("w", "wx", "wy", "wx2", "wy2", "wxy", "wd2")
 _STATE_FILE = "train_state.pt"
+# what the JAX package's Trainer writes beside the model
+# (nmrgnn_tpu/train/trainer.py:123-175)
+_JAX_OPT_FILE = "opt_state.msgpack"
+_JAX_EMA_FILE = "ema.msgpack"
+_JAX_META_FILE = "train_state.pkl"
+_META_KEYS = ("epoch", "lr", "best_val", "plateau", "history")
 
 
 def _moments(y_true, y_pred, label_idx) -> torch.Tensor:
@@ -133,16 +144,91 @@ def save_train_checkpoint(path: str, state: TrainState, config: ModelConfig) -> 
 
 
 def load_train_checkpoint(path: str, state: TrainState, device) -> TrainState:
-    """Inverse of ``save_train_checkpoint``, into ``state`` (a fresh one)."""
+    """Inverse of ``save_train_checkpoint``, into ``state`` (a fresh one).
+
+    A directory the JAX package's Trainer wrote (``opt_state.msgpack``,
+    ``train_state.pkl``, ``ema.msgpack`` when its EMA was on) is read too:
+    optax's Adam count and moments become ``torch.optim.Adam``'s step,
+    ``exp_avg`` and ``exp_avg_sq`` (the same update), the EMA and the
+    schedule state are restored; a file of it that is missing or not in
+    that layout raises. A directory with the model alone (``save_model``)
+    restarts the optimizer and schedule, with a warning."""
     state.params, _ = load_model(path, device=device)
     meta_file = os.path.join(path, _STATE_FILE)
     if os.path.exists(meta_file):
         meta = torch.load(meta_file, map_location=device, weights_only=True)
         state.opt_state = meta["opt_state"]
         state.ema_params = meta["ema_params"]
-        for k in ("epoch", "lr", "best_val", "plateau", "history"):
+        for k in _META_KEYS:
             setattr(state, k, meta[k])
+        return state
+    jax_files = [f for f in (_JAX_OPT_FILE, _JAX_META_FILE, _JAX_EMA_FILE)
+                 if os.path.exists(os.path.join(path, f))]
+    if not jax_files:
+        warnings.warn(f"{path} holds a model and no training state: the optimizer, EMA and "
+                      "schedule start afresh", stacklevel=2)
+        return state
+    for f in (_JAX_OPT_FILE, _JAX_META_FILE):
+        if f not in jax_files:
+            raise ValueError(f"{path}: a JAX training checkpoint without {f}")
+    with open(os.path.join(path, _JAX_OPT_FILE), "rb") as f:
+        opt_tree = _msgpack.restore_arrays(_msgpack.unpackb(f.read()))
+    with open(os.path.join(path, _JAX_META_FILE), "rb") as f:
+        meta = _MetaUnpickler(f).load()
+    if not isinstance(meta, dict) or any(k not in meta for k in _META_KEYS):
+        raise ValueError(f"{path}/{_JAX_META_FILE} lacks the schedule keys {_META_KEYS}")
+    state.opt_state = _adam_state_from_optax(opt_tree, state.params, device)
+    for k in _META_KEYS:
+        setattr(state, k, meta[k])
+    state.epoch, state.plateau = int(state.epoch), int(state.plateau)
+    state.lr, state.best_val = float(state.lr), float(state.best_val)
+    if _JAX_EMA_FILE in jax_files:
+        with open(os.path.join(path, _JAX_EMA_FILE), "rb") as f:
+            ema = params_from_numpy(_msgpack.restore_arrays(_msgpack.unpackb(f.read())), device)
+        if [tuple(t.shape) for t in gnn.tree_leaves(ema)] != [
+                tuple(t.shape) for t in gnn.tree_leaves(state.params)]:
+            raise ValueError(f"{path}/{_JAX_EMA_FILE} does not match the model's parameters")
+        state.ema_params = ema
     return state
+
+
+class _MetaUnpickler(pickle.Unpickler):
+    """Reads the JAX package's schedule pickle, whose values are Python
+    numbers, lists and dicts, and numpy scalars; any other class raises."""
+
+    _ALLOWED = {("numpy", "dtype"), ("numpy.core.multiarray", "scalar"),
+                ("numpy._core.multiarray", "scalar")}
+
+    def find_class(self, module, name):
+        if (module, name) in self._ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"{module}.{name} is not allowed in a schedule pickle")
+
+
+def _adam_state_from_optax(opt_tree, params, device) -> dict:
+    """``torch.optim.Adam``'s state dict over ``params``' trainable leaves
+    from the JAX package's optax state (``inject_hyperparams(adam)``:
+    ``inner_state[0]`` holds Adam's count, mu and nu over the whole params
+    tree). optax's mu, nu and count are Adam's exp_avg, exp_avg_sq and
+    step, with the same bias corrections."""
+    try:
+        adam = opt_tree["inner_state"][0]
+        count, mu, nu = adam["count"], adam["mu"], adam["nu"]
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError("opt_state.msgpack is not the JAX package's Adam state") from e
+    leaves = gnn.trainable_leaves(params)
+    exp_avg = gnn.trainable_leaves(params_from_numpy(mu, device))
+    exp_avg_sq = gnn.trainable_leaves(params_from_numpy(nu, device))
+    shapes = [tuple(t.shape) for t in leaves]
+    if ([tuple(t.shape) for t in exp_avg] != shapes
+            or [tuple(t.shape) for t in exp_avg_sq] != shapes):
+        raise ValueError("opt_state.msgpack's Adam moments do not match the model's parameters")
+    sd = torch.optim.Adam([t.detach() for t in leaves]).state_dict()
+    step = int(np.asarray(count))
+    if step > 0:
+        sd["state"] = {i: {"step": torch.tensor(float(step)), "exp_avg": m, "exp_avg_sq": v}
+                       for i, (m, v) in enumerate(zip(exp_avg, exp_avg_sq))}
+    return sd
 
 
 def banded_fragments_eligible(config: ModelConfig, batch_size: int,

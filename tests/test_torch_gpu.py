@@ -111,21 +111,30 @@ def test_fused_kernel_matches_plain(dev, k, e, edge_fc_layers):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    """F = 96 (padded to 128) and H = 64 (padded to 128) run through the
+    kernels and match their plain versions; a wrong index type or device
+    still raises."""
     nlist, dists, efeat, nodes, w, inv = make_case(256, 7, 96, 3, seed=9)
     plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
     nl, ef, x, wt, iv = _on(dev, nlist, efeat, nodes, w, inv)
     M = banded.build_band(nl, ef, plan)
-    with pytest.raises(NotImplementedError):  # F = 96
-        banded.mp_banded(M, plan, x, wt, iv)
+    before = banded.mp_banded.launches
+    got = banded.mp_banded(M, plan, x, wt, iv)  # F = 96
+    assert banded.mp_banded.launches == before + 1 and got.shape == x.shape
+    torch.testing.assert_close(got, banded.mp_banded_plain(M, plan, x, wt, iv),
+                               rtol=2e-4, atol=2e-4)
     with pytest.raises(TypeError):
         banded.build_band(nl.long(), ef, plan)
     with pytest.raises(ValueError):
         banded.build_band(nl.cpu(), ef, plan)
     cfg = ModelConfig(edge_hidden_size=64)
     params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
-    with pytest.raises(NotImplementedError):  # H = 64
-        banded.build_band_fused(nl, _on(dev, dists)[0], params["edge_fc"], plan,
-                                rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high)
+    kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high)
+    d = _on(dev, dists)[0]
+    got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)  # H = 64
+    torch.testing.assert_close(
+        got, banded.build_band_fused_plain(nl, d, params["edge_fc"], plan, **kw),
+        rtol=1e-5, atol=1e-5)
 
 
 def test_apply_banded_and_serving_on_the_card(dev):
@@ -533,8 +542,9 @@ def test_blocksparse_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # neighbor lists on the CPU
         blocksparse.build_block_adjacency(nl.cpu(), ef, sd)
     A = blocksparse.build_block_adjacency(nl, ef, sd)
-    with pytest.raises(NotImplementedError):  # F = 96
-        blocksparse.mp_blocksparse(A, sd, x, wt, iv)
+    got = blocksparse.mp_blocksparse(A, sd, x, wt, iv)  # F = 96, padded to 128
+    torch.testing.assert_close(got, blocksparse.mp_blocksparse_plain(A, sd, x, wt, iv),
+                               rtol=2e-4, atol=2e-4)
     x2, wt2 = x[:, :64].contiguous(), wt[:64, :64].contiguous()
     with pytest.raises(TypeError):  # A in float32, the table in bfloat16
         blocksparse.mp_blocksparse(A, sd, x2.bfloat16(), wt2, iv)
@@ -708,9 +718,13 @@ def test_tracedlo_and_fused_first_wrappers_raise(dev):
     cheb = make_cheb(3)
     plan = banded.plan_on_device(banded.band_plan(nlist[:256], dists[:256]), dev)
     iv = torch.ones(256, device=dev)
-    with pytest.raises(NotImplementedError):  # F = 96
-        banded.mp_banded_poly_fused(nl, d, cheb, plan, torch.zeros(256, 96, device=dev),
-                                    torch.zeros(96, 96, 3, device=dev), iv)
+    x96 = torch.randn(256, 96, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    w96 = torch.randn(96, 96, 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1)) / 10
+    got = banded.mp_banded_poly_fused(nl, d, cheb, plan, x96, w96, iv)  # F = 96, padded
+    want = banded.mp_banded_poly_fused_plain(nl, d, cheb, plan, x96, w96, iv)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError):  # a node table of other rows than the plan's
         banded.mp_banded_poly_fused(nl, d, cheb, plan, torch.zeros(384, 128, device=dev),
                                     torch.zeros(128, 128, 3, device=dev), iv)
@@ -1131,8 +1145,9 @@ def test_band_writers_take_any_window(dev, cut):
 
 def test_blocksparse_occupancy_and_fused_wrappers_raise(dev):
     """What the new kernels' wrappers refuse: a block size the occupancy
-    kernels do not take, an occupancy of another shape or type, a K the
-    fused build's 128-slot blocks do not divide."""
+    kernels do not take, an occupancy of another shape or type; a K the
+    fused build's 128-slot blocks do not divide runs with the last slots
+    masked."""
     from nmrgnn_tpu_torch.ops import blocksparse
 
     s, sd, nl, ef, x, wt, iv = _block_case(dev, 300, 7, 64, 3, 5, False, 1)
@@ -1152,9 +1167,11 @@ def test_blocksparse_occupancy_and_fused_wrappers_raise(dev):
     cfg = ModelConfig()
     params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
     plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
-    with pytest.raises(NotImplementedError):  # K = 12 does not divide 128
-        banded.build_band_fused(*_on(dev, nlist, dists), params["edge_fc"], plan,
-                                rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high)
+    kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high)
+    got = banded.build_band_fused(*_on(dev, nlist, dists), params["edge_fc"], plan, **kw)
+    torch.testing.assert_close(  # K = 12: 8 atoms (96 of 128 slots) a block
+        got, banded.build_band_fused_plain(*_on(dev, nlist, dists), params["edge_fc"], plan,
+                                           **kw), rtol=1e-5, atol=1e-5)
 
 
 # -- the band builds by row group (csrc/banded.cu, csrc/poly.cu: B2, B4, B7, B8)
@@ -1295,9 +1312,10 @@ def test_band_builds_any_window_and_small_tiles(dev, cut, dtype):
 
 
 def test_band_build_wrappers_raise_past_the_kernels_limits(dev):
-    """What the build kernels do not take: K > 128, E > 4, (degree + 1) * E
-    > 1024, degree 0, a row count that is not whole tiles, an output type
-    other than float32 or bfloat16."""
+    """What the build kernels do not take: K > 128, degree 0, a row count
+    that is not whole tiles, an output type other than float32 or
+    bfloat16. E > 4 and (degree + 1) * E > 1024 run as channel groups,
+    equal to the plain versions bit for bit."""
     nlist, dists, efeat = _build_inputs(256, 129, 3, seed=1, block_rows=128)
     plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
     nl, d, ef = _on(dev, nlist, dists, efeat)
@@ -1306,10 +1324,11 @@ def test_band_build_wrappers_raise_past_the_kernels_limits(dev):
     with pytest.raises(NotImplementedError):
         banded.build_band_poly(nl, d, make_cheb(3), plan)
     nl, d, ef = nl[:, :16].contiguous(), d[:, :16].contiguous(), ef[:, :16].contiguous()
-    with pytest.raises(NotImplementedError):  # E = 5
-        banded.build_band(nl, torch.zeros(256, 16, 5, device=dev), plan)
-    with pytest.raises(NotImplementedError):  # (degree + 1) * E = 1026
-        banded.build_band_poly(nl, d, make_cheb(3, degree=_max_degree(3) + 1), plan)
+    e5 = torch.randn(256, 16, 5, device=dev) * (d > 0)[..., None]
+    assert torch.equal(banded.build_band(nl, e5, plan), banded.build_band_plain(nl, e5, plan))
+    wide = make_cheb(3, degree=_max_degree(3) + 1)  # (degree + 1) * E = 1026
+    assert torch.equal(banded.build_band_poly(nl, d, wide, plan),
+                       banded.build_band_poly_plain(nl, d, wide, plan))
     with pytest.raises(NotImplementedError):  # degree 0
         banded.build_band_poly(nl, d, make_cheb(3, degree=0), plan)
     with pytest.raises(ValueError):  # 256 rows are not whole 96-row tiles
@@ -1601,3 +1620,144 @@ def test_neighbors_device_on_the_card(dev):
     assert members.shape == (6, 256) and nbr.shape == (6, 256, k)
     assert int(nbr.max()) < 256 and bool((dist > 0).all())
     assert torch.equal(members[:, 0].long().cpu(), torch.arange(0, 3000, 500))
+
+
+# -- widths the kernels are not instantiated for: node tables padded to 64,
+# -- 128, 256 or 512 columns, edge channels in groups, EdgeFC widths padded
+# -- to 128 or 256, K that does not divide the fused build's slots
+
+
+@pytest.mark.parametrize("f,e,dtype", [
+    (96, 8, torch.float32), (32, 64, torch.bfloat16), (320, 3, torch.float32),
+    (512, 5, torch.bfloat16), (256, 8, torch.bfloat16),
+])
+def test_mp_kernels_at_other_widths_match_plain(dev, f, e, dtype):
+    """mp_banded, mp_banded_partial and mp_banded_hbm_cls with the node
+    table padded (96, 32, 320) and the channels in groups (4 a launch, 2 at
+    F = 512), one count a call, against their plain versions."""
+    nlist, dists, nl, ef, plan, M, x, wt, iv = _mp_case(dev, f, e, dtype, n=400, seed=f + e)
+    occ = banded.band_occupancy(nl, _on(dev, dists)[0], plan.lo, plan.window,
+                                plan.block_rows, plan.n_padded)
+    before = (banded.mp_banded.launches, banded.mp_banded_partial.launches)
+    got = banded.mp_banded(M, plan, x, wt, iv, "softplus", occ)
+    part = banded.mp_banded_partial(M, plan.lo, x, wt, occ)
+    torch.cuda.synchronize()
+    assert (banded.mp_banded.launches, banded.mp_banded_partial.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == x.shape and got.dtype == dtype and part.shape == x.shape
+    _mp_close(got, banded.mp_banded_plain(M, plan, x, wt, iv), dtype)
+    _mp_close(part, banded.mp_banded_partial_plain(M, plan.lo, x, wt), dtype)
+    c = banded.plan_on_device(banded.band_plan_classes(nlist, dists), dev).classes[-1]
+    Mc = M[c.ids.long()].contiguous()
+    cls = c._replace(window=plan.window, lo=plan.lo[c.ids.long()].contiguous())
+    _mp_close(banded.mp_banded_hbm_cls(Mc, cls, plan.block_rows, x, wt, iv),
+              banded.mp_banded_hbm_cls_plain(Mc, cls, plan.block_rows, x, wt, iv), dtype)
+
+
+@pytest.mark.parametrize("e", [5, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_builds_in_channel_groups_equal_plain(dev, e, dtype):
+    """B2, B4, B7a, B7b and B8 with E past one launch's 4 channels: each
+    group's channels of one M, equal to the plain versions bit for bit."""
+    nlist, dists, efeat = _build_inputs(700, 16, e, seed=e, block_rows=128)
+    cheb = make_cheb(e, degree=64, seed=e)
+    for name, got, want in _every_build(dev, nlist, dists, efeat, cheb, 128, dtype):
+        assert got.shape == want.shape and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("f,e,dtype", [(96, 8, torch.float32), (32, 5, torch.bfloat16),
+                                       (320, 3, torch.float32)])
+def test_blocksparse_at_other_widths_matches_plain(dev, f, e, dtype):
+    """B10 in channel groups (bit for bit) and B11/B12 with the node table
+    padded and the channels in groups, against their plain versions."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    s, sd, nl, ef, x, wt, iv = _block_case(dev, 300, 7, f, e, 5, True, 1)
+    A = blocksparse.build_block_adjacency(nl, ef, sd, out_dtype=dtype)
+    assert torch.equal(A, blocksparse.build_block_adjacency_plain(nl, ef, sd, dtype))
+    x = x.to(dtype)
+    got = blocksparse.mp_blocksparse(A, sd, x, wt, iv)
+    assert got.shape == x.shape and got.dtype == dtype
+    _mp_close(got, blocksparse.mp_blocksparse_plain(A, sd, x, wt, iv), dtype)
+
+
+@pytest.mark.parametrize("h,k,e,compute_dtype", [
+    (16, 16, 3, torch.float32), (64, 12, 8, torch.float32), (200, 16, 3, torch.bfloat16),
+    (256, 16, 2, torch.float32), (256, 12, 5, torch.bfloat16), (128, 12, 3, torch.bfloat16),
+])
+def test_fused_kernel_at_other_widths_matches_plain(dev, h, k, e, compute_dtype):
+    """B3 with H padded to 128 or 256 (zero weights), K = 12 (the block's
+    last slots masked) and E in channel groups, on a graph with padded
+    rows, against its plain version (tolerances of
+    test_fused_kernel_every_shape)."""
+    nlist, dists, *_ = make_case(400, k, 8, e, seed=h + k, banded_nlist=True)
+    cfg = ModelConfig(edge_feature_size=e, edge_hidden_size=h, edge_fc_layers=3)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(h), device=dev)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    nl, d = _on(dev, nlist, dists)
+    kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation,
+              out_dtype=compute_dtype, compute_dtype=compute_dtype)
+    before = banded.build_band_fused.launches
+    got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)
+    want = banded.build_band_fused_plain(nl, d, params["edge_fc"], plan, **kw)
+    assert banded.build_band_fused.launches == before + 1
+    if compute_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                   atol=BF16_STEP * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("f,e,h,k", [(96, 8, 64, 16), (32, 64, 256, 16), (256, 8, 128, 12)])
+def test_serving_and_training_at_other_widths(dev, f, e, h, k):
+    """ServingModel ("banded", exact and fast) and one banded Trainer step
+    of a config at the widths the hyperparameter search samples: kernels
+    launched, peaks against the plain gather forward (exact 5e-4; fast
+    within the fast band, rtol 0.05 and 1 ppm); "auto" training takes the
+    banded step where the JAX package's rule does (F a multiple of 128),
+    with the loss equal to the gather path's (rel 1e-5)."""
+    from nmrgnn_tpu_torch.config import TrainConfig
+    from nmrgnn_tpu_torch.train.trainer import Trainer, banded_fragments_eligible
+
+    cfg = ModelConfig(atom_feature_size=f, edge_feature_size=e, edge_hidden_size=h,
+                      neighbor_number=k, noise=0.0, dropout=False)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(f + e), device=dev)
+    n = 600
+    rng = np.random.default_rng(e)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-50, 50, (n, k)), 0, n - 1)
+    nlist = nlist.astype(np.int32)
+    dists = rng.uniform(0.09, 0.3, (n, k)).astype(np.float32)
+    g = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    ref = gnn.apply(params, cfg, Graph(*_on(dev, *g))).cpu()
+    for precision in ("exact", "fast"):
+        sm = ServingModel(params, cfg, mode="banded", precision=precision, device="cuda")
+        banded.reset_launch_counts()
+        peaks = torch.as_tensor(sm.predict(g))
+        torch.cuda.synchronize()
+        assert banded.mp_banded.launches + banded.mp_banded_partial.launches >= cfg.mp_layers
+        if precision == "exact":
+            torch.testing.assert_close(peaks, ref, rtol=5e-4, atol=5e-4)
+        else:
+            torch.testing.assert_close(peaks, ref, rtol=0.05, atol=1.0)
+    gb = _fragment_batch(dev, k=k)
+    y = torch.zeros(gb.nlist.shape[:2] + (3,), device=dev)
+    y[..., 0] = torch.rand(gb.nlist.shape[:2], device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2)) * 10
+    y[..., 1] = 1.0
+    y[:, :64, 2] = 1.0
+    wts = torch.ones(gb.nlist.shape[:2], device=dev)
+    shape_ok, fits = banded_fragments_eligible(cfg, 4, 128)
+    eligible = shape_ok and fits  # F a multiple of 128, as in the JAX package
+    assert Trainer(cfg, TrainConfig(batch_size=4, pad_to=128)).use_banded == eligible
+    losses = {"banded": None}
+    for path in ("banded", "gather") if eligible else ("gather",):
+        tr = Trainer(cfg, TrainConfig(batch_size=4, pad_to=128, mp_path=path))
+        state = tr.init_state(torch.Generator().manual_seed(1))
+        banded.reset_launch_counts()
+        losses[path] = float(tr.train_step(state, tr.optimizer(state), gb, y, wts))
+        if path == "banded":
+            assert (banded.build_band.launches, banded.mp_banded.launches) == (1, cfg.mp_layers)
+    assert np.isfinite(losses["gather"])
+    if eligible:
+        assert losses["banded"] == pytest.approx(losses["gather"], rel=1e-5)
