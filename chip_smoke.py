@@ -222,7 +222,10 @@ Phases, in order; any failure exits non-zero and prints no result:
        plain version in the forward; then 3 Trainer steps on the path the
        JAX package's rule gives (banded for F = 256, gather for the F not
        a multiple of 128). The first configuration also at 44,676 atoms
-       ("banded_hbm", within 5e-4 of the gather forward).
+       ("banded_hbm", within 5e-4 of the gather forward). And C6_CONFIGS
+       ({F=768, E=1, H=128}: three column blocks of 256, fault C6's
+       repair), served alike on phase 4's frames through the kernels only
+       (no training).
     b. the CLI (``python -m nmrgnn_tpu_torch.cli``) as subprocesses, the
        independent ones at once: eval-struct on phase 4's PDB (gather;
        --fast at exact with --profile; --fast at fast) and --fast on the
@@ -233,7 +236,36 @@ Phases, in order; any failure exits non-zero and prints no result:
        (within 5e-4 of the plain gather forward); hyper (3 trials, 1
        epoch, --seed 0: trial 0 is F=256 E=8 H=64 on the banded step).
        Each command's wall time (host clock, process start included).
-12. One JSON line listing every kernel of the paths (a counterpart of
+12. Atom-partitioned serving over gloo ranks sharing the card (NCCL refuses
+    two ranks on one card), each rank one spawned process with a file://
+    rendezvous; a rank that fails fails the phase. Prints each rank's
+    backend, path, launches, forward time (CUDA events), the halo
+    exchange's host time (post to received) and the halo rows and bytes a
+    layer (halo_comm_report):
+    a. phase 4's 3 frames of 2,482 atoms at the baseline's width, D = 2,
+       ServingModel(mesh=...) at exact, fast and with the attention model:
+       the kernel path ("banded"), every *_plain function counted (none may
+       run), 2 builds (B7a, or B7b at fast) and 8 B6 a forward, 8 B7a and 8
+       B6 with attention, a rank; the ranks' peaks equal; exact within 5e-4
+       of the single-card ServingModel, fast in the fast band of the exact
+       peaks and, on the last frame, within a mean 0.05 ppm of the same
+       ranks' forward through the plain versions (its node state is float32
+       between the layers, as the JAX package's partitioned forward keeps
+       it, so its mean distance from the one-card fast peaks, whose node
+       state is bfloat16, is printed, not gated),
+       attention r > 0.9999 and mean |diff| < 1 ppm. On rank 0, B7a and B7b
+       at the shard's shapes against their plain versions bit for bit and
+       B6 (interior and halo bands) within phase 3's MP tolerances, in
+       float32 and bfloat16, timed with the dense-band torch.bmm
+       yardstick.
+    b. the 44,676-atom supercell at D = 4 (45,056 padded rows, 11,264 a
+       shard), exact and fast: the path the JAX package's rule
+       (_partitioned_fits_vmem) picks, printed; exact within 5e-4 of the
+       single-card model, fast in the fast band of its exact peaks.
+    c. eval-struct --graph-parallel 2 under torchrun (--nproc-per-node 2)
+       on phase 4's PDB: the backend line, and each frame's CSV peaks
+       within 0.01 (the file rounds to 0.01) of the single-card exact ones.
+13. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
     and times; B2, B1 and the band occupancy also with their launches a
     training step (train_launches); B2 and B6 at one edge channel as
@@ -241,8 +273,10 @@ Phases, in order; any failure exits non-zero and prints no result:
     phase 10a's serving, and the band occupancy's there (attn_launches);
     every kernel row whose wrapper ran in phase 11a with its calls there
     by configuration (width_launches; a call at E > 4 launches the kernel
-    once per channel group of 4, 2 at F = 512).
-13. The last line: {"ok": true, "device": {...}}.
+    once per channel group of 4, 2 at F = 512; past 512 once per column
+    block pair and group); B7a, B7b and B6 also with phase 12a's launches
+    a forward of rank 0 (part_launches).
+14. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -2222,6 +2256,9 @@ C5_CONFIGS = (
     dict(atom_feature_size=256, edge_feature_size=8, edge_hidden_size=128, neighbor_number=12),
 )
 C5_HBM = 0  # the configuration also served at 44,676 atoms ("banded_hbm")
+# Past the widths the kernels took before fault C6 was repaired: F = 768 at
+# one edge channel (three column blocks of 256, the F-split), served only.
+C6_CONFIGS = (dict(atom_feature_size=768, edge_feature_size=1, edge_hidden_size=128),)
 
 
 def _c5_label(kw) -> str:
@@ -2297,7 +2334,7 @@ def _phase11a(args, dev, small, large, counts) -> dict:
     from nmrgnn_tpu_torch.train.trainer import Trainer, fold_sample_weight
 
     out = {}
-    for ci, kw in enumerate(C5_CONFIGS):
+    for ci, kw in enumerate(C5_CONFIGS + C6_CONFIGS):
         label = _c5_label(kw)
         cfg = ModelConfig(**kw)
         k = cfg.neighbor_number
@@ -2342,6 +2379,9 @@ def _phase11a(args, dev, small, large, counts) -> dict:
                   f"(median of 5, host clock); launches {launches}, no plain version called; "
                   f"frame {len(graphs) - 1} vs the plain gather forward: {agree}")
 
+        if kw in C6_CONFIGS:  # served only
+            out[label] = rec
+            continue
         # training: the fragments of phase 4's structure at this K
         with tempfile.TemporaryDirectory() as tmp:
             recs = os.path.join(tmp, "f.tfrecord")
@@ -2635,6 +2675,432 @@ def _phase11b(args, dev, params, cfg, small, counts) -> dict:
           f"plain gather forward max |diff| {res['eval_tfrecords_max_diff']:.2e}")
     for t in res["hyper_trials"]:
         print(f"phase 11b: hyper {t}")
+    return res
+
+
+# -- phase 12: atom-partitioned serving over ranks sharing the card -------------------
+
+
+def _part_check_kernels(par, banded, plan, own, s, params, cfg, cheb, dev) -> dict:
+    """B7a, B7b and B6 at this shard's shapes of ``plan`` against their
+    plain versions (outside the counted forwards): the interior and halo
+    bands of B7a and B7b bit for bit, B6 over both bands within phase 3's
+    MP tolerances (float32 rtol/atol 2e-4; bfloat16 rtol one step, atol two
+    steps of the output's scale); B6 and the builds timed (CUDA events),
+    B6 beside its plain version and the dense-band torch.bmm yardstick."""
+    import torch
+
+    from nmrgnn_tpu_torch.models.gnn import edge_features
+
+    m, B, W, Wh = plan.halo.rows_per_shard, plan.block_rows, plan.window, plan.halo_window
+    _, lnl, lo, bids, hlo = par.halo.shard_arrays(plan, s, dev)
+    edges = own.edges
+    rows = (bids.long()[:, None] * B + torch.arange(B, device=dev)[None, :]).reshape(-1)
+    lnl_h, edges_h = lnl[rows] - m, edges[rows].contiguous()
+    e = edge_features(params, cfg.replace(compute_dtype="float32"), edges)
+    e_h = e[rows].contiguous()
+    F, E = cfg.atom_feature_size, cfg.edge_feature_size
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        pairs = {
+            "B7a interior": (banded.build_band_tracedlo(lnl, e, lo, W, B, dt),
+                             banded.build_band_tracedlo_plain(lnl, e, lo, W, B, dt)),
+            "B7a halo": (banded.build_band_tracedlo(lnl_h, e_h, hlo, Wh, B, dt),
+                         banded.build_band_tracedlo_plain(lnl_h, e_h, hlo, Wh, B, dt)),
+            "B7b interior": (banded.build_band_poly_tracedlo(lnl, edges, cheb, lo, W, B, dt),
+                             banded.build_band_poly_tracedlo_plain(lnl, edges, cheb, lo, W, B,
+                                                                   dt)),
+            "B7b halo": (banded.build_band_poly_tracedlo(lnl_h, edges_h, cheb, hlo, Wh, B, dt),
+                         banded.build_band_poly_tracedlo_plain(lnl_h, edges_h, cheb, hlo, Wh,
+                                                               B, dt)),
+        }
+        for name, (got, want) in pairs.items():
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{name} {tag}: kernel != plain")
+            out[f"{name} {tag}"] = "bit for bit"
+        gen = torch.Generator(device=dev).manual_seed(s)
+        table = torch.randn((m, F), device=dev, generator=gen).to(dt)
+        halo = torch.randn((plan.halo_lanes, F), device=dev, generator=gen).to(dt)
+        w = torch.randn((F, F, E), device=dev, generator=gen) / F ** 0.5
+        M_int, M_halo = pairs["B7a interior"][0], pairs["B7a halo"][0]
+        occ = banded.band_occupancy(lnl, edges, lo, W, B, m)
+        occ_h = banded.band_occupancy(lnl_h, edges_h, hlo, Wh, B, rows.shape[0])
+        for name, (M, lo_, tab, oc) in {"B6 interior": (M_int, lo, table, occ),
+                                        "B6 halo": (M_halo, hlo, halo, occ_h)}.items():
+            got = banded.mp_banded_partial(M, lo_, tab, w, oc)
+            want = banded.mp_banded_partial_plain(M, lo_, tab, w, oc)
+            diff = (got - want).abs()
+            if dt == torch.float32:
+                bad = diff > 2e-4 + 2e-4 * want.abs()
+            else:
+                step = 2.0 ** -7
+                bad = diff > 2 * step * float(want.abs().max()) + step * want.abs()
+            if not torch.isfinite(got).all() or bool(bad.any()):
+                raise RuntimeError(f"{name} {tag}: max |kernel - plain| {float(diff.max()):.3e}")
+            out[f"{name} {tag}"] = float(diff.max())
+        T = M_int.shape[0]
+        win = torch.stack([table[a:a + W] for a in lo.tolist()])
+        # B6's bound on the interior band: its nonzeros and the second
+        # product; the occupied chunks, the occupancy and lo, the table,
+        # the weights and the float32 output moved once
+        eb = 4 if dt == torch.float32 else 2
+        row_chunks = int(banded.occupancy_bits(occ, W).sum())
+        bound_ms, bound_by = _bound(
+            2 * int((M_int != 0).sum()) * F + 2 * T * E * B * F * F,
+            row_chunks * 16 * E * eb + occ.numel() * 4 + T * 4 + m * F * eb + F * F * E * eb
+            + T * B * F * 4,
+            PEAK_F32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS)
+        out[f"bound {tag}"] = {"B6": bound_ms, "by": bound_by}
+        out[f"ms {tag}"] = {
+            "B6": _time_ms(lambda: banded.mp_banded_partial(M_int, lo, table, w, occ), 5),
+            "B6 plain": _time_ms(lambda: banded.mp_banded_partial_plain(M_int, lo, table, w,
+                                                                        occ), 3, 2),
+            "B6 bmm yardstick": _time_ms(lambda: torch.bmm(M_int.view(T, E * B, W), win), 5),
+            "B7a": _time_ms(lambda: banded.build_band_tracedlo(lnl, e, lo, W, B, dt), 5),
+            "B7b": _time_ms(lambda: banded.build_band_poly_tracedlo(lnl, edges, cheb, lo, W,
+                                                                    B, dt), 5),
+        }
+    out["shapes"] = {"m": m, "T": int(lo.shape[0]), "Tb": int(bids.shape[0]), "B": B, "W": W,
+                     "Wh": Wh, "halo_lanes": plan.halo_lanes, "F": F, "E": E}
+    return out
+
+
+def _part_serve(task, case, mesh, dev) -> dict:
+    """One phase 12 serving task in one rank: ServingModel(mesh=...) over
+    the task's frames with every ``*_plain`` function counted (none may
+    run), the launches a frame, then the forward's time (CUDA events),
+    the exchange's host time, the halo volumes and, where asked, the
+    kernels against their plain versions at the shard's shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from nmrgnn_tpu_torch import parallel as par
+    from nmrgnn_tpu_torch.config import ModelConfig
+    from nmrgnn_tpu_torch.data.embeddings import load_standards
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.library import load_model
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+    from nmrgnn_tpu_torch.ops import banded
+
+    if task["model"] == "baseline":
+        params, cfg = load_model(device=dev)
+    else:
+        cfg = ModelConfig(**task["config"])
+        params = gnn.init_params(cfg, torch.Generator().manual_seed(task["seed"]),
+                                 load_standards(), device=dev)
+    graphs = [Graph(*g) for g in case["graphs"][task["graphs"]]]
+    sm = ServingModel(params, cfg, device=dev, precision=task["precision"], mesh=mesh)
+    res = {"peaks": [], "launches": []}
+    with _PlainCalls() as plain:
+        for g in graphs:
+            _reset_counts()
+            res["peaks"].append(sm.predict(g))
+            torch.cuda.synchronize()
+            res["launches"].append({f.__name__: f.launches for f in _wrappers() if f.launches})
+    res["plain_calls"] = dict(plain.calls)
+    plan, is_banded, arrays = sm._part_plan
+    res["path"] = "banded" if is_banded else "halo-gather"
+    base = plan.halo if is_banded else plan
+    F = cfg.atom_feature_size
+    rep = par.halo_comm_report(base, F, 2 if sm.config.compute_dtype == "bfloat16" else 4)
+    res["comm"] = rep.as_dict()
+    # the last frame, whose plan is the cached one
+    gp = par.pad_to_multiple(sm._prepare(graphs[-1]), base.n_shards * 128)
+    fwd = par.apply_partitioned_banded if is_banded else par.apply_partitioned_halo
+    cheb = sm._edge_cheb() if (is_banded and task["precision"] == "fast"
+                               and cfg.mp_type != "attention") else None
+    kw = dict(cheb=cheb) if is_banded else {}
+    call = lambda: fwd(sm.params, sm.config, gp, plan, mesh, arrays=arrays, **kw)  # noqa: E731
+    if task.get("plain") and is_banded:  # the last frame through the plain versions
+        plain_fwd = fwd(sm.params, sm.config, gp, plan, mesh, arrays=arrays, use_kernels=False,
+                        **kw)
+        res["peaks_plain"] = plain_fwd.cpu().numpy()[:graphs[-1].atoms.shape[0]][sm._inverse]
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.group("graph"))
+    times = []
+    for _ in range(task.get("repeats", 5)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    res["forward_ms"] = float(np.median(times))
+    s = mesh.index("graph")
+    send = arrays[0]
+    table = torch.zeros((base.rows_per_shard, F), device=dev)
+    ex = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        par.ring_exchange(table, send, base.offsets, mesh.group("graph")).wait()
+        ex.append((time.perf_counter() - t0) * 1e3)
+    res["exchange_host_ms"] = float(np.median(ex))
+    if task.get("kernels"):
+        own = par.halo._own(gp, s, base.rows_per_shard, dev)
+        c = sm._edge_cheb() if cfg.mp_type != "attention" else None
+        if c is None:
+            from nmrgnn_tpu_torch.ops.edgefn import fit_edge_chebyshev
+
+            c = fit_edge_chebyshev(params["edge_fc"], rbf_low=cfg.rbf_low,
+                                   rbf_high=cfg.rbf_high, rbf_count=cfg.edge_hidden_size,
+                                   activation=cfg.fc_activation, degree=64)
+            c = c._replace(coeffs=torch.as_tensor(c.coeffs, device=dev))
+        res["kernels"] = _part_check_kernels(par, banded, plan, own, s, params, cfg, c, dev)
+    return res
+
+
+def _partition_rank(rank, world, init, case_path, out_dir) -> None:
+    """A phase 12 rank: the process group at ``init`` (gloo: the ranks
+    share the card), a (1, world) mesh, the case's tasks; its results in
+    ``out_dir/rank<r>.pkl``, a failure's traceback in ``rank<r>.err``."""
+    import pickle
+    import traceback
+
+    try:
+        import torch
+
+        from nmrgnn_tpu_torch import parallel as par
+
+        with open(case_path, "rb") as f:
+            case = pickle.load(f)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        par.initialize_distributed(init, rank=rank, world_size=world, timeout_s=300)
+        mesh = par.make_mesh(1, world)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        results = [_part_serve(t, case, mesh, dev) for t in case["tasks"]]
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+
+
+def _run_ranks(world: int, case: dict, tmp: str, timeout: float = 600) -> list:
+    """Spawn ``world`` phase 12 ranks on ``case`` and return their results;
+    fail when a rank fails or the time runs out (every rank is ended)."""
+    import multiprocessing as mp
+    import pickle
+
+    case_path = os.path.join(tmp, f"case{world}.pkl")
+    out_dir = os.path.join(tmp, f"out{world}")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(case_path, "wb") as f:
+        pickle.dump(case, f)
+    init = "file://" + os.path.join(tmp, f"init{world}")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_partition_rank, args=(r, world, init, case_path, out_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(end - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    errors = []
+    for r, p in enumerate(procs):
+        err = os.path.join(out_dir, f"rank{r}.err")
+        if p.exitcode != 0:
+            errors.append(f"rank {r} exited {p.exitcode}:\n"
+                          + (open(err).read()[-3000:] if os.path.exists(err) else ""))
+    if errors:
+        raise SystemExit("chip_smoke: phase 12 rank failure\n" + "\n".join(errors))
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _ms_list(times) -> str:
+    return ", ".join(f"{t:.3f}" for t in times)
+
+
+def _phase12(args, dev, params, cfg, small, large) -> dict:
+    """Atom-partitioned serving over gloo ranks sharing the card (see the
+    module's docstring, phase 12)."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig
+    from nmrgnn_tpu_torch.data.embeddings import load_standards
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.models.serving import ServingModel
+
+    acfg = ModelConfig(mp_type="attention")
+    aparams = gnn.init_params(acfg, torch.Generator().manual_seed(args.seed), load_standards(),
+                              device=dev)
+    graphs = small["graphs"]
+    single = {
+        "exact": small["peaks"],
+        "fast": [ServingModel(params, cfg, device=dev, precision="fast").predict(g)
+                 for g in graphs],
+        "attention": [ServingModel(aparams, acfg, device=dev).predict(g) for g in graphs],
+    }
+    big = large["graph"]
+    single_big = {p: ServingModel(params, cfg, device=dev, precision=p).predict(big)
+                  for p in ("exact", "fast")}
+    acfg_kw = dataclasses.asdict(acfg)
+    tasks2 = [dict(model="baseline", precision="exact", graphs="small", kernels=True),
+              dict(model="baseline", precision="fast", graphs="small", plain=True),
+              dict(model="attention", config=acfg_kw, seed=args.seed, precision="exact",
+                   graphs="small")]
+    tasks4 = [dict(model="baseline", precision=p, graphs="big", repeats=3)
+              for p in ("exact", "fast")]
+    case = {"graphs": {"small": [tuple(g) for g in graphs], "big": [tuple(big)]}}
+    out, res = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r2 = _run_ranks(2, dict(case, tasks=tasks2), tmp)
+        out["ranks2_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r4 = _run_ranks(4, dict(case, tasks=tasks4), tmp)
+        out["ranks4_s"] = time.perf_counter() - t0
+
+        # (c) the CLI under torchrun, two processes on the card
+        pdb = os.path.join(tmp, "synthetic.pdb")
+        write_synthetic_pdb(pdb, n_atoms=N_ATOMS, seed=args.seed, frames=N_FRAMES)
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "2", "-m", "nmrgnn_tpu_torch.cli", "eval-struct", pdb,
+             os.path.join(tmp, "gp.csv"), "--graph-parallel", "2"],
+            capture_output=True, text=True, cwd=root, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])))
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0 or "graph-parallel serving: mesh" not in proc.stdout:
+            raise SystemExit(f"chip_smoke: 12c torchrun eval-struct exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        backend = [ln for ln in proc.stderr.splitlines() if "backend" in ln]
+        rows = _read_rows(os.path.join(tmp, "gp.csv"))[1]
+
+    # (a) the 2,482-atom frames at D = 2
+    names = ("exact", "fast", "attention")
+    want_launches = {"exact": {"build_band_tracedlo": 2, "mp_banded_partial": 8},
+                     "fast": {"build_band_poly_tracedlo": 2, "mp_banded_partial": 8},
+                     "attention": {"build_band_tracedlo": 8, "mp_banded_partial": 8}}
+    for i, name in enumerate(names):
+        recs = [r[i] for r in r2]
+        for r in recs[1:]:
+            for a, b in zip(r["peaks"], recs[0]["peaks"]):
+                if not np.array_equal(a, b):
+                    raise SystemExit(f"chip_smoke: 12a {name}: the ranks' peaks differ")
+        for rank, rec in enumerate(recs):
+            if rec["plain_calls"] or rec["path"] != "banded":
+                raise SystemExit(f"chip_smoke: 12a {name} rank {rank}: path {rec['path']}, "
+                                 f"plain calls {rec['plain_calls']}")
+            for f, got in enumerate(rec["launches"]):
+                need = want_launches[name]
+                if any(got.get(k) != v for k, v in need.items()):
+                    raise SystemExit(f"chip_smoke: 12a {name} rank {rank} frame {f}: launches "
+                                     f"{got}, need {need}")
+        agree = []
+        for f, (p, q) in enumerate(zip(recs[0]["peaks"], single[name])):
+            if not np.all(np.isfinite(p)):
+                raise SystemExit(f"chip_smoke: 12a {name} frame {f}: non-finite peaks")
+            if name == "exact":
+                err = float(np.abs(p - q).max())
+                if not np.allclose(p, q, rtol=5e-4, atol=5e-4):
+                    raise SystemExit(f"chip_smoke: 12a exact frame {f}: max |2 ranks - one "
+                                     f"card| {err:.3e}")
+                agree.append(f"max |diff| {err:.3e} (rtol/atol 5e-4)")
+            elif name == "fast":
+                # the partitioned forward keeps its node state in float32 between the
+                # layers (nmrgnn_tpu/parallel/halo.py:646, 704), the one-card fast forward
+                # in bfloat16: held to the exact peaks' fast band and, on the last frame,
+                # within a mean 0.05 ppm of its own plain versions on the card
+                agree.append(_in_fast_band(p, single["exact"][f], f"12a fast frame {f}"))
+                ex = float(np.abs(p - single["exact"][f]).mean())
+                one = float(np.abs(q - single["exact"][f]).mean())
+                fast_gap = float(np.abs(p - q).mean())
+                agree[-1] += (f"; mean |diff| from one card's fast {fast_gap:.4f} ppm; from "
+                              f"exact {ex:.4f} ppm (one card's fast: {one:.4f})")
+                if f == len(graphs) - 1:
+                    mean = float(np.abs(p - recs[0]["peaks_plain"]).mean())
+                    if mean >= 0.05:
+                        raise SystemExit(f"chip_smoke: 12a fast: mean |kernels - plain| "
+                                         f"{mean:.4f} ppm >= 0.05")
+                    agree[-1] += f"; mean |kernels - plain versions| {mean:.2e} ppm"
+            else:
+                r = _pearson(p, q)
+                mean = float(np.abs(p - q).mean())
+                if r <= 0.9999 or mean >= 1.0:
+                    raise SystemExit(f"chip_smoke: 12a attention frame {f}: r {r:.6f}, mean "
+                                     f"|diff| {mean:.4f} ppm")
+                agree.append(f"r {r:.7f}, mean |diff| {mean:.2e} ppm, max "
+                             f"{float(np.abs(p - q).max()):.2e}")
+        res[name] = {
+            "launches_a_frame": [r["launches"][0] for r in recs],
+            "forward_ms": [r["forward_ms"] for r in recs],
+            "exchange_host_ms": [r["exchange_host_ms"] for r in recs],
+            "comm": recs[0]["comm"], "agree": agree,
+        }
+        c = recs[0]["comm"]
+        print(f"phase 12a: D=2 {name}: path partitioned/{recs[0]['path']}, launches a forward "
+              f"by rank {res[name]['launches_a_frame']}, no plain version called; forward "
+              f"{_ms_list(res[name]['forward_ms'])} ms a rank (median, "
+              f"CUDA events), exchange {_ms_list(res[name]['exchange_host_ms'])} "
+              f"ms (host clock, post to received); halo {c['halo_rows_padded']} rows "
+              f"({c['halo_rows_unique']} distinct) = {c['halo_bytes']} B a layer a shard vs "
+              f"all-gather {c['allgather_bytes']} B; vs one card: {agree[-1]}")
+    kern = r2[0][0]["kernels"]
+    res["kernels"] = kern
+    print(f"phase 12a: rank 0's B7a, B7b (bit for bit) and B6 (max |kernel - plain| "
+          f"{json.dumps({k: v for k, v in kern.items() if k.startswith('B6')})}) at the shard's "
+          f"shapes; ms {json.dumps({k: v for k, v in kern.items() if k.startswith('ms')})}; "
+          f"B6 bound {json.dumps({k: v for k, v in kern.items() if k.startswith('bound')})}; "
+          f"shapes {json.dumps(kern['shapes'])}")
+
+    # (b) 44,676 atoms at D = 4: the path the rule picks
+    for i, p in enumerate(("exact", "fast")):
+        recs = [r[i] for r in r4]
+        got, ref = recs[0]["peaks"][0], single_big[p]
+        if any(r["plain_calls"] and r["path"] == "banded" for r in recs):
+            raise SystemExit(f"chip_smoke: 12b {p}: plain calls on the kernel path")
+        if p == "exact":
+            err = float(np.abs(got - ref).max())
+            if not np.allclose(got, ref, rtol=5e-4, atol=5e-4):
+                raise SystemExit(f"chip_smoke: 12b exact: max |4 ranks - one card| {err:.3e}")
+            agree = f"max |diff| {err:.3e} (rtol/atol 5e-4)"
+        else:
+            agree = _in_fast_band(got, single_big["exact"], "12b fast")
+        res[f"supercell_{p}"] = {"path": recs[0]["path"], "forward_ms": [r["forward_ms"]
+                                                                         for r in recs],
+                                 "exchange_host_ms": [r["exchange_host_ms"] for r in recs],
+                                 "launches": recs[0]["launches"][0], "comm": recs[0]["comm"],
+                                 "agree": agree}
+        c = recs[0]["comm"]
+        print(f"phase 12b: D=4 {len(got)} atoms {p}: the rule picks {recs[0]['path']}; "
+              f"launches by rank {[r['launches'][0] for r in recs]}; forward "
+              f"{_ms_list(res[f'supercell_{p}']['forward_ms'])} ms a rank, "
+              f"exchange {_ms_list(res[f'supercell_{p}']['exchange_host_ms'])} "
+              f"ms; halo {c['halo_rows_padded']} rows = {c['halo_bytes']} B a layer a shard; vs "
+              f"one card: {agree}")
+
+    # (c) the CLI's output against the single-card exact peaks
+    peaks = np.array([float(r[4]) for r in rows])
+    frames = np.array([int(r[7]) for r in rows])
+    worst = max(float(np.abs(peaks[frames == f] - np.round(small["peaks"][f], 2)).max())
+                for f in range(N_FRAMES))
+    if worst > 0.01 + 1e-6:
+        raise SystemExit(f"chip_smoke: 12c eval-struct --graph-parallel 2: max |csv - one card| "
+                         f"{worst:.3f} > 0.01")
+    res["cli"] = {"wall_s": cli_s, "backend": backend, "max_csv_diff": worst}
+    print(f"phase 12c: torchrun --nproc-per-node 2 eval-struct --graph-parallel 2: {cli_s:.1f} s "
+          f"wall (host clock); {backend[0] if backend else 'no backend line'}; CSV vs one card's "
+          f"exact peaks max |diff| {worst:.3f} (the file rounds to 0.01)")
+    res.update(out)
     return res
 
 
@@ -3098,6 +3564,10 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     cli_runs = _phase11b(args, dev, params, cfg, dict(graphs=graphs), counts)
     print(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    partitioned = _phase12(args, dev, params, cfg, dict(graphs=graphs, peaks=peaks),
+                           large_inputs)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     checks.append({"name": "training_step", "phase": 9,
                    "max_abs_err": training["peaks_max_abs_err"],
                    "loss_rel_err": training["loss_rel_err"],
@@ -3123,6 +3593,12 @@ def main(argv=None) -> int:
             by_width["supercell " + widths["supercell"]["config"]] = \
                 widths["supercell"]["launches"][wrapper]
         k["width_launches"] = by_width
+        # phase 12a's launches a forward of rank 0, by precision (the mesh's
+        # 2 ranks each launch as many)
+        k["part_launches"] = {
+            name: rec["launches_a_frame"][0][k["name"]]
+            for name, rec in partitioned.items() if name in ("exact", "fast", "attention")
+            and rec["launches_a_frame"][0].get(k["name"])}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3137,6 +3613,7 @@ def main(argv=None) -> int:
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,
                 "wide": wide, "last_kernels": last, "training": training,
                 "attention": attention, "widths": widths, "cli": cli_runs,
+                "partitioned": partitioned,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

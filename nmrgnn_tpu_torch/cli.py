@@ -12,9 +12,16 @@ its markdown table (merged into an existing one) in the layout pandas'
 ``DataFrame.to_markdown`` gives (``_markdown_table``). Its "-rmsd" columns
 hold the mean squared error, as the reference's published tables do.
 
+``eval-struct --graph-parallel N`` serves each structure split over N
+processes, one a card (NCCL) or sharing cards or the CPU (gloo), started
+by ``torchrun``::
+
+    torchrun --nproc-per-node W -m nmrgnn_tpu_torch.cli eval-struct \
+        STRUCT OUT.csv --graph-parallel N
+
+on a (W // N, N) mesh; rank 0 writes the output. ``train``'s
 ``--data-parallel``, ``--tensor-parallel`` and ``--graph-parallel`` exit
-with a usage error (code 2): training and serving across cards are not
-ported yet.
+with a usage error (code 2): training across cards is not ported yet.
 """
 from __future__ import annotations
 
@@ -379,6 +386,52 @@ def _concat_tables(columns, rows, other_columns, other_rows):
 
 
 def _eval_struct(a) -> None:
+    if len(a.args) < 2:
+        raise UsageError("Must pass at least one structure file")
+    struct_files, output_csv = _existing(a.args[:-1]), a.args[-1]
+    with contextlib.ExitStack() as group:
+        mesh = None
+        if a.graph_parallel:
+            mesh = _graph_parallel_mesh(a, group)
+            if mesh is None:  # a rank past the mesh: nothing to serve
+                return
+        _serve_structs(a, struct_files, output_csv, mesh)
+
+
+def _graph_parallel_mesh(a, group: contextlib.ExitStack):
+    """The (W // N, N) mesh of ``eval-struct --graph-parallel N`` over the
+    W processes ``torchrun`` started (the process group is started here
+    and ended when ``group`` closes); None on a rank past W // N * N."""
+    import torch.distributed as dist
+
+    from .parallel import initialize_distributed, make_mesh
+
+    n = a.graph_parallel
+    if initialize_distributed() is not None:
+        group.callback(dist.destroy_process_group)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n > world:
+        hint = "" if dist.is_initialized() else (
+            "; start one process a shard with torchrun --nproc-per-node N -m "
+            "nmrgnn_tpu_torch.cli eval-struct ...")
+        raise UsageError(f"--graph-parallel {n} exceeds the {world} process(es){hint}")
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    if world % n and lead:
+        _echo(f"note: {world} processes not divisible by --graph-parallel {n}; using "
+              f"{(world // n) * n}", err=True)
+    if a.fast and lead:
+        _echo("note: --fast is ignored with --graph-parallel (the partitioned banded "
+              "forward is its own path); --precision fast applies bf16 arithmetic AND the "
+              "Chebyshev edge stage inside the per-shard band builds", err=True)
+    mesh = make_mesh(data=world // n, graph=n)
+    if mesh.rank >= (world // n) * n:
+        return None
+    if lead:
+        _echo(f"graph-parallel serving: mesh {dict(mesh.shape)}")
+    return mesh
+
+
+def _serve_structs(a, struct_files, output_csv, mesh) -> None:
     import torch
 
     from .data.neighbors import neighbors_device, neighbors_host
@@ -388,11 +441,8 @@ def _eval_struct(a) -> None:
     from .library import check_peaks, load_model
     from .models import gnn
 
-    if a.graph_parallel:
-        raise UsageError(_MULTI_GPU.format("serving", "--graph-parallel"))
-    if len(a.args) < 2:
-        raise UsageError("Must pass at least one structure file")
-    struct_files, output_csv = _existing(a.args[:-1]), a.args[-1]
+    lead = mesh is None or mesh.rank == 0
+    echo = _echo if lead else (lambda *args, **kw: None)
     dev = _device(a.device)
     params, cfg = load_model(a.model_file and _existing([a.model_file])[0], device=dev)
 
@@ -405,38 +455,38 @@ def _eval_struct(a) -> None:
     atoms_pad = torch.as_tensor(np.pad(atoms_np, ((0, pad_n - n), (0, 0)))).to(dev)
 
     serving = None
-    if a.fast and a.device_graph:
+    if a.fast and a.device_graph and mesh is None:
         _echo("note: --device-graph is ignored with --fast (the serving path builds graphs "
               "host-side, pipelined with inference)", err=True)
-    if a.fast:
+    if mesh is not None or a.fast:
         from .models.serving import ServingModel
 
-        serving = ServingModel(params, cfg, device=dev, precision=a.precision)
+        serving = ServingModel(params, cfg, device=dev, precision=a.precision, mesh=mesh)
 
     frames = range(0, struct.n_frames, a.stride)
     timing = {"graph": 0, "inference": 0, "output": 0, "read": parse_ns}
     rows: List[list] = []
-    _echo(f"Running on {dev.type} ({len(frames)} frame(s), {n} atoms)")
+    echo(f"Running on {dev.type} ({len(frames)} frame(s), {n} atoms)")
 
     def emit_frame(i, peaks, t):
         try:
             confident = check_peaks(atoms_np, peaks)
         except Warning as wrn:
-            _echo(f"warning: {wrn}", err=True)
+            echo(f"warning: {wrn}", err=True)
             confident = np.zeros(n, bool)
         peaks = np.round(np.asarray(peaks, np.float32), 2)
         for j in range(n):
             rows.append([j, struct.resnames[j], struct.resids[j], struct.names[j],
                          str(peaks[j]), bool(confident[j]), float(i), i])
         timing["output"] += time.time_ns() - t
-        _echo("|".join(f"{k}:{v/1e9:5.2f}s" for k, v in timing.items()))
+        echo("|".join(f"{k}:{v/1e9:5.2f}s" for k, v in timing.items()))
 
     with contextlib.ExitStack() as stack, torch.no_grad():
         if a.profile:
             from .utils.profiling import trace
 
             stack.enter_context(trace(a.profile))
-            _echo(f"profiling to {a.profile}")
+            echo(f"profiling to {a.profile}")
         if serving is not None:
             # the host's graph builds overlap the card's forwards
             # (ServingModel.predict_trajectory); the graph time is inside
@@ -471,6 +521,8 @@ def _eval_struct(a) -> None:
                 peaks = gnn.apply(params, cfg, g).float().cpu().numpy()[:n]
                 timing["inference"] += time.time_ns() - t
                 emit_frame(i, peaks, time.time_ns())
+    if not lead:
+        return
     with open(output_csv, "w", newline="") as f:
         wr = csv.writer(f, lineterminator="\n")
         wr.writerow(["index", "residues", "resids", "names", "peaks", "confident", "time",
@@ -645,7 +697,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve through ServingModel (the banded CUDA kernels)")
     p.add_argument("--precision", default="exact", choices=["exact", "fast"])
     p.add_argument("--profile", default=None, help="write a torch.profiler trace here")
-    p.add_argument("--graph-parallel", type=int, default=0, help="not ported (multi-GPU)")
+    p.add_argument("--graph-parallel", type=int, default=0,
+                   help="split each structure's atoms over N processes started by torchrun "
+                        "(the partitioned banded forward; 0 = one process)")
     p.set_defaults(run=_eval_struct)
 
     p = sub.add_parser("make-fragments", parents=[common],

@@ -248,13 +248,14 @@ int nmr_build_block_adjacency(const int* nlist, const float* e, const int* pair_
 // [P, pair_words(B)]. w: [E, F_in, F_out] in float32, [E, F_out, F_in] in
 // bfloat16. A channel group: A and w point at its first channel, m_e is
 // A's channel count, acc_in (or null) the earlier groups' float32 sum; inv
-// null writes the float32 sum [nb * B, F] (with acc_in) and no epilogue.
+// null writes the float32 sum [nb * B, F] (with acc_in) and no epilogue;
+// ldt is the node table's row stride in elements (mp.cuh's F-split).
 int nmr_mp_blocksparse(const float* A, const unsigned* occ, const int* row_ptr,
                        const int* pair_cols, const float* nodes, const float* w,
-                       const float* inv, void* out, int P, int nb, int E, int B, int F, int act,
-                       int m_e, const float* acc_in, void* stream) {
+                       const float* inv, void* out, int P, int nb, int E, int B, int F, int ldt,
+                       int act, int m_e, const float* acc_in, void* stream) {
   return launch_mp_any<float, kPairs>(F, E, A, occ, nullptr, nullptr, nodes, w, inv, out, nb, B,
-                                      B, nb * B, act, m_e, acc_in, ChebBuild{},
+                                      B, nb * B, ldt, act, m_e, acc_in, ChebBuild{},
                                       static_cast<cudaStream_t>(stream),
                                       PairList{row_ptr, pair_cols, P});
 }
@@ -262,10 +263,11 @@ int nmr_mp_blocksparse(const float* A, const unsigned* occ, const int* row_ptr,
 int nmr_mp_blocksparse_bf16(const __nv_bfloat16* A, const unsigned* occ, const int* row_ptr,
                             const int* pair_cols, const __nv_bfloat16* nodes,
                             const __nv_bfloat16* w, const float* inv, void* out, int P, int nb,
-                            int E, int B, int F, int act, int m_e, const float* acc_in,
+                            int E, int B, int F, int ldt, int act, int m_e, const float* acc_in,
                             void* stream) {
   return launch_mp_any<__nv_bfloat16, kPairs>(F, E, A, occ, nullptr, nullptr, nodes, w, inv, out,
-                                              nb, B, B, nb * B, act, m_e, acc_in, ChebBuild{},
+                                              nb, B, B, nb * B, ldt, act, m_e, acc_in,
+                                              ChebBuild{},
                                               static_cast<cudaStream_t>(stream),
                                               PairList{row_ptr, pair_cols, P});
 }

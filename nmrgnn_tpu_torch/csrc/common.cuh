@@ -246,9 +246,15 @@ __device__ __forceinline__ void band_rows(const int* rel, const float* ev, int r
 // among 1 to 32), stages their rows * K slots (window-relative index and E values)
 // in shared memory and writes them with band_rows, with band_threads(rows)
 // threads: a warp a row up to 8 rows, 2 warps at least, 256 at most.
+// band_rows walks a row's slots 32 at a time, so K is bounded only by the
+// staging: rows * K * (E + 1) floats, past 48 KB with the block opted in
+// to more (build_rows in ops/banded.py shrinks `rows` as K grows), at
+// most 8,192 slots (160 KB at one row of 4 channels, with B4's 4 KB of
+// coefficients under the 227 KB a block may use).
 constexpr int kBandMaxThreads = 256;
 constexpr int kBandMaxRows = 16;
-constexpr int kBandMaxK = 128;
+constexpr int kBandMaxK = 8192;
+constexpr size_t kBandDefaultSmem = 48 * 1024;  // a block's shared memory without opting in
 
 __host__ __device__ constexpr int band_threads(int rows) {
   return rows >= 8 ? kBandMaxThreads : (rows > 2 ? 32 * rows : 64);

@@ -15,20 +15,19 @@
 
 namespace {
 
-constexpr int kMaxK = 128;
 constexpr int kMaxCoeffs = 1024;
 
 template <typename T>
 int launch_fused_first(const int* nlist, const float* d, const float* c, const int* lo,
                        const T* table, const T* w, const float* inv, T* out, void* m_out,
-                       int tiles, int E, int B, int W, int F, int K, int degree, float d_lo,
-                       float d_hi, float span, int m_bf16, int act, int m_e,
+                       int tiles, int E, int B, int W, int F, int ldt, int K, int degree,
+                       float d_lo, float d_hi, float span, int m_bf16, int act, int m_e,
                        const float* acc_in, void* stream) {
-  if (K < 1 || K > kMaxK || degree < 1 || (degree + 1) * E > kMaxCoeffs)
+  if (K < 1 || K > kBandMaxK || degree < 1 || (degree + 1) * E > kMaxCoeffs)
     return cudaErrorInvalidValue;
   const ChebBuild bld{nlist, d, c, m_out, K, degree, m_bf16, d_lo, d_hi, span};
   return launch_mp_any<T, kBuild>(F, E, nullptr, nullptr, lo, nullptr, table, w, inv, out, tiles,
-                                  B, W, tiles * B, act, m_e, acc_in, bld,
+                                  B, W, tiles * B, ldt, act, m_e, acc_in, bld,
                                   static_cast<cudaStream_t>(stream));
 }
 
@@ -46,14 +45,15 @@ const char* nmr_error_string(int code) {
 // (m_bf16 0) or bfloat16 (1). w: [E, F_in, F_out] in float32, [E, F_out,
 // F_in] in bfloat16. The last of a layer's channel groups: m_out and w
 // point at its first channel, m_e is m_out's channel count and acc_in the
-// earlier groups' float32 sum (or null).
+// earlier groups' float32 sum (or null); ldt is the table's row stride in elements
+// (mp.cuh's F-split).
 int nmr_mp_banded_poly_fused(const int* nlist, const float* d, const float* c, const int* lo,
                              const float* table, const float* w, const float* inv, float* out,
-                             void* m_out, int tiles, int E, int B, int W, int F, int K,
-                             int degree, float d_lo, float d_hi, float span, int m_bf16,
+                             void* m_out, int tiles, int E, int B, int W, int F, int ldt,
+                             int K, int degree, float d_lo, float d_hi, float span, int m_bf16,
                              int act, int m_e, const float* acc_in, void* stream) {
   return launch_fused_first<float>(nlist, d, c, lo, table, w, inv, out, m_out, tiles, E, B, W,
-                                   F, K, degree, d_lo, d_hi, span, m_bf16, act, m_e, acc_in,
+                                   F, ldt, K, degree, d_lo, d_hi, span, m_bf16, act, m_e, acc_in,
                                    stream);
 }
 
@@ -61,11 +61,11 @@ int nmr_mp_banded_poly_fused_bf16(const int* nlist, const float* d, const float*
                                   const int* lo, const __nv_bfloat16* table,
                                   const __nv_bfloat16* w, const float* inv,
                                   __nv_bfloat16* out, void* m_out, int tiles, int E, int B,
-                                  int W, int F, int K, int degree, float d_lo, float d_hi,
-                                  float span, int m_bf16, int act, int m_e,
+                                  int W, int F, int ldt, int K, int degree, float d_lo,
+                                  float d_hi, float span, int m_bf16, int act, int m_e,
                                   const float* acc_in, void* stream) {
   return launch_fused_first<__nv_bfloat16>(nlist, d, c, lo, table, w, inv, out, m_out, tiles,
-                                           E, B, W, F, K, degree, d_lo, d_hi, span, m_bf16,
+                                           E, B, W, F, ldt, K, degree, d_lo, d_hi, span, m_bf16,
                                            act, m_e, acc_in, stream);
 }
 

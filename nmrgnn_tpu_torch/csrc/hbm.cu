@@ -21,27 +21,29 @@ const char* nmr_error_string(int code) {
 // One MP layer (activation(aggregate) + residual) over `tiles` grid tiles.
 // ids null: tile i updates rows [i*B, (i+1)*B) (mp_banded, mp_banded_hbm);
 // else grid tile i updates tile ids[i] into output rows [i*B, (i+1)*B)
-// (mp_banded_hbm_cls). n_table: rows of the node table, a multiple of B.
+// (mp_banded_hbm_cls). n_table: rows of the node table, a multiple of B;
+// ldt: its row stride in elements (F, or the full width when the table
+// pointer is a column block of a wider table, mp.cuh's F-split).
 // occ: the band's occupancy [tiles * B, ceil(W / 512)] (mp.cuh). w:
 // [E, F_in, F_out] in float32, [E, F_out, F_in] in bfloat16. A channel
 // group: M and w point at its first channel, m_e is M's channel count and
 // acc_in (or null) the earlier groups' float32 sum (mp.cuh).
 int nmr_mp_banded(const float* M, const unsigned* occ, const int* lo, const int* ids,
                   const float* table, const float* w, const float* inv, float* out, int tiles,
-                  int E, int B, int W, int F, int n_table, int act, int m_e,
+                  int E, int B, int W, int F, int n_table, int ldt, int act, int m_e,
                   const float* acc_in, void* stream) {
   return launch_mp_any<float, kFull>(F, E, M, occ, lo, ids, table, w, inv, out, tiles, B, W,
-                                     n_table, act, m_e, acc_in, ChebBuild{},
+                                     n_table, ldt, act, m_e, acc_in, ChebBuild{},
                                      static_cast<cudaStream_t>(stream));
 }
 
 int nmr_mp_banded_bf16(const __nv_bfloat16* M, const unsigned* occ, const int* lo,
                        const int* ids, const __nv_bfloat16* table, const __nv_bfloat16* w,
                        const float* inv, __nv_bfloat16* out, int tiles, int E, int B, int W,
-                       int F, int n_table, int act, int m_e, const float* acc_in,
+                       int F, int n_table, int ldt, int act, int m_e, const float* acc_in,
                        void* stream) {
   return launch_mp_any<__nv_bfloat16, kFull>(F, E, M, occ, lo, ids, table, w, inv, out, tiles,
-                                             B, W, n_table, act, m_e, acc_in, ChebBuild{},
+                                             B, W, n_table, ldt, act, m_e, acc_in, ChebBuild{},
                                              static_cast<cudaStream_t>(stream));
 }
 
@@ -50,20 +52,22 @@ int nmr_mp_banded_bf16(const __nv_bfloat16* M, const unsigned* occ, const int* l
 // have any number of rows.
 int nmr_mp_banded_partial(const float* M, const unsigned* occ, const int* lo,
                           const float* table, const float* w, float* out, int tiles, int E,
-                          int B, int W, int F, int n_table, int m_e, const float* acc_in,
-                          void* stream) {
+                          int B, int W, int F, int n_table, int ldt, int m_e,
+                          const float* acc_in, void* stream) {
   return launch_mp_any<float, kPartial>(F, E, M, occ, lo, nullptr, table, w, nullptr, out,
-                                        tiles, B, W, n_table, kLinear, m_e, acc_in, ChebBuild{},
+                                        tiles, B, W, n_table, ldt, kLinear, m_e, acc_in,
+                                        ChebBuild{},
                                         static_cast<cudaStream_t>(stream));
 }
 
 int nmr_mp_banded_partial_bf16(const __nv_bfloat16* M, const unsigned* occ, const int* lo,
                                const __nv_bfloat16* table, const __nv_bfloat16* w, float* out,
-                               int tiles, int E, int B, int W, int F, int n_table, int m_e,
-                               const float* acc_in, void* stream) {
+                               int tiles, int E, int B, int W, int F, int n_table, int ldt,
+                               int m_e, const float* acc_in, void* stream) {
   return launch_mp_any<__nv_bfloat16, kPartial>(F, E, M, occ, lo, nullptr, table, w, nullptr,
-                                                out, tiles, B, W, n_table, kLinear, m_e, acc_in,
-                                                ChebBuild{}, static_cast<cudaStream_t>(stream));
+                                                out, tiles, B, W, n_table, ldt, kLinear, m_e,
+                                                acc_in, ChebBuild{},
+                                                static_cast<cudaStream_t>(stream));
 }
 
 // The occupancy of `tiles` grid tiles' bands [tiles, E, B, W] from the

@@ -98,6 +98,14 @@
 //    of the groups before (a kPartial launch's output, or kPairs' with
 //    inv null), is added to acc before the epilogue or the partial store.
 //    Each group restages the window rows, so E = 8 reads them twice.
+//    A table wider than 512 runs as column blocks of 256 (the F-split):
+//    `table` points at an input block's first column and ldt is the full
+//    table's row stride, w at the block (input, output) of the weights, and
+//    an output block chains the launches of every input block and channel
+//    group through acc_in, its own input block last, so that the epilogue
+//    reads the residual from the columns it writes (table + src * ldt)
+//    and runs once, on the full sum. The output blocks are separate
+//    launches; ops/banded.py joins them.
 //
 // kPairs (B11, B12). The occupancy is one bit per (pair, 32-row slab,
 // 16-column chunk): bit s * (B / 16) + c of pair p's ceil(B * B / 512)
@@ -314,7 +322,9 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 && F <= 256 ? 2 : 1)
                      const T* __restrict__ w,           // [E, F, F] (see the note)
                      const float* __restrict__ inv,     // [n_table] (not kPartial)
                      void* __restrict__ out_,           // [tiles * B, F]: T, or float if partial
-                     int B, int W, int n_table, int act, int spb,
+                     int B, int W, int n_table,
+                     int ldt,                           // table row stride, in elements
+                     int act, int spb,
                      int m_e,                           // channels of M (or m_out) a tile
                      const float* acc_in,               // [tiles * B, F] float32, or null
                      ChebBuild bld, PairList prs) {
@@ -515,7 +525,7 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 && F <= 256 ? 2 : 1)
       const int q = s - r * SEG_ROW;
       const int src = src0 + r;
       const bool ok = col_ok && src >= 0 && src < n_table;
-      const char* g = reinterpret_cast<const char*>(table + (size_t)(ok ? src : 0) * F);
+      const char* g = reinterpret_cast<const char*>(table + (size_t)(ok ? src : 0) * ldt);
       cp_async16(st + (size_t)s * 16, g + q * 16, ok);
     }
     if constexpr (kMode != kBuild) {
@@ -728,7 +738,7 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 && F <= 256 ? 2 : 1)
               const size_t src = (size_t)tile * B + r0 + r;
               const float sc = inv[src];
               const float2 res = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(table + src * F + col));
+                  *reinterpret_cast<const __nv_bfloat162*>(table + src * ldt + col));
               *reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(out_) + o) =
                   __floats2bfloat162_rn(activate(x0 * sc, act) + res.x,
                                         activate(x1 * sc, act) + res.y);
@@ -823,7 +833,7 @@ __global__ void __launch_bounds__(kMpThreads, E <= 3 && F <= 256 ? 2 : 1)
         } else {
           const size_t src = (size_t)tile * B + r0 + r;
           const float sc = inv[src];
-          const float4 res = load4(table + src * F + col);
+          const float4 res = load4(table + src * ldt + col);
           store4(static_cast<T*>(out_) + o,
                  make_float4(activate(acc[a][0] * sc, act) + res.x,
                              activate(acc[a][1] * sc, act) + res.y,
@@ -852,7 +862,7 @@ inline int sm_count() {
 template <int F, int E, typename T, int kMode>
 cudaError_t launch_mp(const T* M, const unsigned* occ, const int* lo, const int* ids,
                       const T* table, const T* w, const float* inv, void* out, int tiles, int B,
-                      int W, int n_table, int act, int m_e, const float* acc_in,
+                      int W, int n_table, int ldt, int act, int m_e, const float* acc_in,
                       const ChebBuild& bld, const PairList& prs, cudaStream_t stream) {
   const size_t smem = mp_smem_bytes<F, E, T, kMode>(W, bld.K, bld.degree);
   if (B % kMpRows != 0 || smem > kMaxSmem || (kMode != kBuild && occ == nullptr) || m_e < E)
@@ -874,7 +884,7 @@ cudaError_t launch_mp(const T* M, const unsigned* occ, const int* lo, const int*
   const int spb = row_blocks >= 2 * sm_count() ? mp_slices<F>() : 1;
   const int blocks = row_blocks * (mp_slices<F>() / spb);
   mp_banded_kernel<F, E, T, kMode><<<blocks, kMpThreads, smem, stream>>>(
-      M, occ, lo, ids, table, w, inv, out, B, W, n_table, act, spb, m_e, acc_in, bld, prs);
+      M, occ, lo, ids, table, w, inv, out, B, W, n_table, ldt, act, spb, m_e, acc_in, bld, prs);
   return cudaGetLastError();
 }
 
@@ -888,16 +898,16 @@ cudaError_t launch_mp(const T* M, const unsigned* occ, const int* lo, const int*
 template <typename T, int kMode>
 cudaError_t launch_mp_any(int F, int E, const T* M, const unsigned* occ, const int* lo,
                           const int* ids, const T* table, const T* w, const float* inv,
-                          void* out, int tiles, int B, int W, int n_table, int act, int m_e,
-                          const float* acc_in, const ChebBuild& bld, cudaStream_t s,
+                          void* out, int tiles, int B, int W, int n_table, int ldt, int act,
+                          int m_e, const float* acc_in, const ChebBuild& bld, cudaStream_t s,
                           const PairList& prs = PairList{}) {
-  if (tiles < 1 || B < 1 || W < 1 || W % kMpChunk != 0 || n_table < 1 ||
-      (kMode != kPartial && (n_table < B || n_table % B != 0)))
+  if (tiles < 1 || B < 1 || W < 1 || W % kMpChunk != 0 || n_table < 1 || ldt < F ||
+      ldt * (int)sizeof(T) % 16 != 0 || (kMode != kPartial && (n_table < B || n_table % B != 0)))
     return cudaErrorInvalidValue;
 #define NMR_MP_CASE(FF, EE)                                                                  \
   if (F == FF && E == EE)                                                                    \
     return launch_mp<FF, EE, T, kMode>(M, occ, lo, ids, table, w, inv, out, tiles, B, W,     \
-                                       n_table, act, m_e, acc_in, bld, prs, s);
+                                       n_table, ldt, act, m_e, acc_in, bld, prs, s);
 #define NMR_MP_F(FF) NMR_MP_CASE(FF, 1) NMR_MP_CASE(FF, 2) NMR_MP_CASE(FF, 3) NMR_MP_CASE(FF, 4)
   NMR_MP_F(64)
   NMR_MP_F(128)

@@ -92,9 +92,14 @@ cudaError_t launch_poly(const int* nlist, const float* d, const int* lo, const i
                         const float* c, void* M, int tiles, int n_src, int B, int K, int W,
                         int rows, int degree, float d_lo, float d_hi, float span, int m_e,
                         cudaStream_t stream) {
-  // at most 4 KB of coefficients and 40 KB of slots: under the 48 KB a
-  // block gets without opting in
+  // at most 4 KB of coefficients and 160 KB of slots (common.cuh)
   const size_t smem = ((size_t)(degree + 1) * E + (size_t)rows * K * (E + 1)) * sizeof(float);
+  if (smem > kBandDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(build_band_poly_kernel<E, OutT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   build_band_poly_kernel<E, OutT><<<tiles * (B / rows), band_threads(rows), smem, stream>>>(
       nlist, d, lo, ids, c, static_cast<OutT*>(M), n_src, B, K, W, rows, degree, d_lo, d_hi,
       span, m_e);

@@ -55,6 +55,16 @@ that the cached class plan does not cover take the uniform forward, as in
 the JAX package. "fast" serves on the CPU too, through the plain versions
 of the kernels.
 
+With a ``mesh`` (``parallel.make_mesh``) whose ``partition_axis`` has more
+than one rank, every structure resolves to ``"partitioned"`` first, as in
+the JAX package: it is padded to shards x 128 rows, split by atom rows
+over the axis' ranks (one process each, ``torch.distributed``) and served
+through ``parallel.apply_partitioned_banded`` (B7a or B7b and B6, the halo
+exchange overlapped with the interior band) when the shard's working set
+passes the JAX package's budget (``_partitioned_fits_vmem``), else through
+``parallel.apply_partitioned_halo`` (plain PyTorch). Every rank calls
+``predict`` with the whole structure and gets the whole [N] peaks.
+
 ``predict_frames`` serves a batch of frames of a "banded" or
 "banded_attn" structure in one forward over their union plan
 (``apply_banded_frames``, ``apply_banded_attention_frames``) with one
@@ -64,6 +74,7 @@ overlaps the host's graph builds with the forwards.
 from __future__ import annotations
 
 import collections
+import hashlib
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -124,6 +135,8 @@ class ServingModel:
         group: int = 4,
         mode: str = "auto",
         precision: str = "exact",
+        mesh=None,
+        partition_axis: str = "graph",
     ):
         """``params`` is a tree of numpy arrays or tensors (``load_model``
         or ``init_params``); it is copied to ``device`` once. ``mode``
@@ -134,7 +147,9 @@ class ServingModel:
         each row's pairs to a multiple of ``group``. ``precision`` is
         "exact" (the config's compute type, the exact edge stage) or "fast"
         (bfloat16 products with float32 sums; on the banded paths the
-        Chebyshev edge stage)."""
+        Chebyshev edge stage). ``mesh`` (``parallel.Mesh``) with more than
+        one rank on ``partition_axis`` serves each structure split over
+        those ranks ("partitioned"); ``device`` is then this rank's."""
         if precision not in ("exact", "fast"):
             raise ValueError(f"unknown precision {precision!r}")
         if mode not in ("auto", "banded", "blocksparse"):
@@ -167,6 +182,10 @@ class ServingModel:
         self._struct: Optional[BlockStructure] = None  # "blocksparse" structure
         self._cheb: Optional[EdgeCheb] = None
         self._on_device = {}  # slot -> (host plan, its copy on the device)
+        self.mesh = mesh
+        self.partition_axis = partition_axis
+        self._part_key = None   # the cached partitioned plan's topology key
+        self._part_plan = None  # (plan, banded, this shard's plan arrays on the device)
 
     # -- path selection and plans --------------------------------------------
 
@@ -226,6 +245,10 @@ class ServingModel:
         budgets); "banded_attn" or "gather" for a non-bilinear model;
         fixed until a frame escapes its budget."""
         if self._resolved is not None:
+            return self._resolved
+        if self._n_shards() > 1:
+            # split over the ranks of the mesh's partition axis
+            self._resolved = "partitioned"
             return self._resolved
         if self.config.mp_type != "bilinear":
             plan = self._plan_if_attn(g) if self.config.mp_type == "attention" else None
@@ -341,6 +364,68 @@ class ServingModel:
             for a, dt in zip(g, dtypes)
         ])
 
+    # -- atom-partitioned serving ---------------------------------------------------
+
+    def _n_shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        return int(dict(self.mesh.shape).get(self.partition_axis, 1))
+
+    def _partitioned_fits_vmem(self, plan) -> bool:
+        """The JAX package's rule for the partitioned kernel path: the
+        shard's node table (its rows and the halo lanes), double-buffered
+        interior and halo band tiles and the MP weights under 12 MiB (one
+        edge channel for the attention family). Host arithmetic: the path
+        rule, not a limit of the Hopper kernels."""
+        cfg = self.config
+        b = self._dtype_bytes()
+        E = 1 if cfg.mp_type == "attention" else cfg.edge_feature_size
+        F = cfg.atom_feature_size
+        m = plan.halo.rows_per_shard
+        table = (m + plan.halo_lanes) * F * b
+        tiles = 2 * E * plan.block_rows * (plan.window + plan.halo_window) * b
+        w = E * F * F * b
+        return table + tiles + w < 12 * 1024 * 1024
+
+    def _predict_partitioned(self, g: Graph) -> torch.Tensor:
+        """The structure split over the partition axis' ranks: peaks [N] on
+        this rank's device. The plan is cached per topology (padded N and
+        the digests of nlist and of the real-edge mask) with this shard's
+        plan arrays on the device; the banded kernel path when the shard
+        passes ``_partitioned_fits_vmem``, else the halo-gather math."""
+        from ..parallel import (apply_partitioned_banded, apply_partitioned_halo,
+                                make_banded_halo_plan, make_halo_plan, pad_to_multiple)
+        from ..parallel.halo import shard_arrays
+
+        D = self._n_shards()
+        n = g.atoms.shape[0]
+        gp = pad_to_multiple(g, D * 128)
+        key = (
+            gp.atoms.shape[0],
+            hashlib.blake2b(np.ascontiguousarray(g.nlist).tobytes(), digest_size=16).digest(),
+            hashlib.blake2b((np.asarray(g.edges) > 0).tobytes(), digest_size=16).digest(),
+        )
+        if self._part_key != key:
+            plan = make_banded_halo_plan(gp.nlist, gp.edges, D)
+            banded = self._partitioned_fits_vmem(plan)
+            if not banded:
+                plan = make_halo_plan(gp.nlist, D, edges=gp.edges)
+            shard = self.mesh.index(self.partition_axis)
+            self._part_plan = (plan, banded, shard_arrays(plan, shard, self.device))
+            self._part_key = key
+        plan, banded, arrays = self._part_plan
+        with torch.no_grad():
+            if banded:
+                cheb = (self._edge_cheb() if self.precision == "fast"
+                        and self.config.mp_type != "attention" else None)
+                peaks = apply_partitioned_banded(self.params, self.config, gp, plan, self.mesh,
+                                                 axis=self.partition_axis, cheb=cheb,
+                                                 arrays=arrays)
+            else:
+                peaks = apply_partitioned_halo(self.params, self.config, gp, plan, self.mesh,
+                                               axis=self.partition_axis, arrays=arrays)
+        return peaks[:n]
+
     # -- prediction ------------------------------------------------------------
 
     def _predict_async(self, graph: Graph) -> Tuple[torch.Tensor, Optional[np.ndarray]]:
@@ -349,6 +434,8 @@ class ServingModel:
         device."""
         g = self._prepare(Graph(*[np.asarray(a) for a in graph]))
         mode = self._resolve_mode(g)
+        if mode == "partitioned":
+            return self._predict_partitioned(g), self._inverse
         if mode == "gather":
             with torch.no_grad():
                 return gnn.apply(self.params, self.config, self._to_device(g)), self._inverse

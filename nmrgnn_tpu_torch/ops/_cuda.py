@@ -28,7 +28,7 @@ from typing import Dict, Iterable, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "nmrgnn_tpu_torch")
-SOURCES = ("banded", "poly", "hbm", "fused_first", "blocksparse")
+SOURCES = ("banded", "fused_wide", "poly", "hbm", "fused_first", "blocksparse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

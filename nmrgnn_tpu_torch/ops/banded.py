@@ -74,7 +74,7 @@ from __future__ import annotations
 
 import ctypes
 import itertools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -776,15 +776,22 @@ def build_band_poly_cls_plain(
 # Kernel wrappers.
 
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_MP_ARGS = [_P] * 8 + [_I] * 8 + [_P, _P]
-_PARTIAL_ARGS = [_P] * 6 + [_I] * 7 + [_P, _P]
+_MP_ARGS = [_P] * 8 + [_I] * 9 + [_P, _P]
+_PARTIAL_ARGS = [_P] * 6 + [_I] * 8 + [_P, _P]
 _OCC_FROM_BAND_ARGS = [_P, _P] + [_I] * 4 + [_P]
-_FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 7 + [_F32] * 3 + [_I, _I, _I, _P, _P]
+_FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 8 + [_F32] * 3 + [_I, _I, _I, _P, _P]
 _SIGNATURES = {
     "banded": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
         "nmr_build_band": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
         "nmr_build_band_fused": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _I, _I, _P],
+        ),
+    },
+    "fused_wide": {
+        "nmr_error_string": (ctypes.c_char_p, [_I]),
+        "nmr_build_band_fused_wide": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _I, _I, _P],
         ),
@@ -816,15 +823,19 @@ _SIGNATURES = {
 # their entry points.
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 _MAX_E = 4          # edge channels a launch takes (more run as channel groups)
-_MAX_K = 128        # neighbor slots the band builds take
-_FUSED_H = (128, 256)  # EdgeFC widths the fused kernel is instantiated for
-_FUSED_OUT = 128 * 128  # edge slots x H of one block of the fused kernel
+_MAX_K = 8192       # neighbor slots the band builds stage (common.cuh's kBandMaxK)
+_FUSED_H = (128, 256, 512, 1024, 2048)  # EdgeFC widths the fused kernel is instantiated for
+_FUSED_TC_H = (128, 256)  # of them, those with a tensor-core (bfloat16) instantiation
+_FUSED_OUT = 128 * 128  # edge slots x H of one EdgeFC pass of the fused kernel
+_FUSED_MAX_K = 4096  # neighbor slots a block of the fused kernel keeps (one atom)
 _MP_F = (64, 128, 256, 512)  # node widths the MP kernel is instantiated for
+_MP_SPLIT = 256     # column block of a wider node table (the F-split)
 _MP_WIDE_E = 2      # edge channels a launch takes at F = 512
 _MP_CHUNK = 16      # window columns of an occupancy bit
 _MP_ROWS = 32       # rows per block of the MP kernel
 _POLY_MAX_COEFFS = 1024  # (degree + 1) * E the Chebyshev build stages
 _BUILD_ROWS = 4  # rows of a tile a block of the band builds takes
+_BUILD_STAGE = 40 * 1024  # slot bytes a block of the band builds stages without opting in
 
 
 # -- Widths ------------------------------------------------------------------
@@ -833,16 +844,27 @@ _BUILD_ROWS = 4  # rows of a tile a block of the band builds takes
 # the card, by these plain functions on tensors:
 # * node features F: the node table and w are zero-padded to the next width
 #   of _MP_F (a padded input column meets a zero row of w) and the output
-#   is sliced back (its padded columns hold act(0) + 0);
+#   is sliced back (its padded columns hold act(0) + 0); past 512, to a
+#   multiple of _MP_SPLIT, run as column blocks (the F-split, below);
 # * edge channels E: a launch takes at most _MAX_E channels (_MP_WIDE_E at
 #   F = 512); more run as channel groups. The builds write each group's
 #   channels of one M; an MP layer runs its groups' partial sums in order,
 #   each launch adding the float32 sum of the groups before it (acc_in),
 #   and the last launch ends in the epilogue;
-# * the EdgeFC width H of the fused build: zero-padded to 128 or 256 (a
-#   padded hidden unit's act(0) meets a zero row of the next kernel, a
-#   padded RBF centre a zero row of the first), the RBF spacing kept from
-#   the true H.
+# * the F-split: a table wider than 512 runs in column blocks of
+#   _MP_SPLIT. An output block j sums, through the same acc_in chain, the
+#   launches of every input block i (the table's columns [i fb, +fb), read
+#   through a row stride, against w's block (i, j)) and channel group,
+#   input block j last, so that its last launch reads its residual from the
+#   columns it writes and ends in the epilogue on the full sum. The output
+#   blocks are joined after their chains;
+# * the EdgeFC width H of the fused build: zero-padded to 128, 256, 512,
+#   1,024 or 2,048 (a padded hidden unit's act(0) meets a zero row of the
+#   next kernel, a padded RBF centre a zero row of the first), the RBF
+#   spacing kept from the true H;
+# * neighbor slots K: the band builds stage fewer rows a block as K grows
+#   (build_rows); the fused build runs a block's slots through its EdgeFC
+#   in passes (fused_rows).
 
 
 def channel_groups(n: int, size: int = _MAX_E) -> list:
@@ -852,16 +874,41 @@ def channel_groups(n: int, size: int = _MAX_E) -> list:
 
 
 def mp_width(F: int) -> int:
-    """The MP kernel's width a node table of ``F`` features is padded to."""
+    """The MP kernel's width a node table of ``F`` features is padded to:
+    64, 128, 256 or 512, and past 512 the next multiple of 256, run as
+    column blocks (``mp_split``).
+
+    Any F is taken. The JAX package's budgets send F past 512 to its MP
+    kernels: ``plan_fits_vmem`` at one edge channel lets F reach 1,701
+    (float32) and 2,407 (bfloat16) on the smallest plan (64 rows, W = 256),
+    ``hbm_plan_fits_vmem`` 1,421 and 2,147, and its block-sparse path
+    applies no width budget at all."""
+    if F < 1:
+        raise ValueError(f"a node table needs at least one feature, not {F}")
     for f in _MP_F:
         if F <= f:
             return f
-    raise NotImplementedError(f"the MP kernel takes up to {_MP_F[-1]} node features, not {F}")
+    return _round_up(F, _MP_SPLIT)
+
+
+def mp_split(fp: int) -> Tuple[int, int]:
+    """(block width, blocks) of a node table padded to ``fp``: one block
+    up to 512, else blocks of _MP_SPLIT."""
+    fb = fp if fp <= _MP_F[-1] else _MP_SPLIT
+    return fb, fp // fb
 
 
 def mp_group_size(F: int) -> int:
     """Edge channels one MP launch takes at padded width ``F``."""
-    return _MP_WIDE_E if F > 256 else _MAX_E
+    return _MP_WIDE_E if mp_split(F)[0] > 256 else _MAX_E
+
+
+def mp_split_steps(nb: int, groups) -> list:
+    """[(j, [(i, (c0, c1)), ...]), ...]: for each output block j of an
+    F-split in ``nb`` blocks, the launches of its chain in order, input
+    block j last, each input block's channel ``groups`` in order."""
+    return [(j, [(i, g) for i in [*range(j), *range(j + 1, nb), j] for g in groups])
+            for j in range(nb)]
 
 
 def pad_columns(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -877,7 +924,14 @@ def pad_mp_weights(w: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def fused_width(H: int) -> int:
-    """The fused kernel's EdgeFC width a width ``H`` is padded to."""
+    """The fused kernel's EdgeFC width a width ``H`` is padded to: 128,
+    256, 512, 1,024 or 2,048.
+
+    ``fused_build_ok``'s activations term lets H reach 4,048 at 64-row
+    tiles and K = 16, but the JAX kernel holds its hidden kernels [Lh, H,
+    H] whole in its 16 MiB of scoped VMEM, double-buffered (2 * H * H * 4
+    bytes for even one of them), so no H past 1,448 compiles there; past
+    2,048 this raises."""
     for h in _FUSED_H:
         if H <= h:
             return h
@@ -902,16 +956,33 @@ def pad_edge_fc(edge_fc_params: Sequence[dict], width: int) -> list:
 
 def fused_rows(K: int, H: int, block_rows: int) -> int:
     """Atoms a block of the fused kernel takes at padded width ``H``: the
-    largest power of two whose K slots fit its 16384 / H and that divides
-    the tile's rows; a K that does not divide the slots leaves the last
-    ones masked."""
+    largest power of two whose K slots fit one EdgeFC pass (16384 / H
+    slots) and that divides the tile's rows, else 1, whose K slots then
+    run in several passes; a K that does not fill a pass leaves its last
+    slots masked.
+
+    K is taken up to 4,096, the slots a block keeps in shared memory
+    beside a pass's buffers: the reach of ``fused_build_ok`` for any EdgeFC
+    of 16 or more units (its activations term B * K * H * 4 bytes passes
+    16 MiB past K = 65,536 / H at 64-row tiles)."""
+    if not 1 <= K <= _FUSED_MAX_K:
+        raise NotImplementedError(f"the fused build takes K up to {_FUSED_MAX_K}, not {K}")
     rows = _FUSED_OUT // H // K
-    rows = 1 << (rows.bit_length() - 1) if rows else 0
-    while rows and block_rows % rows:
+    rows = 1 << (rows.bit_length() - 1) if rows else 1
+    while block_rows % rows:
         rows //= 2
-    if not rows:
-        raise NotImplementedError(f"the fused build takes K <= {_FUSED_OUT // H} at H = {H}")
     return rows
+
+
+def fused_compute(compute_bf16: bool, H: int, K: int) -> int:
+    """The fused kernel's compute code at padded width ``H``: 0 float32
+    on the CUDA cores; in bfloat16, 1 on the tensor cores (H 128, or 256
+    with K <= 1,024 slots beside its staged hidden kernel) and else 2,
+    bfloat16 operands on the CUDA cores (each product exact, float32 sums,
+    as on the tensor cores)."""
+    if not compute_bf16:
+        return 0
+    return 1 if H == 128 or (H == 256 and K <= 1024) else 2
 
 
 def poly_group_size(degree: int) -> int:
@@ -923,13 +994,18 @@ def poly_group_size(degree: int) -> int:
     return size
 
 
-def build_rows(block_rows: int) -> int:
+def build_rows(block_rows: int, K: int = 16, E: int = _MAX_E) -> int:
     """Rows of one tile a block of the band builds (``csrc/banded.cu``,
     ``csrc/poly.cu``) takes: 4 (the best or near it on the card among 1
     to 32, at 2,482 and at 44,676 atoms), or the largest power of two
-    below it that divides ``block_rows``."""
+    below it that divides ``block_rows`` and whose rows * K slots of E
+    values stage in _BUILD_STAGE bytes (one row past that: the kernel
+    opts in to more shared memory).
+
+    The band builds take K up to 8,192 (``_MAX_K``); the JAX package's
+    budgets set no bound on K for them."""
     rows = _BUILD_ROWS
-    while block_rows % rows:
+    while block_rows % rows or (rows > 1 and rows * K * (E + 1) * 4 > _BUILD_STAGE):
         rows //= 2
     return rows
 
@@ -1025,7 +1101,7 @@ def _launch_build(nlist, edge_feats, lo, window: int, block_rows: int,
         _launch("nmr_build_band", dev, nlist.data_ptr(),
                 _at(edge_feats, 2, c0), lo.data_ptr(), _at(M, 1, c0), T, block_rows, k,
                 c1 - c0, window,
-                build_rows(block_rows), out_bf16, e, e)
+                build_rows(block_rows, k, c1 - c0), out_bf16, e, e)
     return M
 
 
@@ -1119,8 +1195,11 @@ def build_band_fused(
     ``ops/edge.py``'s ``as_operand`` computes them). It is bound by the
     EdgeFC products (2*N*K*H*H per hidden layer; float32 CUDA cores, or
     bfloat16 tensor cores). The EdgeFC is zero-padded to the kernel's
-    width (128 or 256), more than 4 channels run as groups, and a K that
-    does not divide a block's slots leaves its last slots masked."""
+    width (128, 256, 512, 1,024 or 2,048; past 256, and at H = 256 with
+    more than 1,024 slots, bfloat16 operands run on the CUDA cores,
+    ``fused_compute``), more than 4 channels run as groups, and a block's
+    slots run through the EdgeFC in passes of 16384 / H (``fused_rows``):
+    a K that does not fill a pass leaves its last slots masked."""
     if not _on_cuda(edges, "build_band_fused"):
         return build_band_fused_plain(
             nlist, edges, edge_fc_params, plan, rbf_low=rbf_low,
@@ -1154,9 +1233,11 @@ def build_band_fused(
     _check("final bias", final["bias"].contiguous(), torch.float32, (e,), dev)
     act = _act_code(activation_name)
     out_bf16 = _bf16_flag("out_dtype", out_dtype)
-    compute_bf16 = _bf16_flag("compute_dtype", compute_dtype)
-    if compute_bf16:  # the tensor cores' B fragments: [Lh, H_out, H_in], k contiguous
+    compute = fused_compute(_bf16_flag("compute_dtype", compute_dtype), hp, k)
+    if compute == 1:  # the tensor cores' B fragments: [Lh, H_out, H_in], k contiguous
         wh = wh.transpose(1, 2).to(torch.bfloat16).contiguous()
+    elif compute == 2:  # bfloat16 operands on the CUDA cores: [Lh, H_in, H_out], rounded
+        wh = wh.to(torch.bfloat16).to(torch.float32)
     pad = plan.n_padded - n
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     edges_p = nnf.pad(edges, (0, 0, 0, pad))
@@ -1165,11 +1246,15 @@ def build_band_fused(
     for c0, c1 in channel_groups(e):  # the hidden layers run again for each group
         wf = final["kernel"][:, c0:c1].contiguous()
         bf = final["bias"][c0:c1].contiguous()
-        _launch("nmr_build_band_fused", dev, nlist_p.data_ptr(), edges_p.data_ptr(),
-                lo.data_ptr(), wh.data_ptr(), bh.data_ptr(), wf.data_ptr(), bf.data_ptr(),
-                _at(M, 1, c0), plan.n_padded, B, k, c1 - c0, W, hp, lh,
-                float(np.float32(rbf_low)), float(np.float32(gap)),
-                float(np.float32(1.0 / gap)), act, out_bf16, compute_bf16, rows, e)
+        args = (nlist_p.data_ptr(), edges_p.data_ptr(), lo.data_ptr(), wh.data_ptr(),
+                bh.data_ptr(), wf.data_ptr(), bf.data_ptr(), _at(M, 1, c0), plan.n_padded, B, k,
+                c1 - c0, W, hp, lh, float(np.float32(rbf_low)), float(np.float32(gap)),
+                float(np.float32(1.0 / gap)), act, out_bf16)
+        if hp in _FUSED_TC_H:
+            _launch("nmr_build_band_fused", dev, *args, compute, rows, e)
+        else:  # csrc/fused_wide.cu: compute 0 or 2, as its b16ops flag
+            _launch("nmr_build_band_fused_wide", dev, *args, int(compute == 2), rows, e,
+                    source="fused_wide")
     build_band_fused.launches += 1
     return M
 
@@ -1177,14 +1262,19 @@ def build_band_fused(
 build_band_fused.launches = 0
 
 
-def _mp_weights(w, dtype, E: int, F: int, device) -> torch.Tensor:
-    """w [F_in, F_out, E] in the MP kernel's layout and ``dtype``: float32
-    [E, F_in, F_out] (rows of W_n streamed through shared memory), bfloat16
-    [E, F_out, F_in] (the tensor cores' B fragments, k contiguous)."""
-    w_t = w.permute(2, 0, 1) if dtype == torch.float32 else w.permute(2, 1, 0)
-    w_t = w_t.to(dtype).contiguous()
-    _check("w", w_t, dtype, (E, F, F), device)
-    return w_t
+def _mp_weights(w, dtype, E: int, fp: int, device) -> torch.Tensor:
+    """w [fp, fp, E] (padded) in the MP kernel's layout and ``dtype``, as
+    blocks [nb, nb, E, fb, fb] of the F-split (``mp_split``; one block up
+    to 512): block (i, j) holds the rows of input block i and the columns
+    of output block j, float32 [E, F_in, F_out] (rows of W_n streamed
+    through shared memory) or bfloat16 [E, F_out, F_in] (the tensor
+    cores' B fragments, k contiguous)."""
+    fb, nb = mp_split(fp)
+    wb = w.reshape(nb, fb, nb, fb, E)  # (in block, in, out block, out, E)
+    wb = wb.permute(0, 2, 4, 1, 3) if dtype == torch.float32 else wb.permute(0, 2, 4, 3, 1)
+    wb = wb.to(dtype).contiguous()
+    _check("w", wb, dtype, (nb, nb, E, fb, fb), device)
+    return wb
 
 
 def _mp_occupancy(M, occupancy) -> torch.Tensor:
@@ -1217,43 +1307,71 @@ def _mp_operands(nodes, w, inv_degree, E: int, B: int, W: int, activation_name, 
             _mp_weights(pad_mp_weights(w, fp), nodes.dtype, E, fp, dev))
 
 
-def _mp_partials(M, occ, lo, table, w_t, groups, suffix: str):
-    """float32 [Tg * B, F]: the partial MP sums of M's channel ``groups``
-    over ``table`` (the kernel's width), each launch adding the sum of the
-    groups before it; None for no group."""
+def _col(t: torch.Tensor, c0: int) -> int:
+    """The address of column ``c0`` of the first row of a 2-D tensor."""
+    return t.data_ptr() + c0 * t.element_size()
+
+
+def _mp_partial_launch(M, occ, lo, table, w_b, i, j, c0, c1, acc, suffix):
+    """One partial launch of an MP chain: input block ``i``'s columns of
+    ``table`` against w's block (i, j), channels [c0, c1) of M, plus the
+    float32 ``acc`` (or None); returns its float32 [Tg * B, fb] sum."""
     Tg, E, B, W = M.shape
     n_table, fp = table.shape
-    acc = None
-    for c0, c1 in groups:
-        nxt = torch.empty((Tg * B, fp), dtype=torch.float32, device=table.device)
-        _launch("nmr_mp_banded_partial" + suffix, table.device, _at(M, 1, c0), occ.data_ptr(),
-                lo.data_ptr(), table.data_ptr(), _at(w_t, 0, c0), nxt.data_ptr(), Tg, c1 - c0,
-                B, W, fp, n_table, E, None if acc is None else acc.data_ptr(), source="hbm")
-        acc = nxt
-    return acc
+    fb = w_b.shape[-1]
+    out = torch.empty((Tg * B, fb), dtype=torch.float32, device=table.device)
+    _launch("nmr_mp_banded_partial" + suffix, table.device, _at(M, 1, c0), occ.data_ptr(),
+            lo.data_ptr(), _col(table, i * fb), _at(w_b[i, j], 0, c0), out.data_ptr(), Tg,
+            c1 - c0, B, W, fb, n_table, fp, E, None if acc is None else acc.data_ptr(),
+            source="hbm")
+    return out
+
+
+def _mp_partials(M, occ, lo, table, w_b, groups, suffix: str):
+    """float32 [Tg * B, fp]: the partial MP sums of M's channel ``groups``
+    over ``table`` (the kernel's width), each output block's launches
+    chained through acc_in (``mp_split_steps``); None for no group."""
+    if not groups:
+        return None
+    outs = []
+    for j, steps in mp_split_steps(w_b.shape[0], groups):
+        acc = None
+        for i, (c0, c1) in steps:
+            acc = _mp_partial_launch(M, occ, lo, table, w_b, i, j, c0, c1, acc, suffix)
+        outs.append(acc)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what,
                occupancy) -> torch.Tensor:
     """Checks and launches the MP layer of ``csrc/hbm.cu`` over M's grid
-    tiles (``ids`` None: tile i updates tile i), its channel groups but the
-    last as partial sums and the last with the epilogue."""
+    tiles (``ids`` None: tile i updates tile i): for each output block of
+    the F-split, its chain of partial sums over the input blocks and
+    channel groups, and its last launch (input block j, the last group)
+    with the epilogue."""
     dev = nodes.device
     Tg, E, B, W = M.shape
     n_table, F = nodes.shape
-    suffix, act, table, w_t = _mp_operands(nodes, w, inv_degree, E, B, W, activation_name,
+    suffix, act, table, w_b = _mp_operands(nodes, w, inv_degree, E, B, W, activation_name,
                                            what)
     fp = table.shape[1]
+    fb = w_b.shape[-1]
     _check("M", M, nodes.dtype, (Tg, E, B, W), dev)
     occ = _mp_occupancy(M, occupancy)
-    groups = channel_groups(E, mp_group_size(fp))
-    acc = _mp_partials(M, occ, lo, table, w_t, groups[:-1], suffix)
-    c0, c1 = groups[-1]
-    out = torch.empty((Tg * B, fp), dtype=nodes.dtype, device=dev)
-    _launch("nmr_mp_banded" + suffix, dev, _at(M, 1, c0), occ.data_ptr(), lo.data_ptr(),
-            None if ids is None else ids.data_ptr(), table.data_ptr(), _at(w_t, 0, c0),
-            inv_degree.data_ptr(), out.data_ptr(), Tg, c1 - c0, B, W, fp, n_table, act, E,
-            None if acc is None else acc.data_ptr(), source="hbm")
+    outs = []
+    for j, steps in mp_split_steps(w_b.shape[0], channel_groups(E, mp_group_size(fp))):
+        acc = None
+        for i, (c0, c1) in steps[:-1]:
+            acc = _mp_partial_launch(M, occ, lo, table, w_b, i, j, c0, c1, acc, suffix)
+        c0, c1 = steps[-1][1]
+        out = torch.empty((Tg * B, fb), dtype=nodes.dtype, device=dev)
+        _launch("nmr_mp_banded" + suffix, dev, _at(M, 1, c0), occ.data_ptr(), lo.data_ptr(),
+                None if ids is None else ids.data_ptr(), _col(table, j * fb),
+                _at(w_b[j, j], 0, c0), inv_degree.data_ptr(), out.data_ptr(), Tg, c1 - c0, B,
+                W, fb, n_table, fp, act, E, None if acc is None else acc.data_ptr(),
+                source="hbm")
+        outs.append(out)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out if fp == F else out[:, :F].contiguous()
 
 
@@ -1345,7 +1463,7 @@ def _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, ids, M, groups, n_padded
         _launch("nmr_build_band_poly", M.device, nlist_p.data_ptr(), edges_p.data_ptr(),
                 lo.data_ptr(), None if ids is None else ids.data_ptr(), c.data_ptr(),
                 _at(M, 1, c0), tiles, n_padded // B, B, nlist_p.shape[1], c1 - c0, W,
-                build_rows(B), *scalars, out_bf16, e, source="poly")
+                build_rows(B, nlist_p.shape[1], c1 - c0), *scalars, out_bf16, e, source="poly")
 
 
 def build_band_poly(
@@ -1440,34 +1558,43 @@ def mp_banded_poly_fused(
     e = coeffs.shape[1]
     if n_pad != plan.n_padded:
         raise ValueError(f"nodes has {n_pad} rows, the plan {plan.n_padded}")
-    suffix, act, table, w_t = _mp_operands(nodes, w, inv_degree, e, B, W, activation_name,
+    suffix, act, table, w_b = _mp_operands(nodes, w, inv_degree, e, B, W, activation_name,
                                            "mp_banded_poly_fused")
     fp = table.shape[1]
+    fb, nb = mp_split(fp)
     m_bf16 = _bf16_flag("out_dtype", out_dtype)
     lo = _device_lo(plan, dev)
     M = torch.empty((T, e, B, W), dtype=out_dtype, device=dev)
     groups = channel_groups(e, min(mp_group_size(fp), poly_group_size(scalars[0])))
-    acc = None
-    if len(groups) > 1:
-        # the groups but the last: B4's kernel builds their channels (in
-        # nodes.dtype for the layer, as the fused kernel rounds its float32
-        # band), the partial layer sums them
-        head = groups[:-1]
-        _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, None, M, head, n_pad)
+    # the channels the partial launches read (the groups but the last, and
+    # every group under an F-split): B4's kernel builds them (in
+    # nodes.dtype for the layer, as the fused kernel rounds its float32
+    # band); the fused launch writes its group's channels again, the same
+    # values (one builder, common.cuh's band_rows order)
+    read = groups[:-1] if nb == 1 else groups
+    Mh = occ = None
+    if read:
+        _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, None, M, read, n_pad)
         Mh = M
         if out_dtype != nodes.dtype:
-            Mh = torch.empty((T, head[-1][1], B, W), dtype=nodes.dtype, device=dev)
-            _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, None, Mh, head, n_pad)
+            Mh = torch.empty((T, read[-1][1], B, W), dtype=nodes.dtype, device=dev)
+            _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, None, Mh, read, n_pad)
         occ = band_occupancy(nlist_p, edges_p, lo, W, B, n_pad)
-        acc = _mp_partials(Mh, occ, lo, table, w_t, head, suffix)
     c0, c1 = groups[-1]
     c = coeffs[:, c0:c1].contiguous()
-    out = torch.empty((T * B, fp), dtype=nodes.dtype, device=dev)
-    _launch("nmr_mp_banded_poly_fused" + suffix, dev, nlist_p.data_ptr(), edges_p.data_ptr(),
-            c.data_ptr(), lo.data_ptr(), table.data_ptr(), _at(w_t, 0, c0),
-            inv_degree.data_ptr(), out.data_ptr(), _at(M, 1, c0), T, c1 - c0, B, W, fp,
-            nlist.shape[1], *scalars, m_bf16, act, e, None if acc is None else acc.data_ptr(),
-            source="fused_first")
+    outs = []
+    for j, steps in mp_split_steps(nb, groups):
+        acc = None
+        for i, (g0, g1) in steps[:-1]:
+            acc = _mp_partial_launch(Mh, occ, lo, table, w_b, i, j, g0, g1, acc, suffix)
+        out = torch.empty((T * B, fb), dtype=nodes.dtype, device=dev)
+        _launch("nmr_mp_banded_poly_fused" + suffix, dev, nlist_p.data_ptr(),
+                edges_p.data_ptr(), c.data_ptr(), lo.data_ptr(), _col(table, j * fb),
+                _at(w_b[j, j], 0, c0), inv_degree.data_ptr(), out.data_ptr(), _at(M, 1, c0), T,
+                c1 - c0, B, W, fb, fp, nlist.shape[1], *scalars, m_bf16, act, e,
+                None if acc is None else acc.data_ptr(), source="fused_first")
+        outs.append(out)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     if fp != F:
         out = out[:, :F].contiguous()
     mp_banded_poly_fused.launches += 1
@@ -1541,9 +1668,9 @@ def mp_banded_partial(
             raise ValueError("windows must lie inside the table")
     lo = _device_index("lo", lo, T, dev)
     fp = mp_width(F)
-    w_t = _mp_weights(pad_mp_weights(w, fp), table.dtype, E, fp, dev)
+    w_b = _mp_weights(pad_mp_weights(w, fp), table.dtype, E, fp, dev)
     occ = _mp_occupancy(M, occupancy)
-    out = _mp_partials(M, occ, lo, pad_columns(table, fp), w_t,
+    out = _mp_partials(M, occ, lo, pad_columns(table, fp), w_b,
                        channel_groups(E, mp_group_size(fp)), suffix)
     if fp != F:
         out = out[:, :F].contiguous()

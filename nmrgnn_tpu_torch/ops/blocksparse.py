@@ -59,9 +59,10 @@ import torch.nn.functional as nnf
 
 from . import _cuda
 from .activations import ACTIVATION_CODES, get_activation
-from .banded import (_MP_CHUNK, _MP_ROWS, _at, _check, _dtype_suffix, _long, _mp_tiles_ok,
-                     _mp_weights, _on_cuda, _pack_bits, channel_groups, mp_group_size,
-                     mp_width, occupancy_bits, pad_columns, pad_mp_weights)
+from .banded import (_MP_CHUNK, _MP_ROWS, _at, _check, _col, _dtype_suffix, _long,
+                     _mp_tiles_ok, _mp_weights, _on_cuda, _pack_bits, channel_groups,
+                     mp_group_size, mp_split, mp_split_steps, mp_width, occupancy_bits,
+                     pad_columns, pad_mp_weights)
 
 
 class BlockStructure(NamedTuple):
@@ -368,7 +369,7 @@ def mp_blocksparse_plain(
 # Kernel wrappers.
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_MP_ARGS = [_P] * 8 + [_I] * 7 + [_P, _P]
+_MP_ARGS = [_P] * 8 + [_I] * 8 + [_P, _P]
 _SIGNATURES = {
     "nmr_error_string": (ctypes.c_char_p, [_I]),
     "nmr_build_block_adjacency": (_I, [_P] * 6 + [_I] * 8 + [_P]),
@@ -519,26 +520,32 @@ def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what,
     if act is None:
         raise ValueError(f"unknown activation {activation_name!r}")
     fp = mp_width(F)
+    fb = mp_split(fp)[0]
     table = pad_columns(nodes, fp)
-    w_t = _mp_weights(pad_mp_weights(w, fp), nodes.dtype, E, fp, dev)
+    w_b = _mp_weights(pad_mp_weights(w, fp), nodes.dtype, E, fp, dev)
     s = _device_struct(struct, dev)
     if occupancy is None:
         occ = block_occupancy_from_adjacency(A)
     else:
         occ = occupancy
         _check("occupancy", occ, torch.int32, (P, pair_words(B)), dev)
-    # channel groups but the last: partial sums (no inv_degree), chained
-    groups = channel_groups(E, mp_group_size(fp))
-    acc = None
-    for i, (c0, c1) in enumerate(groups):
-        last = i == len(groups) - 1
-        out = torch.empty((n_table, fp), dtype=nodes.dtype if last else torch.float32,
-                          device=dev)
-        _launch("nmr_mp_blocksparse" + suffix, dev, _at(A, 1, c0), occ.data_ptr(),
-                s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), table.data_ptr(),
-                _at(w_t, 0, c0), inv_degree.data_ptr() if last else None, out.data_ptr(), P,
-                s.nb, c1 - c0, B, fp, act, E, None if acc is None else acc.data_ptr())
-        acc = out
+    # for each output block of the F-split, its launches but the last as
+    # partial sums (no inv_degree), chained, and the last with the epilogue
+    outs = []
+    for j, steps in mp_split_steps(w_b.shape[0], channel_groups(E, mp_group_size(fp))):
+        acc = None
+        for n, (i, (c0, c1)) in enumerate(steps):
+            last = n == len(steps) - 1
+            out = torch.empty((n_table, fb), dtype=nodes.dtype if last else torch.float32,
+                              device=dev)
+            _launch("nmr_mp_blocksparse" + suffix, dev, _at(A, 1, c0), occ.data_ptr(),
+                    s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), _col(table, i * fb),
+                    _at(w_b[i, j], 0, c0), inv_degree.data_ptr() if last else None,
+                    out.data_ptr(), P, s.nb, c1 - c0, B, fb, fp, act, E,
+                    None if acc is None else acc.data_ptr())
+            acc = out
+        outs.append(out)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out if fp == F else out[:, :F].contiguous()
 
 

@@ -1312,14 +1312,15 @@ def test_band_builds_any_window_and_small_tiles(dev, cut, dtype):
 
 
 def test_band_build_wrappers_raise_past_the_kernels_limits(dev):
-    """What the build kernels do not take: K > 128, degree 0, a row count
-    that is not whole tiles, an output type other than float32 or
-    bfloat16. E > 4 and (degree + 1) * E > 1024 run as channel groups,
-    equal to the plain versions bit for bit."""
-    nlist, dists, efeat = _build_inputs(256, 129, 3, seed=1, block_rows=128)
+    """What the build kernels do not take: K past the 8,192 slots a block
+    stages, degree 0, a row count that is not whole tiles, an output type
+    other than float32 or bfloat16. E > 4 and (degree + 1) * E > 1024 run
+    as channel groups, equal to the plain versions bit for bit."""
+    k = banded._MAX_K + 1
+    nlist, dists, efeat = _build_inputs(256, k, 3, seed=1, block_rows=128)
     plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
     nl, d, ef = _on(dev, nlist, dists, efeat)
-    with pytest.raises(NotImplementedError):  # K = 129
+    with pytest.raises(NotImplementedError):  # K = 8,193
         banded.build_band(nl, ef, plan)
     with pytest.raises(NotImplementedError):
         banded.build_band_poly(nl, d, make_cheb(3), plan)
@@ -1761,3 +1762,176 @@ def test_serving_and_training_at_other_widths(dev, f, e, h, k):
     assert np.isfinite(losses["gather"])
     if eligible:
         assert losses["banded"] == pytest.approx(losses["gather"], rel=1e-5)
+
+
+# -- the widths of fault C6 (past the kernels' widths before its repair):
+# -- F > 512 through the F-split, an EdgeFC wider than 256, K > 128
+
+
+class _KernelsOnly:
+    """Within it, every ``*_plain`` function of ``ops/banded.py`` and
+    ``ops/blocksparse.py`` raises: a kernel wrapper that took its plain
+    version would fail the test."""
+
+    def __enter__(self):
+        from nmrgnn_tpu_torch.ops import blocksparse
+
+        self.saved = []
+        for mod in (banded, blocksparse):
+            for name in dir(mod):
+                if name.endswith("_plain") and callable(getattr(mod, name)):
+                    self.saved.append((mod, name, getattr(mod, name)))
+                    setattr(mod, name, self._refuse(name))
+        return self
+
+    @staticmethod
+    def _refuse(name):
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"{name} called on the card")
+        return refuse
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+@pytest.mark.parametrize("e,dtype", [(1, torch.float32), (3, torch.float32),
+                                     (1, torch.bfloat16), (3, torch.bfloat16)])
+def test_mp_kernels_at_f768_match_plain(dev, e, dtype):
+    """B1/B5 (mp_banded), B6, B9, B13 and B11 at F = 768 (three column
+    blocks of 256, each output block chaining every input block and
+    channel group through acc_in): kernels only, one count a call, against
+    their plain versions."""
+    from nmrgnn_tpu_torch.ops import blocksparse
+
+    f = 768
+    nlist, dists, nl, ef, plan, M, x, wt, iv = _mp_case(dev, f, e, dtype, n=400, seed=e)
+    d = _on(dev, dists)[0]
+    c = banded.plan_on_device(banded.band_plan_classes(nlist, dists), dev).classes[-1]
+    Mc = M[c.ids.long()].contiguous()
+    cls = c._replace(window=plan.window, lo=plan.lo[c.ids.long()].contiguous())
+    cheb = make_cheb(e, degree=64, seed=e)
+    dc = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
+    s, sd, bnl, bef, bx, bwt, biv = _block_case(dev, 300, 7, f, e, 5, True, 1)
+    for fn in banded.KERNEL_WRAPPERS + blocksparse.KERNEL_WRAPPERS:
+        fn.launches = 0
+    with _KernelsOnly():
+        occ = banded.band_occupancy(nl, d, plan.lo, plan.window, plan.block_rows,
+                                    plan.n_padded)
+        got = banded.mp_banded(M, plan, x, wt, iv, "softplus", occ)
+        part = banded.mp_banded_partial(M, plan.lo, x, wt, occ)
+        got_cls = banded.mp_banded_hbm_cls(Mc, cls, plan.block_rows, x, wt, iv)
+        Mf, got_ff = banded.mp_banded_poly_fused(nl, d, dc, plan, x, wt, iv, out_dtype=dtype)
+        A = blocksparse.build_block_adjacency(bnl, bef, sd, out_dtype=dtype)
+        got_bs = blocksparse.mp_blocksparse(A, sd, bx.to(dtype), bwt, biv)
+        torch.cuda.synchronize()
+    assert (banded.mp_banded.launches, banded.mp_banded_partial.launches,
+            banded.mp_banded_hbm_cls.launches, banded.mp_banded_poly_fused.launches,
+            blocksparse.mp_blocksparse.launches) == (1, 1, 1, 1, 1)
+    assert got.shape == x.shape and got.dtype == dtype and part.shape == x.shape
+    _mp_close(got, banded.mp_banded_plain(M, plan, x, wt, iv), dtype)
+    _mp_close(part, banded.mp_banded_partial_plain(M, plan.lo, x, wt), dtype)
+    _mp_close(got_cls, banded.mp_banded_hbm_cls_plain(Mc, cls, plan.block_rows, x, wt, iv),
+              dtype)
+    Mw, want_ff = banded.mp_banded_poly_fused_plain(nl, d, cheb, plan, x, wt, iv,
+                                                    out_dtype=dtype)
+    assert torch.equal(Mf, Mw)
+    _mp_close(got_ff, want_ff, dtype)
+    _mp_close(got_bs, blocksparse.mp_blocksparse_plain(A, sd, bx.to(dtype), bwt, biv), dtype)
+
+
+@pytest.mark.parametrize("h,k,e,compute_dtype", [
+    (512, 16, 3, torch.float32), (512, 16, 3, torch.bfloat16), (400, 12, 5, torch.bfloat16),
+    (128, 160, 3, torch.float32), (128, 160, 3, torch.bfloat16), (256, 160, 2, torch.bfloat16),
+    (1024, 16, 1, torch.float32), (2048, 16, 2, torch.bfloat16),
+])
+def test_fused_kernel_at_c6_widths_matches_plain(dev, h, k, e, compute_dtype):
+    """B3 at an EdgeFC 512, 1,024 and 2,048 wide (the hidden kernel
+    streamed through the ring; bfloat16 operands on the CUDA cores) and
+    at K = 160 (one atom a block, its slots through the EdgeFC in several
+    passes): kernels only, against its plain version (the tolerances of
+    test_fused_kernel_every_shape)."""
+    nlist, dists, *_ = make_case(300, k, 8, e, seed=h + k, banded_nlist=True)
+    cfg = ModelConfig(edge_feature_size=e, edge_hidden_size=h, edge_fc_layers=3)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(h), device=dev)
+    plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
+    nl, d = _on(dev, nlist, dists)
+    kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation,
+              out_dtype=compute_dtype, compute_dtype=compute_dtype)
+    banded.reset_launch_counts()
+    with _KernelsOnly():
+        got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)
+        torch.cuda.synchronize()
+    assert banded.build_band_fused.launches == 1
+    want = banded.build_band_fused_plain(nl, d, params["edge_fc"], plan, **kw)
+    if compute_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP,
+                                   atol=BF16_STEP * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("e,k", [(3, 160), (1, 700), (4, 3000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_builds_past_128_slots_equal_plain(dev, e, k, dtype):
+    """B2, B4, B7a, B7b and B8 at K = 160, 700 and 3,000 (fewer rows a
+    block as K grows; one row a block past 48 KB of staged slots): equal
+    to their plain versions bit for bit."""
+    nlist, dists, efeat = _build_inputs(300, k, e, seed=e + k, block_rows=128)
+    cheb = make_cheb(e, degree=64, seed=k)
+    for name, got, want in _every_build(dev, nlist, dists, efeat, cheb, 128, dtype):
+        assert got.shape == want.shape and torch.equal(got, want), name
+
+
+# -- atom-partitioned serving: ranks sharing the card under gloo ---------------------
+
+
+def test_partitioned_banded_on_two_ranks_kernels_match_plain(dev, tmp_path):
+    """apply_partitioned_banded on 2 gloo ranks sharing the card (exact,
+    fast and attention): B7a, B7b and B6 launched (2 builds + 2 B6 a layer
+    bilinear; 2 B7a + 2 B6 a layer attention), the peaks against the same
+    ranks' plain versions (exact and attention 2e-4; fast at bfloat16's
+    band, rtol 0.05 and 1 ppm), every rank the whole peaks."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_parallel_worker as worker
+
+    cfg = dict(atom_feature_size=64, edge_hidden_size=32, mp_layers=2, dropout=False,
+               noise=0.0)
+    acfg = dict(cfg, mp_type="attention")
+    params = {}
+    for name, kw in (("bilinear", cfg), ("attention", acfg)):
+        p = gnn.init_params(ModelConfig(**kw), torch.Generator().manual_seed(3), device="cpu")
+        params[name] = gnn.tree_map(lambda t: t.numpy(), p)
+    n = 1500
+    rng = np.random.default_rng(0)
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-50, 50, (n, 16)), 0, n - 1)
+    dists = rng.uniform(0.09, 0.3, (n, 16)).astype(np.float32)
+    dists[rng.uniform(size=(n, 16)) < 0.1] = 0.0
+    nlist = np.where(dists > 0, nlist, 0).astype(np.int32)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    g = (atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    cheb = make_cheb(3, degree=64, seed=1)
+    fast = (cheb.coeffs, cheb.d_lo, cheb.d_hi)
+    tasks = []
+    for use_kernels in (True, False):
+        tasks += [dict(kind="banded", model="bilinear", graph="g", use_kernels=use_kernels),
+                  dict(kind="banded", model="bilinear", graph="g", cheb=fast,
+                       use_kernels=use_kernels),
+                  dict(kind="banded", model="attention", graph="g", use_kernels=use_kernels)]
+    case = dict(configs={"bilinear": cfg, "attention": acfg}, params=params,
+                graphs={"g": g}, tasks=tasks, device="cuda", timeout_s=120)
+    out = worker.spawn(2, case, tmp_path, timeout_s=300)[1]()
+    for r in out[1:]:
+        for a, b in zip(r, out[0]):
+            np.testing.assert_array_equal(a["peaks"], b["peaks"])
+    got, plain = out[0][:3], out[0][3:]
+    for k in (0, 2):
+        np.testing.assert_allclose(got[k]["peaks"], plain[k]["peaks"], rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got[1]["peaks"], plain[1]["peaks"], rtol=0.05, atol=1.0)
+    for rank in out:
+        c = [t["counts"] for t in rank[:3]]
+        assert (c[0]["build_band_tracedlo"], c[0]["mp_banded_partial"]) == (2, 4)
+        assert (c[1]["build_band_poly_tracedlo"], c[1]["mp_banded_partial"]) == (2, 4)
+        assert (c[2]["build_band_tracedlo"], c[2]["mp_banded_partial"]) == (4, 4)
+        assert all(t["counts"]["mp_banded_partial"] == 0 for t in rank[3:])

@@ -55,19 +55,37 @@ def _case(n, k, f, e, seed):
 def test_width_choices():
     assert [tb.mp_width(f) for f in (1, 32, 64, 96, 128, 200, 256, 320, 512)] == [
         64, 64, 64, 128, 128, 256, 256, 512, 512]
-    with pytest.raises(NotImplementedError):
-        tb.mp_width(513)
-    assert [tb.mp_group_size(f) for f in (64, 256, 512)] == [4, 4, 2]
+    # past 512: a multiple of 256, in column blocks of 256 (the F-split)
+    assert [tb.mp_width(f) for f in (513, 768, 1701, 2407)] == [768, 768, 1792, 2560]
+    assert tb.mp_split(512) == (512, 1) and tb.mp_split(768) == (256, 3)
+    with pytest.raises(ValueError):
+        tb.mp_width(0)
+    assert [tb.mp_group_size(f) for f in (64, 256, 512, 768)] == [4, 4, 2, 4]
     assert tb.channel_groups(9) == [(0, 4), (4, 8), (8, 9)]
     assert tb.channel_groups(3) == [(0, 3)]
     assert tb.channel_groups(5, 2) == [(0, 2), (2, 4), (4, 5)]
-    assert [tb.fused_width(h) for h in (16, 64, 128, 200, 256)] == [128, 128, 128, 256, 256]
+    assert [tb.fused_width(h) for h in (16, 64, 128, 200, 256, 300, 512, 1000, 2048)] == [
+        128, 128, 128, 256, 256, 512, 512, 1024, 2048]
+    with pytest.raises(NotImplementedError):
+        tb.fused_width(2049)
     # atoms a fused block takes: a power of two dividing B whose slots fit
+    # one EdgeFC pass, else one atom whose slots run in several passes
     assert tb.fused_rows(16, 128, 128) == 8 and tb.fused_rows(12, 128, 128) == 8
     assert tb.fused_rows(16, 256, 128) == 4 and tb.fused_rows(12, 256, 64) == 4
-    assert tb.fused_rows(100, 128, 128) == 1
+    assert tb.fused_rows(100, 128, 128) == 1 and tb.fused_rows(65, 256, 128) == 1
+    assert tb.fused_rows(160, 128, 128) == 1 and tb.fused_rows(16, 512, 128) == 2
     with pytest.raises(NotImplementedError):
-        tb.fused_rows(65, 256, 128)
+        tb.fused_rows(4097, 128, 128)
+    assert [tb.fused_compute(False, 512, 16), tb.fused_compute(True, 128, 4096),
+            tb.fused_compute(True, 256, 160), tb.fused_compute(True, 256, 2048),
+            tb.fused_compute(True, 512, 16)] == [0, 1, 1, 2, 2]
+    # band-build rows: fewer as K grows, so the staged slots stay small
+    assert [tb.build_rows(128, k) for k in (16, 160, 1000, 3000)] == [4, 4, 2, 1]
+    # each output block's chain: every input block, its own last
+    assert tb.mp_split_steps(3, [(0, 1)]) == [
+        (0, [(1, (0, 1)), (2, (0, 1)), (0, (0, 1))]),
+        (1, [(0, (0, 1)), (2, (0, 1)), (1, (0, 1))]),
+        (2, [(0, (0, 1)), (1, (0, 1)), (2, (0, 1))])]
     assert tb.poly_group_size(64) == 4 and tb.poly_group_size(340) == 3
     with pytest.raises(NotImplementedError):
         tb.poly_group_size(1024)
@@ -88,6 +106,33 @@ def test_padded_node_table_equals_unpadded(f, e):
                                       tb.pad_mp_weights(w, fp))
     _close(part[:, :f], tb.mp_banded_partial_plain(M, plan.lo, x, w))
     assert not part[:, f:].any()
+
+
+@pytest.mark.parametrize("f,e", [(768, 1), (768, 3), (600, 2)])
+def test_f_split_chains_sum_to_the_layer(f, e):
+    """The F-split as the kernels run it: for each output block, the
+    partial sums of every input block's columns against w's block and of
+    every channel group, chained in ``mp_split_steps``' order, then the
+    epilogue with the output block's residual columns, equal the layer at
+    the table's own width; the blocks' partial sums equal the partial
+    layer."""
+    plan, (nl, d, ef, x, w, iv) = _case(300, 12, f, e, seed=f + e)
+    M = tb.build_band_plain(nl, ef, plan)
+    fp = tb.mp_width(f)
+    fb, nb = tb.mp_split(fp)
+    xp, wp = tb.pad_columns(x, fp), tb.pad_mp_weights(w, fp)
+    tiles = torch.arange(plan.num_tiles)
+    full, part = [], []
+    for j, steps in tb.mp_split_steps(nb, tb.channel_groups(e, tb.mp_group_size(fp))):
+        acc = None
+        for i, (c0, c1) in steps:
+            p = tb.mp_banded_partial_plain(M[:, c0:c1], plan.lo, xp[:, i * fb:(i + 1) * fb],
+                                           wp[i * fb:(i + 1) * fb, j * fb:(j + 1) * fb, c0:c1])
+            acc = p if acc is None else acc + p
+        part.append(acc)
+        full.append(tb._mp_epilogue(acc, tiles, xp[:, j * fb:(j + 1) * fb], iv, "softplus"))
+    _close(torch.cat(full, 1)[:, :f], tb.mp_banded_plain(M, plan, x, w, iv))
+    _close(torch.cat(part, 1)[:, :f], tb.mp_banded_partial_plain(M, plan.lo, x, w))
 
 
 @pytest.mark.parametrize("e,size", [(8, 4), (64, 4), (5, 2), (3, 4)])
@@ -159,9 +204,18 @@ SEARCH_WIDTHS = [
          neighbor_number=12),
     dict(atom_feature_size=64, edge_feature_size=2, edge_hidden_size=16, mp_layers=6),
 ]
+# past the kernels' widths before fault C6 was repaired: F > 512, an
+# EdgeFC wider than 256, K > 128
+C6_WIDTHS = [
+    dict(atom_feature_size=768, edge_feature_size=1, edge_hidden_size=128),
+    dict(atom_feature_size=768, edge_feature_size=3, edge_hidden_size=128),
+    dict(atom_feature_size=128, edge_feature_size=3, edge_hidden_size=512),
+    dict(atom_feature_size=128, edge_feature_size=3, edge_hidden_size=128,
+         neighbor_number=160),
+]
 
 
-@pytest.mark.parametrize("kw", SEARCH_WIDTHS)
+@pytest.mark.parametrize("kw", SEARCH_WIDTHS + C6_WIDTHS)
 def test_path_rule_at_other_widths_matches_jax(kw):
     """At the search space's widths both packages pick the same training
     path (banded_fragments_eligible) and serving path (_resolve_mode), and
@@ -184,7 +238,17 @@ def test_path_rule_at_other_widths_matches_jax(kw):
             jsm = JServingModel(jparams, jcfg, use_pallas=True, reorder=False,
                                 precision=precision)
             sm = ServingModel(params, cfg, device="cpu", reorder=False, precision=precision)
-            assert sm._resolve_mode(g) == jsm._resolve_mode(JGraph(*g)), (n, precision)
+            mode = sm._resolve_mode(g)
+            assert mode == jsm._resolve_mode(JGraph(*g)), (n, precision)
+            # the kernels of the path take the widths it sends them
+            fp = tb.mp_width(cfg.atom_feature_size)
+            assert fp % tb.mp_split(fp)[0] == 0
+            if mode != "blocksparse":
+                B = sm._plan.block_rows
+                tb.build_rows(B, k, min(cfg.edge_feature_size, 4))
+                if precision == "exact":
+                    hp = tb.fused_width(cfg.edge_hidden_size)
+                    tb.fused_rows(k, hp, B)
         plan = tb.band_plan(nlist, dists)
         for ob in (4, 2):
             assert tb.fused_build_ok(plan, cfg.edge_hidden_size, cfg.edge_feature_size, k, ob) \
