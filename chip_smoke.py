@@ -265,7 +265,32 @@ Phases, in order; any failure exits non-zero and prints no result:
     c. eval-struct --graph-parallel 2 under torchrun (--nproc-per-node 2)
        on phase 4's PDB: the backend line, and each frame's CSV peaks
        within 0.01 (the file rounds to 0.01) of the single-card exact ones.
-13. One JSON line listing every kernel of the paths (a counterpart of
+13. Partitioned and multi-GPU training over gloo ranks sharing the card
+    (phase 12's launcher), random weights of the baseline's width from
+    --seed:
+    a. phase 4's 3 frames as whole structures, D = 2 (PartitionedTrainer's
+       RCM order, padding and plan): the differentiable forward with every
+       *_plain function counted (none may run; the backward's plain
+       recomputation is the design) and its B7a / B6 / occupancy launches;
+       one make_partitioned_train_step step (noise and dropout off) whose
+       loss (rel 1e-5), summed gradients (each leaf within 1e-3 of its
+       largest, phase 9's gate) and Adam-updated weights equal the same
+       step on one card (gnn.apply, name_loss, Adam); the step time (CUDA
+       events, median), the exchange's host time forward and backward (the
+       reverse ring), the halo rows; PartitionedTrainer.fit for 2 epochs
+       with noise and dropout on (finite losses).
+    b. the 44,676-atom supercell at D = 4: one partitioned training step,
+       finite loss and gradients, the step time and the halo rows a layer.
+    c. data parallel on a (2, 1) mesh: the 8 x 256 fragment batch of phase
+       9's cell through Trainer(mesh=) banded (B2 + B1 on each rank, noise
+       and dropout on, the whole batch's draws), one step against the
+       one-card Trainer step under phase 9's gate.
+    d. tensor parallel on a (1, 2) mesh (as train --data-parallel 1
+       --tensor-parallel lays it out), the gather path: one step's whole
+       gradients and weights against the one-card gather step.
+    e. train --graph-parallel 2 under torchrun on make-struct-records of
+       phase 4's PDB (1 epoch): the saved model loads; the wall time.
+14. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
     and times; B2, B1 and the band occupancy also with their launches a
     training step (train_launches); B2 and B6 at one edge channel as
@@ -275,8 +300,11 @@ Phases, in order; any failure exits non-zero and prints no result:
     by configuration (width_launches; a call at E > 4 launches the kernel
     once per channel group of 4, 2 at F = 512; past 512 once per column
     block pair and group); B7a, B7b and B6 also with phase 12a's launches
-    a forward of rank 0 (part_launches).
-14. The last line: {"ok": true, "device": {...}}.
+    a forward of rank 0 (part_launches); B7a, B6 and the occupancy with
+    their launches a partitioned training step of rank 0 (13a,
+    part_train_launches), B2, B1 and the occupancy with theirs a
+    data-parallel step of rank 0 (13c, dp_train_launches).
+15. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -2854,8 +2882,9 @@ def _part_serve(task, case, mesh, dev) -> dict:
 
 
 def _partition_rank(rank, world, init, case_path, out_dir) -> None:
-    """A phase 12 rank: the process group at ``init`` (gloo: the ranks
-    share the card), a (1, world) mesh, the case's tasks; its results in
+    """A phase 12 or 13 rank: the process group at ``init`` (gloo: the ranks
+    share the card), a (1, world) mesh, the case's tasks (phase 13's on
+    meshes of their own); its results in
     ``out_dir/rank<r>.pkl``, a failure's traceback in ``rank<r>.err``."""
     import pickle
     import traceback
@@ -2871,7 +2900,8 @@ def _partition_rank(rank, world, init, case_path, out_dir) -> None:
         par.initialize_distributed(init, rank=rank, world_size=world, timeout_s=300)
         mesh = par.make_mesh(1, world)
         dev = torch.device("cuda", torch.cuda.current_device())
-        results = [_part_serve(t, case, mesh, dev) for t in case["tasks"]]
+        results = [_part_train(t, case, dev) if t.get("kind") else
+                   _part_serve(t, case, mesh, dev) for t in case["tasks"]]
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
         torch.distributed.destroy_process_group()
@@ -2882,7 +2912,7 @@ def _partition_rank(rank, world, init, case_path, out_dir) -> None:
 
 
 def _run_ranks(world: int, case: dict, tmp: str, timeout: float = 600) -> list:
-    """Spawn ``world`` phase 12 ranks on ``case`` and return their results;
+    """Spawn ``world`` phase 12 or 13 ranks on ``case`` and return their results;
     fail when a rank fails or the time runs out (every rank is ended)."""
     import multiprocessing as mp
     import pickle
@@ -2914,7 +2944,7 @@ def _run_ranks(world: int, case: dict, tmp: str, timeout: float = 600) -> list:
             errors.append(f"rank {r} exited {p.exitcode}:\n"
                           + (open(err).read()[-3000:] if os.path.exists(err) else ""))
     if errors:
-        raise SystemExit("chip_smoke: phase 12 rank failure\n" + "\n".join(errors))
+        raise SystemExit("chip_smoke: rank failure\n" + "\n".join(errors))
     out = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
@@ -3100,6 +3130,377 @@ def _phase12(args, dev, params, cfg, small, large) -> dict:
     print(f"phase 12c: torchrun --nproc-per-node 2 eval-struct --graph-parallel 2: {cli_s:.1f} s "
           f"wall (host clock); {backend[0] if backend else 'no backend line'}; CSV vs one card's "
           f"exact peaks max |diff| {worst:.3f} (the file rounds to 0.01)")
+    res.update(out)
+    return res
+
+
+# -- phase 13: partitioned and multi-GPU training over ranks sharing the card -------------
+
+
+def _leaves_np(leaves, grad: bool = False) -> list:
+    return [np.array((t.grad if grad else t).detach().float().cpu()) for t in leaves]
+
+
+def _step_ms(step, repeats: int = 5, warmup: int = 2) -> float:
+    """The median of ``repeats`` calls of ``step`` (CUDA events), after
+    ``warmup`` calls: every rank calls it alike."""
+    import torch
+
+    for _ in range(warmup):
+        step()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _exchange_ms(par, prep, F: int, group, dev, runs: int = 10) -> dict:
+    """The halo exchange's host time (post to received rows on the card),
+    forward and backward (the reverse ring and the index_add into the
+    nodes' cotangent), the median of ``runs``."""
+    import torch
+
+    plan = prep.plan
+    send = prep.arrays[0]
+    fwd, bwd = [], []
+    for _ in range(runs):
+        x = torch.randn((plan.halo.rows_per_shard, F), device=dev, requires_grad=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = par.ring_exchange(x, send, plan.halo.offsets, group, lanes=plan.halo_lanes).wait()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(r, x, torch.ones_like(r))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((t2 - t1) * 1e3)
+    return {"forward": float(np.median(fwd)), "backward": float(np.median(bwd))}
+
+
+def _part_train(task, case, dev) -> dict:
+    """One phase 13 task in one rank, on the task's own (data, graph) mesh
+    (see the module's docstring, phase 13)."""
+    import torch
+
+    from nmrgnn_tpu_torch import parallel as par
+    from nmrgnn_tpu_torch.config import ModelConfig, TrainConfig
+    from nmrgnn_tpu_torch.data.dataset import Sample
+    from nmrgnn_tpu_torch.data.embeddings import load_standards
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.parallel import sharding
+    from nmrgnn_tpu_torch.train import PartitionedTrainer, Trainer
+    from nmrgnn_tpu_torch.train.trainer import TrainState, adam
+
+    mesh = par.make_mesh(task["data"], task["graph"])
+    cfg = ModelConfig(**task["config"])
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(task["seed"]), load_standards(),
+                             device=dev)
+    lr, kind, res = task["lr"], task["kind"], {}
+    if kind == "partitioned":
+        samples = [Sample(Graph(*g), y, w) for g, y, w in case[task["frames"]]]
+        tr = PartitionedTrainer(cfg, TrainConfig(seed=task["seed"]), mesh=mesh, device=dev)
+        t0 = time.perf_counter()
+        prep = tr.prepare(samples[0])
+        res["prepare_s"] = time.perf_counter() - t0
+        leaves = gnn.trainable_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        # the differentiable forward alone: its launches, no plain version
+        _reset_counts()
+        with _PlainCalls() as plain:
+            peaks = par.apply_partitioned_banded(params, cfg, prep.graph, prep.plan, mesh,
+                                                 differentiable=True, arrays=prep.arrays)
+        torch.cuda.synchronize()
+        res["forward_launches"] = {f.__name__: f.launches for f in _wrappers() if f.launches}
+        res["plain_calls"] = dict(plain.calls)
+        del peaks
+        opt = adam(TrainState(params=params, opt_state={}, lr=lr))
+        step = tr._train_step(prep)
+        _reset_counts()
+        with _PlainCalls() as plain:
+            loss = step(params, opt, prep.graph, prep.y, prep.w, arrays=prep.arrays)
+        torch.cuda.synchronize()
+        res["step_launches"] = {f.__name__: f.launches for f in _wrappers() if f.launches}
+        res["step_plain_calls"], res["step_vjp"] = dict(plain.calls), plain.vjp
+        res["loss"] = float(loss)
+        if mesh.rank == 0:
+            res["grads"] = _leaves_np(leaves, grad=True)
+            res["params"] = _leaves_np(leaves)
+        res["finite"] = bool(np.isfinite(res["loss"]) and all(
+            bool(torch.isfinite(t.grad).all()) for t in leaves))
+        res["step_ms"] = _step_ms(lambda: step(params, opt, prep.graph, prep.y, prep.w,
+                                               arrays=prep.arrays), task.get("repeats", 5))
+        res["exchange_host_ms"] = _exchange_ms(par, prep, cfg.atom_feature_size,
+                                               mesh.group("graph"), dev)
+        res["halo"] = {"rows_a_layer": prep.plan.halo.halo_rows,
+                       "rows_per_shard": prep.plan.halo.rows_per_shard,
+                       "offsets": list(prep.plan.halo.offsets),
+                       "n_padded": int(prep.graph.atoms.shape[0])}
+        if task.get("fit"):
+            fcfg = ModelConfig(**task["fit_config"])
+            ftr = PartitionedTrainer(fcfg, TrainConfig(epochs=2, seed=task["seed"]), mesh=mesh,
+                                     device=dev)
+            t0 = time.perf_counter()
+            st = ftr.fit(samples, samples[:1], verbose=False)
+            torch.cuda.synchronize()
+            res["fit"] = {"s": time.perf_counter() - t0, "history": st.history}
+        return res
+    # 13c and 13d: the fragment Trainer on a mesh, one step
+    tcfg = TrainConfig(**task["tcfg"])
+    tr = Trainer(cfg, tcfg, device=dev, mesh=mesh, tensor_parallel=task.get("tp", False))
+    state = TrainState(params=tr._local(params), opt_state={}, lr=lr)
+    opt = adam(state)
+    graph, y, w = tr._to_device(*case["batch"])
+    gen = torch.Generator(device=dev).manual_seed(task["seed"] + 2)
+    _reset_counts()
+    loss = tr.train_step(state, opt, graph, y, w, gen)
+    torch.cuda.synchronize()
+    res["launches"] = {f.__name__: f.launches for f in _wrappers() if f.launches}
+    res["loss"], res["banded"] = float(loss), tr.use_banded
+    grads = gnn.tree_map(lambda t: t.grad if t.grad is not None else torch.zeros_like(t),
+                         state.params)
+    if tr._specs is not None:  # the whole gradients and weights from the slices
+        grads = sharding.unshard_params(grads, tr._specs, mesh)
+        whole = sharding.unshard_params(state.params, tr._specs, mesh)
+    else:
+        whole = state.params
+    if mesh.rank == 0:
+        res["grads"] = _leaves_np(gnn.trainable_leaves(grads))
+        res["params"] = _leaves_np(gnn.trainable_leaves(whole))
+    res["step_ms"] = _step_ms(lambda: tr.train_step(state, opt, graph, y, w, gen))
+    return res
+
+
+def _gate_step(name: str, got: dict, loss: float, grads, params, lr: float) -> dict:
+    """A parallel step against the same step on one card: loss rel 1e-5,
+    each gradient leaf within 1e-3 of its largest (phase 9's gate), and the
+    Adam-updated weights within rtol 2e-3 / atol 2e-5 wherever the one-card
+    gradient fixes the step's sign: past 1e-3 of the leaf's largest, or past
+    twice the leaf's measured gradient error (and 1e-6, a hundred times
+    Adam's eps). Adam's first step moves every weight by lr times the sign
+    of its gradient, so where a gradient of rounding size may flip sign the
+    weights can differ by up to 2 lr whatever the step did; only the
+    gradient gate covers those weights (``unresolved`` counts them)."""
+    rel = abs(got["loss"] - loss) / abs(loss)
+    if not np.isfinite(got["loss"]) or rel > 1e-5:
+        raise SystemExit(f"chip_smoke: {name}: loss {got['loss']} vs one card {loss}")
+    worst, unresolved = 0.0, 0
+    for i, (g, want) in enumerate(zip(got["grads"], grads)):
+        scale = float(np.abs(want).max())
+        err = float(np.abs(g - want).max())
+        if not np.all(np.isfinite(g)) or err > 1e-3 * scale:
+            raise SystemExit(f"chip_smoke: {name}: gradient leaf {i} {want.shape}: max |diff| "
+                             f"{err:.3e} > 1e-3 x {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+        mag = np.abs(want)
+        resolved = (mag > 1e-3 * scale) | ((mag > 2 * err) & (mag > 1e-6))
+        unresolved += int((~resolved).sum())
+        d = np.abs(got["params"][i] - params[i])
+        bad = resolved & (d > 2e-5 + 2e-3 * np.abs(params[i]))
+        if bad.any():
+            raise SystemExit(f"chip_smoke: {name}: weights leaf {i} {want.shape}: max |diff| "
+                             f"{float(d[bad].max()):.3e} where the gradient fixes the step")
+    return {"loss_rel_err": rel, "grad_max_rel_err": worst, "unresolved": unresolved}
+
+
+def _phase13(args, dev, small, large) -> dict:
+    """Partitioned and multi-GPU training over gloo ranks sharing the card
+    (see the module's docstring, phase 13)."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig, TrainConfig
+    from nmrgnn_tpu_torch.data.dataset import batch_samples, read_fragments
+    from nmrgnn_tpu_torch.data.embeddings import load_standards
+    from nmrgnn_tpu_torch.data.fragment import write_structure_fragments
+    from nmrgnn_tpu_torch.data.pdb import read_structure
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.library import load_model
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.train import Trainer
+    from nmrgnn_tpu_torch.train.losses import name_loss
+    from nmrgnn_tpu_torch.train.trainer import TrainState, adam, fold_sample_weight
+
+    seed, lr = args.seed, 1e-3
+    rng = np.random.default_rng(seed + 13)
+
+    def labelled(g):
+        n = g.atoms.shape[0]
+        y = np.stack([rng.normal(size=n).astype(np.float32) * 3,
+                      rng.integers(0, 6, n).astype(np.float32), np.ones(n, np.float32)], -1)
+        return tuple(np.asarray(a) for a in g), y, np.ones(n, np.float32)
+
+    frames = [labelled(g) for g in small["graphs"]]
+    big = [labelled(large["graph"])]
+    exact = dataclasses.asdict(ModelConfig(noise=0.0, dropout=False))
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = os.path.join(tmp, "synthetic.pdb")
+        write_synthetic_pdb(pdb, n_atoms=N_ATOMS, seed=seed, frames=N_FRAMES)
+        records = os.path.join(tmp, "fragments.tfrecord")
+        write_structure_fragments(records, read_structure(pdb), fragment_size=256)
+        batch = batch_samples(list(read_fragments(records))[:8], 256)
+
+    # the one-card references
+    ref = {}
+    cfg0 = ModelConfig(**exact)
+    p = gnn.init_params(cfg0, torch.Generator().manual_seed(seed), load_standards(), device=dev)
+    leaves = gnn.trainable_leaves(p)
+    opt = adam(TrainState(params=p, opt_state={}, lr=lr))
+    (atoms, nlist, edges, inv), y, w = frames[0]
+    gt = Graph(*[torch.as_tensor(a).to(dev) for a in (atoms, nlist, edges, inv)])
+    loss_idx = Trainer(cfg0, device=dev).loss_idx
+    loss = name_loss(fold_sample_weight(torch.as_tensor(y, device=dev),
+                                        torch.as_tensor(w, device=dev)),
+                     gnn.apply(p, cfg0, gt), loss_idx)
+    grads = torch.autograd.grad(loss, leaves)
+    for t, g in zip(leaves, grads):
+        t.grad = g
+    opt.step()
+    ref["partitioned"] = (float(loss.detach()), [g.cpu().numpy() for g in grads],
+                          _leaves_np(leaves))
+    cfg = ModelConfig()  # noise and dropout on
+    for name, path in (("dp", "banded"), ("tp", "gather")):
+        tcfg = TrainConfig(batch_size=8, pad_to=256, mp_path=path, seed=seed)
+        tr = Trainer(cfg, tcfg, device=dev)
+        st = TrainState(params=gnn.init_params(cfg, torch.Generator().manual_seed(seed),
+                                               load_standards(), device=dev),
+                        opt_state={}, lr=lr)
+        o = adam(st)
+        graph, yb, wb = tr._to_device(*batch)
+        loss = tr.train_step(st, o, graph, yb, wb,
+                             torch.Generator(device=dev).manual_seed(seed + 2))
+        ls = gnn.trainable_leaves(st.params)
+        ref[name] = (float(loss), _leaves_np(ls, grad=True), _leaves_np(ls))
+    torch.cuda.synchronize()
+
+    part = dict(kind="partitioned", data=1, config=exact, seed=seed, lr=lr)
+    tasks2 = [dict(part, graph=2, frames="small", fit=True,
+                   fit_config=dataclasses.asdict(ModelConfig())),
+              dict(kind="trainer", data=2, graph=1, config=dataclasses.asdict(cfg), seed=seed,
+                   lr=lr, tcfg=dict(batch_size=8, pad_to=256, mp_path="banded", seed=seed)),
+              dict(kind="trainer", data=1, graph=2, tp=True, config=dataclasses.asdict(cfg),
+                   seed=seed, lr=lr,
+                   tcfg=dict(batch_size=8, pad_to=256, mp_path="gather", seed=seed))]
+    tasks4 = [dict(part, graph=4, frames="big", repeats=3)]
+    case = {"small": frames, "big": big, "batch": batch}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r2 = _run_ranks(2, dict(case, tasks=tasks2), tmp)
+        out["ranks2_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r4 = _run_ranks(4, dict(case, tasks=tasks4), tmp)
+        out["ranks4_s"] = time.perf_counter() - t0
+
+        # (e) train --graph-parallel 2 under torchrun
+        pdb = os.path.join(tmp, "synthetic.pdb")
+        write_synthetic_pdb(pdb, n_atoms=N_ATOMS, seed=seed, frames=N_FRAMES)
+        rec = os.path.join(tmp, "struct.tfrecord")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [q for q in os.environ.get("PYTHONPATH", "").split(os.pathsep) if q]))
+        subprocess.run([sys.executable, "-m", "nmrgnn_tpu_torch.cli", "make-struct-records",
+                        pdb, rec], check=True, capture_output=True, cwd=root, env=env,
+                       timeout=300)
+        model = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "2", "-m", "nmrgnn_tpu_torch.cli", "train", rec, model, "1", "--graph-parallel",
+             "2", "--validation", "0.34", "--checkpoint-path", os.path.join(tmp, "ckpt")],
+            capture_output=True, text=True, cwd=root, timeout=300, env=env)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0 or "graph-parallel training: mesh" not in proc.stdout:
+            raise SystemExit(f"chip_smoke: 13e torchrun train exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        loaded, lcfg = load_model(model, device=dev)
+        if not all(bool(torch.isfinite(t).all()) for t in gnn.tree_leaves(loaded)):
+            raise SystemExit("chip_smoke: 13e the saved model holds non-finite weights")
+        epoch_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("epoch 1:")]
+
+    # (a) 2,482 atoms at D = 2
+    a = [r[0] for r in r2]
+    need = {"build_band_tracedlo": 2, "mp_banded_partial": 8, "band_occupancy": 2}
+    for rank, rec_ in enumerate(a):
+        if rec_["plain_calls"] or any(rec_["forward_launches"].get(k) != v
+                                      for k, v in need.items()):
+            raise SystemExit(f"chip_smoke: 13a rank {rank}: launches "
+                             f"{rec_['forward_launches']}, need {need}; plain calls "
+                             f"{rec_['plain_calls']}")
+        if rec_["step_plain_calls"] or any(rec_["step_launches"].get(k) != v
+                                           for k, v in need.items()):
+            raise SystemExit(f"chip_smoke: 13a rank {rank} step: launches "
+                             f"{rec_['step_launches']}, plain calls {rec_['step_plain_calls']}")
+        if rec_["loss"] != a[0]["loss"]:
+            raise SystemExit("chip_smoke: 13a the ranks' losses differ")
+        hist = rec_["fit"]["history"]
+        if not all(np.all(np.isfinite(v)) for v in hist.values()) or len(hist["loss"]) != 2:
+            raise SystemExit(f"chip_smoke: 13a fit: {hist}")
+    res = {"a": {"gate": _gate_step("13a", a[0], *ref["partitioned"], lr)}}
+    res["a"].update({k: [r[k] for r in a] for k in ("step_ms", "exchange_host_ms")})
+    res["a"].update({k: a[0][k] for k in ("step_launches", "halo", "prepare_s", "fit")})
+    res["a"]["fit"]["history"] = {k: [float(x) for x in v]
+                                  for k, v in a[0]["fit"]["history"].items()}
+    print(f"phase 13a: D=2 whole-structure training, {a[0]['halo']['n_padded']} rows "
+          f"({a[0]['halo']['rows_per_shard']} a shard): launches a step by rank "
+          f"{[r['step_launches'] for r in a]}, no plain version in the forward (the backward's "
+          f"plain recomputations a step: {a[0]['step_vjp']}); vs one card: loss rel "
+          f"{res['a']['gate']['loss_rel_err']:.2e}, gradients max |diff| / max |g| "
+          f"{res['a']['gate']['grad_max_rel_err']:.2e} (gate 1e-3), weights after Adam within "
+          f"the gate ({res['a']['gate']['unresolved']} elements whose gradient may flip sign "
+          f"left to the gradient gate)")
+    print(f"phase 13a: step {_ms_list(res['a']['step_ms'])} ms a rank (median of 5, CUDA "
+          f"events); exchange host ms forward "
+          f"{_ms_list([e['forward'] for e in res['a']['exchange_host_ms']])}, backward "
+          f"{_ms_list([e['backward'] for e in res['a']['exchange_host_ms']])} (median of 10); "
+          f"halo {a[0]['halo']['rows_a_layer']} rows a layer a shard, offsets "
+          f"{a[0]['halo']['offsets']}; fit 2 epochs (noise and dropout on) in "
+          f"{a[0]['fit']['s']:.2f} s: loss {[round(v, 4) for v in res['a']['fit']['history']['loss']]}")
+
+    # (b) the supercell at D = 4
+    b = [r[0] for r in r4]
+    if not all(r["finite"] for r in b):
+        raise SystemExit("chip_smoke: 13b non-finite loss or gradients")
+    res["b"] = {"loss": b[0]["loss"], "step_ms": [r["step_ms"] for r in b],
+                "exchange_host_ms": [r["exchange_host_ms"] for r in b], "halo": b[0]["halo"],
+                "launches": b[0]["step_launches"], "prepare_s": b[0]["prepare_s"]}
+    print(f"phase 13b: D=4 {b[0]['halo']['n_padded']} rows ({b[0]['halo']['rows_per_shard']} a "
+          f"shard): loss {b[0]['loss']:.4f}, finite gradients; launches {b[0]['step_launches']}; "
+          f"step {_ms_list(res['b']['step_ms'])} ms a rank (median of 3, CUDA events); "
+          f"exchange host ms forward "
+          f"{_ms_list([e['forward'] for e in res['b']['exchange_host_ms']])}, backward "
+          f"{_ms_list([e['backward'] for e in res['b']['exchange_host_ms']])}; halo "
+          f"{b[0]['halo']['rows_a_layer']} rows a layer a shard, offsets "
+          f"{b[0]['halo']['offsets']}; prepare {b[0]['prepare_s']:.2f} s (host)")
+
+    # (c) data parallel, banded; (d) tensor parallel, gather
+    for key, i, name in (("c", 1, "dp"), ("d", 2, "tp")):
+        recs = [r[i] for r in r2]
+        if name == "dp":
+            need = {"build_band": 1, "band_occupancy": 1, "mp_banded": 4}
+            for rank, r in enumerate(recs):
+                if not r["banded"] or any(r["launches"].get(k) != v for k, v in need.items()):
+                    raise SystemExit(f"chip_smoke: 13c rank {rank}: launches {r['launches']}")
+        res[key] = {"gate": _gate_step(f"13{key}", recs[0], *ref[name], lr),
+                    "launches": recs[0]["launches"], "step_ms": [r["step_ms"] for r in recs]}
+        print(f"phase 13{key}: {'data' if name == 'dp' else 'tensor'} parallel on 2 ranks "
+              f"({'banded' if name == 'dp' else 'gather'}, 8 x 256, noise and dropout on): "
+              f"launches by rank {[r['launches'] for r in recs]}; vs one card: loss rel "
+              f"{res[key]['gate']['loss_rel_err']:.2e}, gradients max |diff| / max |g| "
+              f"{res[key]['gate']['grad_max_rel_err']:.2e} (gate 1e-3); step "
+              f"{_ms_list(res[key]['step_ms'])} ms a rank (median of 5, CUDA events)")
+    res["e"] = {"wall_s": cli_s, "epoch": epoch_line[:1], "config": dataclasses.asdict(lcfg)
+                == dataclasses.asdict(ModelConfig())}
+    print(f"phase 13e: torchrun --nproc-per-node 2 train --graph-parallel 2 (1 epoch, 3 "
+          f"records): {cli_s:.1f} s wall (host clock, process start included); "
+          f"{epoch_line[0] if epoch_line else 'no epoch line'}; the saved model loads with "
+          f"finite weights")
     res.update(out)
     return res
 
@@ -3568,6 +3969,9 @@ def main(argv=None) -> int:
     partitioned = _phase12(args, dev, params, cfg, dict(graphs=graphs, peaks=peaks),
                            large_inputs)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    part_training = _phase13(args, dev, dict(graphs=graphs), large_inputs)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     checks.append({"name": "training_step", "phase": 9,
                    "max_abs_err": training["peaks_max_abs_err"],
                    "loss_rel_err": training["loss_rel_err"],
@@ -3599,6 +4003,13 @@ def main(argv=None) -> int:
             name: rec["launches_a_frame"][0][k["name"]]
             for name, rec in partitioned.items() if name in ("exact", "fast", "attention")
             and rec["launches_a_frame"][0].get(k["name"])}
+        # phase 13's launches a training step of rank 0: partitioned (13a)
+        # and data-parallel (13c)
+        for key, phase in (("part_train_launches", "a"), ("dp_train_launches", "c")):
+            launches = part_training[phase].get("step_launches") or \
+                part_training[phase]["launches"]
+            if launches.get(k["name"]):
+                k[key] = launches[k["name"]]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3613,7 +4024,7 @@ def main(argv=None) -> int:
                 "forward_breakdown": breakdown, "large": large, "trajectory": traj,
                 "wide": wide, "last_kernels": last, "training": training,
                 "attention": attention, "widths": widths, "cli": cli_runs,
-                "partitioned": partitioned,
+                "partitioned": partitioned, "partitioned_training": part_training,
             }, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,19 @@ by ``torchrun``::
     torchrun --nproc-per-node W -m nmrgnn_tpu_torch.cli eval-struct \
         STRUCT OUT.csv --graph-parallel N
 
-on a (W // N, N) mesh; rank 0 writes the output. ``train``'s
-``--data-parallel``, ``--tensor-parallel`` and ``--graph-parallel`` exit
-with a usage error (code 2): training across cards is not ported yet.
+on a (W // N, N) mesh; rank 0 writes the output. ``train`` takes the JAX
+CLI's parallel flags under ``torchrun`` alike::
+
+    torchrun --nproc-per-node W -m nmrgnn_tpu_torch.cli train RECORDS NAME \
+        [EPOCHS] --graph-parallel N        # whole structures, split over N
+    torchrun ... train FRAGMENTS NAME --data-parallel N [--tensor-parallel]
+
+``--graph-parallel N`` trains on whole structures (``make-struct-records``
+output) with ``PartitionedTrainer`` on a (W // N, N) mesh; ``--data-parallel
+N`` trains the fragment ``Trainer`` on an (N, W // N with
+``--tensor-parallel``, else 1) mesh. Rank 0 writes the model and the
+checkpoints; a rank past the mesh ends at once. A usage error exits with
+code 2.
 """
 from __future__ import annotations
 
@@ -38,9 +48,6 @@ import time
 from typing import List, Optional, Sequence
 
 import numpy as np
-
-_MULTI_GPU = "multi-GPU {} is not ported yet: run on one card (drop {})"
-
 
 class UsageError(Exception):
     """A wrong command line: the CLI prints it and exits with code 2."""
@@ -83,10 +90,9 @@ def _train(a) -> None:
     from .library import save_model
     from .train.trainer import Trainer
 
-    for flag, on in (("--data-parallel", a.data_parallel), ("--tensor-parallel",
-                     a.tensor_parallel), ("--graph-parallel", a.graph_parallel)):
-        if on:
-            raise UsageError(_MULTI_GPU.format("training", flag))
+    if a.graph_parallel and (a.data_parallel or a.tensor_parallel):
+        raise UsageError("--graph-parallel trains one whole structure per step; combine with "
+                         "neither --data-parallel nor --tensor-parallel")
     # TFRECORDS... NAME [EPOCHS], EPOCHS taken from the right as click does
     pos = list(a.args)
     epochs = int(pos.pop()) if len(pos) >= 3 and _int_like(pos[-1]) else 3
@@ -108,21 +114,49 @@ def _train(a) -> None:
         restore_best=a.restore_best, seed=a.seed, mp_path=a.mp_path,
         head_decay=a.head_decay, head_decay_elements=a.head_decay_elements,
     )
-    _echo(f"Loading from {len(tfrecords)} files")
-    train_s, val_s = split_dataset(tfrecords, a.validation, cfg.num_elements)
-    _echo(f"train={len(train_s)} val={len(val_s)} fragments")
-    try:
-        trainer = Trainer(cfg, tcfg, emb, device=dev)
-    except ValueError as e:  # --mp-path banded on an ineligible config
-        raise UsageError(str(e)) from e
-    _echo(f"training step: {'banded CUDA kernels' if trainer.use_banded else 'gather'}")
-    state = trainer.load_checkpoint(checkpoint_path) if a.load else trainer.init_state()
-    with _tensorboard(a.tensorboard) as callbacks:
-        state = trainer.fit(train_s, val_s, epochs=epochs, state=state,
-                            checkpoint_path=checkpoint_path, callbacks=callbacks)
-    save_model(name, state.eval_params, cfg)
-    _dump_history(name, state.history)
-    _echo(f"Saved model to {name}")
+    with contextlib.ExitStack() as group:
+        mesh, lead = None, True
+        if a.graph_parallel or a.data_parallel:
+            flag, n = (("--graph-parallel", a.graph_parallel) if a.graph_parallel
+                       else ("--data-parallel", a.data_parallel))
+            world, lead = _start_processes(flag, n, "train", group)
+            if a.graph_parallel:
+                data, graph = world // n, n
+            else:
+                data, graph = n, (max(1, world // n) if a.tensor_parallel else 1)
+            mesh = _make_mesh(data, graph, world, lead)
+            if mesh is None:  # a rank past the mesh: nothing to train
+                return
+        if lead:
+            _echo(f"Loading from {len(tfrecords)} files")
+        train_s, val_s = split_dataset(tfrecords, a.validation, cfg.num_elements)
+        if lead:
+            _echo(f"train={len(train_s)} val={len(val_s)} fragments")
+        if a.graph_parallel:
+            from .train.partitioned import PartitionedTrainer
+
+            if lead:
+                _echo(f"graph-parallel training: mesh {dict(mesh.shape)}")
+            trainer = PartitionedTrainer(cfg, tcfg, mesh=mesh, embeddings=emb, device=dev)
+        else:
+            if mesh is not None and lead:
+                _echo(f"mesh: {dict(mesh.shape)}")
+            try:
+                trainer = Trainer(cfg, tcfg, emb, device=dev, mesh=mesh,
+                                  tensor_parallel=a.tensor_parallel)
+            except ValueError as e:  # --mp-path banded on an ineligible config
+                raise UsageError(str(e)) from e
+            if lead:
+                _echo(f"training step: {'banded CUDA kernels' if trainer.use_banded else 'gather'}")
+        state = trainer.load_checkpoint(checkpoint_path) if a.load else trainer.init_state()
+        with _tensorboard(a.tensorboard if lead else None) as callbacks:
+            state = trainer.fit(train_s, val_s, epochs=epochs, state=state,
+                                checkpoint_path=checkpoint_path, callbacks=callbacks,
+                                verbose=lead)
+        if lead:
+            save_model(name, state.eval_params, cfg)
+            _dump_history(name, state.history)
+            _echo(f"Saved model to {name}")
 
 
 @contextlib.contextmanager
@@ -398,35 +432,50 @@ def _eval_struct(a) -> None:
         _serve_structs(a, struct_files, output_csv, mesh)
 
 
-def _graph_parallel_mesh(a, group: contextlib.ExitStack):
-    """The (W // N, N) mesh of ``eval-struct --graph-parallel N`` over the
-    W processes ``torchrun`` started (the process group is started here
-    and ended when ``group`` closes); None on a rank past W // N * N."""
+def _start_processes(flag: str, n: int, command: str, group: contextlib.ExitStack):
+    """(world, lead) of the W processes ``torchrun`` started for ``flag N``
+    (the process group is started here and ended when ``group`` closes):
+    N past W is a usage error; ``lead`` is rank 0."""
     import torch.distributed as dist
 
-    from .parallel import initialize_distributed, make_mesh
+    from .parallel import initialize_distributed
 
-    n = a.graph_parallel
     if initialize_distributed() is not None:
         group.callback(dist.destroy_process_group)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n > world:
         hint = "" if dist.is_initialized() else (
             "; start one process a shard with torchrun --nproc-per-node N -m "
-            "nmrgnn_tpu_torch.cli eval-struct ...")
-        raise UsageError(f"--graph-parallel {n} exceeds the {world} process(es){hint}")
+            f"nmrgnn_tpu_torch.cli {command} ...")
+        raise UsageError(f"{flag} {n} exceeds the {world} process(es){hint}")
     lead = not dist.is_initialized() or dist.get_rank() == 0
-    if world % n and lead:
-        _echo(f"note: {world} processes not divisible by --graph-parallel {n}; using "
-              f"{(world // n) * n}", err=True)
+    return world, lead
+
+
+def _make_mesh(data: int, graph: int, world: int, lead: bool):
+    """The (data, graph) mesh over the ``world`` processes; None on a rank
+    past it (every rank makes the mesh's groups first)."""
+    from .parallel import make_mesh
+
+    if data * graph < world and lead:
+        _echo(f"note: a {data} x {graph} mesh uses {data * graph} of the {world} processes",
+              err=True)
+    mesh = make_mesh(data=data, graph=graph)
+    return None if mesh.rank >= data * graph else mesh
+
+
+def _graph_parallel_mesh(a, group: contextlib.ExitStack):
+    """The (W // N, N) mesh of ``eval-struct --graph-parallel N`` over the
+    W processes ``torchrun`` started (the process group is started here
+    and ended when ``group`` closes); None on a rank past W // N * N."""
+    n = a.graph_parallel
+    world, lead = _start_processes("--graph-parallel", n, "eval-struct", group)
     if a.fast and lead:
         _echo("note: --fast is ignored with --graph-parallel (the partitioned banded "
               "forward is its own path); --precision fast applies bf16 arithmetic AND the "
               "Chebyshev edge stage inside the per-shard band builds", err=True)
-    mesh = make_mesh(data=world // n, graph=n)
-    if mesh.rank >= (world // n) * n:
-        return None
-    if lead:
+    mesh = _make_mesh(world // n, n, world, lead)
+    if mesh is not None and lead:
         _echo(f"graph-parallel serving: mesh {dict(mesh.shape)}")
     return mesh
 
@@ -655,10 +704,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--pad-to", type=int, default=256)
     p.add_argument("--config", default=None, help="ModelConfig JSON (default: the baseline)")
-    p.add_argument("--data-parallel", type=int, default=0, help="not ported (multi-GPU)")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="split batches over N processes started by torchrun (0 = one process)")
     p.add_argument("--tensor-parallel", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported (multi-GPU)")
-    p.add_argument("--graph-parallel", type=int, default=0, help="not ported (multi-GPU)")
+                   help="also split the MP / FC kernels over the remaining processes")
+    p.add_argument("--graph-parallel", type=int, default=0,
+                   help="train on WHOLE structures (make-struct-records input), atoms split "
+                        "over N processes started by torchrun (0 = off)")
     p.add_argument("--lr-schedule", default="plateau", choices=["plateau", "cosine"])
     p.add_argument("--warmup-epochs", type=int, default=0)
     p.add_argument("--ema-decay", type=float, default=0.0,

@@ -148,20 +148,20 @@ def edge_features(params: Params, config: ModelConfig, edges: torch.Tensor,
 
 def readout(params: Params, config: ModelConfig, atoms: torch.Tensor,
             nodes: torch.Tensor, head_dtype=torch.float32,
-            dropout_mask=None) -> torch.Tensor:
+            dropout_mask=None, dense_fn=dense) -> torch.Tensor:
     """FC block (products in the compute type), dropout where
     ``dropout_mask`` is given (kept values scaled by 1 / keep), per-element
     head (products in ``head_dtype``) and de-standardization by the frozen
-    standards -> peaks f32[N]."""
+    standards -> peaks f32[N]. ``dense_fn``: the dense layer (``apply``'s)."""
     fc_act = get_activation(config.fc_activation)
     cd = compute_dtype(config)
     for p in params["fc"][:-1]:
-        nodes = dense(p, nodes, fc_act, cd) + nodes
-    nodes = dense(params["fc"][-1], nodes, fc_act, cd)
+        nodes = dense_fn(p, nodes, fc_act, cd) + nodes
+    nodes = dense_fn(params["fc"][-1], nodes, fc_act, cd)
     if dropout_mask is not None:
         keep = 1.0 - config.dropout_rate
         nodes = torch.where(dropout_mask, nodes / keep, torch.zeros_like(nodes))
-    full_peaks = dense(params["out"], nodes, compute_dtype=head_dtype)
+    full_peaks = dense_fn(params["out"], nodes, None, head_dtype)
     peak_std, peak_avg = params["peak_std"].detach(), params["peak_avg"].detach()
     return torch.sum(full_peaks * atoms * peak_std + atoms * peak_avg, dim=-1)
 
@@ -207,11 +207,17 @@ def noised(config: ModelConfig, edges: torch.Tensor, noise) -> torch.Tensor:
 
 
 def apply(params: Params, config: ModelConfig, graph: Graph, *, training: bool = False,
-          noise=None, dropout_mask=None, generator=None) -> torch.Tensor:
+          noise=None, dropout_mask=None, generator=None, dense_fn=dense,
+          mp_fn=mp_layer) -> torch.Tensor:
     """Forward for one graph of tensors; peaks f32[N]. The plain gather
     forward: the reference every faster path is held to. ``training=True``
     applies the distance noise and the readout dropout (draws: see the
-    module's docstring; ``dropout_mask`` is [N, F // 2])."""
+    module's docstring; ``dropout_mask`` is [N, F // 2]).
+
+    ``dense_fn`` (``dense``'s signature) and ``mp_fn`` (``mp_layer``'s)
+    compute the products of the embedding, FC block and head, and of the
+    bilinear MP layers: the plain ones by default, the tensor-parallel
+    slices' in ``parallel/sharding.tp_products``."""
     atoms, nlist, edges, inv_degree = graph
     mp_act = get_activation(config.mp_activation)
     cd = compute_dtype(config)
@@ -223,14 +229,14 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, training: bool =
     else:
         noise = dropout_mask = None
     e = edge_features(params, config, noised(config, edges, noise), mask=mask)
-    nodes = dense(params["embed"], atoms)
+    nodes = dense_fn(params["embed"], atoms)
     for p in params["mp"]:
         if config.mp_type == "attention":
             upd = amp_layer(p["wq"], p["wk"], p["wv"], nodes, nlist, e, inv_degree, mp_act)
         else:
-            upd = mp_layer(p["w"], nodes, nlist, e, inv_degree, mp_act, cd)
+            upd = mp_fn(p["w"], nodes, nlist, e, inv_degree, mp_act, cd)
         nodes = upd + nodes
-    return readout(params, config, atoms, nodes, dropout_mask=dropout_mask)
+    return readout(params, config, atoms, nodes, dropout_mask=dropout_mask, dense_fn=dense_fn)
 
 
 def flatten_batch(graph: Graph) -> Graph:
@@ -246,11 +252,12 @@ def flatten_batch(graph: Graph) -> Graph:
 
 def apply_batched(params: Params, config: ModelConfig, graph: Graph, *,
                   training: bool = False, noise=None, dropout_mask=None,
-                  generator=None) -> torch.Tensor:
+                  generator=None, **products) -> torch.Tensor:
     """``apply`` over a leading batch axis: Graph[B, N, ...] -> f32[B, N].
     The fragments run as one graph of B * N rows (``flatten_batch``), each
     row's sums as in ``apply``. Draws are per fragment: ``noise``
-    [B, N, K], ``dropout_mask`` [B, N, F // 2]."""
+    [B, N, K], ``dropout_mask`` [B, N, F // 2]. ``products``: ``apply``'s
+    ``dense_fn`` / ``mp_fn``."""
     B, N = graph.nlist.shape[:2]
     flat = lambda a: None if a is None else a.reshape((B * N,) + tuple(a.shape[2:]))  # noqa: E731
     if training:
@@ -258,7 +265,7 @@ def apply_batched(params: Params, config: ModelConfig, graph: Graph, *,
             config, graph.edges, (B, N, config.atom_feature_size // 2), noise, dropout_mask,
             generator)
     peaks = apply(params, config, flatten_batch(graph), training=training, noise=flat(noise),
-                  dropout_mask=flat(dropout_mask))
+                  dropout_mask=flat(dropout_mask), **products)
     return peaks.view(B, N)
 
 

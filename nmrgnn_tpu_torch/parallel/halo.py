@@ -38,7 +38,7 @@ import torch.nn.functional as nnf
 
 from ..config import ModelConfig
 from ..graph import Graph
-from ..models.gnn import compute_dtype, dense
+from ..models.gnn import compute_dtype, dense, readout
 from ..models.infer import _padding_slots, padding_rows
 from ..ops import banded
 from ..ops.activations import get_activation
@@ -346,6 +346,13 @@ def make_banded_halo_plan(
 
 
 # -- collectives ----------------------------------------------------------------
+#
+# Each collective that training differentiates through is a
+# torch.autograd.Function with the transpose ``shard_map`` gives the JAX
+# package's (``nmrgnn_tpu/parallel/halo.py:570-592``, ``:686``, its peaks'
+# out_specs). The public functions take the Function only when autograd
+# records, so the serving forwards (under ``torch.no_grad``) run the plain
+# calls.
 
 
 def _staged(group) -> bool:
@@ -354,23 +361,81 @@ def _staged(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _ring(bufs: Sequence[torch.Tensor], offsets: Sequence[int], group, reverse: bool):
+    """One send/receive pair per offset in one ``batch_isend_irecv``: buffer
+    i goes to (s + o_i) % D (``reverse``: to (s - o_i) % D) and as many rows
+    come from the other side; returns the posted works and the receive
+    buffers (on the host under gloo)."""
+    D = dist.get_world_size(group)
+    s = dist.get_rank(group)
+    staged = _staged(group)
+    ops, recvs = [], []
+    for buf, o in zip(bufs, offsets):
+        o = -o if reverse else o
+        buf = (buf.cpu() if staged else buf).contiguous()
+        rbuf = torch.empty_like(buf)
+        ops += [dist.P2POp(dist.isend, buf, dist.get_global_rank(group, (s + o) % D), group),
+                dist.P2POp(dist.irecv, rbuf, dist.get_global_rank(group, (s - o) % D), group)]
+        recvs.append(rbuf)
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return works, recvs
+
+
 class _Exchange:
     """A posted ring exchange: ``wait()`` returns the received rows
-    [halo_lanes, F], concatenated in offset order and zero-padded."""
+    [lanes, F], concatenated in offset order and zero-padded; differentiable
+    in the posted ``nodes`` when autograd records them (``_RingExchange``)."""
 
-    def __init__(self, works, recvs, device, lanes: int, like: torch.Tensor):
-        self._works, self._recvs = works, recvs
-        self._device, self._lanes, self._like = device, lanes, like
+    def __init__(self, nodes, send_idx, offsets, group, lanes: int):
+        self.nodes, self.send_idx, self.offsets = nodes, send_idx, offsets
+        self.group, self.lanes = group, lanes
+        self._works, self._recvs = _ring(
+            [nodes.detach().index_select(0, si) for si in send_idx], offsets, group, False)
 
-    def wait(self) -> torch.Tensor:
+    def received(self) -> torch.Tensor:
         for w in self._works:
             w.wait()
-        F = self._like.shape[1]
+        F = self.nodes.shape[1]
         h = (torch.cat(self._recvs, 0) if self._recvs
-             else torch.zeros((0, F), dtype=self._like.dtype))
-        h = h.to(self._device, non_blocking=False)
-        pad = self._lanes - h.shape[0]
+             else torch.zeros((0, F), dtype=self.nodes.dtype))
+        h = h.to(self.nodes.device, non_blocking=False)
+        pad = self.lanes - h.shape[0]
         return nnf.pad(h, (0, 0, 0, pad)) if pad > 0 else h
+
+    def wait(self) -> torch.Tensor:
+        if _records(self.nodes):
+            return _RingExchange.apply(self.nodes, self)
+        return self.received()
+
+
+class _RingExchange(torch.autograd.Function):
+    """The received rows of a posted exchange, with the reverse ring as
+    backward (``ppermute``'s transpose): the cotangent of the rows received
+    at offset o goes back to (s - o) % D, which adds the rows it gets into
+    its ``nodes`` cotangent at ``send_idx`` (out of place: a row can be
+    sent at several offsets). The zero-padded lanes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, nodes, ex):
+        ctx.ex = ex
+        return ex.received()
+
+    @staticmethod
+    def backward(ctx, g):
+        ex = ctx.ex
+        sizes = [int(si.shape[0]) for si in ex.send_idx]
+        segs = list(torch.split(g[:sum(sizes)], sizes, 0)) if sizes else []
+        works, recvs = _ring(segs, ex.offsets, ex.group, True)
+        for w in works:
+            w.wait()
+        gn = torch.zeros_like(ex.nodes)
+        for si, r in zip(ex.send_idx, recvs):
+            gn = gn.index_add(0, si, r.to(g.device, g.dtype))
+        return gn, None
 
 
 def ring_exchange(nodes: torch.Tensor, send_idx: Sequence[torch.Tensor], offsets: Sequence[int],
@@ -383,46 +448,128 @@ def ring_exchange(nodes: torch.Tensor, send_idx: Sequence[torch.Tensor], offsets
     this shard's row of the plan's ``send_idx[i]``) to (s + o) % D and
     receives H_o rows from (s - o) % D, one ``P2POp`` pair each, all in one
     ``dist.batch_isend_irecv``. At D = 2 offsets 1 and D - 1 coincide and
-    the plan keeps one. Under gloo the rows are staged through the host."""
-    D = dist.get_world_size(group)
-    s = dist.get_rank(group)
-    staged = _staged(group)
-    ops, recvs = [], []
-    for sidx, o in zip(send_idx, offsets):
-        buf = nodes.index_select(0, sidx.to(nodes.device).long())
-        if staged:
-            buf = buf.cpu()
-        rbuf = torch.empty_like(buf)
-        dst = dist.get_global_rank(group, (s + o) % D)
-        src = dist.get_global_rank(group, (s - o) % D)
-        ops += [dist.P2POp(dist.isend, buf.contiguous(), dst, group),
-                dist.P2POp(dist.irecv, rbuf, src, group)]
-        recvs.append(rbuf)
-    works = dist.batch_isend_irecv(ops) if ops else []
-    return _Exchange(works, recvs, nodes.device, lanes, nodes)
+    the plan keeps one. Under gloo the rows are staged through the host.
+    When autograd records ``nodes``, ``.wait()`` is differentiable: its
+    backward is the reverse ring (``_RingExchange``)."""
+    send_idx = [si.to(nodes.device).long() for si in send_idx]
+    return _Exchange(nodes, send_idx, offsets, group, lanes)
+
+
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x.clone()
+    y = x.cpu() if _staged(group) and x.is_cuda else x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y.to(x.device)
+
+
+class _PSum(torch.autograd.Function):
+    """``psum`` with its transpose: the cotangent is summed over the group
+    too, because each rank consumes the sum on its own rows and so holds a
+    cotangent of its own."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.group), None
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks (``jax.lax.psum``), on
-    ``x``'s device; staged through the host under gloo."""
-    y = x.cpu() if _staged(group) and x.is_cuda else x.clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-    return y.to(x.device)
+    ``x``'s device; staged through the host under gloo. Differentiable
+    (``_PSum``) when autograd records ``x``; ``group`` None is one process."""
+    return _PSum.apply(x, group) if _records(x) else _psum(x, group)
 
 
 # all_gather_into_tensor, under the name newer PyTorch releases give it
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """[D * m, ...]: every rank's ``x`` [m, ...] in rank order
-    (``all_gather_into_tensor``), on ``x``'s device; staged through the host
-    under gloo."""
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x.clone()
     src = x.cpu() if _staged(group) and x.is_cuda else x.contiguous()
     out = torch.empty((dist.get_world_size(group) * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
     _all_gather_single(out, src.contiguous(), group=group)
     return out.to(x.device)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """``all_gather_rows`` whose backward is this rank's slice of the
+    cotangent: every rank computes the same loss from the gathered rows
+    (the JAX package's loss on the whole [N] peaks), so a reduce-scatter
+    would count each gradient once a rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rows, ctx.rank = x.shape[0], 0 if group is None else dist.get_rank(group)
+        return _all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """[D * m, ...]: every rank's ``x`` [m, ...] in rank order
+    (``all_gather_into_tensor``), on ``x``'s device; staged through the host
+    under gloo. Differentiable when autograd records ``x``, with this
+    rank's slice of the cotangent as backward (``_AllGatherRows``)."""
+    return _AllGatherRows.apply(x, group) if _records(x) else _all_gather(x, group)
+
+
+def psum_grads(grads: Sequence[torch.Tensor], group) -> list:
+    """The gradients of replicated parameters summed over the group, in one
+    ``all_reduce`` of their concatenation (the transpose of ``shard_map``'s
+    replicated ``P()`` inputs); ``group`` None or of one rank: as given."""
+    grads = list(grads)
+    if group is None or dist.get_world_size(group) == 1 or not grads:
+        return grads
+    flat = _psum(torch.cat([g.reshape(-1).float() for g in grads]), group)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
+        i += g.numel()
+    return out
+
+
+def shard_seed(rng: int, stream: int, shard: int) -> int:
+    """The seed of shard ``shard``'s ``stream`` (1 noise, 2 dropout) under
+    the step key ``rng``: the JAX package folds the shard index into the
+    key (``halo.py:597-601``, ``:709-713``); torch cannot draw threefry
+    numbers, so the shard's generator is seeded from (rng, stream, shard)."""
+    return int(np.random.SeedSequence([int(rng), stream, shard]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+
+
+def shard_draws(config: ModelConfig, rng, shard: int, m: int, K: int, device,
+                noise=None, dropout_mask=None):
+    """(noise [m, K] or None, dropout_mask [m, F // 2] or None) of shard
+    ``shard``'s rows in a training forward: this shard's rows of the given
+    whole-structure draws, else draws from ``torch.Generator``s on
+    ``device`` seeded by ``shard_seed(rng, 1 | 2, shard)``."""
+    rows = slice(shard * m, (shard + 1) * m)
+    F2 = config.atom_feature_size // 2
+
+    def gen(stream):
+        if rng is None:
+            raise ValueError("training=True requires rng (or the draws)")
+        return torch.Generator(device=device).manual_seed(shard_seed(rng, stream, shard))
+
+    out_noise = out_mask = None
+    if config.noise > 0:
+        out_noise = (torch.as_tensor(noise)[rows].to(device) if noise is not None
+                     else torch.randn((m, K), generator=gen(1), device=device))
+    if config.dropout:
+        keep = 1.0 - config.dropout_rate
+        out_mask = (torch.as_tensor(dropout_mask)[rows].to(device) if dropout_mask is not None
+                    else torch.rand((m, F2), generator=gen(2), device=device) < keep)
+    return out_noise, out_mask
 
 
 # -- the forwards ------------------------------------------------------------------
@@ -444,47 +591,52 @@ def _own(graph: Graph, s: int, m: int, device) -> Graph:
         for a, dt in zip(graph, dtypes)])
 
 
-def _shard_readout(params, config: ModelConfig, atoms, nodes) -> torch.Tensor:
-    """FC block, head and de-standardization in float32, as the JAX
-    package's partitioned forwards compute them (``_dense`` at its default
-    type): peaks f32[m]."""
-    fc_act = get_activation(config.fc_activation)
-    for p in params["fc"][:-1]:
-        nodes = dense(p, nodes, fc_act) + nodes
-    nodes = dense(params["fc"][-1], nodes, fc_act)
-    full = dense(params["out"], nodes)
-    std, avg = params["peak_std"].detach(), params["peak_avg"].detach()
-    return torch.sum(full * atoms * std + atoms * avg, dim=-1)
+def _shard_readout(params, config: ModelConfig, atoms, nodes, dropout_mask=None) -> torch.Tensor:
+    """``gnn.readout`` in float32, as the JAX package's partitioned
+    forwards compute it (``_dense`` at its default type): peaks f32[m]."""
+    return readout(params, config.replace(compute_dtype="float32"), atoms, nodes,
+                   dropout_mask=dropout_mask)
 
 
-def _edge_stage(params, config: ModelConfig, edges) -> torch.Tensor:
-    """f32[m, K, E]: RBF + EdgeFC in float32, masked by ``edges > 0``
-    (the JAX partitioned forwards' exact edge stage)."""
-    return edge_features(edges, params["edge_fc"], rbf_low=config.rbf_low,
-                         rbf_high=config.rbf_high, activation_name=config.fc_activation)
+def _edge_stage(params, config: ModelConfig, edges, noise=None) -> torch.Tensor:
+    """f32[m, K, E]: RBF + EdgeFC in float32 of ``edges`` plus ``noise``
+    times ``config.noise`` (the training noise, or None), masked by the
+    distances before the noise (the JAX partitioned forwards' exact edge
+    stage)."""
+    mask = (edges > 0).to(torch.float32)[..., None]
+    d = edges if noise is None else edges + config.noise * noise
+    return edge_features(d, params["edge_fc"], rbf_low=config.rbf_low,
+                         rbf_high=config.rbf_high, activation_name=config.fc_activation,
+                         mask=mask)
 
 
 class _PaddingTerm:
     """The attention padding term of one shard in the ``gnn.apply`` form:
-    the rows ``rows`` (global ids, sorted) that padding slots name, and
-    this shard's slots' one-hot [m, K, R] over them."""
+    the rows ``rows`` (global ids, sorted) that padding slots name
+    (``pad_rows``, else found from ``graph``), and this shard's slots'
+    one-hot [m, K, R] over them."""
 
-    def __init__(self, graph: Graph, own_nlist, real, s: int, m: int, device):
-        pad_rows = padding_rows(graph.nlist, graph.edges)
-        self.rows = torch.as_tensor(pad_rows, dtype=torch.int64).to(device)
+    def __init__(self, graph: Graph, own_nlist, real, s: int, m: int, device, pad_rows=None):
+        if pad_rows is None:
+            pad_rows = padding_rows(graph.nlist, graph.edges)
+        pad_rows = np.asarray(pad_rows, np.int64)
+        self.rows = torch.as_tensor(pad_rows).to(device)
         self.slots = (_padding_slots(own_nlist, real, self.rows) if self.rows.numel() else None)
-        self.lo, self.hi = s * m, (s + 1) * m
+        mine = (pad_rows >= s * m) & (pad_rows < (s + 1) * m)
+        # the positions among ``rows`` of this shard's rows, and their local ids
+        self.pick = torch.as_tensor(np.nonzero(mine)[0]).to(device)
+        self.local = torch.as_tensor(pad_rows[mine] - s * m).to(device)
 
     def add(self, upd, a, nodes, wv, group) -> torch.Tensor:
         """``upd`` + c @ (nodes[rows] @ wv): c [m, R] this shard's padding
         weights; the rows' projections summed over the group (each row
-        lives on one shard)."""
+        lives on one shard; under autograd the sum's backward sums the
+        shards' cotangents, ``_PSum``)."""
         if self.slots is None:
             return upd
-        mine = (self.rows >= self.lo) & (self.rows < self.hi)
         local = torch.zeros((self.rows.shape[0], nodes.shape[1]), dtype=nodes.dtype,
-                            device=nodes.device)
-        local[mine] = nodes[self.rows[mine] - self.lo]
+                            device=nodes.device).index_copy(
+                                0, self.pick, nodes.index_select(0, self.local))
         proj = psum(local @ wv, group)                        # [R, F]
         c = torch.einsum("ij,ijp->ip", a, self.slots)         # [m, R]
         return upd + c @ proj
@@ -565,6 +717,10 @@ def apply_partitioned_banded(
     training: bool = False,
     cheb: Optional[EdgeCheb] = None,
     arrays=None,
+    rng=None,
+    noise=None,
+    dropout_mask=None,
+    pad_rows=None,
 ) -> torch.Tensor:
     """Multi-GPU forward with per-shard banded MP through the kernels and
     the halo exchange overlapped with the interior band; peaks f32[N] of
@@ -584,53 +740,75 @@ def apply_partitioned_banded(
     ``cheb`` (the bilinear family, inference) replaces the exact edge
     stage by its Chebyshev evaluation inside the band builds (B7b), as
     single-card "fast" serving does. ``arrays``: this shard's plan arrays
-    on the device (``shard_arrays``), if at hand. ``differentiable``
-    and ``training`` (partitioned training) belong to the next slice of the
-    port and raise."""
-    if differentiable or training:
-        raise NotImplementedError(
-            "partitioned training (differentiable=, training=) is not ported yet: "
-            "it is the next slice (ROADMAP queue A)")
-    if cheb is not None and config.mp_type == "attention":
+    on the device (``shard_arrays``), if at hand. ``pad_rows``: the rows the
+    attention family's padding slots name (``models/infer.padding_rows``),
+    else found from ``graph``.
+
+    ``differentiable`` runs B7a and B6 through their autograd wrappers
+    (``build_band_tracedlo_df``, ``mp_banded_partial_df``: the kernels
+    forward, plain PyTorch backward) and the collectives through theirs
+    (the exchange's backward is the reverse ring, the peaks' all-gather
+    hands back this rank's slice), so that ``torch.autograd`` flows through
+    the whole partitioned forward: graph-partitioned training. The
+    gradient of each replicated parameter is then this rank's share; sum
+    them over the axis's group (``psum_grads``).
+
+    ``training`` applies the distance noise before the edge stage and the
+    readout dropout, with shard-local draws (``shard_draws``: generators
+    seeded from (``rng``, stream, shard), as the JAX package folds the
+    shard index into its key; the whole-structure draws differ from a
+    single-device run's but have its distribution), or this shard's rows of
+    the whole-structure ``noise`` [N, K] and ``dropout_mask`` [N, F // 2]
+    where given. The padding mask and the bands' occupancy come from the
+    distances before the noise."""
+    if cheb is not None and (differentiable or training or config.mp_type == "attention"):
         raise ValueError(
-            "cheb (compressed edge stage) is bilinear-family-only: the attention family "
-            "consumes the exact edge features")
+            "cheb (compressed edge stage) is inference-only and bilinear-family-only: the "
+            "poly build has no backward and the attention family consumes the exact edge "
+            "features")
     D, m = plan.halo.n_shards, plan.halo.rows_per_shard
     group = _graph_group(mesh, axis, D)
     s = dist.get_rank(group)
-    shard_fwd = _make_banded_shard_fwd(config, plan, group, use_kernels, cheb)
+    shard_fwd = _make_banded_shard_fwd(config, plan, group, use_kernels, cheb, differentiable)
     dev = params["embed"]["kernel"].device
     own = _own(graph, s, m, dev)
     send, lnl, lo, bids, hlo = arrays if arrays is not None else shard_arrays(plan, s, dev)
-    term = (_PaddingTerm(graph, own.nlist, own.edges > 0, s, m, dev)
+    term = (_PaddingTerm(graph, own.nlist, own.edges > 0, s, m, dev, pad_rows)
             if config.mp_type == "attention" else None)
-    with torch.no_grad():
-        peaks = shard_fwd(params, send, own, lnl, lo, bids, hlo, term)
+    draws = (shard_draws(config, rng, s, m, own.nlist.shape[1], dev, noise, dropout_mask)
+             if training else (None, None))
+    with torch.enable_grad() if differentiable else torch.no_grad():
+        peaks = shard_fwd(params, send, own, lnl, lo, bids, hlo, term, *draws)
     return all_gather_rows(peaks, group)
 
 
 def _make_banded_shard_fwd(config: ModelConfig, plan: BandedHaloPlan, group,
-                           use_kernels: bool = True, cheb: Optional[EdgeCheb] = None):
+                           use_kernels: bool = True, cheb: Optional[EdgeCheb] = None,
+                           differentiable: bool = False):
     """The per-shard banded forward: takes this shard's rows and plan
-    arrays and returns its [m] peaks.
+    arrays (and its training draws, or None) and returns its [m] peaks.
 
     Bilinear family, exact: the RBF + EdgeFC edge stage in plain PyTorch
     (float32, as the JAX package's XLA stage), then two B7a launches, the
     interior band over the shard's own rows and the halo band over its
     boundary tiles with ``nlist - m`` (interior indices go negative and
     match nothing). Fast (``cheb``): two B7b launches straight from the
-    distances instead. The bands' chunk occupancy is made once each. Then
-    per MP layer:
+    distances instead. The bands' chunk occupancy is made once each, from
+    the distances before any noise. Then per MP layer:
       1. post the ring exchange of the boundary rows;
       2. B6 over the interior band (own rows; no dependency on the
          exchange);
       3. wait for the exchange;
       4. B6 over the halo band on the received rows;
-      5. ``index_add_`` of its rows into the boundary tiles' rows;
+      5. add its rows into the boundary tiles' rows (``index_add_``, or
+         out of place under autograd);
       6. nodes = act(acc * inv_degree) + nodes (float32).
     Attention: per layer the softmax weights (float32) of the real slots
     built into two E = 1 bands (two B7a), two B6 launches with wv, the
     padding term (``_PaddingTerm``), the activation and the residual.
+    ``differentiable``: B7a and B6 through ``build_band_tracedlo_df`` and
+    ``mp_banded_partial_df`` (the plain versions under autograd without
+    ``use_kernels``).
 
     Overlap: under NCCL the exchange runs on NCCL's own stream, so the
     interior B6 overlaps it on the card. Under gloo the send rows are
@@ -644,14 +822,21 @@ def _make_banded_shard_fwd(config: ModelConfig, plan: BandedHaloPlan, group,
     cd = compute_dtype(config)
     mp_act = get_activation(config.mp_activation)
     attention = config.mp_type == "attention"
-    if use_kernels:
+    if differentiable and use_kernels:
+        build, build_poly = banded.build_band_tracedlo_df, None
+        partial, occupancy = banded.mp_banded_partial_df, banded.band_occupancy
+    elif use_kernels:
         build, build_poly = banded.build_band_tracedlo, banded.build_band_poly_tracedlo
         partial, occupancy = banded.mp_banded_partial, banded.band_occupancy
     else:
         build, build_poly = banded.build_band_tracedlo_plain, banded.build_band_poly_tracedlo_plain
         partial, occupancy = banded.mp_banded_partial_plain, None
 
-    def shard_fwd(params, send, own: Graph, lnl, lo, bids, hlo, term):
+    def add_rows(acc, rows, part):
+        return acc.index_add(0, rows, part) if differentiable else acc.index_add_(0, rows, part)
+
+    def shard_fwd(params, send, own: Graph, lnl, lo, bids, hlo, term, noise=None,
+                  dropout_mask=None):
         atoms, _, edges, inv = own
         dev = atoms.device
         real = edges > 0
@@ -667,7 +852,7 @@ def _make_banded_shard_fwd(config: ModelConfig, plan: BandedHaloPlan, group,
             M_int = build_poly(lnl, edges, cheb, lo, W, B, out_dtype=cd)
             M_halo = build_poly(lnl_h, edges_h, cheb, hlo, Wh, B, out_dtype=cd)
         else:
-            e = _edge_stage(params, config, edges)
+            e = _edge_stage(params, config, edges, noise)
             if not attention:
                 M_int = build(lnl, e, lo, W, B, out_dtype=cd)
                 M_halo = build(lnl_h, e[rows].contiguous(), hlo, Wh, B, out_dtype=cd)
@@ -683,15 +868,245 @@ def _make_banded_shard_fwd(config: ModelConfig, plan: BandedHaloPlan, group,
                 Ma_halo = build(lnl_h, a_band[rows].contiguous(), hlo, Wh, B, out_dtype=cd)
                 acc = partial(Ma_int, lo, nodes.to(cd), wv3, occ_int)
                 halo_nodes = pending.wait()
-                acc.index_add_(0, rows, partial(Ma_halo, hlo, halo_nodes.to(cd), wv3, occ_halo))
+                acc = add_rows(acc, rows, partial(Ma_halo, hlo, halo_nodes.to(cd), wv3,
+                                                  occ_halo))
                 upd = term.add(acc, a, nodes, p["wv"], group)
                 nodes = mp_act(upd) + nodes
             else:
                 acc = partial(M_int, lo, nodes.to(cd), p["w"], occ_int)         # 2)
                 halo_nodes = pending.wait()                                      # 3)
                 acc_halo = partial(M_halo, hlo, halo_nodes.to(cd), p["w"], occ_halo)  # 4)
-                acc.index_add_(0, rows, acc_halo)                                # 5)
+                acc = add_rows(acc, rows, acc_halo)                              # 5)
                 nodes = mp_act(acc * inv_col) + nodes                            # 6)
-        return _shard_readout(params, config, atoms, nodes)
+        return _shard_readout(params, config, atoms, nodes, dropout_mask)
 
     return shard_fwd
+
+
+def _take(tables, idx):
+    """Entry ``idx`` (an int) or entries ``idx`` (an int array) of stacked
+    operands: a Graph of them, a tensor, an array or a sequence (None
+    passes through)."""
+    if tables is None:
+        return None
+    if isinstance(tables, Graph):
+        return Graph(*[_take(a, idx) for a in tables])
+    if isinstance(tables, torch.Tensor) and not isinstance(idx, int):
+        return tables[torch.as_tensor(np.asarray(idx), device=tables.device)]
+    return tables[idx]
+
+
+def apply_partitioned_banded_batch(
+    params,
+    config: ModelConfig,
+    graphs: Graph,
+    plan: BandedHaloPlan,
+    mesh: Mesh,
+    axis: str = "graph",
+    data_axis: str = "data",
+    use_kernels: bool = True,
+    differentiable: bool = False,
+    arrays=None,
+    training: bool = False,
+    rngs=None,
+    cheb: Optional[EdgeCheb] = None,
+    noise=None,
+    dropout_mask=None,
+    pad_rows=None,
+) -> torch.Tensor:
+    """Data-batched partitioned forward: S = ``mesh.shape[data_axis]``
+    structures of the plan's shapes, one a data index, each split over
+    the ``axis`` ranks of its line (``apply_partitioned_banded``), so that
+    a (data=2, graph=4) mesh computes two whole structures at once.
+
+    ``graphs`` (a Graph of [S, N, ...]), ``rngs`` [S], ``noise`` [S, N, K],
+    ``dropout_mask`` [S, N, F // 2] and ``pad_rows`` (S sequences) carry a
+    leading structure dim; ``arrays`` is S per-structure tuples of this
+    shard's plan arrays (``shard_arrays``) or None for the plan's. Returns
+    peaks f32[S, N] on every rank: the structures' peaks gathered over the
+    data group (differentiable as ``all_gather_rows``).
+
+    The JAX form runs in one process only (``halo.py:755-758``); here every
+    rank is a process, so the restriction has no counterpart."""
+    S = int(mesh.shape[data_axis])
+    if len(graphs.atoms) != S:
+        raise ValueError(f"batch dim {len(graphs.atoms)} != mesh {data_axis} size {S}")
+    d = mesh.index(data_axis)
+    peaks = apply_partitioned_banded(
+        params, config, _take(graphs, d), plan, mesh, axis=axis, use_kernels=use_kernels,
+        differentiable=differentiable, training=training, cheb=cheb,
+        arrays=_take(arrays, d), rng=_take(rngs, d), noise=_take(noise, d),
+        dropout_mask=_take(dropout_mask, d), pad_rows=_take(pad_rows, d))
+    return all_gather_rows(peaks[None], mesh.group(data_axis) if S > 1 else None)
+
+
+def _as_device(a, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a).to(
+        device=device, dtype=dtype)
+
+
+def make_partitioned_train_step(
+    config: ModelConfig,
+    loss_idx,
+    plan: BandedHaloPlan,
+    mesh: Mesh,
+    axis: str = "graph",
+    loss_balance: float = 1.0,
+    training: bool = False,
+    data_axis: Optional[str] = None,
+    use_kernels: bool = True,
+):
+    """Whole-structure (graph-partitioned) training step: NameLoss and
+    ``torch.autograd`` through the differentiable partitioned forward
+    (``apply_partitioned_banded(differentiable=True)``: B7a and B6 through
+    their autograd wrappers, the exchange's reverse ring), the replicated
+    parameters' gradients summed over the ``axis`` group (``psum_grads``),
+    then the optimizer's step.
+
+    Returns ``step(params, opt, graph, y, w, rng=None, arrays=None,
+    noise=None, dropout_mask=None, pad_rows=None) -> loss`` (a device
+    tensor; no host wait). ``opt`` is a ``torch.optim.Adam`` over
+    ``gnn.trainable_leaves(params)`` (``Trainer.optimizer``): the JAX
+    package's optax ``tx`` and its state in one object; ``params`` are
+    updated in place. ``y`` is the [N, 3] label block (shift, name index,
+    labeled flag), ``w`` the [N] sample weights, both padded like the
+    graph. ``training`` turns on the noise and dropout with shard-local
+    draws (``rng`` a step's int key, or the whole-structure draws);
+    ``arrays``, ``pad_rows``: as ``apply_partitioned_banded``'s.
+
+    ``data_axis`` (e.g. "data"): the data-batched step. Every structure
+    operand gains a leading dim S = ``mesh.shape[data_axis]``, each data
+    index trains its own structure (``apply_partitioned_banded_batch``),
+    the loss is the mean of the S NameLosses (computed on every rank from
+    the gathered [S, N] peaks) and the gradient their mean: each rank's
+    share summed over the graph group, then over the data group."""
+    from ..models import gnn
+    from ..train.losses import name_loss
+    from ..train.trainer import fold_sample_weight
+
+    groups = [mesh.group(axis)] + ([mesh.group(data_axis)] if data_axis else [])
+
+    def loss_fn(params, graph, y, w, rng, arrays, noise, dropout_mask, pad_rows):
+        dev = params["embed"]["kernel"].device
+        y, w = _as_device(y, dev), _as_device(w, dev)
+        kw = dict(axis=axis, use_kernels=use_kernels, differentiable=True, training=training,
+                  arrays=arrays, noise=noise, dropout_mask=dropout_mask, pad_rows=pad_rows)
+        if data_axis is None:
+            peaks = apply_partitioned_banded(params, config, graph, plan, mesh, rng=rng, **kw)
+            return name_loss(fold_sample_weight(y, w), peaks, loss_idx, s=loss_balance)
+        peaks = apply_partitioned_banded_batch(params, config, graph, plan, mesh,
+                                               data_axis=data_axis, rngs=rng, **kw)
+        yt = fold_sample_weight(y, w)
+        return torch.stack([name_loss(yt[i], peaks[i], loss_idx, s=loss_balance)
+                            for i in range(peaks.shape[0])]).mean()
+
+    def step(params, opt, graph, y, w, rng=None, arrays=None, noise=None, dropout_mask=None,
+             pad_rows=None) -> torch.Tensor:
+        leaves = gnn.trainable_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = loss_fn(params, graph, y, w, rng, arrays, noise, dropout_mask, pad_rows)
+        grads = torch.autograd.grad(loss, leaves)
+        for g in groups:
+            grads = psum_grads(grads, g)
+        for t, g in zip(leaves, grads):
+            t.grad = g
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def make_partitioned_epoch_fn(
+    config: ModelConfig,
+    loss_idx,
+    plan: BandedHaloPlan,
+    mesh: Mesh,
+    axis: str = "graph",
+    loss_balance: float = 1.0,
+    training: bool = True,
+    data_axis: Optional[str] = None,
+    ema_decay: float = 0.0,
+    use_kernels: bool = True,
+):
+    """Whole-epoch training over a device-resident frame table (the JAX
+    package's ``lax.scan`` of the step): the partitioned train step over F
+    same-shape structures in ``order``, the EMA updated each step when
+    ``ema_decay`` > 0, the losses kept on the device (no host wait a step;
+    the caller reads them back once an epoch).
+
+    Returns ``epoch(params, opt, ema, graphs, ys, ws, rngs, arrays, order,
+    pad_rows=None) -> losses``: ``graphs`` a Graph of [F, N, ...] tensors,
+    ``ys`` [F, N, 3], ``ws`` [F, N], ``rngs`` [F] int keys, ``arrays`` F
+    tuples of this shard's plan arrays (``shard_arrays``, each frame's own
+    device tensors), ``order`` the epoch's int shuffle [F], ``pad_rows``
+    (attention) F sequences.
+    ``params`` and ``ema`` (a params tree, or None) are updated in place.
+    With ``data_axis`` F must divide by S = ``mesh.shape[data_axis]``: each
+    step takes the next S frames of the shuffle, one a data index, giving
+    losses f32[F / S] (each the mean of S); otherwise f32[F]."""
+    from ..models import gnn
+
+    step = make_partitioned_train_step(config, loss_idx, plan, mesh, axis=axis,
+                                       loss_balance=loss_balance, training=training,
+                                       data_axis=data_axis, use_kernels=use_kernels)
+    S = int(mesh.shape[data_axis]) if data_axis is not None else 1
+
+    def epoch(params, opt, ema, graphs, ys, ws, rngs, arrays, order, pad_rows=None):
+        order = np.asarray(order)
+        xs = order if data_axis is None else order.reshape(-1, S)
+        losses = []
+        for idx in xs:
+            pick = int(idx) if data_axis is None else idx
+            frames = [pick] if data_axis is None else [int(i) for i in idx]
+            arr = [arrays[f] for f in frames]
+            pad = None if pad_rows is None else [pad_rows[f] for f in frames]
+            losses.append(step(
+                params, opt, _take(graphs, pick), _take(ys, pick), _take(ws, pick),
+                rng=_take(None if rngs is None else np.asarray(rngs), pick),
+                arrays=arr[0] if data_axis is None else arr,
+                pad_rows=None if pad is None else (pad[0] if data_axis is None else pad)))
+            if ema_decay > 0 and ema is not None:
+                with torch.no_grad():
+                    for e, p in zip(gnn.tree_leaves(ema), gnn.tree_leaves(params)):
+                        e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+        return torch.stack(losses)
+
+    return epoch
+
+
+def make_partitioned_eval_fn(
+    config: ModelConfig,
+    loss_idx,
+    metric_specs,
+    plan: BandedHaloPlan,
+    mesh: Mesh,
+    axis: str = "graph",
+    loss_balance: float = 1.0,
+    use_kernels: bool = True,
+):
+    """Whole-set evaluation over a device-resident frame table: returns
+    ``evaluate(params, graphs, ys, ws, arrays, pad_rows=None) -> (losses
+    f32[F], moments f32[F, n_specs, 7])`` (``train/trainer._moments``), device
+    tensors with no host wait; the caller reads them back once. Operands as
+    ``make_partitioned_epoch_fn``'s; ``metric_specs`` the (name, kind,
+    label indices) of ``trainer.metric_kinds``."""
+    from ..train.losses import name_loss
+    from ..train.trainer import _moments, fold_sample_weight
+
+    def evaluate(params, graphs, ys, ws, arrays, pad_rows=None):
+        dev = params["embed"]["kernel"].device
+        idxs = [torch.as_tensor(idx, dtype=torch.int64, device=dev) for _, _, idx in metric_specs]
+        losses, moments = [], []
+        with torch.no_grad():
+            for f in range(len(graphs.atoms)):
+                peaks = apply_partitioned_banded(
+                    params, config, _take(graphs, f), plan, mesh, axis=axis,
+                    use_kernels=use_kernels, arrays=arrays[f],
+                    pad_rows=None if pad_rows is None else pad_rows[f])
+                yt = fold_sample_weight(_as_device(ys[f], dev), _as_device(ws[f], dev))
+                losses.append(name_loss(yt, peaks, loss_idx, s=loss_balance))
+                moments.append(torch.stack([_moments(yt, peaks, idx) for idx in idxs]))
+        return torch.stack(losses), torch.stack(moments)
+
+    return evaluate

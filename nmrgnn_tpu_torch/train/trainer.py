@@ -46,8 +46,11 @@ from ..graph import Graph
 from .. import _msgpack
 from ..library import load_model, params_from_numpy, save_model
 from ..models import gnn
+from ..models.gnn import training_draws
 from ..models.infer import apply_banded_fragments, fragment_band_plan
 from ..ops.banded import plan_fits_vmem, plan_on_device
+from ..parallel import sharding
+from ..parallel.halo import psum_grads
 from .losses import label_mask, name_loss
 from .metrics import METRIC_SPECS, type_mask
 
@@ -231,19 +234,136 @@ def _adam_state_from_optax(opt_tree, params, device) -> dict:
     return sd
 
 
-def banded_fragments_eligible(config: ModelConfig, batch_size: int,
-                              pad_to: int) -> Tuple[bool, bool]:
-    """(shape_ok, vmem_fits) of the banded fragment path on one device: the
-    bilinear MP family with pad_to and F multiples of 128, and a flattened
-    [batch * pad_to, F] table within the JAX package's node-table budget
-    (``plan_fits_vmem``), so that both packages take the same path for the
-    same configuration."""
+def adam(state: TrainState) -> torch.optim.Adam:
+    """Adam over ``state.params``' trainable leaves (made to require grad),
+    holding ``state.opt_state`` and ``state.lr`` (optax's ``adam``: betas
+    0.9 / 0.999, eps 1e-8)."""
+    leaves = gnn.trainable_leaves(state.params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=state.lr, betas=(0.9, 0.999), eps=1e-8)
+    if state.opt_state:
+        opt.load_state_dict(state.opt_state)
+    set_lr(opt, state.lr)
+    return opt
+
+
+def set_lr(opt: torch.optim.Adam, lr: float) -> None:
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+def banded_fragments_eligible(config: ModelConfig, batch_size: int, pad_to: int, dp: int = 1,
+                              tensor_parallel: bool = False) -> Tuple[bool, bool]:
+    """(shape_ok, vmem_fits) of the banded fragment path: the bilinear MP
+    family with pad_to and F multiples of 128, no tensor parallelism, and a
+    flattened [batch / dp * pad_to, F] table (one data rank's) within the
+    JAX package's node-table budget (``plan_fits_vmem``), so that both
+    packages take the same path for the same configuration."""
     shape_ok = (config.mp_type == "bilinear" and pad_to % 128 == 0
-                and config.atom_feature_size % 128 == 0)
+                and config.atom_feature_size % 128 == 0 and not tensor_parallel)
     fits = shape_ok and plan_fits_vmem(
-        fragment_band_plan(max(batch_size, 1), pad_to), config.atom_feature_size,
+        fragment_band_plan(max(batch_size // dp, 1), pad_to), config.atom_feature_size,
         n_edge_channels=config.edge_feature_size)
     return shape_ok, fits
+
+
+def fit_epochs(trainer, state: TrainState, opt: torch.optim.Adam, epochs: int,
+               train_epoch: Callable[[], Tuple[float, int]], val_samples, checkpoint_path,
+               verbose: bool, callbacks, early_stop_patience) -> TrainState:
+    """The epoch loop of ``Trainer.fit`` and ``PartitionedTrainer.fit``:
+    the cosine learning rate, ``train_epoch()`` (the sum of the steps'
+    losses and the step count), NaN recovery (the last finite epoch
+    restored, lr halved, 3 retries), the validation through
+    ``trainer.evaluate``, the plateau schedule, best-restore, history,
+    checkpoints, callbacks and early stop."""
+    # the last finite epoch, restored on a non-finite loss
+    snapshot = None
+    nan_retries = stall = 0
+    best_seen = best_restore = float("inf")
+    best_weights = None
+    total_epochs = state.epoch + epochs
+    for _ in range(epochs):
+        if trainer.tcfg.lr_schedule == "cosine":
+            peak, lo, wu = (trainer.config.learning_rate, trainer.tcfg.cosine_final_lr,
+                            trainer.tcfg.warmup_epochs)
+            if state.epoch < wu:
+                state.lr = peak * (state.epoch + 1) / wu
+            else:
+                t = (state.epoch - wu) / max(total_epochs - wu, 1)
+                state.lr = float(lo + 0.5 * (peak - lo) * (1.0 + np.cos(np.pi * t)))
+        set_lr(opt, state.lr)
+        epoch_loss, nb = train_epoch()
+        if not np.isfinite(epoch_loss):
+            if snapshot is None or nan_retries >= 3:
+                raise FloatingPointError(
+                    f"non-finite training loss at epoch {state.epoch + 1}")
+            nan_retries += 1
+            params, opt_state, ema = snapshot
+            with torch.no_grad():
+                for t, s in zip(gnn.tree_leaves(state.params), params):
+                    t.copy_(s)
+                if ema is not None:
+                    for t, s in zip(gnn.tree_leaves(state.ema_params), ema):
+                        t.copy_(s)
+            opt.load_state_dict(copy.deepcopy(opt_state))
+            state.lr = max(state.lr * 0.5, trainer.tcfg.min_lr)
+            if verbose:
+                print(f"non-finite loss; restored last epoch snapshot, lr -> "
+                      f"{state.lr:g} (retry {nan_retries}/3)", flush=True)
+            continue
+        snapshot = ([t.detach().clone() for t in gnn.tree_leaves(state.params)],
+                    copy.deepcopy(opt.state_dict()),
+                    None if state.ema_params is None else
+                    [t.clone() for t in gnn.tree_leaves(state.ema_params)])
+        state.opt_state = opt.state_dict()
+        state.epoch += 1
+        logs = {"loss": epoch_loss / max(nb, 1), "lr": state.lr}
+        if val_samples:
+            val = trainer.evaluate(val_samples, state.eval_params)
+            logs.update({f"val_{k}": v for k, v in val.items()})
+            if trainer.tcfg.lr_schedule == "plateau":  # ReduceLROnPlateau
+                if logs["val_loss"] < state.best_val - 1e-12:
+                    state.best_val = logs["val_loss"]
+                    state.plateau = 0
+                else:
+                    state.plateau += 1
+                    if state.plateau >= trainer.tcfg.lr_patience:
+                        if state.lr > trainer.tcfg.min_lr:
+                            state.lr = max(state.lr * trainer.tcfg.lr_reduce_factor,
+                                           trainer.tcfg.min_lr)
+                        state.plateau = 0
+            if trainer.tcfg.restore_best and logs["val_loss"] < best_restore:
+                best_restore = logs["val_loss"]
+                best_weights = _detached_copy(state.eval_params)
+        for k, v in logs.items():
+            state.history.setdefault(k, []).append(v)
+        if verbose:
+            msg = " ".join(f"{k}={v:.4g}" for k, v in logs.items() if isinstance(v, float))
+            print(f"epoch {state.epoch}: {msg}", flush=True)
+        if checkpoint_path:
+            trainer.save_checkpoint(checkpoint_path, state)
+        for cb in callbacks:
+            cb(state, logs)
+        if early_stop_patience and "val_loss" in logs:
+            if logs["val_loss"] < best_seen - 1e-12:
+                best_seen = logs["val_loss"]
+                stall = 0
+            else:
+                stall += 1
+                if stall >= early_stop_patience:
+                    if verbose:
+                        print(f"early stop: no val improvement in {early_stop_patience} "
+                              "epochs", flush=True)
+                    break
+    state.opt_state = opt.state_dict()
+    if best_weights is not None:
+        # the best-validation weights, through the EMA slot when it is on
+        if state.ema_params is not None:
+            state.ema_params = best_weights
+        else:
+            state.params = best_weights
+    return state
 
 
 class Trainer:
@@ -253,9 +373,24 @@ class Trainer:
         train_config: Optional[TrainConfig] = None,
         embeddings: Optional[dict] = None,
         device="cuda",
+        mesh=None,
+        tensor_parallel: bool = False,
     ):
+        """``mesh`` (``parallel.make_mesh``) trains data-parallel over its
+        ``data`` axis: each data rank runs its ``batch_size / data`` rows of
+        every batch (the banded path through B2 and B1 at
+        ``fragment_band_plan(batch_size / data, pad_to)``), the peaks are
+        gathered, every rank computes the batch's loss and the gradients are
+        summed over the data group (``parallel/sharding.py``); the draws are
+        the whole batch's, alike on every rank, so a step equals the
+        one-device step. With ``tensor_parallel`` the MP and square FC
+        kernels are also split over the ``graph`` axis (the gather path);
+        ``fit`` hands back the whole params. Every rank of the mesh runs
+        the same calls."""
         self.config = config or ModelConfig()
         self.tcfg = train_config or TrainConfig()
+        self.mesh = mesh
+        self.tensor_parallel = tensor_parallel
         self.device = resolve_device(device)
         self.embeddings = embeddings or load_embeddings()
         self.metric_specs = metric_kinds()
@@ -271,9 +406,16 @@ class Trainer:
             if elems:
                 self._head_idx = torch.as_tensor(
                     [self.embeddings["atom"][e] for e in elems], dtype=torch.int64, device=dev)
+        self._dp = mesh.shape["data"] if mesh is not None else 1
         self.use_banded = self._resolve_mp_path()
-        self._plan = (plan_on_device(fragment_band_plan(self.tcfg.batch_size, self.tcfg.pad_to),
-                                     dev) if self.use_banded else None)
+        self._plan = (plan_on_device(fragment_band_plan(self.tcfg.batch_size // self._dp,
+                                                        self.tcfg.pad_to), dev)
+                      if self.use_banded else None)
+        self._specs = None
+        if mesh is not None and tensor_parallel:
+            self._specs = sharding.param_specs(
+                gnn.init_params(self.config, torch.Generator().manual_seed(0), device="cpu"),
+                True)
         self._resident: dict = {}
 
     def _resolve_mp_path(self) -> bool:
@@ -284,35 +426,56 @@ class Trainer:
         if path == "gather":
             return False
         shape_ok, fits = banded_fragments_eligible(self.config, self.tcfg.batch_size,
-                                                   self.tcfg.pad_to)
+                                                   self.tcfg.pad_to, self._dp,
+                                                   self.tensor_parallel)
         eligible = shape_ok and fits
         if path == "banded":
             if not eligible:
                 raise ValueError(
                     "mp_path='banded' requires the bilinear MP family, pad_to and "
-                    "atom_feature_size multiples of 128, and a "
-                    "batch_size*pad_to*F working set that fits VMEM (the JAX package's "
-                    f"budget) (got mp_type={self.config.mp_type}, "
+                    "atom_feature_size multiples of 128, no tensor parallelism, and a "
+                    "per-shard batch_size*pad_to*F working set that fits VMEM (the JAX "
+                    f"package's budget) (got mp_type={self.config.mp_type}, "
                     f"batch_size={self.tcfg.batch_size}, pad_to={self.tcfg.pad_to}, "
-                    f"F={self.config.atom_feature_size}, vmem_fit={fits})")
+                    f"F={self.config.atom_feature_size}, "
+                    f"tensor_parallel={self.tensor_parallel}, vmem_fit={fits})")
             return True
         if path != "auto":
             raise ValueError(f"unknown mp_path {path!r}")
         return eligible and self.device.type == "cuda"
 
     # -- forwards and steps ------------------------------------------------
-    def train_forward(self, params, graph: Graph, generator=None, noise=None,
-                      dropout_mask=None) -> torch.Tensor:
-        """Training-mode peaks f32[B, N] of a batch on the resolved path."""
-        kw = dict(training=True, noise=noise, dropout_mask=dropout_mask, generator=generator)
+    def _local_forward(self, params, graph: Graph, training: bool, noise=None,
+                       dropout_mask=None) -> torch.Tensor:
+        """Peaks f32[b, N] of ``graph`` (one data rank's rows under a mesh)
+        on the resolved path, with the given draws."""
+        kw = dict(training=training, noise=noise, dropout_mask=dropout_mask)
         if self.use_banded:
             return apply_banded_fragments(params, self.config, graph, plan=self._plan, **kw)
+        if self._specs is not None:
+            kw.update(sharding.tp_products(params, self._specs, self.mesh.group("graph")))
         return gnn.apply_batched(params, self.config, graph, **kw)
 
+    def train_forward(self, params, graph: Graph, generator=None, noise=None,
+                      dropout_mask=None) -> torch.Tensor:
+        """Training-mode peaks f32[B, N] of a batch on the resolved path:
+        the whole batch's draws (given, or from ``generator``), under a
+        mesh this data rank's rows of them and the peaks gathered."""
+        B, N = graph.nlist.shape[:2]
+        noise, dropout_mask = training_draws(self.config, graph.edges,
+                                             (B, N, self.config.atom_feature_size // 2), noise,
+                                             dropout_mask, generator)
+        if self.mesh is None:
+            return self._local_forward(params, graph, True, noise, dropout_mask)
+        return sharding.data_parallel_peaks(
+            lambda g, nz, dm: self._local_forward(params, g, True, nz, dm), self.mesh, graph,
+            noise, dropout_mask)
+
     def eval_forward(self, params, graph: Graph) -> torch.Tensor:
-        if self.use_banded:
-            return apply_banded_fragments(params, self.config, graph, plan=self._plan)
-        return gnn.apply_batched(params, self.config, graph)
+        if self.mesh is None:
+            return self._local_forward(params, graph, False)
+        return sharding.data_parallel_peaks(
+            lambda g, nz, dm: self._local_forward(params, g, False), self.mesh, graph)
 
     def loss_fn(self, params, graph: Graph, y, w, generator=None, noise=None,
                 dropout_mask=None) -> torch.Tensor:
@@ -321,27 +484,17 @@ class Trainer:
         loss = name_loss(yt.reshape(-1, 3), peaks.reshape(-1), self.loss_idx,
                          s=self.tcfg.loss_balance)
         if self._head_idx is not None:
-            # L2 on the selected element columns of the out head
+            # L2 on the selected element columns of the out head; under a
+            # mesh its gradient counts once in the sum over the data group
             cols = params["out"]["kernel"][:, self._head_idx]
-            loss = loss + self.tcfg.head_decay * torch.sum(cols * cols)
+            term = self.tcfg.head_decay * torch.sum(cols * cols)
+            if self.mesh is not None and self.mesh.index("data") != 0:
+                term = term.detach()
+            loss = loss + term
         return loss
 
     def optimizer(self, state: TrainState) -> torch.optim.Adam:
-        """Adam over ``state.params``' trainable leaves (made to require
-        grad), holding ``state.opt_state`` and ``state.lr``."""
-        leaves = gnn.trainable_leaves(state.params)
-        for t in leaves:
-            t.requires_grad_(True)
-        opt = torch.optim.Adam(leaves, lr=state.lr, betas=(0.9, 0.999), eps=1e-8)
-        if state.opt_state:
-            opt.load_state_dict(state.opt_state)
-        self._set_lr(opt, state.lr)
-        return opt
-
-    @staticmethod
-    def _set_lr(opt: torch.optim.Adam, lr: float) -> None:
-        for group in opt.param_groups:
-            group["lr"] = lr
+        return adam(state)
 
     def train_step(self, state: TrainState, opt: torch.optim.Adam, graph: Graph, y, w,
                    generator=None, noise=None, dropout_mask=None) -> torch.Tensor:
@@ -349,7 +502,10 @@ class Trainer:
         device tensor (no host sync)."""
         leaves = gnn.trainable_leaves(state.params)
         loss = self.loss_fn(state.params, graph, y, w, generator, noise, dropout_mask)
-        for t, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+        grads = torch.autograd.grad(loss, leaves)
+        if self._dp > 1:  # the data ranks' shares of the batch's gradient
+            grads = psum_grads(grads, self.mesh.group("data"))
+        for t, g in zip(leaves, grads):
             t.grad = g
         opt.step()
         decay = self.tcfg.ema_decay
@@ -415,10 +571,39 @@ class Trainer:
         return TrainState(params=params, opt_state={}, lr=self.config.learning_rate)
 
     def save_checkpoint(self, path: str, state: TrainState) -> None:
-        save_train_checkpoint(path, state, self.config)
+        """Under a mesh every rank calls it (the whole params are gathered
+        from the tensor-parallel slices) and rank 0 writes."""
+        if self._specs is not None:
+            state = self._whole(state)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_train_checkpoint(path, state, self.config)
 
     def load_checkpoint(self, path: str) -> TrainState:
         return load_train_checkpoint(path, self.init_state(), self.device)
+
+    # -- tensor-parallel layout ------------------------------------------------
+    def _local(self, params):
+        """This rank's slices of ``params`` under tensor parallelism (as
+        given when they are slices already, or without it)."""
+        if self._specs is None:
+            return params
+        leaf = sharding._spec_leaves(params, self._specs)
+        for t, sp in zip(gnn.trainable_leaves(params), leaf):
+            if sp and sp[0] is not None:
+                if t.shape[0] != self.config.atom_feature_size:
+                    return params  # already this rank's slices
+                break
+        return sharding.shard_params(params, self.mesh, True)
+
+    def _whole(self, state: TrainState) -> TrainState:
+        """A copy of ``state`` with the whole params, EMA and Adam moments
+        gathered from the ranks' slices."""
+        full = lambda t: None if t is None else sharding.unshard_params(  # noqa: E731
+            t, self._specs, self.mesh)
+        return dataclasses.replace(
+            state, params=full(state.params), ema_params=full(state.ema_params),
+            opt_state=sharding.shard_opt_state(state.opt_state, state.params, self._specs,
+                                               self.mesh, full=True))
 
     # -- epochs ------------------------------------------------------------
     def _finalize(self, loss: float, nb: int, acc: np.ndarray) -> Dict[str, float]:
@@ -431,6 +616,7 @@ class Trainer:
         """Loss and metrics over ``samples``: the resident table, the
         batches' losses and moments summed on the device in float64 (as
         ``evaluate_loader`` sums them on the host), one readback."""
+        params = self._local(params)
         dg, dy, dw = self._resident_dataset(samples)
         idx = self._batch_rows(np.arange(dy.shape[0]))
         total = torch.zeros((), dtype=torch.float64, device=self.device)
@@ -488,6 +674,16 @@ class Trainer:
         improved for that many epochs."""
         epochs = epochs or self.tcfg.epochs
         state = state or self.init_state()
+        if self.mesh is not None and self.tcfg.batch_size % self._dp:
+            raise ValueError(f"batch_size {self.tcfg.batch_size} not divisible by data axis "
+                             f"{self._dp}")
+        if self._specs is not None:  # this rank's slices while training
+            whole_params = state.params
+            state.params = self._local(state.params)
+            state.ema_params = None if state.ema_params is None else self._local(
+                state.ema_params)
+            state.opt_state = sharding.shard_opt_state(state.opt_state, whole_params,
+                                                       self._specs, self.mesh)
         generator = torch.Generator(device=self.device).manual_seed(self.tcfg.seed + 1)
         loader = FragmentLoader(train_samples, pad_to=self.tcfg.pad_to,
                                 batch_size=self.tcfg.batch_size, shuffle=True,
@@ -495,90 +691,10 @@ class Trainer:
         if self.tcfg.ema_decay > 0 and state.ema_params is None:
             state.ema_params = _detached_copy(state.params)
         opt = self.optimizer(state)
-        # the last finite epoch, restored on a non-finite loss
-        snapshot = None
-        nan_retries = stall = 0
-        best_seen = best_restore = float("inf")
-        best_weights = None
-        total_epochs = state.epoch + epochs
-        for _ in range(epochs):
-            if self.tcfg.lr_schedule == "cosine":
-                peak, lo, wu = (self.config.learning_rate, self.tcfg.cosine_final_lr,
-                                self.tcfg.warmup_epochs)
-                if state.epoch < wu:
-                    state.lr = peak * (state.epoch + 1) / wu
-                else:
-                    t = (state.epoch - wu) / max(total_epochs - wu, 1)
-                    state.lr = float(lo + 0.5 * (peak - lo) * (1.0 + np.cos(np.pi * t)))
-            self._set_lr(opt, state.lr)
-            epoch_loss, nb = self._train_epoch(state, opt, loader, train_samples, generator)
-            if not np.isfinite(epoch_loss):
-                if snapshot is None or nan_retries >= 3:
-                    raise FloatingPointError(
-                        f"non-finite training loss at epoch {state.epoch + 1}")
-                nan_retries += 1
-                params, opt_state, ema = snapshot
-                with torch.no_grad():
-                    for t, s in zip(gnn.tree_leaves(state.params), params):
-                        t.copy_(s)
-                    if ema is not None:
-                        for t, s in zip(gnn.tree_leaves(state.ema_params), ema):
-                            t.copy_(s)
-                opt.load_state_dict(copy.deepcopy(opt_state))
-                state.lr = max(state.lr * 0.5, self.tcfg.min_lr)
-                if verbose:
-                    print(f"non-finite loss; restored last epoch snapshot, lr -> "
-                          f"{state.lr:g} (retry {nan_retries}/3)", flush=True)
-                continue
-            snapshot = ([t.detach().clone() for t in gnn.tree_leaves(state.params)],
-                        copy.deepcopy(opt.state_dict()),
-                        None if state.ema_params is None else
-                        [t.clone() for t in gnn.tree_leaves(state.ema_params)])
-            state.opt_state = opt.state_dict()
-            state.epoch += 1
-            logs = {"loss": epoch_loss / max(nb, 1), "lr": state.lr}
-            if val_samples:
-                val = self.evaluate(val_samples, state.eval_params)
-                logs.update({f"val_{k}": v for k, v in val.items()})
-                if self.tcfg.lr_schedule == "plateau":  # ReduceLROnPlateau
-                    if logs["val_loss"] < state.best_val - 1e-12:
-                        state.best_val = logs["val_loss"]
-                        state.plateau = 0
-                    else:
-                        state.plateau += 1
-                        if state.plateau >= self.tcfg.lr_patience:
-                            if state.lr > self.tcfg.min_lr:
-                                state.lr = max(state.lr * self.tcfg.lr_reduce_factor,
-                                               self.tcfg.min_lr)
-                            state.plateau = 0
-                if self.tcfg.restore_best and logs["val_loss"] < best_restore:
-                    best_restore = logs["val_loss"]
-                    best_weights = _detached_copy(state.eval_params)
-            for k, v in logs.items():
-                state.history.setdefault(k, []).append(v)
-            if verbose:
-                msg = " ".join(f"{k}={v:.4g}" for k, v in logs.items() if isinstance(v, float))
-                print(f"epoch {state.epoch}: {msg}", flush=True)
-            if checkpoint_path:
-                self.save_checkpoint(checkpoint_path, state)
-            for cb in callbacks:
-                cb(state, logs)
-            if early_stop_patience and "val_loss" in logs:
-                if logs["val_loss"] < best_seen - 1e-12:
-                    best_seen = logs["val_loss"]
-                    stall = 0
-                else:
-                    stall += 1
-                    if stall >= early_stop_patience:
-                        if verbose:
-                            print(f"early stop: no val improvement in {early_stop_patience} "
-                                  "epochs", flush=True)
-                        break
-        state.opt_state = opt.state_dict()
-        if best_weights is not None:
-            # the best-validation weights, through the EMA slot when it is on
-            if state.ema_params is not None:
-                state.ema_params = best_weights
-            else:
-                state.params = best_weights
+        state = fit_epochs(
+            self, state, opt, epochs,
+            lambda: self._train_epoch(state, opt, loader, train_samples, generator),
+            val_samples, checkpoint_path, verbose, callbacks, early_stop_patience)
+        if self._specs is not None:
+            state = self._whole(state)
         return state

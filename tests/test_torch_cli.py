@@ -193,12 +193,15 @@ def test_subcommands_and_multi_gpu_flags(work, frags):
     r = subprocess.run([sys.executable, "-m", "nmrgnn_tpu_torch.cli", "--help"],
                        capture_output=True, text=True, cwd=REPO, timeout=120)
     assert r.returncode == 0 and all(n in r.stdout for n in names)
+    # in one process: N past the world of 1, and --graph-parallel with the
+    # other two (the JAX CLI's usage errors)
     for args in (["train", frags, "m", "1", "--data-parallel", "2"],
-                 ["train", frags, "m", "1", "--tensor-parallel"],
                  ["train", frags, "m", "1", "--graph-parallel", "2"],
+                 ["train", frags, "m", "1", "--graph-parallel", "2", "--data-parallel", "2"],
+                 ["train", frags, "m", "1", "--graph-parallel", "2", "--tensor-parallel"],
                  ["eval-struct", pdb, "o.csv", "--graph-parallel", "2"]):
         with pytest.raises(SystemExit) as e:
-            cli.main(args)
+            cli.main(args + ["--device", "cpu"])
         assert e.value.code == 2
 
 

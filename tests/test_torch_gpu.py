@@ -1935,3 +1935,63 @@ def test_partitioned_banded_on_two_ranks_kernels_match_plain(dev, tmp_path):
         assert (c[1]["build_band_poly_tracedlo"], c[1]["mp_banded_partial"]) == (2, 4)
         assert (c[2]["build_band_tracedlo"], c[2]["mp_banded_partial"]) == (4, 4)
         assert all(t["counts"]["mp_banded_partial"] == 0 for t in rank[3:])
+
+
+# -- partitioned training: ranks sharing the card under gloo ---------------------------
+
+
+def test_partitioned_training_on_two_ranks_kernels_match_plain(dev, tmp_path):
+    """The gradients of apply_partitioned_banded(differentiable=True) on 2
+    gloo ranks sharing the card (bilinear and attention), summed over the
+    ranks, through B7a and B6's autograd wrappers (2 builds + 2 B6 a layer
+    bilinear, 2 B7a + 2 B6 a layer attention) against the same ranks'
+    plain versions under autograd: each leaf within 1e-3 of its largest
+    gradient (phase 9's gate); one partitioned step's loss and weights too."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_parallel_worker as worker
+
+    cfg = dict(atom_feature_size=64, edge_hidden_size=32, mp_layers=2, dropout=False,
+               noise=0.0)
+    acfg = dict(cfg, mp_type="attention")
+    params = {}
+    for name, kw in (("bilinear", cfg), ("attention", acfg)):
+        p = gnn.init_params(ModelConfig(**kw), torch.Generator().manual_seed(3), device="cpu")
+        params[name] = gnn.tree_map(lambda t: t.numpy(), p)
+    n = 1536
+    rng = np.random.default_rng(0)
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-50, 50, (n, 16)), 0, n - 1)
+    dists = rng.uniform(0.09, 0.3, (n, 16)).astype(np.float32)
+    dists[rng.uniform(size=(n, 16)) < 0.1] = 0.0
+    nlist = np.where(dists > 0, nlist, 0).astype(np.int32)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    y = np.stack([rng.normal(size=n).astype(np.float32) * 3,
+                  rng.integers(0, 6, n).astype(np.float32), np.ones(n, np.float32)], -1)
+    tasks = []
+    for use_kernels in (True, False):
+        tasks += [dict(kind="grad", model="bilinear", graph=2, graph_name="g",
+                       use_kernels=use_kernels),
+                  dict(kind="grad", model="attention", graph=2, graph_name="g",
+                       use_kernels=use_kernels),
+                  dict(kind="step", model="bilinear", graph=2, frames=["g"], lr=1e-3,
+                       use_kernels=use_kernels)]
+    case = dict(configs={"bilinear": cfg, "attention": acfg}, params=params,
+                graphs={"g": (atoms, nlist, dists, inv_degree_from_nlist(nlist))},
+                y={"g": y}, w={"g": np.ones(n, np.float32)},
+                target=np.sin(np.arange(n, dtype=np.float32) * 0.1),
+                loss_idx=tuple(range(1, 7)), tasks=tasks, device="cuda", timeout_s=120)
+    out = worker.spawn(2, case, tmp_path, timeout_s=300)[1]()
+    got, plain = out[0][:3], out[0][3:]
+    for k in (0, 1):
+        a, b = gnn.tree_leaves(got[k]["grads"]), gnn.tree_leaves(plain[k]["grads"])
+        assert len(a) == len(b) >= 10
+        for x, z in zip(a, b):
+            assert np.all(np.isfinite(x))
+            assert np.abs(x - z).max() <= 1e-3 * np.abs(z).max(), (k, x.shape)
+    np.testing.assert_allclose(got[2]["loss"], plain[2]["loss"], rtol=1e-5)
+    for x, z in zip(gnn.tree_leaves(got[2]["params"]), gnn.tree_leaves(plain[2]["params"])):
+        np.testing.assert_allclose(x, z, rtol=2e-3, atol=2e-5)
+    for rank in out:
+        c = [t["counts"] for t in rank[:2]]
+        assert (c[0]["build_band_tracedlo"], c[0]["mp_banded_partial"]) == (2, 4)
+        assert (c[1]["build_band_tracedlo"], c[1]["mp_banded_partial"]) == (4, 4)
+        assert all(t["counts"]["mp_banded_partial"] == 0 for t in rank[3:5])

@@ -180,22 +180,27 @@ def test_path_rule_equals_jax(kw):
 
 
 def test_training_flags_raise():
+    """Training through the partitioned forward is ported: what still
+    raises is the JAX package's refusal of ``cheb`` (the compressed edge
+    stage, inference only) with gradients or training draws or the
+    attention family, and a forward with no process group running."""
     cfg = ModelConfig(**SMALL)
     params = params_from_numpy(jax_params(SMALL), device="cpu")
     g = par.pad_to_multiple(banded_graph(300), 256)
     plan = par.make_banded_halo_plan(g.nlist, g.edges, 2)
     mesh = par.Mesh(1, 2, {}, 0, torch.device("cpu"))
-    for kw in (dict(differentiable=True), dict(training=True)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            par.apply_partitioned_banded(params, cfg, g, plan, mesh, **kw)
     cheb = fit_edge_chebyshev(params["edge_fc"], rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high,
                               rbf_count=cfg.edge_hidden_size, activation=cfg.fc_activation,
                               degree=8)
+    for kw in (dict(differentiable=True), dict(training=True)):
+        with pytest.raises(ValueError, match="inference-only"):
+            par.apply_partitioned_banded(params, cfg, g, plan, mesh, cheb=cheb, **kw)
     with pytest.raises(ValueError, match="bilinear"):
         par.apply_partitioned_banded(params, ModelConfig(**SMALL, mp_type="attention"), g,
                                      plan, mesh, cheb=cheb)
-    with pytest.raises(ValueError, match="process group"):
-        par.apply_partitioned_banded(params, cfg, g, plan, mesh)
+    for kw in (dict(), dict(differentiable=True), dict(training=True, rng=0)):
+        with pytest.raises(ValueError, match="process group"):
+            par.apply_partitioned_banded(params, cfg, g, plan, mesh, **kw)
 
 
 # -- spawned ranks against the JAX package --------------------------------------------
