@@ -44,7 +44,6 @@ import os
 import pickle
 import sys
 import tempfile
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -489,15 +488,16 @@ def _serve_structs(a, struct_files, output_csv, mesh) -> None:
     from .graph import Graph, bucket_size
     from .library import check_peaks, load_model
     from .models import gnn
+    from .utils.profiling import TimingBuckets
 
     lead = mesh is None or mesh.rank == 0
     echo = _echo if lead else (lambda *args, **kw: None)
     dev = _device(a.device)
     params, cfg = load_model(a.model_file and _existing([a.model_file])[0], device=dev)
 
-    t0 = time.time_ns()
-    struct = read_structure(*struct_files)
-    parse_ns = time.time_ns() - t0
+    timing = TimingBuckets("graph", "inference", "output", "read")
+    with timing("read"):
+        struct = read_structure(*struct_files)
     n = struct.n_atoms
     pad_n = bucket_size(n)
     atoms_np = atoms_one_hot(struct.elements, cfg.num_elements)
@@ -513,22 +513,21 @@ def _serve_structs(a, struct_files, output_csv, mesh) -> None:
         serving = ServingModel(params, cfg, device=dev, precision=a.precision, mesh=mesh)
 
     frames = range(0, struct.n_frames, a.stride)
-    timing = {"graph": 0, "inference": 0, "output": 0, "read": parse_ns}
     rows: List[list] = []
     echo(f"Running on {dev.type} ({len(frames)} frame(s), {n} atoms)")
 
-    def emit_frame(i, peaks, t):
-        try:
-            confident = check_peaks(atoms_np, peaks)
-        except Warning as wrn:
-            echo(f"warning: {wrn}", err=True)
-            confident = np.zeros(n, bool)
-        peaks = np.round(np.asarray(peaks, np.float32), 2)
-        for j in range(n):
-            rows.append([j, struct.resnames[j], struct.resids[j], struct.names[j],
-                         str(peaks[j]), bool(confident[j]), float(i), i])
-        timing["output"] += time.time_ns() - t
-        echo("|".join(f"{k}:{v/1e9:5.2f}s" for k, v in timing.items()))
+    def emit_frame(i, peaks):
+        with timing("output"):
+            try:
+                confident = check_peaks(atoms_np, peaks)
+            except Warning as wrn:
+                echo(f"warning: {wrn}", err=True)
+                confident = np.zeros(n, bool)
+            peaks = np.round(np.asarray(peaks, np.float32), 2)
+            for j in range(n):
+                rows.append([j, struct.resnames[j], struct.resids[j], struct.names[j],
+                             str(peaks[j]), bool(confident[j]), float(i), i])
+        echo(timing.summary())
 
     with contextlib.ExitStack() as stack, torch.no_grad():
         if a.profile:
@@ -540,36 +539,37 @@ def _serve_structs(a, struct_files, output_csv, mesh) -> None:
             # the host's graph builds overlap the card's forwards
             # (ServingModel.predict_trajectory); the graph time is inside
             # the inference bucket
-            t = time.time_ns()
-            for i, peaks in serving.predict_trajectory(struct, stride=a.stride,
-                                                       neighbor_number=a.neighbor_number):
-                timing["inference"] += time.time_ns() - t
-                emit_frame(i, peaks, time.time_ns())
-                t = time.time_ns()
+            served = serving.predict_trajectory(struct, stride=a.stride,
+                                                neighbor_number=a.neighbor_number)
+            while True:
+                with timing("inference"):
+                    item = next(served, None)
+                if item is None:
+                    break
+                emit_frame(*item)
         else:
             for i in frames:
-                t = time.time_ns()
-                if a.device_graph:
-                    coords = torch.as_tensor(
-                        np.pad(struct.coords[i], ((0, pad_n - n), (0, 0)))).to(dev)
-                    nlist, dists = neighbors_device(coords, a.neighbor_number, n_real=n)
-                    deg = (nlist > 0).sum(-1).to(torch.float32)
-                    inv = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0), torch.zeros_like(deg))
-                    g = Graph(atoms_pad, nlist.to(torch.int32), dists * ANGSTROM_TO_NM, inv)
-                else:
-                    nlist_np, dists_np = neighbors_host(struct.coords[i], a.neighbor_number)
-                    edges_np = (dists_np * ANGSTROM_TO_NM).astype(np.float32)
-                    pad = ((0, pad_n - n), (0, 0))
-                    g = Graph(atoms_pad,
-                              torch.as_tensor(np.pad(nlist_np, pad).astype(np.int32)).to(dev),
-                              torch.as_tensor(np.pad(edges_np, pad)).to(dev),
-                              torch.as_tensor(np.pad(inv_degree_np(nlist_np),
-                                                     ((0, pad_n - n),))).to(dev))
-                timing["graph"] += time.time_ns() - t
-                t = time.time_ns()
-                peaks = gnn.apply(params, cfg, g).float().cpu().numpy()[:n]
-                timing["inference"] += time.time_ns() - t
-                emit_frame(i, peaks, time.time_ns())
+                with timing("graph"):
+                    if a.device_graph:
+                        coords = torch.as_tensor(
+                            np.pad(struct.coords[i], ((0, pad_n - n), (0, 0)))).to(dev)
+                        nlist, dists = neighbors_device(coords, a.neighbor_number, n_real=n)
+                        deg = (nlist > 0).sum(-1).to(torch.float32)
+                        inv = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
+                                          torch.zeros_like(deg))
+                        g = Graph(atoms_pad, nlist.to(torch.int32), dists * ANGSTROM_TO_NM, inv)
+                    else:
+                        nlist_np, dists_np = neighbors_host(struct.coords[i], a.neighbor_number)
+                        edges_np = (dists_np * ANGSTROM_TO_NM).astype(np.float32)
+                        pad = ((0, pad_n - n), (0, 0))
+                        g = Graph(atoms_pad,
+                                  torch.as_tensor(np.pad(nlist_np, pad).astype(np.int32)).to(dev),
+                                  torch.as_tensor(np.pad(edges_np, pad)).to(dev),
+                                  torch.as_tensor(np.pad(inv_degree_np(nlist_np),
+                                                         ((0, pad_n - n),))).to(dev))
+                with timing("inference"):
+                    peaks = gnn.apply(params, cfg, g).float().cpu().numpy()[:n]
+                emit_frame(i, peaks)
     if not lead:
         return
     with open(output_csv, "w", newline="") as f:

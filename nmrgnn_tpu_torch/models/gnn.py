@@ -34,6 +34,8 @@ them (``trainable_mask``).
 of the products, with float32 sums, as in the JAX package: the edge stage,
 the MP layers and the FC block, but not the embedding nor, in this gather
 forward, the per-element head (``nmrgnn_tpu/models/gnn.py:181-214``).
+Under a profiler session each MP layer of ``apply`` is one ``nmrgnn.mp``
+span (``utils.profiling.span``).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from ..ops import edge
 from ..ops.edge import as_operand
 from ..ops.activations import get_activation
 from ..ops.message_passing import amp_layer, mp_layer
+from ..utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -231,11 +234,12 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, training: bool =
     e = edge_features(params, config, noised(config, edges, noise), mask=mask)
     nodes = dense_fn(params["embed"], atoms)
     for p in params["mp"]:
-        if config.mp_type == "attention":
-            upd = amp_layer(p["wq"], p["wk"], p["wv"], nodes, nlist, e, inv_degree, mp_act)
-        else:
-            upd = mp_fn(p["w"], nodes, nlist, e, inv_degree, mp_act, cd)
-        nodes = upd + nodes
+        with span("nmrgnn.mp"):
+            if config.mp_type == "attention":
+                upd = amp_layer(p["wq"], p["wk"], p["wv"], nodes, nlist, e, inv_degree, mp_act)
+            else:
+                upd = mp_fn(p["w"], nodes, nlist, e, inv_degree, mp_act, cd)
+            nodes = upd + nodes
     return readout(params, config, atoms, nodes, dropout_mask=dropout_mask, dense_fn=dense_fn)
 
 

@@ -53,7 +53,8 @@ type, and a float32 readout.
 The products honour ``config.compute_dtype`` (bfloat16 operands, float32
 sums), as the JAX package's forwards do. ``graph`` should be RCM-reordered
 (``data.reorder.rcm_order`` with ``pin_zero=False``) so the band is
-narrow; the result does not depend on the order.
+narrow; the result does not depend on the order. Under a profiler session
+every MP layer of every forward here is one ``nmrgnn.mp`` span.
 """
 from __future__ import annotations
 
@@ -103,6 +104,7 @@ from ..ops.blocksparse import (
 from ..ops.edge import edge_features as _edge_stage
 from ..ops.edgefn import EdgeCheb, eval_edge_chebyshev_device
 from ..ops.message_passing import attention_weights
+from ..utils.profiling import span
 from .gnn import compute_dtype, dense, flatten_batch, noised, readout, training_draws
 from .gnn import edge_features as _edge_features
 
@@ -163,7 +165,8 @@ def _mp_layers(params, config: ModelConfig, M, plan: BandPlan, nodes, inv_p,
     else:
         mp = mp_banded if use_kernels else mp_banded_plain
     for p in params["mp"]:
-        nodes = mp(M, plan, nodes, p["w"], inv_p, config.mp_activation, occupancy)
+        with span("nmrgnn.mp"):
+            nodes = mp(M, plan, nodes, p["w"], inv_p, config.mp_activation, occupancy)
     return nodes
 
 
@@ -207,11 +210,14 @@ def apply_banded(
     nodes = nnf.pad(dense(params["embed"], atoms).to(cd), (0, 0, 0, pad))
     inv_p = nnf.pad(inv_degree, (0, pad))
     if use_kernels and cheb is not None and not hbm_table and fused_first and params["mp"]:
-        M, nodes = mp_banded_poly_fused(nlist, edges, cheb, plan, nodes, params["mp"][0]["w"],
-                                        inv_p, config.mp_activation, out_dtype=cd)
+        with span("nmrgnn.mp"):  # layer 1 with the band's build
+            M, nodes = mp_banded_poly_fused(nlist, edges, cheb, plan, nodes,
+                                            params["mp"][0]["w"], inv_p, config.mp_activation,
+                                            out_dtype=cd)
         occ = _occupancy(params["mp"][1:], nlist, edges, plan, use_kernels)
         for p in params["mp"][1:]:
-            nodes = mp_banded(M, plan, nodes, p["w"], inv_p, config.mp_activation, occ)
+            with span("nmrgnn.mp"):
+                nodes = mp_banded(M, plan, nodes, p["w"], inv_p, config.mp_activation, occ)
     else:
         M = _band(params, config, nlist, edges, plan, use_kernels, fused_edge, cheb)
         occ = _occupancy(params["mp"], nlist, edges, plan, use_kernels)
@@ -264,13 +270,14 @@ def apply_banded_classes(
     F = nodes.shape[-1]
     inv_col = nnf.pad(inv_degree, (0, pad))[:, None]
     for p in params["mp"]:
-        w = p["w"].to(cd)
-        table = nodes.to(cd)
-        acc = torch.empty((T, B, F), dtype=torch.float32, device=dev)
-        for c, M, ids, occ in zip(cls_plan.classes, Ms, tiles, occs):
-            out_c = partial(M, c.lo, table, w, occ)
-            acc.index_copy_(0, ids, out_c.view(-1, B, F))  # the classes partition the tiles
-        nodes = mp_act(acc.view(T * B, F) * inv_col) + nodes
+        with span("nmrgnn.mp"):
+            w = p["w"].to(cd)
+            table = nodes.to(cd)
+            acc = torch.empty((T, B, F), dtype=torch.float32, device=dev)
+            for c, M, ids, occ in zip(cls_plan.classes, Ms, tiles, occs):
+                out_c = partial(M, c.lo, table, w, occ)
+                acc.index_copy_(0, ids, out_c.view(-1, B, F))  # the classes partition the tiles
+            nodes = mp_act(acc.view(T * B, F) * inv_col) + nodes
     return _readout(params, config, atoms, nodes[:n])
 
 
@@ -310,14 +317,15 @@ def apply_banded_hbm_classes(
     F = nodes.shape[-1]
     inv_p = nnf.pad(inv_degree, (0, pad))
     for p in params["mp"]:
-        # a new table: writing into `nodes` would change the windows that
-        # the layer's later classes read
-        new_nodes = torch.empty_like(nodes)
-        for c, M, ids, occ in zip(cls_plan.classes, Ms, tiles, occs):
-            out_c = mp(M, c, B, nodes, p["w"], inv_p, config.mp_activation, occ)
-            # the classes partition the tiles
-            new_nodes.view(T, B, F).index_copy_(0, ids, out_c.view(-1, B, F))
-        nodes = new_nodes
+        with span("nmrgnn.mp"):
+            # a new table: writing into `nodes` would change the windows that
+            # the layer's later classes read
+            new_nodes = torch.empty_like(nodes)
+            for c, M, ids, occ in zip(cls_plan.classes, Ms, tiles, occs):
+                out_c = mp(M, c, B, nodes, p["w"], inv_p, config.mp_activation, occ)
+                # the classes partition the tiles
+                new_nodes.view(T, B, F).index_copy_(0, ids, out_c.view(-1, B, F))
+            nodes = new_nodes
     return _readout(params, config, atoms, nodes[:n].float())
 
 
@@ -467,13 +475,14 @@ def apply_banded_attention(
     pad = plan.n_padded - n
     nodes = nnf.pad(dense(params["embed"], atoms), (0, 0, 0, pad))
     for p in params["mp"]:
-        a = attention_weights(p["wq"], p["wk"], nodes[:n], e, inv_degree)  # [n, K]
-        M = build(nlist, torch.where(real, a, 0.0)[..., None], plan, out_dtype=cd)
-        upd = partial(M, plan.lo, nodes.to(cd), p["wv"][:, :, None], occ)[:n]
-        if slots is not None:
-            c = torch.einsum("ij,ijp->ip", a, slots)           # [n, P]
-            upd = upd + c @ (nodes[rows] @ p["wv"])
-        nodes = nodes + nnf.pad(mp_act(upd), (0, 0, 0, pad))
+        with span("nmrgnn.mp"):
+            a = attention_weights(p["wq"], p["wk"], nodes[:n], e, inv_degree)  # [n, K]
+            M = build(nlist, torch.where(real, a, 0.0)[..., None], plan, out_dtype=cd)
+            upd = partial(M, plan.lo, nodes.to(cd), p["wv"][:, :, None], occ)[:n]
+            if slots is not None:
+                c = torch.einsum("ij,ijp->ip", a, slots)           # [n, P]
+                upd = upd + c @ (nodes[rows] @ p["wv"])
+            nodes = nodes + nnf.pad(mp_act(upd), (0, 0, 0, pad))
     return _readout(params, config, atoms, nodes[:n], dropout_mask)
 
 
@@ -533,11 +542,13 @@ def _trainable_mp(params, config: ModelConfig, nlist, edges, e, plan: BandPlan, 
         M = build_band_df(nlist, e, plan)
         occ = _occupancy(params["mp"], nlist, edges, plan, True)
         for p in params["mp"]:
-            nodes = mp_banded_df(M, plan, nodes, p["w"], inv_p, config.mp_activation, occ)
+            with span("nmrgnn.mp"):
+                nodes = mp_banded_df(M, plan, nodes, p["w"], inv_p, config.mp_activation, occ)
         return nodes
     M = build_band_plain(nlist, e, plan)
     for p in params["mp"]:
-        nodes = mp_banded_plain(M, plan, nodes, p["w"], inv_p, config.mp_activation)
+        with span("nmrgnn.mp"):
+            nodes = mp_banded_plain(M, plan, nodes, p["w"], inv_p, config.mp_activation)
     return nodes
 
 
@@ -668,9 +679,11 @@ def apply_blocksparse(
     occ = (block_occupancy(nlist, edges, struct)
            if use_kernels and nodes.is_cuda and params["mp"] else None)
     for p in params["mp"]:
-        if use_kernels:
-            nodes = mp_blocksparse(A, struct, nodes, p["w"], inv_p, config.mp_activation,
-                                   group=group, occupancy=occ)
-        else:
-            nodes = mp_blocksparse_plain(A, struct, nodes, p["w"], inv_p, config.mp_activation)
+        with span("nmrgnn.mp"):
+            if use_kernels:
+                nodes = mp_blocksparse(A, struct, nodes, p["w"], inv_p, config.mp_activation,
+                                       group=group, occupancy=occ)
+            else:
+                nodes = mp_blocksparse_plain(A, struct, nodes, p["w"], inv_p,
+                                             config.mp_activation)
     return readout(params, config.replace(compute_dtype="float32"), atoms, nodes[:n].float())

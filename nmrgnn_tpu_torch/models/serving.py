@@ -70,6 +70,15 @@ passes the JAX package's budget (``_partitioned_fits_vmem``), else through
 (``apply_banded_frames``, ``apply_banded_attention_frames``) with one
 readback, and the other paths frame by frame; ``predict_trajectory``
 overlaps the host's graph builds with the forwards.
+
+Under a ``torch.profiler`` session each request is a ``nmrgnn.predict``
+span whose children split it: ``nmrgnn.permute``, ``nmrgnn.resolve``
+(when the path is chosen), ``nmrgnn.plan`` (the cached plan's check; a
+``nmrgnn.plan.build`` inside it for each miss), ``nmrgnn.h2d``,
+``nmrgnn.forward`` (one ``nmrgnn.mp`` a layer inside) and
+``nmrgnn.readback``; a trajectory adds ``nmrgnn.build`` on the build
+threads and ``nmrgnn.queue_wait`` on the consumer
+(``utils.profiling.span``).
 """
 from __future__ import annotations
 
@@ -102,6 +111,7 @@ from ..ops.banded import (
 )
 from ..ops.blocksparse import BlockStructure, block_structure, remap_frame, struct_on_device
 from ..ops.edgefn import EdgeCheb, fit_edge_chebyshev
+from ..utils.profiling import span
 from . import gnn
 from .gnn import tree_map
 from .infer import (
@@ -194,9 +204,10 @@ class ServingModel:
         if not self.reorder:
             self._inverse = None
             return g
-        if self._order is None or self._order.shape[0] != g.atoms.shape[0]:
-            self._order = rcm_order(g.nlist, g.edges)
-        g, self._inverse = permute_graph(g, self._order, pin_zero=False)
+        with span("nmrgnn.permute"):
+            if self._order is None or self._order.shape[0] != g.atoms.shape[0]:
+                self._order = rcm_order(g.nlist, g.edges)
+            g, self._inverse = permute_graph(g, self._order, pin_zero=False)
         return g
 
     def _dtype_bytes(self) -> int:
@@ -244,47 +255,50 @@ class ServingModel:
         """"banded", "banded_hbm" or "blocksparse" (a band past both
         budgets); "banded_attn" or "gather" for a non-bilinear model;
         fixed until a frame escapes its budget."""
-        if self._resolved is not None:
-            return self._resolved
+        if self._resolved is None:
+            with span("nmrgnn.resolve"):
+                self._resolved = self._choose_mode(g)
+        return self._resolved
+
+    def _choose_mode(self, g: Graph) -> str:
+        """``_resolve_mode``'s choice for this frame (setting ``_plan``
+        where the choice made one)."""
         if self._n_shards() > 1:
             # split over the ranks of the mesh's partition axis
-            self._resolved = "partitioned"
-            return self._resolved
+            return "partitioned"
         if self.config.mp_type != "bilinear":
-            plan = self._plan_if_attn(g) if self.config.mp_type == "attention" else None
-            self._resolved = "gather" if plan is None else "banded_attn"
-            self._plan = plan
-            return self._resolved
+            self._plan = self._plan_if_attn(g) if self.config.mp_type == "attention" else None
+            return "gather" if self._plan is None else "banded_attn"
         if self.mode != "auto":
-            self._resolved = self.mode
-            return self._resolved
+            return self.mode
         plan = self._plan_if_fits(g)
         if plan is not None:
-            self._resolved, self._plan = "banded", plan
-            return self._resolved
+            self._plan = plan
+            return "banded"
         plan = self._plan_if_hbm(g)
         if plan is not None:
-            self._resolved, self._plan = "banded_hbm", plan
-        else:
-            self._resolved = "blocksparse"
-        return self._resolved
+            self._plan = plan
+            return "banded_hbm"
+        return "blocksparse"
 
     def _banded_plan(self, g: Graph) -> Optional[BandPlan]:
         """The cached plan if it covers this frame, else a new one within
         the budget that chose the path; None when the new one escapes it
         (the caller then re-resolves the path)."""
-        if self._plan is None or not plan_covers(self._plan, g.nlist, g.edges):
-            if self._resolved == "banded_hbm":
-                plan = self._plan_if_hbm(g)
-            elif self._resolved == "banded_attn":
-                plan = self._plan_if_attn(g)
-            else:
-                plan = self._plan_if_fits(g)
-            if plan is None and self.mode == "banded":
-                # the user forced banded: honor it
-                plan = band_plan(g.nlist, g.edges, block_rows=self.block_size)
-            self._plan = plan
-        return self._plan
+        with span("nmrgnn.plan"):
+            if self._plan is None or not plan_covers(self._plan, g.nlist, g.edges):
+                with span("nmrgnn.plan.build"):
+                    if self._resolved == "banded_hbm":
+                        plan = self._plan_if_hbm(g)
+                    elif self._resolved == "banded_attn":
+                        plan = self._plan_if_attn(g)
+                    else:
+                        plan = self._plan_if_fits(g)
+                    if plan is None and self.mode == "banded":
+                        # the user forced banded: honor it
+                        plan = band_plan(g.nlist, g.edges, block_rows=self.block_size)
+                self._plan = plan
+            return self._plan
 
     def _class_plan(self, g: Graph, cached: Optional[BandClassPlan], off: bool, fits):
         """(plan, switch): the cached class plan if it still covers the
@@ -292,20 +306,23 @@ class ServingModel:
         class escapes ``fits``, else a new plan; a new plan whose shape
         signature differs from the cached one's turns the switch on and
         gives None."""
-        if cached is not None and class_plan_covers(cached, g.nlist, g.edges):
-            return cached, off
-        if off:
-            return None, off
-        cls_plan = band_plan_classes(g.nlist, g.edges, block_rows=self.block_size)
-        cfg, b = self.config, self._dtype_bytes()
-        for c in cls_plan.classes:
-            probe = BandPlan(lo=c.lo, window=c.window, block_rows=cls_plan.block_rows,
-                             n_padded=cls_plan.n_padded)
-            if not fits(probe, cfg.atom_feature_size, cfg.edge_feature_size, dtype_bytes=b):
+        with span("nmrgnn.plan"):
+            if cached is not None and class_plan_covers(cached, g.nlist, g.edges):
+                return cached, off
+            if off:
                 return None, off
-        if cached is not None and _class_signature(cls_plan) != _class_signature(cached):
-            return None, True
-        return cls_plan, off
+            with span("nmrgnn.plan.build"):
+                cls_plan = band_plan_classes(g.nlist, g.edges, block_rows=self.block_size)
+                cfg, b = self.config, self._dtype_bytes()
+                for c in cls_plan.classes:
+                    probe = BandPlan(lo=c.lo, window=c.window, block_rows=cls_plan.block_rows,
+                                     n_padded=cls_plan.n_padded)
+                    if not fits(probe, cfg.atom_feature_size, cfg.edge_feature_size,
+                                dtype_bytes=b):
+                        return None, off
+                if cached is not None and _class_signature(cls_plan) != _class_signature(cached):
+                    return None, True
+                return cls_plan, off
 
     def _banded_cls_plan(self, g: Graph) -> Optional[BandClassPlan]:
         """The class plan of the "banded_hbm" fast path (host arrays)."""
@@ -326,14 +343,16 @@ class ServingModel:
     def _block_struct(self, g: Graph) -> BlockStructure:
         """The cached block structure remapped to this frame, or a new one
         when a real edge leaves its active pairs."""
-        if self._struct is not None:
-            remapped = remap_frame(self._struct, g.nlist, g.edges)
-            if remapped is not None:
-                self._struct = remapped
-                return remapped
-        self._struct = block_structure(g.nlist, g.edges, self.block_size,
-                                       pair_rounding=self.pair_rounding, group=self.group)
-        return self._struct
+        with span("nmrgnn.plan"):
+            if self._struct is not None:
+                remapped = remap_frame(self._struct, g.nlist, g.edges)
+                if remapped is not None:
+                    self._struct = remapped
+                    return remapped
+            with span("nmrgnn.plan.build"):
+                self._struct = block_structure(g.nlist, g.edges, self.block_size,
+                                               pair_rounding=self.pair_rounding, group=self.group)
+            return self._struct
 
     def _device_plan(self, slot: str, plan):
         """``plan`` (a band plan or a block structure) with its index arrays
@@ -341,7 +360,8 @@ class ServingModel:
         cached = self._on_device.get(slot)
         if cached is None or cached[0] is not plan:
             to_device = struct_on_device if isinstance(plan, BlockStructure) else plan_on_device
-            cached = self._on_device[slot] = (plan, to_device(plan, self.device))
+            with span("nmrgnn.h2d"):
+                cached = self._on_device[slot] = (plan, to_device(plan, self.device))
         return cached[1]
 
     def _edge_cheb(self) -> EdgeCheb:
@@ -359,10 +379,11 @@ class ServingModel:
 
     def _to_device(self, g: Graph) -> Graph:
         dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
-        return Graph(*[
-            torch.from_numpy(np.ascontiguousarray(a)).to(device=self.device, dtype=dt)
-            for a, dt in zip(g, dtypes)
-        ])
+        with span("nmrgnn.h2d"):
+            return Graph(*[
+                torch.from_numpy(np.ascontiguousarray(a)).to(device=self.device, dtype=dt)
+                for a, dt in zip(g, dtypes)
+            ])
 
     # -- atom-partitioned serving ---------------------------------------------------
 
@@ -400,21 +421,23 @@ class ServingModel:
         D = self._n_shards()
         n = g.atoms.shape[0]
         gp = pad_to_multiple(g, D * 128)
-        key = (
-            gp.atoms.shape[0],
-            hashlib.blake2b(np.ascontiguousarray(g.nlist).tobytes(), digest_size=16).digest(),
-            hashlib.blake2b((np.asarray(g.edges) > 0).tobytes(), digest_size=16).digest(),
-        )
-        if self._part_key != key:
-            plan = make_banded_halo_plan(gp.nlist, gp.edges, D)
-            banded = self._partitioned_fits_vmem(plan)
-            if not banded:
-                plan = make_halo_plan(gp.nlist, D, edges=gp.edges)
-            shard = self.mesh.index(self.partition_axis)
-            self._part_plan = (plan, banded, shard_arrays(plan, shard, self.device))
-            self._part_key = key
+        with span("nmrgnn.plan"):
+            key = (
+                gp.atoms.shape[0],
+                hashlib.blake2b(np.ascontiguousarray(g.nlist).tobytes(), digest_size=16).digest(),
+                hashlib.blake2b((np.asarray(g.edges) > 0).tobytes(), digest_size=16).digest(),
+            )
+            if self._part_key != key:
+                with span("nmrgnn.plan.build"):
+                    plan = make_banded_halo_plan(gp.nlist, gp.edges, D)
+                    banded = self._partitioned_fits_vmem(plan)
+                    if not banded:
+                        plan = make_halo_plan(gp.nlist, D, edges=gp.edges)
+                    shard = self.mesh.index(self.partition_axis)
+                    self._part_plan = (plan, banded, shard_arrays(plan, shard, self.device))
+                self._part_key = key
         plan, banded, arrays = self._part_plan
-        with torch.no_grad():
+        with span("nmrgnn.forward"), torch.no_grad():
             if banded:
                 cheb = (self._edge_cheb() if self.precision == "fast"
                         and self.config.mp_type != "attention" else None)
@@ -437,12 +460,14 @@ class ServingModel:
         if mode == "partitioned":
             return self._predict_partitioned(g), self._inverse
         if mode == "gather":
-            with torch.no_grad():
-                return gnn.apply(self.params, self.config, self._to_device(g)), self._inverse
+            gt = self._to_device(g)
+            with span("nmrgnn.forward"), torch.no_grad():
+                return gnn.apply(self.params, self.config, gt), self._inverse
         if mode == "blocksparse":
             struct = self._device_plan("struct", self._block_struct(g))
-            peaks = apply_blocksparse(self.params, self.config, self._to_device(g), struct,
-                                      group=self.group)
+            gt = self._to_device(g)
+            with span("nmrgnn.forward"):
+                peaks = apply_blocksparse(self.params, self.config, gt, struct, group=self.group)
             return peaks, self._inverse
         plan = self._banded_plan(g)
         if plan is None:
@@ -453,13 +478,15 @@ class ServingModel:
         plan_d = self._device_plan("plan", plan)
         if mode == "banded_attn":
             cheb = self._edge_cheb() if self.precision == "fast" else None
-            with torch.no_grad():
+            with span("nmrgnn.forward"), torch.no_grad():
                 peaks = apply_banded_attention(self.params, self.config, gt, plan_d, cheb=cheb,
                                                pad_rows=padding_rows(g.nlist, g.edges))
             return peaks, self._inverse
         hbm = mode == "banded_hbm"
         if self.precision == "exact":
-            return apply_banded(self.params, self.config, gt, plan_d, hbm_table=hbm), self._inverse
+            with span("nmrgnn.forward"):
+                peaks = apply_banded(self.params, self.config, gt, plan_d, hbm_table=hbm)
+            return peaks, self._inverse
         cheb = self._edge_cheb()
         cls_plan = self._banded_cls_plan(g) if hbm else self._banded_cls_plan_vmem(g)
         if cls_plan is not None and len(cls_plan.classes) > 1:
@@ -467,19 +494,24 @@ class ServingModel:
             # tile's band in the build and MP kernels
             fwd = apply_banded_hbm_classes if hbm else apply_banded_classes
             cls_d = self._device_plan("cls_hbm" if hbm else "cls_vmem", cls_plan)
-            peaks = fwd(self.params, self.config, gt, cls_d, cheb)
+            with span("nmrgnn.forward"):
+                peaks = fwd(self.params, self.config, gt, cls_d, cheb)
         else:
-            peaks = apply_banded(self.params, self.config, gt, plan_d, cheb=cheb, hbm_table=hbm)
+            with span("nmrgnn.forward"):
+                peaks = apply_banded(self.params, self.config, gt, plan_d, cheb=cheb,
+                                     hbm_table=hbm)
         return peaks, self._inverse
 
     @staticmethod
     def _finalize(peaks: torch.Tensor, inverse: Optional[np.ndarray]) -> np.ndarray:
-        out = peaks.cpu().numpy()
-        return out if inverse is None else out[..., inverse]
+        with span("nmrgnn.readback"):
+            out = peaks.cpu().numpy()
+            return out if inverse is None else out[..., inverse]
 
     def predict(self, graph: Graph) -> np.ndarray:
         """peaks f32[N] in the graph's own atom order."""
-        return self._finalize(*self._predict_async(graph))
+        with span("nmrgnn.predict"):
+            return self._finalize(*self._predict_async(graph))
 
     def predict_frames(self, graphs) -> np.ndarray:
         """peaks f32[Fr, N] for Fr frames of one structure (the same atoms
@@ -490,42 +522,51 @@ class ServingModel:
         budget (for "banded_attn" the node-table budget with one channel and
         no fused-build check). Both precisions take the uniform forward
         here, as in the JAX package."""
+        with span("nmrgnn.predict"):
+            return self._predict_frames(graphs)
+
+    def _predict_frames(self, graphs) -> np.ndarray:
         gs = [Graph(*[np.asarray(a) for a in g]) for g in graphs]
         if self.reorder:
-            if self._order is None or self._order.shape[0] != gs[0].atoms.shape[0]:
-                self._order = rcm_order(gs[0].nlist, gs[0].edges)
-            pairs = [permute_graph(g, self._order, pin_zero=False) for g in gs]
-            gs = [p[0] for p in pairs]
-            self._inverse = pairs[0][1]
+            with span("nmrgnn.permute"):
+                if self._order is None or self._order.shape[0] != gs[0].atoms.shape[0]:
+                    self._order = rcm_order(gs[0].nlist, gs[0].edges)
+                pairs = [permute_graph(g, self._order, pin_zero=False) for g in gs]
+                gs = [p[0] for p in pairs]
+                self._inverse = pairs[0][1]
         mode = self._resolve_mode(gs[0])
         if mode not in ("banded", "banded_attn"):
             return np.stack([self.predict(g) for g in graphs])
         attn = mode == "banded_attn"
         stack = Graph(*[np.stack([getattr(g, f) for g in gs]) for f in Graph._fields])
         plan = None
-        for cand in (self._frames_plan, self._plan):
-            if cand is not None and all(plan_covers(cand, g.nlist, g.edges) for g in gs):
-                plan = cand
-                break
+        with span("nmrgnn.plan"):
+            for cand in (self._frames_plan, self._plan):
+                if cand is not None and all(plan_covers(cand, g.nlist, g.edges) for g in gs):
+                    plan = cand
+                    break
+            if plan is None:
+                with span("nmrgnn.plan.build"):
+                    base = self._plan
+                    union = band_plan_frames(
+                        stack.nlist, stack.edges,
+                        block_rows=base.block_rows if base is not None else self.block_size,
+                    )
+                    cfg, b = self.config, self._dtype_bytes()
+                    fits = (plan_fits_vmem(union, cfg.atom_feature_size,
+                                           1 if attn else cfg.edge_feature_size, dtype_bytes=b)
+                            and (attn or fused_build_ok(union, cfg.edge_hidden_size,
+                                                        cfg.edge_feature_size,
+                                                        stack.nlist.shape[-1], out_bytes=b)))
+                if fits:
+                    plan = self._frames_plan = union
         if plan is None:
-            base = self._plan
-            union = band_plan_frames(
-                stack.nlist, stack.edges,
-                block_rows=base.block_rows if base is not None else self.block_size,
-            )
             # a union window one bucket wider than frame 0's plan may pass
             # the budget that chose the path: serve frame by frame then
-            cfg, b = self.config, self._dtype_bytes()
-            if not (plan_fits_vmem(union, cfg.atom_feature_size,
-                                   1 if attn else cfg.edge_feature_size, dtype_bytes=b)
-                    and (attn or fused_build_ok(union, cfg.edge_hidden_size,
-                                                cfg.edge_feature_size, stack.nlist.shape[-1],
-                                                out_bytes=b))):
-                return np.stack([self.predict(g) for g in graphs])
-            plan = self._frames_plan = union
+            return np.stack([self.predict(g) for g in graphs])
         cheb = self._edge_cheb() if self.precision == "fast" else None
         plan_d, stack_d = self._device_plan("frames", plan), self._to_device(stack)
-        with torch.no_grad():
+        with span("nmrgnn.forward"), torch.no_grad():
             if attn:
                 peaks = apply_banded_attention_frames(
                     self.params, self.config, stack_d, plan_d, cheb=cheb,
@@ -553,7 +594,8 @@ class ServingModel:
         q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
 
         def build(i):
-            return i, structure2graph(struct, neighbor_number, frame=i)
+            with span("nmrgnn.build"):
+                return i, structure2graph(struct, neighbor_number, frame=i)
 
         def producer():
             try:
@@ -576,13 +618,15 @@ class ServingModel:
         threading.Thread(target=producer, daemon=True).start()
         pending = None  # (frame, peaks on the device, inverse)
         while True:
-            item = q.get()
+            with span("nmrgnn.queue_wait"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
                 raise RuntimeError("trajectory graph build failed mid-stream") from item
             i, g = item
-            peaks, inverse = self._predict_async(g)
+            with span("nmrgnn.predict"):
+                peaks, inverse = self._predict_async(g)
             if pending is not None:
                 yield pending[0], self._finalize(pending[1], pending[2])
             pending = (i, peaks, inverse)

@@ -1,10 +1,15 @@
 """Profiling and timing (``nmrgnn_tpu/utils/profiling.py``).
 
-``trace`` records a ``torch.profiler`` trace (host operators, and the
-card's kernels when one is present) and writes it as a Chrome trace into
-its directory; ``TimingBuckets`` are named wall-clock accumulators (the
-eval-struct buckets); ``device_time`` times a step on its device: CUDA
-events on the card, ``time.perf_counter`` on the CPU.
+``trace`` records a ``torch.profiler`` trace (host operators of every
+thread, and the card's kernels when one is present) and writes it as a
+Chrome trace into its directory; ``TimingBuckets`` are named wall-clock
+accumulators (the eval-struct buckets); ``device_time`` times a step on
+its device: CUDA events on the card, ``time.perf_counter`` on the CPU.
+
+``span`` marks a stretch of the program's own work (``nmrgnn.*``) in the
+trace of whatever ``torch.profiler`` session is recording, on the same
+clock as its kernels and copies; with no session it costs a flag test.
+It is not in ``utils.__all__``, which stays the JAX package's list.
 """
 from __future__ import annotations
 
@@ -15,11 +20,25 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler session
+    records, else one shared null context. The test is torch's
+    process-wide flag, so ``predict_trajectory``'s build threads see a
+    session that the consumer started (torch's thread-local test does not)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
-    """Record a ``torch.profiler`` trace of the block; on exit write it to
+    """Record a ``torch.profiler`` trace of the block, the host operators
+    and ``span``s of every thread; on exit write it to
     ``log_dir/trace-<pid>-<ns>.json`` (Chrome trace format, for
     chrome://tracing or Perfetto; default directory ``nmrgnn_trace`` in
     the temporary directory). Yields ``log_dir``."""
@@ -28,7 +47,8 @@ def trace(log_dir: Optional[str] = None):
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    every_thread = torch.profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=activities, experimental_config=every_thread) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 

@@ -8,6 +8,7 @@ usage error."""
 import csv
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -162,14 +163,19 @@ def test_eval_tfrecords_matches_jax(work, frags, model):
 
 
 @pytest.mark.parametrize("flags", [(), ("--fast", "--precision", "exact")])
-def test_eval_struct_matches_jax(work, model, flags):
+def test_eval_struct_matches_jax(work, model, flags, capsys):
     """The same rows; peaks, rounded to 0.01 as both write them, equal
     except where the two forwards (within 2e-4) straddle a rounding
-    boundary."""
+    boundary. Each frame prints its timing line, the buckets in order."""
     d, pdb, _ = work
     name = "fast" if flags else "plain"
+    capsys.readouterr()
     run_port("eval-struct", pdb, str(d / "t" / f"{name}.csv"), "--model-file", model[0],
              *flags, cwd=d)
+    timing = [line for line in capsys.readouterr().out.splitlines() if line.startswith("graph:")]
+    assert len(timing) == 2 and all(
+        re.fullmatch(r"graph: *\d+\.\d\ds\|inference: *\d+\.\d\ds\|output: *\d+\.\d\ds"
+                     r"\|read: *\d+\.\d\ds", line) for line in timing), timing
     run_jax("eval-struct", pdb, str(d / "j" / f"{name}.csv"), "--model-file", model[0],
             *flags, cwd=d)
     h_t, rows_t = read_csv(d / "t" / f"{name}.csv")
