@@ -736,7 +736,9 @@ def _wrappers():
 
 
 def _reset_counts() -> None:
-    for f in _wrappers():
+    from nmrgnn_tpu_torch.ops import banded
+
+    for f in _wrappers() + (banded.permute_tile_bounds,):
         f.launches = 0
 
 
@@ -794,6 +796,29 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
     plan_d = banded.plan_on_device(plan, dev)
     cls_d = banded.plan_on_device(cls_plan, dev)
     act = cfg.mp_activation
+
+    # -- serving's request preparation at the supercell's shapes ---------------
+    # the graph as given, permuted with its half-tile bounds in one launch,
+    # against its plain version bit for bit
+    inverse = np.empty(N, np.int64)
+    inverse[order] = np.arange(N)
+    raw = _on_card(graphs[0], dev)
+    perm = [torch.as_tensor(a.astype(np.int32), device=dev) for a in (order, inverse)]
+    half = B // 2
+    V = raw.atoms.shape[1]
+    graph_bytes = N * (V + 2 * K + 1) * 4
+    check(
+        "permute_tile_bounds", "none (data/reorder.py permute_graph, ops/banded.py band_plan "
+        "on the host)",
+        lambda: banded.permute_tile_bounds(*raw, *perm, half),
+        lambda: banded.permute_tile_bounds_plain(*raw, *perm, half),
+        tol=0.0, exact=True, flops=0,
+        nbytes=2 * graph_bytes + 2 * N * 4 + -(-N // half) * 8, alone="permute_tile_bounds",
+        dtype="float32", row=False, phase=5, repeats=5, inner=10,
+        extra=f"; the graph read and written once ({graph_bytes / 1e6:.2f} MB each way), order "
+              f"and inverse read once, {-(-N // half)} tile bounds of {half} rows",
+    )
+    del raw
 
     # -- B5 and B9 at the supercell's shapes ----------------------------------
     fc = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation)
@@ -925,6 +950,9 @@ def _phase5(args, dev, params, cfg, cheb_d, check, counts, expect):
         raise SystemExit(f"chip_smoke: the supercell resolved to {model._resolved}")
     expect(exact_launches, build_band_fused=N_FRAMES, mp_banded_hbm=N_FRAMES * L,
            band_occupancy=N_FRAMES)
+    if banded.permute_tile_bounds.launches != N_FRAMES:
+        raise SystemExit(f"chip_smoke: {banded.permute_tile_bounds.launches} preparation "
+                         f"launches for {N_FRAMES} requests")
     worst = 0.0
     for f, (g, p) in enumerate(zip(graphs, peaks)):
         if p.shape != (N,) or not np.all(np.isfinite(p)):
@@ -2835,7 +2863,7 @@ def _part_serve(task, case, mesh, dev) -> dict:
     rep = par.halo_comm_report(base, F, 2 if sm.config.compute_dtype == "bfloat16" else 4)
     res["comm"] = rep.as_dict()
     # the last frame, whose plan is the cached one
-    gp = par.pad_to_multiple(sm._prepare(graphs[-1]), base.n_shards * 128)
+    gp = par.pad_to_multiple(sm._permute_host(graphs[-1]), base.n_shards * 128)
     fwd = par.apply_partitioned_banded if is_banded else par.apply_partitioned_halo
     cheb = sm._edge_cheb() if (is_banded and task["precision"] == "fast"
                                and cfg.mp_type != "attention") else None

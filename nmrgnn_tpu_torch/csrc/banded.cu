@@ -1,6 +1,7 @@
 // Hand-written Hopper kernels for the band builds of the exact
-// RCM-banded message-passing path of nmrgnn_tpu_torch (ops/banded.py
-// holds the wrappers and the plain PyTorch version of each kernel).
+// RCM-banded message-passing path of nmrgnn_tpu_torch and for serving's
+// request preparation (ops/banded.py holds the wrappers and the plain
+// PyTorch version of each kernel).
 //
 // Built by ops/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -100,6 +101,88 @@ cudaError_t launch_build(const int* nlist, const float* e, const int* lo, void* 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Request preparation (no TPU kernel: the JAX package permutes and plans on
+// the host), behind ops/banded.py's permute_tile_bounds: a served graph in
+// the RCM order, as data/reorder.py's permute_graph(pin_zero=False) writes
+// it,
+//   atoms_p[r] = atoms[order[r]], edges_p[r] = edges[order[r]],
+//   inv_degree_p[r] = inv_degree[order[r]],
+//   nlist_p[r, k] = inverse[nlist[order[r], k]] (a negative index counted
+//   from the end, as numpy counts it; one outside [-n, n) left as it is),
+// and for each tile of `rows` rows the smallest and largest of its
+// permuted indices whose distance is > 0, (INT_MAX, INT_MIN) for a tile
+// with none. With order null the graph is read for the bounds alone.
+//
+// A block takes one tile: its slots, then its atom features and degrees,
+// a thread to a value in turn (each row's K slots are 64 contiguous bytes
+// at K = 16, gathered from wherever order puts the row), then a warp-
+// shuffle and shared-memory reduction of the bounds. Bound: reading and
+// writing the graph once (the inverse's 4 * n bytes stay in L2).
+
+constexpr int kPrepThreads = 256;
+constexpr int kNoMin = 0x7fffffff;
+constexpr int kNoMax = -0x7fffffff - 1;
+
+__global__ void __launch_bounds__(kPrepThreads)
+    permute_tile_bounds_kernel(const float* __restrict__ atoms, const int* __restrict__ nlist,
+                               const float* __restrict__ edges,
+                               const float* __restrict__ inv_degree,
+                               const int* __restrict__ order, const int* __restrict__ inverse,
+                               float* __restrict__ atoms_p, int* __restrict__ nlist_p,
+                               float* __restrict__ edges_p, float* __restrict__ inv_degree_p,
+                               int* __restrict__ bounds, int n, int V, int K, int rows) {
+  __shared__ int s_lo[kPrepThreads / 32], s_hi[kPrepThreads / 32];
+  const int r0 = blockIdx.x * rows;
+  const int nr = min(rows, n - r0);
+  const bool permute = order != nullptr;
+  int lo = kNoMin, hi = kNoMax;
+  for (int j = threadIdx.x; j < nr * K; j += blockDim.x) {
+    const int r = r0 + j / K;
+    const int k = j - (j / K) * K;
+    const size_t src = (size_t)(permute ? order[r] : r) * K + k;
+    int v = nlist[src];
+    const float e = edges[src];
+    if (permute) {
+      if (v >= -n && v < n) v = inverse[v < 0 ? v + n : v];
+      const size_t dst = (size_t)r * K + k;
+      nlist_p[dst] = v;
+      edges_p[dst] = e;
+    }
+    if (e > 0.0f) {
+      lo = min(lo, v);
+      hi = max(hi, v);
+    }
+  }
+  if (permute) {
+    for (int j = threadIdx.x; j < nr * V; j += blockDim.x) {
+      const int r = r0 + j / V;
+      atoms_p[(size_t)r * V + (j - (j / V) * V)] =
+          atoms[(size_t)order[r] * V + (j - (j / V) * V)];
+    }
+    for (int j = threadIdx.x; j < nr; j += blockDim.x)
+      inv_degree_p[r0 + j] = inv_degree[order[r0 + j]];
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    s_lo[warp] = lo;
+    s_hi[warp] = hi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)(blockDim.x / 32); ++w) {
+      lo = min(lo, s_lo[w]);
+      hi = max(hi, s_hi[w]);
+    }
+    bounds[2 * blockIdx.x] = lo;
+    bounds[2 * blockIdx.x + 1] = hi;
+  }
+}
+
 // compute 0: float32 on the CUDA cores; 1: bfloat16 on the tensor cores;
 // 2: bfloat16 operands on the CUDA cores (b16ops). H 128 or 256 here; the
 // wider EdgeFCs are fused_wide.cu's.
@@ -163,6 +246,23 @@ int nmr_build_band(const int* nlist, const float* e, const int* lo, void* M, int
   NMR_BUILD_CASE(4)
 #undef NMR_BUILD_CASE
   return cudaErrorInvalidValue;
+}
+
+// The graph permuted and its tile bounds (above), one block a tile of
+// `rows` rows; order and inverse null: the bounds alone, and the *_p
+// outputs are not written.
+int nmr_permute_tile_bounds(const float* atoms, const int* nlist, const float* edges,
+                            const float* inv_degree, const int* order, const int* inverse,
+                            float* atoms_p, int* nlist_p, float* edges_p,
+                            float* inv_degree_p, int* bounds, int n, int V, int K, int rows,
+                            void* stream) {
+  if (n < 1 || V < 0 || K < 0 || rows < 1 || (order == nullptr) != (inverse == nullptr))
+    return cudaErrorInvalidValue;
+  const int tiles = (n + rows - 1) / rows;
+  permute_tile_bounds_kernel<<<tiles, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      atoms, nlist, edges, inv_degree, order, inverse, atoms_p, nlist_p, edges_p,
+      inv_degree_p, bounds, n, V, K, rows);
+  return cudaGetLastError();
 }
 
 // The fused edge stage + band build; out_bf16 selects the output type,

@@ -39,6 +39,19 @@ is remapped to a later frame (``remap_frame``) and rebuilt only when a real
 edge leaves its active pairs. ``predict`` returns peaks in the original
 atom order.
 
+A request is prepared on the device: the graph as given is copied up, then
+one launch (``ops.banded.permute_tile_bounds``) writes it in the RCM order
+and takes each tile's smallest and largest real neighbor index, through
+which alone the band plans read a frame (``band_plan_from_bounds``,
+``plan_covers_bounds`` and their class twins). The host reads back those
+bounds (a few KB) and keeps only arithmetic over the tiles; "gather" reads
+none. On the card the copy and the launch run on a preparation stream of
+the model's own, which the forward's stream waits for, so a trajectory's
+next frame is prepared while the last one's forward runs. "blocksparse"
+and "partitioned" read the whole permuted arrays on the host
+(``remap_frame``, the partition's digests) and permute there, as do
+``predict_frames``' batches.
+
 ``precision="exact"`` serves in the config's compute type (float32 by
 default; a ``compute_dtype="bfloat16"`` config serves with bfloat16
 products and float32 sums, as in the JAX package) through the fused RBF +
@@ -72,18 +85,22 @@ readback, and the other paths frame by frame; ``predict_trajectory``
 overlaps the host's graph builds with the forwards.
 
 Under a ``torch.profiler`` session each request is a ``nmrgnn.predict``
-span whose children split it: ``nmrgnn.permute``, ``nmrgnn.resolve``
-(when the path is chosen), ``nmrgnn.plan`` (the cached plan's check; a
-``nmrgnn.plan.build`` inside it for each miss), ``nmrgnn.h2d``,
-``nmrgnn.forward`` (one ``nmrgnn.mp`` a layer inside) and
-``nmrgnn.readback``; a trajectory adds ``nmrgnn.build`` on the build
-threads and ``nmrgnn.queue_wait`` on the consumer
-(``utils.profiling.span``).
+span whose children split it: ``nmrgnn.h2d`` (the graph's copy),
+``nmrgnn.permute`` (the preparation's launch; the host's permutation on
+the paths that keep it, before their ``nmrgnn.h2d``), ``nmrgnn.resolve``
+(when the path is chosen), ``nmrgnn.plan`` (the bounds' readback and the
+cached plan's check; a ``nmrgnn.plan.build`` inside it for each miss),
+``nmrgnn.h2d`` again when a new plan is copied, ``nmrgnn.forward`` (one
+``nmrgnn.mp`` a layer inside) and ``nmrgnn.readback``; a trajectory adds
+``nmrgnn.build`` on the build threads and ``nmrgnn.queue_wait`` on the
+consumer (``utils.profiling.span``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
+import math
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -99,15 +116,17 @@ from ..graph import Graph
 from ..ops.banded import (
     BandClassPlan,
     BandPlan,
-    band_plan,
-    band_plan_classes,
-    band_plan_frames,
-    class_plan_covers,
+    band_plan_classes_from_bounds,
+    band_plan_from_bounds,
+    class_plan_covers_bounds,
+    coarsen_bounds,
     fused_build_ok,
     hbm_plan_fits_vmem,
-    plan_covers,
+    permute_tile_bounds,
+    plan_covers_bounds,
     plan_fits_vmem,
     plan_on_device,
+    tile_bounds,
 )
 from ..ops.blocksparse import BlockStructure, block_structure, remap_frame, struct_on_device
 from ..ops.edgefn import EdgeCheb, fit_edge_chebyshev
@@ -126,11 +145,43 @@ from .infer import (
 )
 
 CHEB_DEGREE = 64  # the Chebyshev fit the JAX package serves with
+_GRAPH_DTYPES = (torch.float32, torch.int32, torch.float32, torch.float32)
+_HOST_PATHS = ("partitioned", "blocksparse")  # paths that permute on the host
 
 
 def _class_signature(plan: BandClassPlan):
     return (plan.n_padded, plan.block_rows,
             tuple((len(c.ids), c.window) for c in plan.classes))
+
+
+def _tensors(x):
+    """The tensors of a (nested) tuple: a plan on the device."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
+
+
+class _TileBounds:
+    """A frame's tile bounds (``ops.banded.tile_bounds``) at ``rows`` rows
+    a tile, read on first use (on the card: a wait for the preparation's
+    launch and a copy of a few KB), and at any multiple of ``rows``; ``n``
+    and ``k`` are the frame's atoms and neighbor slots."""
+
+    def __init__(self, read, rows: int, n: int, k: int):
+        self._read, self._fine = read, None
+        self.rows, self.n, self.k = rows, n, k
+
+    @classmethod
+    def of(cls, g: Graph, rows: int) -> "_TileBounds":
+        """Of host arrays: a frame, or a stack of frames (their union)."""
+        return cls(lambda: tile_bounds(g.nlist, g.edges, rows), rows, *np.shape(g.nlist)[-2:])
+
+    def at(self, block_rows: int) -> np.ndarray:
+        if self._fine is None:
+            self._fine = self._read()
+        return coarsen_bounds(self._fine, block_rows // self.rows)
 
 
 class ServingModel:
@@ -182,6 +233,8 @@ class ServingModel:
         )
         self._order: Optional[np.ndarray] = None
         self._inverse: Optional[np.ndarray] = None
+        self._order_d = None  # (order, inverse) as int32 on the device
+        self._prep: Optional[torch.cuda.Stream] = None  # the preparation stream (CUDA)
         self._resolved: Optional[str] = None
         self._plan: Optional[BandPlan] = None
         self._frames_plan: Optional[BandPlan] = None  # union plan of predict_frames
@@ -199,120 +252,209 @@ class ServingModel:
 
     # -- path selection and plans --------------------------------------------
 
-    def _prepare(self, g: Graph) -> Graph:
-        """Apply (and on the first call fix) the RCM ordering."""
+    def _fix_order(self, g: Graph) -> None:
+        """On the first call (and for a structure of another size) the RCM
+        ordering and its inverse, on the host."""
         if not self.reorder:
             self._inverse = None
-            return g
+            return
+        n = g.atoms.shape[0]
+        if self._order is None or self._order.shape[0] != n:
+            self._order = rcm_order(g.nlist, g.edges)
+            self._inverse = np.empty(n, np.int64)
+            self._inverse[self._order] = np.arange(n)
+            self._order_d = None
+
+    def _permute_host(self, g: Graph) -> Graph:
+        """The RCM ordering applied on the host ("blocksparse",
+        "partitioned", ``predict_frames``)."""
         with span("nmrgnn.permute"):
-            if self._order is None or self._order.shape[0] != g.atoms.shape[0]:
-                self._order = rcm_order(g.nlist, g.edges)
-            g, self._inverse = permute_graph(g, self._order, pin_zero=False)
+            self._fix_order(g)
+            if self.reorder:
+                g, _ = permute_graph(g, self._order, pin_zero=False)
         return g
+
+    def _bound_rows(self) -> int:
+        """The tile height of the preparation's bounds: half a tile, which
+        both tile heights the plans try are multiples of."""
+        return math.gcd(self.block_size, self.block_size // 2)
+
+    def _prep_stream(self) -> Optional[torch.cuda.Stream]:
+        if self.device.type != "cuda":
+            return None
+        if self._prep is None:
+            self._prep = torch.cuda.Stream(device=self.device)
+        return self._prep
+
+    def _on_prep(self, prep):
+        return contextlib.nullcontext() if prep is None else torch.cuda.stream(prep)
+
+    def _hand_over(self, prep, tensors) -> None:
+        """The current stream waits for the preparation stream's work so
+        far, and ``tensors`` (allocated there) are kept until it has used
+        them."""
+        if prep is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_stream(prep)
+        for t in tensors:
+            t.record_stream(cur)
+
+    def _prepare(self, g: Graph) -> Tuple[Graph, _TileBounds]:
+        """The request's graph on the device in the serving order, and its
+        tile bounds: the graph as given copied up (``nmrgnn.h2d``), then
+        permuted with its bounds taken in one launch (``nmrgnn.permute``).
+        On the card both run on the preparation stream and the bounds come
+        back into pinned memory there when a plan first reads them."""
+        dev, rows, prep = self.device, self._bound_rows(), self._prep_stream()
+        with self._on_prep(prep):
+            with span("nmrgnn.h2d"):
+                raw = [torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt)
+                       for a, dt in zip(g, _GRAPH_DTYPES)]
+            with span("nmrgnn.permute"):
+                self._fix_order(g)
+                if self.reorder and self._order_d is None:
+                    self._order_d = tuple(torch.as_tensor(a.astype(np.int32), device=dev)
+                                          for a in (self._order, self._inverse))
+                *gd, bounds = permute_tile_bounds(*raw, *(self._order_d or (None, None)), rows)
+        gd = Graph(*gd)
+        shape = g.nlist.shape
+        if prep is None:
+            return gd, _TileBounds(bounds.numpy, rows, *shape)
+        self._hand_over(prep, gd)
+
+        def read():
+            with torch.cuda.stream(prep):
+                host = torch.empty(bounds.shape, dtype=bounds.dtype, pin_memory=True)
+                host.copy_(bounds, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(prep)
+            done.synchronize()
+            return host.numpy()
+
+        return gd, _TileBounds(read, rows, *shape)
+
+    def _frame_bounds(self, frame) -> _TileBounds:
+        """A frame's tile bounds: ``frame`` itself, or those of a host
+        ``Graph`` in the serving order."""
+        if isinstance(frame, _TileBounds):
+            return frame
+        return _TileBounds.of(Graph(*[np.asarray(a) for a in frame]), self._bound_rows())
+
+    def _padding_rows(self, g: Graph) -> np.ndarray:
+        """``padding_rows`` of the served graph, from the graph as given:
+        its padding slots' indices renamed through the inverse ordering."""
+        nl = np.asarray(g.nlist)[np.asarray(g.edges) <= 0]
+        if self._inverse is not None:
+            nl = self._inverse[nl]
+        return np.unique(nl[nl >= 0]).astype(np.int64)
 
     def _dtype_bytes(self) -> int:
         return 2 if self.config.compute_dtype == "bfloat16" else 4
 
-    def _plan_if_fits(self, g: Graph) -> Optional[BandPlan]:
-        """A band plan within the node-table and fused-build budgets,
-        trying half-height tiles for wide bands; None if neither fits."""
-        cfg, b = self.config, self._dtype_bytes()
+    def _plan_within(self, frame, fits) -> Optional[BandPlan]:
+        """A band plan that ``fits(plan, k)`` passes (k: the frame's
+        neighbor slots), trying half-height tiles for wide bands; None if
+        neither passes."""
+        tb = self._frame_bounds(frame)
         for block_rows in (self.block_size, self.block_size // 2):
-            plan = band_plan(g.nlist, g.edges, block_rows=block_rows)
-            if plan_fits_vmem(
-                plan, cfg.atom_feature_size, cfg.edge_feature_size, dtype_bytes=b,
-            ) and fused_build_ok(
-                plan, cfg.edge_hidden_size, cfg.edge_feature_size, g.nlist.shape[1],
-                out_bytes=b,
-            ):
+            plan = band_plan_from_bounds(tb.at(block_rows), tb.n, block_rows)
+            if fits(plan, tb.k):
                 return plan
         return None
 
-    def _plan_if_hbm(self, g: Graph) -> Optional[BandPlan]:
+    def _plan_if_fits(self, frame) -> Optional[BandPlan]:
+        """A band plan within the node-table and fused-build budgets."""
+        cfg, b = self.config, self._dtype_bytes()
+        return self._plan_within(frame, lambda plan, k: plan_fits_vmem(
+            plan, cfg.atom_feature_size, cfg.edge_feature_size, dtype_bytes=b,
+        ) and fused_build_ok(
+            plan, cfg.edge_hidden_size, cfg.edge_feature_size, k, out_bytes=b,
+        ))
+
+    def _plan_if_hbm(self, frame) -> Optional[BandPlan]:
         """A band plan within the per-tile budget of the HBM node-table
-        path, trying half-height tiles for wide bands; None if neither
-        fits."""
+        path."""
         cfg, b = self.config, self._dtype_bytes()
-        for block_rows in (self.block_size, self.block_size // 2):
-            plan = band_plan(g.nlist, g.edges, block_rows=block_rows)
-            if hbm_plan_fits_vmem(plan, cfg.atom_feature_size, cfg.edge_feature_size,
-                                  dtype_bytes=b):
-                return plan
-        return None
+        return self._plan_within(frame, lambda plan, k: hbm_plan_fits_vmem(
+            plan, cfg.atom_feature_size, cfg.edge_feature_size, dtype_bytes=b))
 
-    def _plan_if_attn(self, g: Graph) -> Optional[BandPlan]:
+    def _plan_if_attn(self, frame) -> Optional[BandPlan]:
         """A band plan for the attention band (one channel, no fused
-        build) within the node-table budget, trying half-height tiles for
-        wide bands; None if neither fits."""
+        build) within the node-table budget."""
         cfg, b = self.config, self._dtype_bytes()
-        for block_rows in (self.block_size, self.block_size // 2):
-            plan = band_plan(g.nlist, g.edges, block_rows=block_rows)
-            if plan_fits_vmem(plan, cfg.atom_feature_size, n_edge_channels=1, dtype_bytes=b):
-                return plan
-        return None
+        return self._plan_within(frame, lambda plan, k: plan_fits_vmem(
+            plan, cfg.atom_feature_size, n_edge_channels=1, dtype_bytes=b))
 
-    def _resolve_mode(self, g: Graph) -> str:
+    def _resolve_mode(self, frame) -> str:
         """"banded", "banded_hbm" or "blocksparse" (a band past both
         budgets); "banded_attn" or "gather" for a non-bilinear model;
-        fixed until a frame escapes its budget."""
+        fixed until a frame escapes its budget. ``frame``: its tile bounds,
+        or a host ``Graph`` in the serving order."""
         if self._resolved is None:
             with span("nmrgnn.resolve"):
-                self._resolved = self._choose_mode(g)
+                self._resolved = self._choose_mode(frame)
         return self._resolved
 
-    def _choose_mode(self, g: Graph) -> str:
+    def _choose_mode(self, frame) -> str:
         """``_resolve_mode``'s choice for this frame (setting ``_plan``
         where the choice made one)."""
         if self._n_shards() > 1:
             # split over the ranks of the mesh's partition axis
             return "partitioned"
         if self.config.mp_type != "bilinear":
-            self._plan = self._plan_if_attn(g) if self.config.mp_type == "attention" else None
+            self._plan = self._plan_if_attn(frame) if self.config.mp_type == "attention" else None
             return "gather" if self._plan is None else "banded_attn"
         if self.mode != "auto":
             return self.mode
-        plan = self._plan_if_fits(g)
+        plan = self._plan_if_fits(frame)
         if plan is not None:
             self._plan = plan
             return "banded"
-        plan = self._plan_if_hbm(g)
+        plan = self._plan_if_hbm(frame)
         if plan is not None:
             self._plan = plan
             return "banded_hbm"
         return "blocksparse"
 
-    def _banded_plan(self, g: Graph) -> Optional[BandPlan]:
+    def _banded_plan(self, frame) -> Optional[BandPlan]:
         """The cached plan if it covers this frame, else a new one within
         the budget that chose the path; None when the new one escapes it
         (the caller then re-resolves the path)."""
+        tb = self._frame_bounds(frame)
         with span("nmrgnn.plan"):
-            if self._plan is None or not plan_covers(self._plan, g.nlist, g.edges):
+            if self._plan is None or not plan_covers_bounds(
+                    self._plan, tb.at(self._plan.block_rows), tb.n):
                 with span("nmrgnn.plan.build"):
                     if self._resolved == "banded_hbm":
-                        plan = self._plan_if_hbm(g)
+                        plan = self._plan_if_hbm(tb)
                     elif self._resolved == "banded_attn":
-                        plan = self._plan_if_attn(g)
+                        plan = self._plan_if_attn(tb)
                     else:
-                        plan = self._plan_if_fits(g)
+                        plan = self._plan_if_fits(tb)
                     if plan is None and self.mode == "banded":
                         # the user forced banded: honor it
-                        plan = band_plan(g.nlist, g.edges, block_rows=self.block_size)
+                        plan = band_plan_from_bounds(tb.at(self.block_size), tb.n,
+                                                     self.block_size)
                 self._plan = plan
             return self._plan
 
-    def _class_plan(self, g: Graph, cached: Optional[BandClassPlan], off: bool, fits):
+    def _class_plan(self, frame, cached: Optional[BandClassPlan], off: bool, fits):
         """(plan, switch): the cached class plan if it still covers the
         frame (even after the switch), else None if the switch is on or a
         class escapes ``fits``, else a new plan; a new plan whose shape
         signature differs from the cached one's turns the switch on and
         gives None."""
+        tb = self._frame_bounds(frame)
         with span("nmrgnn.plan"):
-            if cached is not None and class_plan_covers(cached, g.nlist, g.edges):
+            if cached is not None and class_plan_covers_bounds(
+                    cached, tb.at(cached.block_rows), tb.n):
                 return cached, off
             if off:
                 return None, off
             with span("nmrgnn.plan.build"):
-                cls_plan = band_plan_classes(g.nlist, g.edges, block_rows=self.block_size)
+                cls_plan = band_plan_classes_from_bounds(tb.at(self.block_size), tb.n,
+                                                         block_rows=self.block_size)
                 cfg, b = self.config, self._dtype_bytes()
                 for c in cls_plan.classes:
                     probe = BandPlan(lo=c.lo, window=c.window, block_rows=cls_plan.block_rows,
@@ -324,18 +466,18 @@ class ServingModel:
                     return None, True
                 return cls_plan, off
 
-    def _banded_cls_plan(self, g: Graph) -> Optional[BandClassPlan]:
+    def _banded_cls_plan(self, frame) -> Optional[BandClassPlan]:
         """The class plan of the "banded_hbm" fast path (host arrays)."""
-        plan, self._cls_hbm_off = self._class_plan(g, self._cls_plan, self._cls_hbm_off,
+        plan, self._cls_hbm_off = self._class_plan(frame, self._cls_plan, self._cls_hbm_off,
                                                    hbm_plan_fits_vmem)
         if plan is not None:
             self._cls_plan = plan
         return plan
 
-    def _banded_cls_plan_vmem(self, g: Graph) -> Optional[BandClassPlan]:
+    def _banded_cls_plan_vmem(self, frame) -> Optional[BandClassPlan]:
         """The class plan of the "banded" fast path (host arrays)."""
-        plan, self._cls_vmem_off = self._class_plan(g, self._cls_plan_vmem, self._cls_vmem_off,
-                                                    plan_fits_vmem)
+        plan, self._cls_vmem_off = self._class_plan(frame, self._cls_plan_vmem,
+                                                    self._cls_vmem_off, plan_fits_vmem)
         if plan is not None:
             self._cls_plan_vmem = plan
         return plan
@@ -356,12 +498,17 @@ class ServingModel:
 
     def _device_plan(self, slot: str, plan):
         """``plan`` (a band plan or a block structure) with its index arrays
-        on the device, copied once per plan (each slot keeps its latest)."""
+        on the device, copied once per plan (each slot keeps its latest) on
+        the preparation stream into new tensors, so that a forward still in
+        flight keeps reading the last ones."""
         cached = self._on_device.get(slot)
         if cached is None or cached[0] is not plan:
             to_device = struct_on_device if isinstance(plan, BlockStructure) else plan_on_device
-            with span("nmrgnn.h2d"):
-                cached = self._on_device[slot] = (plan, to_device(plan, self.device))
+            prep = self._prep_stream()
+            with span("nmrgnn.h2d"), self._on_prep(prep):
+                plan_d = to_device(plan, self.device)
+            self._hand_over(prep, _tensors(plan_d))
+            cached = self._on_device[slot] = (plan, plan_d)
         return cached[1]
 
     def _edge_cheb(self) -> EdgeCheb:
@@ -378,11 +525,11 @@ class ServingModel:
         return self._cheb
 
     def _to_device(self, g: Graph) -> Graph:
-        dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
+        """A graph prepared on the host, copied to the device."""
         with span("nmrgnn.h2d"):
             return Graph(*[
                 torch.from_numpy(np.ascontiguousarray(a)).to(device=self.device, dtype=dt)
-                for a, dt in zip(g, dtypes)
+                for a, dt in zip(g, _GRAPH_DTYPES)
             ])
 
     # -- atom-partitioned serving ---------------------------------------------------
@@ -455,32 +602,28 @@ class ServingModel:
         """Launch the forward; returns (peaks on the device in the served
         order, the inverse permutation or None) without waiting for the
         device."""
-        g = self._prepare(Graph(*[np.asarray(a) for a in graph]))
-        mode = self._resolve_mode(g)
-        if mode == "partitioned":
-            return self._predict_partitioned(g), self._inverse
-        if mode == "gather":
-            gt = self._to_device(g)
-            with span("nmrgnn.forward"), torch.no_grad():
-                return gnn.apply(self.params, self.config, gt), self._inverse
-        if mode == "blocksparse":
-            struct = self._device_plan("struct", self._block_struct(g))
-            gt = self._to_device(g)
-            with span("nmrgnn.forward"):
-                peaks = apply_blocksparse(self.params, self.config, gt, struct, group=self.group)
-            return peaks, self._inverse
-        plan = self._banded_plan(g)
-        if plan is None:
+        g = Graph(*[np.asarray(a) for a in graph])
+        if self._resolved in _HOST_PATHS:
+            return self._predict_host(g)
+        gt, bounds = self._prepare(g)
+        while True:
+            mode = self._resolve_mode(bounds)
+            if mode in _HOST_PATHS:
+                return self._predict_host(g)
+            if mode == "gather":
+                with span("nmrgnn.forward"), torch.no_grad():
+                    return gnn.apply(self.params, self.config, gt), self._inverse
+            plan = self._banded_plan(bounds)
+            if plan is not None:
+                break
             # this frame's band escaped the budget that chose the path
             self._resolved = None
-            return self._predict_async(graph)
-        gt = self._to_device(g)
         plan_d = self._device_plan("plan", plan)
         if mode == "banded_attn":
             cheb = self._edge_cheb() if self.precision == "fast" else None
             with span("nmrgnn.forward"), torch.no_grad():
                 peaks = apply_banded_attention(self.params, self.config, gt, plan_d, cheb=cheb,
-                                               pad_rows=padding_rows(g.nlist, g.edges))
+                                               pad_rows=self._padding_rows(g))
             return peaks, self._inverse
         hbm = mode == "banded_hbm"
         if self.precision == "exact":
@@ -488,7 +631,7 @@ class ServingModel:
                 peaks = apply_banded(self.params, self.config, gt, plan_d, hbm_table=hbm)
             return peaks, self._inverse
         cheb = self._edge_cheb()
-        cls_plan = self._banded_cls_plan(g) if hbm else self._banded_cls_plan_vmem(g)
+        cls_plan = self._banded_cls_plan(bounds) if hbm else self._banded_cls_plan_vmem(bounds)
         if cls_plan is not None and len(cls_plan.classes) > 1:
             # a skewed window distribution: narrow tiles skip the widest
             # tile's band in the build and MP kernels
@@ -500,6 +643,18 @@ class ServingModel:
             with span("nmrgnn.forward"):
                 peaks = apply_banded(self.params, self.config, gt, plan_d, cheb=cheb,
                                      hbm_table=hbm)
+        return peaks, self._inverse
+
+    def _predict_host(self, g: Graph) -> Tuple[torch.Tensor, Optional[np.ndarray]]:
+        """"partitioned" and "blocksparse", whose plans read the whole
+        permuted arrays: the permutation on the host, then the forward."""
+        g = self._permute_host(g)
+        if self._resolved == "partitioned":
+            return self._predict_partitioned(g), self._inverse
+        struct = self._device_plan("struct", self._block_struct(g))
+        gt = self._to_device(g)
+        with span("nmrgnn.forward"):
+            peaks = apply_blocksparse(self.params, self.config, gt, struct, group=self.group)
         return peaks, self._inverse
 
     @staticmethod
@@ -529,29 +684,26 @@ class ServingModel:
         gs = [Graph(*[np.asarray(a) for a in g]) for g in graphs]
         if self.reorder:
             with span("nmrgnn.permute"):
-                if self._order is None or self._order.shape[0] != gs[0].atoms.shape[0]:
-                    self._order = rcm_order(gs[0].nlist, gs[0].edges)
-                pairs = [permute_graph(g, self._order, pin_zero=False) for g in gs]
-                gs = [p[0] for p in pairs]
-                self._inverse = pairs[0][1]
+                self._fix_order(gs[0])
+                gs = [permute_graph(g, self._order, pin_zero=False)[0] for g in gs]
         mode = self._resolve_mode(gs[0])
         if mode not in ("banded", "banded_attn"):
             return np.stack([self.predict(g) for g in graphs])
         attn = mode == "banded_attn"
         stack = Graph(*[np.stack([getattr(g, f) for g in gs]) for f in Graph._fields])
+        # every frame lies inside a plan exactly when their union's bounds do
+        tb = self._frame_bounds(stack)
         plan = None
         with span("nmrgnn.plan"):
             for cand in (self._frames_plan, self._plan):
-                if cand is not None and all(plan_covers(cand, g.nlist, g.edges) for g in gs):
+                if cand is not None and plan_covers_bounds(cand, tb.at(cand.block_rows), tb.n):
                     plan = cand
                     break
             if plan is None:
                 with span("nmrgnn.plan.build"):
                     base = self._plan
-                    union = band_plan_frames(
-                        stack.nlist, stack.edges,
-                        block_rows=base.block_rows if base is not None else self.block_size,
-                    )
+                    rows = base.block_rows if base is not None else self.block_size
+                    union = band_plan_from_bounds(tb.at(rows), tb.n, rows)
                     cfg, b = self.config, self._dtype_bytes()
                     fits = (plan_fits_vmem(union, cfg.atom_feature_size,
                                            1 if attn else cfg.edge_feature_size, dtype_bytes=b)

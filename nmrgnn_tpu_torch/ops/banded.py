@@ -66,9 +66,12 @@ mp_banded_hbm             _mp_banded_hbm_kernel, banded.py:656-773    as mp_band
 mp_banded_hbm_cls         _mp_banded_hbm_cls_kernel, banded.py:1703   as mp_banded
 band_occupancy            none (feeds the MP kernel)                  bytes (nlist)
 band_occupancy_from_band  none (feeds the MP kernel)                  bytes (M)
+permute_tile_bounds       none (serving's request preparation)        bytes (graph)
 ========================  ==========================================  ==========
 
-The band plans are host-side numpy, as in the JAX package.
+The band plans are host-side numpy, as in the JAX package, computed from
+each tile's bounds (``tile_bounds`` on the host, ``permute_tile_bounds``
+on the device).
 """
 from __future__ import annotations
 
@@ -114,6 +117,80 @@ def _bucket(w: int, w_buckets) -> int:
     return _round_up(int(w), 512)
 
 
+# Every planner below reads a frame's neighbor lists only through its tile
+# bounds: for each row tile, the smallest and largest index of the tile's
+# real neighbors (distance > 0; a NaN distance is none). The rest is
+# arithmetic over the tiles. ``tile_bounds`` reduces host arrays to them;
+# serving takes them from ``permute_tile_bounds`` on the device, at half a
+# tile's rows, and ``coarsen_bounds`` joins the halves.
+
+_NO_MIN = int(np.iinfo(np.int32).max)  # the bounds of a tile with no real neighbor
+_NO_MAX = int(np.iinfo(np.int32).min)
+
+
+def tile_bounds(nlist: np.ndarray, edges: np.ndarray, block_rows: int) -> np.ndarray:
+    """int64 [T, 2], T = ceil(N / block_rows): each tile's smallest and
+    largest real neighbor index over the rows of ``nlist`` i32[N, K] (or
+    over every frame of a stack [F, N, K]); (int32 max, int32 min) for a
+    tile with none."""
+    nlist = np.asarray(nlist)
+    real = np.asarray(edges) > 0
+    axes = tuple(a for a in range(nlist.ndim) if a != nlist.ndim - 2)
+    rows = np.stack([np.where(real, nlist, _NO_MIN).min(axis=axes, initial=_NO_MIN),
+                     np.where(real, nlist, _NO_MAX).max(axis=axes, initial=_NO_MAX)], 1)
+    return coarsen_bounds(rows, block_rows)
+
+
+def coarsen_bounds(bounds: np.ndarray, factor: int) -> np.ndarray:
+    """Tile bounds of ``factor`` times taller tiles: each group of
+    ``factor`` consecutive tiles joined (int64 [ceil(T / factor), 2])."""
+    b = np.asarray(bounds, np.int64)
+    if factor == 1:
+        return b
+    t = -(-b.shape[0] // factor)
+    out = np.empty((t * factor, 2), np.int64)
+    out[:, 0], out[:, 1] = _NO_MIN, _NO_MAX
+    out[:b.shape[0]] = b
+    out = out.reshape(t, factor, 2)
+    return np.stack([out[:, :, 0].min(1), out[:, :, 1].max(1)], 1)
+
+
+def _tile_windows(bounds: np.ndarray, n: int, block_rows: int, align: int):
+    """(n_pad, real, lo, need) of the tiles of a plan over ``n`` rows: the
+    padded rows, which tiles have a real neighbor, their aligned window
+    starts (0 for the others) and the columns from there to their largest
+    neighbor (0 for the others)."""
+    n_pad = _round_up(max(n, block_rows), block_rows)
+    t = n_pad // block_rows
+    b = np.empty((t, 2), np.int64)
+    b[:, 0], b[:, 1] = _NO_MIN, _NO_MAX
+    b[:min(t, len(bounds))] = np.asarray(bounds, np.int64)[:t]
+    real = b[:, 0] <= b[:, 1]
+    lo = np.where(real, (b[:, 0] // align) * align, 0)
+    need = np.where(real, b[:, 1] - lo + 1, 0)
+    return n_pad, real, lo, need
+
+
+def band_plan_from_bounds(
+    bounds: np.ndarray,
+    n: int,
+    block_rows: int = 128,
+    align: int = 128,
+    w_buckets=_W_BUCKETS,
+) -> BandPlan:
+    """``band_plan`` of a frame of ``n`` rows from its tile bounds at
+    ``block_rows``."""
+    n_pad, _, lo, need = _tile_windows(bounds, n, block_rows, align)
+    w = _bucket(int(need.max()), w_buckets)
+    w = min(w, n_pad) if n_pad >= 128 else w
+    w = max(w, 128)
+    # keep windows inside [0, n_pad); moving lo down only grows coverage
+    lo = np.minimum(lo, max(n_pad - w, 0))
+    return BandPlan(
+        lo=lo.astype(np.int32), window=w, block_rows=block_rows, n_padded=n_pad
+    )
+
+
 def band_plan(
     nlist: np.ndarray,
     edges: np.ndarray,
@@ -123,8 +200,8 @@ def band_plan(
 ) -> BandPlan:
     """Per-tile window starts and the bucketed window width. Only real
     edges (distance > 0) constrain the windows."""
-    return band_plan_frames(np.asarray(nlist)[None], np.asarray(edges)[None],
-                            block_rows=block_rows, align=align, w_buckets=w_buckets)
+    return band_plan_from_bounds(tile_bounds(nlist, edges, block_rows),
+                                 np.shape(nlist)[0], block_rows, align, w_buckets)
 
 
 def band_plan_frames(
@@ -137,44 +214,31 @@ def band_plan_frames(
     """The union band plan over a stack of frames (same atoms and order,
     per-frame neighbor lists): every frame's real neighbors fall inside
     its windows, so one plan serves the whole batch."""
-    nlist_stack = np.asarray(nlist_stack)
-    edges_stack = np.asarray(edges_stack)
-    n = nlist_stack.shape[1]
-    n_pad = _round_up(max(n, block_rows), block_rows)
-    t = n_pad // block_rows
-    lo = np.zeros(t, np.int64)
-    need = np.zeros(t, np.int64)
-    for i in range(t):
-        sel = slice(i * block_rows, min((i + 1) * block_rows, n))
-        real = edges_stack[:, sel] > 0
-        if not real.any():
-            continue
-        idx = nlist_stack[:, sel][real]
-        lo_i = (int(idx.min()) // align) * align
-        lo[i] = lo_i
-        need[i] = int(idx.max()) - lo_i + 1
-    w = _bucket(int(need.max()) if t else align, w_buckets)
-    w = min(w, n_pad) if n_pad >= 128 else w
-    w = max(w, 128)
-    # keep windows inside [0, n_pad); moving lo down only grows coverage
-    lo = np.minimum(lo, max(n_pad - w, 0))
-    return BandPlan(
-        lo=lo.astype(np.int32), window=w, block_rows=block_rows, n_padded=n_pad
-    )
+    return band_plan_from_bounds(tile_bounds(nlist_stack, edges_stack, block_rows),
+                                 np.shape(nlist_stack)[1], block_rows, align, w_buckets)
+
+
+def plan_covers_bounds(plan: BandPlan, bounds: np.ndarray, n: int) -> bool:
+    """``plan_covers`` of a frame of ``n`` rows from its tile bounds at
+    the plan's ``block_rows``: every tile's smallest and largest real
+    neighbor inside its window."""
+    if _round_up(max(n, plan.block_rows), plan.block_rows) != plan.n_padded:
+        return False
+    return _inside(bounds, np.asarray(plan.lo, np.int64), plan.window, plan.num_tiles)
+
+
+def _inside(bounds: np.ndarray, lo: np.ndarray, window, t: int) -> bool:
+    b = np.asarray(bounds, np.int64)[:t]
+    lo, window = lo[:len(b)], np.broadcast_to(window, (t,))[:len(b)]
+    real = b[:, 0] <= b[:, 1]
+    return bool(np.all(~real | ((b[:, 0] >= lo) & (b[:, 1] < lo + window))))
 
 
 def plan_covers(plan: BandPlan, nlist: np.ndarray, edges: np.ndarray) -> bool:
     """Whether a (new frame's) real neighbors all fall inside the plan's
     per-tile windows: the verify half of verify-and-reuse across frames."""
-    nlist = np.asarray(nlist)
-    edges = np.asarray(edges)
-    n = nlist.shape[0]
-    if _round_up(max(n, plan.block_rows), plan.block_rows) != plan.n_padded:
-        return False
-    lo = np.asarray(plan.lo)[(np.arange(n) // plan.block_rows)][:, None]
-    rel = nlist - lo
-    ok = ((rel >= 0) & (rel < plan.window)) | (edges <= 0)
-    return bool(ok.all())
+    return plan_covers_bounds(plan, tile_bounds(nlist, edges, plan.block_rows),
+                              np.shape(nlist)[0])
 
 
 class BandClass(NamedTuple):
@@ -200,48 +264,37 @@ class BandClassPlan(NamedTuple):
         return self.n_padded // self.block_rows
 
 
-def band_plan_classes(
-    nlist: np.ndarray,
-    edges: np.ndarray,
+def band_plan_classes_from_bounds(
+    bounds: np.ndarray,
+    n: int,
     block_rows: int = 128,
     align: int = 128,
     max_classes: int = 3,
     w_buckets=_W_BUCKETS,
 ) -> BandClassPlan:
-    """Bucket the row tiles into up to ``max_classes`` window widths from
-    ``w_buckets``, choosing the class boundaries that minimise the total
-    band lanes (every combination of the candidate widths is tried)."""
-    nlist = np.asarray(nlist)
-    edges = np.asarray(edges)
-    n = nlist.shape[0]
-    n_pad = _round_up(max(n, block_rows), block_rows)
-    t = n_pad // block_rows
-    lo = np.zeros(t, np.int64)
-    need = np.zeros(t, np.int64)
-    for i in range(t):
-        sel = slice(i * block_rows, min((i + 1) * block_rows, n))
-        real = edges[sel] > 0
-        if not real.any():
-            need[i] = 1
-            continue
-        idx = nlist[sel][real]
-        lo_i = (int(idx.min()) // align) * align
-        lo[i] = lo_i
-        need[i] = int(idx.max()) - lo_i + 1
+    """``band_plan_classes`` of a frame of ``n`` rows from its tile bounds
+    at ``block_rows``."""
+    n_pad, real, lo, need = _tile_windows(bounds, n, block_rows, align)
+    need = np.where(real, need, 1)
+    t = len(need)
 
     w_max = min(_bucket(int(need.max()), w_buckets), max(n_pad, 128))
     cands = [b for b in w_buckets if 128 <= b < w_max]
 
-    def lanes(bounds):
-        return sum(next(b for b in bounds if nd <= b) for nd in need)
+    def lanes(widths):
+        # each tile pays the first class width that holds it
+        # (none past the widest, as in the JAX package)
+        widths = np.asarray(widths, np.int64)
+        at = np.searchsorted(widths, need)
+        return int(np.where(at < len(widths), widths[np.minimum(at, len(widths) - 1)], 0).sum())
 
     best = (float("inf"), [w_max])
     for k in range(max_classes):
         for combo in itertools.combinations(cands, k):
-            bounds = sorted(combo) + [w_max]
-            total = lanes(bounds)
+            widths = sorted(combo) + [w_max]
+            total = lanes(widths)
             if total < best[0]:
-                best = (total, bounds)
+                best = (total, widths)
     classes = []
     assigned = np.full(t, -1)
     for ci, b in enumerate(best[1]):
@@ -256,23 +309,40 @@ def band_plan_classes(
     return BandClassPlan(classes=tuple(classes), block_rows=block_rows, n_padded=n_pad)
 
 
-def class_plan_covers(plan: BandClassPlan, nlist: np.ndarray, edges: np.ndarray) -> bool:
-    """Whether a (new frame's) real neighbors all fall inside each tile's
-    class window: verify-and-reuse of a class plan across frames."""
-    nlist = np.asarray(nlist)
-    edges = np.asarray(edges)
-    n = nlist.shape[0]
+def band_plan_classes(
+    nlist: np.ndarray,
+    edges: np.ndarray,
+    block_rows: int = 128,
+    align: int = 128,
+    max_classes: int = 3,
+    w_buckets=_W_BUCKETS,
+) -> BandClassPlan:
+    """Bucket the row tiles into up to ``max_classes`` window widths from
+    ``w_buckets``, choosing the class boundaries that minimise the total
+    band lanes (every combination of the candidate widths is tried)."""
+    return band_plan_classes_from_bounds(tile_bounds(nlist, edges, block_rows),
+                                         np.shape(nlist)[0], block_rows, align, max_classes,
+                                         w_buckets)
+
+
+def class_plan_covers_bounds(plan: BandClassPlan, bounds: np.ndarray, n: int) -> bool:
+    """``class_plan_covers`` of a frame of ``n`` rows from its tile bounds
+    at the plan's ``block_rows``."""
     if _round_up(max(n, plan.block_rows), plan.block_rows) != plan.n_padded:
         return False
     lo_full = np.zeros(plan.num_tiles, np.int64)
-    w_full = np.zeros(plan.num_tiles, np.int64)
+    w_full = np.zeros(plan.num_tiles, np.int64)  # a tile in no class holds nothing
     for c in plan.classes:
         lo_full[np.asarray(c.ids)] = np.asarray(c.lo)
         w_full[np.asarray(c.ids)] = c.window
-    rows = np.arange(n) // plan.block_rows
-    rel = nlist - lo_full[rows][:, None]
-    ok = ((rel >= 0) & (rel < w_full[rows][:, None])) | (edges <= 0)
-    return bool(ok.all())
+    return _inside(bounds, lo_full, w_full, plan.num_tiles)
+
+
+def class_plan_covers(plan: BandClassPlan, nlist: np.ndarray, edges: np.ndarray) -> bool:
+    """Whether a (new frame's) real neighbors all fall inside each tile's
+    class window: verify-and-reuse of a class plan across frames."""
+    return class_plan_covers_bounds(plan, tile_bounds(nlist, edges, plan.block_rows),
+                                    np.shape(nlist)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -499,6 +569,38 @@ def build_band_fused_plain(
     e = edge_features(edges, edge_fc_params, rbf_low=rbf_low, rbf_high=rbf_high,
                       activation_name=activation_name, compute_dtype=compute_dtype)
     return build_band_plain(nlist, e, plan, out_dtype)
+
+
+def permute_tile_bounds_plain(
+    atoms: torch.Tensor,       # f32[N, V]
+    nlist: torch.Tensor,       # i32[N, K]
+    edges: torch.Tensor,       # f32[N, K]
+    inv_degree: torch.Tensor,  # f32[N]
+    order,                     # i32[N] new position -> old index, or None
+    inverse,                   # i32[N] old index -> new position, or None
+    rows: int,
+):
+    """(atoms, nlist, edges, inv_degree, bounds): the graph permuted as
+    ``data.reorder.permute_graph(..., pin_zero=False)`` permutes it (rows
+    gathered through ``order``, indices renamed through ``inverse``, a
+    negative index counted from the end), and ``tile_bounds`` of the
+    permuted graph at ``rows`` rows a tile, int32 [ceil(N / rows), 2]. With
+    ``order`` None the graph is returned as it is, with its bounds."""
+    if order is not None:
+        o = order.long()
+        atoms, edges, inv_degree = atoms[o], edges[o], inv_degree[o]
+        nlist = inverse[nlist[o].long()].to(nlist.dtype)
+    n, k = nlist.shape
+    t = -(-n // rows)
+    real = edges > 0
+    nl = nlist.long()
+    lo = torch.full((t * rows,), _NO_MIN, dtype=torch.int64, device=nl.device)
+    hi = torch.full((t * rows,), _NO_MAX, dtype=torch.int64, device=nl.device)
+    if k:
+        lo[:n] = torch.where(real, nl, _NO_MIN).amin(1)
+        hi[:n] = torch.where(real, nl, _NO_MAX).amax(1)
+    bounds = torch.stack([lo.view(t, rows).amin(1), hi.view(t, rows).amax(1)], 1)
+    return atoms, nlist, edges, inv_degree, bounds.to(torch.int32)
 
 
 # The band occupancy: which 16-column window chunks of each band row hold
@@ -784,6 +886,7 @@ _SIGNATURES = {
     "banded": {
         "nmr_error_string": (ctypes.c_char_p, [_I]),
         "nmr_build_band": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+        "nmr_permute_tile_bounds": (_I, [_P] * 11 + [_I] * 4 + [_P]),
         "nmr_build_band_fused": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _I, _I, _P],
@@ -1135,6 +1238,55 @@ def build_band(
 
 
 build_band.launches = 0
+
+
+def permute_tile_bounds(
+    atoms: torch.Tensor,       # f32[N, V]
+    nlist: torch.Tensor,       # i32[N, K]
+    edges: torch.Tensor,       # f32[N, K]
+    inv_degree: torch.Tensor,  # f32[N]
+    order,                     # i32[N] new position -> old index, or None
+    inverse,                   # i32[N] old index -> new position, or None
+    rows: int,
+):
+    """(atoms, nlist, edges, inv_degree, bounds): a request's graph in the
+    serving order and its tile bounds at ``rows`` rows a tile, int32
+    [ceil(N / rows), 2] (``permute_tile_bounds_plain``), in one launch.
+
+    No TPU kernel: the JAX package permutes and plans on the host. On the
+    card a block takes one tile: it gathers the tile's rows through
+    ``order``, renames their indices through ``inverse`` and reduces its
+    real neighbors' smallest and largest index; bound by reading and
+    writing the graph once. An index outside [-N, N) is left as it is
+    (``permute_graph`` raises on it). With ``order`` None it reads nlist
+    and edges for the bounds alone and returns the graph as it is."""
+    if not _on_cuda(nlist, "permute_tile_bounds"):
+        return permute_tile_bounds_plain(atoms, nlist, edges, inv_degree, order, inverse, rows)
+    dev = nlist.device
+    n, k = nlist.shape
+    v = atoms.shape[-1]
+    if n < 1 or rows < 1:
+        raise ValueError(f"permute_tile_bounds takes at least one row and tile row, not {n}, "
+                         f"{rows}")
+    _check("atoms", atoms, torch.float32, (n, v), dev)
+    _check("nlist", nlist, torch.int32, (n, k), dev)
+    _check("edges", edges, torch.float32, (n, k), dev)
+    _check("inv_degree", inv_degree, torch.float32, (n,), dev)
+    bounds = torch.empty((-(-n // rows), 2), dtype=torch.int32, device=dev)
+    if order is None:
+        out, ptrs = (atoms, nlist, edges, inv_degree), [None] * 6
+    else:
+        _check("order", order, torch.int32, (n,), dev)
+        _check("inverse", inverse, torch.int32, (n,), dev)
+        out = tuple(torch.empty_like(t) for t in (atoms, nlist, edges, inv_degree))
+        ptrs = [order.data_ptr(), inverse.data_ptr()] + [t.data_ptr() for t in out]
+    _launch("nmr_permute_tile_bounds", dev, atoms.data_ptr(), nlist.data_ptr(),
+            edges.data_ptr(), inv_degree.data_ptr(), *ptrs, bounds.data_ptr(), n, v, k, rows)
+    permute_tile_bounds.launches += 1
+    return (*out, bounds)
+
+
+permute_tile_bounds.launches = 0
 
 
 def build_band_tracedlo(
@@ -1989,6 +2141,8 @@ def mp_banded_partial_df(
     return _MPBandedPartialDF.apply(M, table, w, _long(lo, table.device), occupancy)
 
 
+# The forwards' kernel wrappers; the request preparation's
+# (``permute_tile_bounds``) counts its launches apart.
 KERNEL_WRAPPERS = (build_band, build_band_tracedlo, build_band_fused, mp_banded,
                    build_band_poly, build_band_poly_tracedlo, mp_banded_poly_fused,
                    build_band_poly_cls, mp_banded_partial, mp_banded_hbm, mp_banded_hbm_cls,
@@ -1996,5 +2150,7 @@ KERNEL_WRAPPERS = (build_band, build_band_tracedlo, build_band_fused, mp_banded,
 
 
 def reset_launch_counts() -> None:
-    for f in KERNEL_WRAPPERS:
+    """Zero the launch counts of the forwards' kernels (``KERNEL_WRAPPERS``)
+    and of the request preparation's (``permute_tile_bounds``)."""
+    for f in KERNEL_WRAPPERS + (permute_tile_bounds,):
         f.launches = 0

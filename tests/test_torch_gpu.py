@@ -1995,3 +1995,88 @@ def test_partitioned_training_on_two_ranks_kernels_match_plain(dev, tmp_path):
         assert (c[0]["build_band_tracedlo"], c[0]["mp_banded_partial"]) == (2, 4)
         assert (c[1]["build_band_tracedlo"], c[1]["mp_banded_partial"]) == (4, 4)
         assert all(t["counts"]["mp_banded_partial"] == 0 for t in rank[3:5])
+
+
+def _prepare_case(n, seed):
+    """A banded graph of ``n`` atoms (K = 16, 10 elements) with padding
+    slots, a row of index-0 neighbors, a run of rows without a real
+    neighbor (an empty tile), negative indices, and its RCM order."""
+    from nmrgnn_tpu_torch.data.reorder import rcm_order
+
+    rng = np.random.default_rng(seed)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-60, 60, (n, 16)), 0, n - 1)
+    nlist = nlist.astype(np.int32)
+    dists = rng.uniform(0.09, 0.3, (n, 16)).astype(np.float32)
+    dists[rng.uniform(size=(n, 16)) < 0.1] = 0.0
+    nlist[7, :] = 0
+    dists[n // 2:n // 2 + 200] = 0.0
+    order = rcm_order(nlist, dists)
+    nlist[::11, 3] = -1 - rng.integers(0, n, len(nlist[::11]))  # counted from the end
+    g = Graph(atoms, nlist, dists, inv_degree_from_nlist(np.maximum(nlist, 0)))
+    inverse = np.empty(n, np.int64)
+    inverse[order] = np.arange(n)
+    return g, order, inverse
+
+
+@pytest.mark.parametrize("n", [2482, 44676])
+def test_permute_tile_bounds_kernel_equals_plain(dev, n):
+    """The preparation kernel equals its plain version bit for bit at the
+    served structures' sizes, with the permutation and without, at half a
+    tile and a whole one; wrong inputs raise."""
+    g, order, inverse = _prepare_case(n, seed=n)
+    dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
+    host = [torch.from_numpy(np.ascontiguousarray(a)).to(dt) for a, dt in zip(g, dtypes)]
+    card = [t.to(dev) for t in host]
+    perm = [torch.as_tensor(a.astype(np.int32)) for a in (order, inverse)]
+    for rows in (64, 128):
+        for o, i in (perm, (None, None)):
+            before = banded.permute_tile_bounds.launches
+            got = banded.permute_tile_bounds(*card, *(None if o is None else o.to(dev),
+                                                      None if i is None else i.to(dev)), rows)
+            assert banded.permute_tile_bounds.launches == before + 1
+            want = banded.permute_tile_bounds_plain(*host, o, i, rows)
+            assert got[-1].shape == (-(-n // rows), 2)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    with pytest.raises(TypeError):
+        banded.permute_tile_bounds(card[0], card[1].long(), *card[2:], None, None, 64)
+    with pytest.raises(ValueError):
+        banded.permute_tile_bounds(*card[:3], card[3][:-1], None, None, 64)
+
+
+def test_serving_prepared_on_the_card_equals_host_permuted(dev):
+    """Served on the card, prepared there: bit-equal peaks and equal plans
+    to the same model served without the reorder on frames permuted on the
+    host, over frames with plan hits and misses; a trajectory's frames too."""
+    from nmrgnn_tpu_torch.data.reorder import permute_graph
+
+    cfg = ModelConfig()
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(2), device=dev)
+    n, rng = 2482, np.random.default_rng(5)
+    nlist = np.clip(np.arange(n)[:, None] + rng.integers(-50, 50, (n, 16)), 0, n - 1)
+    nlist = nlist.astype(np.int32)
+    dists = rng.uniform(0.09, 0.3, (n, 16)).astype(np.float32)
+    atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
+    f0 = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    wide = nlist.copy()
+    wide[::97, 0] = np.clip(np.arange(0, n, 97) + 400, 0, n - 1)
+    frames = [f0, f0._replace(edges=dists * 1.01), f0._replace(nlist=wide), f0]
+    for precision in ("exact", "fast"):
+        sm = ServingModel(params, cfg, device=dev, precision=precision)
+        host = ServingModel(params, cfg, device=dev, precision=precision, reorder=False)
+        plans = []
+        for f in frames:
+            got = sm.predict(f)
+            fp, inverse = permute_graph(f, sm._order, pin_zero=False)
+            assert np.array_equal(got, host.predict(fp)[inverse])
+            np.testing.assert_array_equal(sm._plan.lo, host._plan.lo)
+            assert sm._plan.window == host._plan.window
+            plans.append(sm._plan)
+        assert len({id(p) for p in plans}) > 1
+        # in flight together: each frame's plan copies leave the last ones be
+        launched = [sm._predict_async(f) for f in frames]
+        want = [host._predict_async(permute_graph(f, sm._order, pin_zero=False)[0])
+                for f in frames]
+        for got, (peaks, _) in zip(launched, want):
+            assert np.array_equal(sm._finalize(*got), sm._finalize(peaks, sm._inverse))

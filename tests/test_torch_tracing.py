@@ -107,7 +107,8 @@ def test_predict_spans_split_the_request_in_order(served):
     assert sm._resolved == "banded"
     assert _names(roots) == ["nmrgnn.predict"]
     steps = roots[0]["children"]
-    assert _names(steps) == ["nmrgnn.permute", "nmrgnn.plan", "nmrgnn.h2d", "nmrgnn.forward",
+    # the graph goes to the device as given and is permuted there
+    assert _names(steps) == ["nmrgnn.h2d", "nmrgnn.permute", "nmrgnn.plan", "nmrgnn.forward",
                              "nmrgnn.readback"]
     assert _names(steps[3]["children"]) == ["nmrgnn.mp"] * cfg.mp_layers
     # a frame inside the cached plan's window: a check, no build
@@ -133,9 +134,9 @@ def test_a_frame_that_escapes_the_plan_builds_one(tmp_path):
     assert _count(inside, "nmrgnn.plan.build") == 0
     assert _count(escaped, "nmrgnn.plan.build") == 1
     assert _count(escaped, "nmrgnn.plan") == 1 and sm._plan is not first
-    plan = escaped[0]["children"][1]
+    plan = escaped[0]["children"][2]
     assert plan["name"] == "nmrgnn.plan" and _names(plan["children"]) == ["nmrgnn.plan.build"]
-    # the new plan goes to the device with the graph
+    # the graph, then the new plan, go to the device
     assert _count(escaped, "nmrgnn.h2d") == 2
 
 
