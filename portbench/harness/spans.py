@@ -21,10 +21,10 @@ A kernel or copy is launched under the innermost ``nmrgnn.*`` span that
 encloses, on the same process and thread, the runtime call with the same
 ``args.correlation``; when the device ran it does not matter.
 
-``readings(rec)`` turns a run's record, whose ``slice`` holds that summary
-under ``spans``, into the per-layer readings of a predict cell (``READ``).
-No cell reads them yet: ``Slice.end`` (``trace.py``) does not store the
-summary, so ``tools/span_readings.py`` runs a traced cell with it stored.
+``Slice.end`` (``trace.py``) stores that summary under the slice's
+``spans``; ``READ`` turns a run's record into the per-layer readings of a
+predict cell, one ``metrics/<name>.py`` each, and ``readings(rec)`` gives
+them all.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ What the slice gives the per-layer readers (``Slice.summary``):
   device_ops    the kernels that took most device time, [name, seconds]
   idle_gaps     the longest idle gaps' time by the host operation under
                 their middle (the innermost one), [name, seconds]
+  spans         the program's ``nmrgnn.*`` spans in it (``harness/spans.py``)
 """
 from __future__ import annotations
 
@@ -142,7 +143,10 @@ class Slice:
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
         self._prof = None
+        from portbench.harness.spans import summarize_spans  # spans.py imports this module
+
         self.summary = summarize(events, kernel_layers(self.root))
+        self.summary["spans"] = summarize_spans(events)
         self.summary["units"] = self.units
 
     @property

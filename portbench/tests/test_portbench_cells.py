@@ -8,13 +8,22 @@ import sys
 import pytest
 
 from portbench import run as bench_run
-from portbench.tests.tiny import TINY, bench, rehearse
+from portbench.harness.spans import READ
+from portbench.tests.tiny import TINY, bench, rehearse, tiny_size
 
 CELLS = sorted(TINY)
 
 
 def test_every_cell_of_the_benchmark_has_a_tiny_size():
+    for w in bench()["workloads"]:
+        tiny_size(w["name"])  # raises, naming the cell, where it has no file
     assert sorted(w["name"] for w in bench()["workloads"]) == CELLS
+
+
+def test_a_cell_without_a_tiny_size_fails_naming_it():
+    with pytest.raises(FileNotFoundError, match="'no-such-cell' has no tiny size"):
+        tiny_size("no-such-cell")
+    assert tiny_size("baseline-predict-44676") == TINY["baseline-predict-44676"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -40,6 +49,10 @@ def test_traced_rehearsal_reports_per_layer_metrics_and_a_breakdown(cell):
     assert out["device"]["window_s"] > 0 and out["device"]["busy_s"] >= 0
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
     assert len(out["breakdown"]["idle_gaps"]) <= 10
+    # the program's spans: no copies on the CPU, and no peaks for a roofline
+    host = {n for n in names & set(READ) if not n.startswith(("h2d_mb", "attn_roofline"))}
+    assert host and host <= set(out["metrics"])
+    assert all(out["metrics"][n]["value"] > 0 for n in host if "_ms." in n)
 
 
 def test_same_seed_same_inputs():

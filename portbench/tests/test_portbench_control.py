@@ -9,14 +9,17 @@ import pytest
 from portbench import control
 from portbench.harness.cell import load_json
 from portbench.run import BENCH
-from portbench.tests.tiny import SEED, TINY, bench, rehearse
+from portbench.tests.tiny import SEED, bench, rehearse, tiny_size
 
-SERVING = ["baseline-predict-44676", "amp-predict-44676"]
+# every cell whose traffic the predict loop serves, found from BENCHMARK.json
+SERVING = sorted(w["name"] for w in bench()["workloads"]
+                 if load_json(BENCH, "traffic", f"{w['traffic']}.json")["driver"] == "predict_loop")
 
 
 @pytest.mark.parametrize("cell", SERVING)
 def test_the_control_fails_and_the_program_passes(cell):
-    r = control.readings(cell, SEED, 0.3, True, device="cpu", traffic=TINY[cell], bench=bench())
+    r = control.readings(cell, SEED, 0.3, True, device="cpu", traffic=tiny_size(cell),
+                         bench=bench())
     limits = load_json(BENCH, "limits", f"{cell}.json")
     assert all(v <= limits[k] for k, v in r["program"].items()), r
     assert any(v > limits[k] for k, v in r["control"].items()), r

@@ -8,7 +8,9 @@ import os
 import pytest
 
 from portbench.harness import spans, trace
+from portbench.harness.cell import load_module
 from portbench.run import BENCH
+from portbench.tests.tiny import bench
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 US = 1e-6
@@ -96,11 +98,19 @@ def test_readings_find_nothing_without_program_spans():
     assert got["attn_roofline_pct.predict"] is None and got["plan_miss_pct.predict"] == 50.0
 
 
+@pytest.mark.parametrize("name", sorted(spans.READ))
+def test_each_span_reading_is_a_metric_file_and_a_per_layer_entry(name):
+    mod = load_module(os.path.join(BENCH, "metrics", f"{name}.py"), "m_" + name.replace(".", "_"))
+    rec = _rec()
+    assert mod.read(rec) is not None and mod.read(rec) == spans.READ[name](rec)
+    spec = {m["name"]: m for m in bench()["per_layer"]}[name]
+    assert spec["moves"] == "predict_ms_p50" and spec["workloads"]
+
+
 @pytest.mark.parametrize("cell", ["baseline-predict-44676", "amp-predict-44676"])
 def test_span_readings_tool_on_a_tiny_cell(cell):
     """``tools/span_readings.py`` rehearsed on the CPU: the program's spans
     read from a traced run; no device, so no copies and no kernels."""
-    from portbench.harness.cell import load_module
     from portbench.run import ROOT
     from portbench.tests.tiny import SEED, TINY
 
