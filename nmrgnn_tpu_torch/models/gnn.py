@@ -19,6 +19,21 @@ Parameter layout: {"embed": {"kernel"}, "edge_fc": [{"kernel", "bias"}],
 its layers are ``ops.message_passing.amp_layer``, float32 whatever the
 compute type (``nmrgnn_tpu/models/gnn.py:192-200``).
 
+An ``mp_type="painn"`` model (PaiNN, arXiv:2102.03150; ``ops/painn.py``,
+which the JAX package has no counterpart of) reads the atoms' positions
+beside the graph (``apply(..., positions=)``, f32[N, 3] nm) and holds
+``{"embed", "filter": {kernel [R, B * 3F], bias}, "mp": [{"context":
+[Dense(F, F), Dense(F, 3F)], "mix": [Dense(2F, F), Dense(F, 3F)],
+"channel_mix": {kernel [F, 2F]}}], "fc", "out", "peak_std", "peak_avg"}``.
+Its widths are the config's own fields: F ``atom_feature_size``, B
+``mp_layers`` interaction blocks, R ``edge_hidden_size`` radial functions,
+the cutoff ``rbf_high`` (nm), ``edge_fc_layers`` 1 (the one filter
+Dense), SiLU as ``mp_activation``, and the readout as the other
+families'; ``edge_feature_size`` and ``rbf_low`` are unused. It serves
+inference only: ``training=True`` raises. Its forward is one
+``nmrgnn.filter`` span and one ``nmrgnn.mp`` a block holding
+``nmrgnn.message`` and ``nmrgnn.update``.
+
 Training mode (``training=True``, ``nmrgnn_tpu/models/gnn.py:144-236``)
 adds Gaussian noise of std ``config.noise`` to the distances before the
 RBF, the padding mask still taken from the distances before the noise, and
@@ -47,7 +62,7 @@ import torch
 from .._device import resolve_device
 from ..config import ModelConfig
 from ..graph import Graph
-from ..ops import edge
+from ..ops import edge, painn
 from ..ops.edge import as_operand
 from ..ops.activations import get_activation
 from ..ops.message_passing import amp_layer, mp_layer
@@ -105,19 +120,24 @@ def init_params(
     drawn on the CPU from ``generator`` and moved to ``device``. The MP
     weight w[F, F, E] takes the rank-3 glorot fan of Keras: fan_in = F*F,
     fan_out = E*F; an attention model's wq [F, E], wk [E, E] and wv [F, F]
-    take their own two dimensions as fans. ``peak_standards`` maps element
+    take their own two dimensions as fans; a PaiNN model draws its own
+    layout (the module's docstring). ``peak_standards`` maps element
     index -> (name, avg, std); peak_std defaults to 1 and peak_avg to 0."""
     dev = resolve_device(device)
     F, E, H, V = (config.atom_feature_size, config.edge_feature_size,
                   config.edge_hidden_size, config.num_elements)
-    edge_fc = [_dense_init(generator, H, H) for _ in range(config.edge_fc_layers - 1)]
-    edge_fc.append(_dense_init(generator, H, E))
-    if config.mp_type == "attention":
-        mp = [{"wq": _glorot(generator, (F, E), F, E), "wk": _glorot(generator, (E, E), E, E),
-               "wv": _glorot(generator, (F, F), F, F)} for _ in range(config.mp_layers)]
+    if config.mp_type == "painn":
+        family = _painn_params(config, generator)
     else:
-        mp = [{"w": _glorot(generator, (F, F, E), F * F, E * F)}
-              for _ in range(config.mp_layers)]
+        edge_fc = [_dense_init(generator, H, H) for _ in range(config.edge_fc_layers - 1)]
+        edge_fc.append(_dense_init(generator, H, E))
+        if config.mp_type == "attention":
+            mp = [{"wq": _glorot(generator, (F, E), F, E), "wk": _glorot(generator, (E, E), E, E),
+                   "wv": _glorot(generator, (F, F), F, F)} for _ in range(config.mp_layers)]
+        else:
+            mp = [{"w": _glorot(generator, (F, F, E), F * F, E * F)}
+                  for _ in range(config.mp_layers)]
+        family = {"edge_fc": edge_fc, "mp": mp}
     fc = [_dense_init(generator, F, F) for _ in range(config.fc_layers - 1)]
     fc.append(_dense_init(generator, F, F // 2))
     peak_std = torch.ones((V,), dtype=torch.float32)
@@ -128,14 +148,24 @@ def init_params(
             peak_avg[k] = v[1]
     params = {
         "embed": _dense_init(generator, V, F, use_bias=False),
-        "edge_fc": edge_fc,
-        "mp": mp,
+        **family,
         "fc": fc,
         "out": _dense_init(generator, F // 2, V),
         "peak_std": peak_std,
         "peak_avg": peak_avg,
     }
     return tree_map(lambda t: t.to(dev), params)
+
+
+def _painn_params(config: ModelConfig, generator) -> Params:
+    """PaiNN's filter Dense and interaction blocks."""
+    F, R, B = config.atom_feature_size, config.edge_hidden_size, config.mp_layers
+    filt = _dense_init(generator, R, B * 3 * F)
+    blocks = [{"context": [_dense_init(generator, F, F), _dense_init(generator, F, 3 * F)],
+               "mix": [_dense_init(generator, 2 * F, F), _dense_init(generator, F, 3 * F)],
+               "channel_mix": _dense_init(generator, F, 2 * F, use_bias=False)}
+              for _ in range(B)]
+    return {"filter": filt, "mp": blocks}
 
 
 def edge_features(params: Params, config: ModelConfig, edges: torch.Tensor,
@@ -209,18 +239,23 @@ def noised(config: ModelConfig, edges: torch.Tensor, noise) -> torch.Tensor:
     return edges if noise is None else edges + config.noise * noise
 
 
-def apply(params: Params, config: ModelConfig, graph: Graph, *, training: bool = False,
-          noise=None, dropout_mask=None, generator=None, dense_fn=dense,
-          mp_fn=mp_layer) -> torch.Tensor:
+def apply(params: Params, config: ModelConfig, graph: Graph, *, positions=None,
+          training: bool = False, noise=None, dropout_mask=None, generator=None,
+          dense_fn=dense, mp_fn=mp_layer) -> torch.Tensor:
     """Forward for one graph of tensors; peaks f32[N]. The plain gather
     forward: the reference every faster path is held to. ``training=True``
     applies the distance noise and the readout dropout (draws: see the
-    module's docstring; ``dropout_mask`` is [N, F // 2]).
+    module's docstring; ``dropout_mask`` is [N, F // 2]). ``positions``
+    (f32[N, 3], nm) is read by a PaiNN model alone, which needs it.
 
     ``dense_fn`` (``dense``'s signature) and ``mp_fn`` (``mp_layer``'s)
     compute the products of the embedding, FC block and head, and of the
     bilinear MP layers: the plain ones by default, the tensor-parallel
     slices' in ``parallel/sharding.tp_products``."""
+    if config.mp_type == "painn":
+        if training:
+            raise ValueError("mp_type='painn' serves inference only: no training forward")
+        return apply_painn(params, config, graph, positions, dense_fn)
     atoms, nlist, edges, inv_degree = graph
     mp_act = get_activation(config.mp_activation)
     cd = compute_dtype(config)
@@ -241,6 +276,32 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, training: bool =
                 upd = mp_fn(p["w"], nodes, nlist, e, inv_degree, mp_act, cd)
             nodes = upd + nodes
     return readout(params, config, atoms, nodes, dropout_mask=dropout_mask, dense_fn=dense_fn)
+
+
+def apply_painn(params: Params, config: ModelConfig, graph: Graph, positions,
+                dense_fn=dense) -> torch.Tensor:
+    """PaiNN's forward (``ops/painn.py``) for one graph and its atoms'
+    ``positions`` f32[N, 3] nm; peaks f32[N] through ``readout``."""
+    if positions is None:
+        raise ValueError("mp_type='painn' needs the atoms' positions: "
+                         "apply(params, config, graph, positions=f32[N, 3] nm)")
+    atoms, nlist, edges, _ = graph
+    act = get_activation(config.mp_activation)
+    cd = compute_dtype(config)
+    F, cutoff = config.atom_feature_size, config.rbf_high
+    with span("nmrgnn.filter"):
+        d, unit = painn.edge_geometry(positions, nlist, edges, cutoff)
+        w = painn.filters(params["filter"], d, config.edge_hidden_size, cutoff, cd)
+    s = dense_fn(params["embed"], atoms)
+    v = torch.zeros((s.shape[0], 3, F), dtype=s.dtype, device=s.device)
+    for i, p in enumerate(params["mp"]):
+        with span("nmrgnn.mp"):
+            with span("nmrgnn.message"):
+                s, v = painn.message(p, s, v, w[..., 3 * F * i:3 * F * (i + 1)], unit, nlist,
+                                     act, dense_fn, cd)
+            with span("nmrgnn.update"):
+                s, v = painn.update(p, s, v, act, dense_fn, cd)
+    return readout(params, config, atoms, s, dense_fn=dense_fn)
 
 
 def flatten_batch(graph: Graph) -> Graph:

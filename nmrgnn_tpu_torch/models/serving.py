@@ -31,6 +31,13 @@ check (``_plan_if_attn``), else to ``"gather"`` (``gnn.apply``). The port
 keeps this rule on the CPU too, where the JAX package serves the family
 through "gather". Another non-bilinear ``mp_type`` resolves to "gather".
 
+A PaiNN model (``mp_type="painn"``, ``gnn.apply_painn``) also reads the
+atoms' positions: ``predict(graph, positions=f32[N, 3] nm)``, served
+through "gather"; the positions are copied up with the graph and put in
+the serving order on the card with it. ``predict_frames``,
+``predict_trajectory`` and "partitioned" serving do not take the family
+and raise, as ``predict`` does without positions.
+
 Each later frame verifies the cached band plan against its own neighbor
 lists (``plan_covers``) and rebuilds it only when a real neighbor escapes
 its window; a frame whose new plan escapes the budget that chose the path
@@ -222,6 +229,7 @@ class ServingModel:
             # the plain matmuls (embedding, FC block, head) stay float32
             torch.backends.cuda.matmul.allow_tf32 = False
         self.config = config
+        self._painn = config.mp_type == "painn"
         self.precision = precision
         self.reorder = reorder
         self.block_size = block_size
@@ -247,6 +255,8 @@ class ServingModel:
         self._on_device = {}  # slot -> (host plan, its copy on the device)
         self.mesh = mesh
         self.partition_axis = partition_axis
+        if self._painn and self._n_shards() > 1:
+            raise ValueError("mp_type='painn' is not served partitioned over a mesh")
         self._part_key = None   # the cached partitioned plan's topology key
         self._part_plan = None  # (plan, banded, this shard's plan arrays on the device)
 
@@ -300,28 +310,35 @@ class ServingModel:
         for t in tensors:
             t.record_stream(cur)
 
-    def _prepare(self, g: Graph) -> Tuple[Graph, _TileBounds]:
-        """The request's graph on the device in the serving order, and its
-        tile bounds: the graph as given copied up (``nmrgnn.h2d``), then
-        permuted with its bounds taken in one launch (``nmrgnn.permute``).
-        On the card both run on the preparation stream and the bounds come
-        back into pinned memory there when a plan first reads them."""
+    def _prepare(self, g: Graph,
+                 positions=None) -> Tuple[Graph, _TileBounds, Optional[torch.Tensor]]:
+        """(the request's graph on the device in the serving order, its tile
+        bounds, its ``positions`` there in the same order or None): the
+        graph and positions as given copied up (``nmrgnn.h2d``), then the
+        graph permuted with its bounds taken in one launch and the positions
+        gathered (``nmrgnn.permute``). On the card these run on the
+        preparation stream and the bounds come back into pinned memory
+        there when a plan first reads them."""
         dev, rows, prep = self.device, self._bound_rows(), self._prep_stream()
         with self._on_prep(prep):
             with span("nmrgnn.h2d"):
                 raw = [torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt)
                        for a, dt in zip(g, _GRAPH_DTYPES)]
+                pos = (None if positions is None else torch.from_numpy(
+                    np.ascontiguousarray(positions, np.float32)).to(dev))
             with span("nmrgnn.permute"):
                 self._fix_order(g)
                 if self.reorder and self._order_d is None:
                     self._order_d = tuple(torch.as_tensor(a.astype(np.int32), device=dev)
                                           for a in (self._order, self._inverse))
                 *gd, bounds = permute_tile_bounds(*raw, *(self._order_d or (None, None)), rows)
+                if pos is not None and self._order_d is not None:
+                    pos = pos.index_select(0, self._order_d[0])
         gd = Graph(*gd)
         shape = g.nlist.shape
         if prep is None:
-            return gd, _TileBounds(bounds.numpy, rows, *shape)
-        self._hand_over(prep, gd)
+            return gd, _TileBounds(bounds.numpy, rows, *shape), pos
+        self._hand_over(prep, gd if pos is None else (*gd, pos))
 
         def read():
             with torch.cuda.stream(prep):
@@ -332,7 +349,7 @@ class ServingModel:
             done.synchronize()
             return host.numpy()
 
-        return gd, _TileBounds(read, rows, *shape)
+        return gd, _TileBounds(read, rows, *shape), pos
 
     def _frame_bounds(self, frame) -> _TileBounds:
         """A frame's tile bounds: ``frame`` itself, or those of a host
@@ -598,21 +615,25 @@ class ServingModel:
 
     # -- prediction ------------------------------------------------------------
 
-    def _predict_async(self, graph: Graph) -> Tuple[torch.Tensor, Optional[np.ndarray]]:
+    def _predict_async(self, graph: Graph,
+                       positions=None) -> Tuple[torch.Tensor, Optional[np.ndarray]]:
         """Launch the forward; returns (peaks on the device in the served
         order, the inverse permutation or None) without waiting for the
         device."""
+        if self._painn and positions is None:
+            raise ValueError("mp_type='painn' needs the atoms' positions: "
+                             "predict(graph, positions=f32[N, 3] nm)")
         g = Graph(*[np.asarray(a) for a in graph])
         if self._resolved in _HOST_PATHS:
             return self._predict_host(g)
-        gt, bounds = self._prepare(g)
+        gt, bounds, pos = self._prepare(g, positions if self._painn else None)
         while True:
             mode = self._resolve_mode(bounds)
             if mode in _HOST_PATHS:
                 return self._predict_host(g)
             if mode == "gather":
                 with span("nmrgnn.forward"), torch.no_grad():
-                    return gnn.apply(self.params, self.config, gt), self._inverse
+                    return gnn.apply(self.params, self.config, gt, positions=pos), self._inverse
             plan = self._banded_plan(bounds)
             if plan is not None:
                 break
@@ -663,10 +684,17 @@ class ServingModel:
             out = peaks.cpu().numpy()
             return out if inverse is None else out[..., inverse]
 
-    def predict(self, graph: Graph) -> np.ndarray:
-        """peaks f32[N] in the graph's own atom order."""
+    def predict(self, graph: Graph, positions=None) -> np.ndarray:
+        """peaks f32[N] in the graph's own atom order. ``positions``
+        (f32[N, 3] nm, in the same order) is read by a PaiNN model alone,
+        which needs it."""
         with span("nmrgnn.predict"):
-            return self._finalize(*self._predict_async(graph))
+            return self._finalize(*self._predict_async(graph, positions))
+
+    def _refuse_painn(self, what: str) -> None:
+        if self._painn:
+            raise ValueError(f"{what} does not serve mp_type='painn': call "
+                             "predict(graph, positions=...) a structure at a time")
 
     def predict_frames(self, graphs) -> np.ndarray:
         """peaks f32[Fr, N] for Fr frames of one structure (the same atoms
@@ -676,7 +704,8 @@ class ServingModel:
         path is not "banded" or "banded_attn", or the union plan escapes its
         budget (for "banded_attn" the node-table budget with one channel and
         no fused-build check). Both precisions take the uniform forward
-        here, as in the JAX package."""
+        here, as in the JAX package. Not for a PaiNN model (raises)."""
+        self._refuse_painn("predict_frames")
         with span("nmrgnn.predict"):
             return self._predict_frames(graphs)
 
@@ -739,9 +768,11 @@ class ServingModel:
         current forward, at most ``build_workers + prefetch`` ahead; frame
         i's readback happens after frame i + 1 has been launched; results
         come out in frame order. A failed build raises in the consumer
-        (``RuntimeError``); the trajectory is never cut short silently."""
+        (``RuntimeError``); the trajectory is never cut short silently. Not
+        for a PaiNN model (raises)."""
         from ..data.parse import structure2graph
 
+        self._refuse_painn("predict_trajectory")
         frames = list(range(0, struct.n_frames, stride))
         q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
 

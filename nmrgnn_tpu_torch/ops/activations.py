@@ -3,7 +3,8 @@
 softplus is written as ``max(x, 0) + log1p(exp(-|x|))``, the form of
 ``jax.nn.softplus`` (``logaddexp(x, 0)``), not torch's thresholded form
 (which returns ``x`` itself above 20). The CUDA kernels use the same
-expression (``csrc/banded.cu``, ``activate``).
+expression (``csrc/banded.cu``, ``activate``). ``silu`` (x sigmoid(x),
+the PaiNN family's) has no kernel code: only plain PyTorch takes it.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ _ACTIVATIONS = {
     "relu": relu,
     "softplus": softplus,
     "tanh": torch.tanh,
+    "silu": torch.nn.functional.silu,
 }
 
 
