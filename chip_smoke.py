@@ -290,7 +290,18 @@ Phases, in order; any failure exits non-zero and prints no result:
        gradients and weights against the one-card gather step.
     e. train --graph-parallel 2 under torchrun on make-struct-records of
        phase 4's PDB (1 epoch): the saved model loads; the wall time.
-14. One JSON line listing every kernel of the paths (a counterpart of
+14. PaiNN's message kernel (csrc/painn.cu, ops/painn.py message) at the
+    painn-predict-44676 cell's shapes: the cell's 44,676-atom structure
+    (portbench's supercell at 2.05 A, the atoms within 5 A in K = 80
+    slots, in the RCM order), F = 128, random weights from --seed, the
+    second block's filter slice of [N, 80, 1,152] taken in place. The
+    kernel against message_sums_plain within the card tests' bound (float32
+    sums of 2K + 1 terms in another order); its time a wrapper call (CUDA
+    events; the context Dense layers included) and alone (torch.profiler),
+    the plain version's time, the bound (W's real slots at 3.35 TB/s), and
+    a PaiNN forward (gnn.apply) that must launch it exactly once a block
+    (3), with its time and memory peak.
+15. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
     and times; B2, B1 and the band occupancy also with their launches a
     training step (train_launches); B2 and B6 at one edge channel as
@@ -304,7 +315,7 @@ Phases, in order; any failure exits non-zero and prints no result:
     their launches a partitioned training step of rank 0 (13a,
     part_train_launches), B2, B1 and the occupancy with theirs a
     data-parallel step of rank 0 (13c, dp_train_launches).
-15. The last line: {"ok": true, "device": {...}}.
+16. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -3533,6 +3544,103 @@ def _phase13(args, dev, small, large) -> dict:
     return res
 
 
+def _phase14(args, dev) -> dict:
+    """PaiNN's message kernel at the painn-predict-44676 cell's shapes
+    (module docstring, phase 14). Returns its kernel row."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig
+    from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.ops import painn
+    from nmrgnn_tpu_torch.ops.activations import get_activation
+    from portbench.drivers.predict_loop_xyz import cutoff_graph, supercell
+    from portbench.harness import inputs
+    from portbench.reference.structures import ANGSTROM_TO_NM, one_hot
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "traffic", "predict-44676-r5.json")) as fh:
+        t = json.load(fh)
+    with open(os.path.join(root, "portbench", "configs", "painn.json")) as fh:
+        fields = {f.name for f in dataclasses.fields(ModelConfig)}
+        cfg = ModelConfig(**{k: v for k, v in json.load(fh).items() if k in fields})
+    xyz, elements = supercell(t)
+    conf = torch.as_tensor(xyz.astype(np.float32), device=dev)
+    g = Graph(*inputs.graph(one_hot(elements), *cutoff_graph(conf, t["neighbors"],
+                                                              t["cutoff"])))
+    order = rcm_order(g.nlist, g.edges)
+    g, _ = permute_graph(g, order, pin_zero=False)
+    gt = _on_card(g, dev)
+    pos = torch.as_tensor(xyz[order].astype(np.float32) * ANGSTROM_TO_NM, device=dev)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(args.seed), device=dev)
+    N, K = g.nlist.shape
+    F, L = cfg.atom_feature_size, cfg.mp_layers
+    real = int((g.edges > 0).sum())
+    print(f"phase 14: PaiNN N={N} K={K} F={F}, {L} blocks, {real} real slots of {N * K}")
+
+    act = get_activation(cfg.mp_activation)
+    d, unit = painn.edge_geometry(pos, gt.nlist, gt.edges, cfg.rbf_high)
+    filt = painn.filters(params["filter"], d, cfg.edge_hidden_size, cfg.rbf_high)
+    w = filt[..., 3 * F:6 * F]  # the second block's columns, in place
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    s = torch.randn((N, F), generator=gen, device=dev)
+    v = torch.randn((N, 3, F), generator=gen, device=dev)
+    p = params["mp"][1]
+    ctx = painn.context(p, s, act, gnn.dense)
+
+    def kernel():
+        return painn.message(p, s, v, w, unit, gt.nlist, gt.edges, act, gnn.dense)
+
+    def plain():
+        return painn.message_sums_plain(s, v, painn.context(p, s, act, gnn.dense), w, unit,
+                                        gt.nlist)
+
+    got = kernel()
+    want = painn.message_sums_plain(s, v, ctx, w, unit, gt.nlist)
+    mags = painn.message_sums_plain(s.abs(), v.abs(), ctx.abs(), w.abs(), unit.abs(), gt.nlist)
+    ratio = 0.0
+    for a, b, m in zip(got, want, mags):
+        tol = 2 * (2 * K + 2) * 2.0 ** -24 * m
+        if not torch.all((a - b).abs() <= tol):
+            raise SystemExit("chip_smoke: painn_message outside its bound of the plain version")
+        ratio = max(ratio, float(((a - b).abs() / tol.clamp_min(1e-30)).max()))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    del got, want, mags
+    ms, plain_ms = _time_ms(kernel, 10), _time_ms(plain, 3, 2)
+    alone_ms = _kernel_device_ms(kernel, "painn_message_kernel")
+    ctx_ms = _time_ms(lambda: painn.context(p, s, act, gnn.dense), 10)
+    w_bytes = real * 3 * F * 4
+    bound_ms = w_bytes / PEAK_HBM_BYTES * 1e3
+    timed = lambda x: f"{x:.4f} ms" if x else "not measured"  # noqa: E731
+    print(f"phase 14: painn_message [float32]: max|kernel-plain|={err:.3e} (at most "
+          f"{ratio:.3f} of the bound of its sums' order), kernel {ms:.4f} ms a wrapper call "
+          f"(alone {timed(alone_ms)}; the context Dense layers {ctx_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: W's real slots, "
+          f"{w_bytes / 1e9:.3f} GB)")
+
+    del filt, w, d, unit
+    torch.cuda.synchronize()
+    before = painn.message.launches
+    peaks = gnn.apply(params, cfg, gt, positions=pos)
+    torch.cuda.synchronize()
+    launches = painn.message.launches - before
+    if launches != L or not torch.all(torch.isfinite(peaks)):
+        raise SystemExit(f"chip_smoke: a PaiNN forward launched painn_message {launches} "
+                         f"times (want {L}) or gave peaks not all finite")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = _time_ms(lambda: gnn.apply(params, cfg, gt, positions=pos), 3, 2)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"phase 14: a PaiNN forward launches painn_message {launches} times (one a block); "
+          f"forward {fwd_ms:.4f} ms, its memory peak {peak_gb:.2f} GB above the inputs")
+    return {"name": "painn_message", "route": "cuda", "source": "nmrgnn_tpu_torch/csrc/painn.cu",
+            "replaces": None, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "alone_ms": alone_ms, "context_ms": ctx_ms, "dtype": "float32", "phase": 14,
+            "forward_ms": fwd_ms, "forward_peak_gb": peak_gb}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4000,6 +4108,9 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     part_training = _phase13(args, dev, dict(graphs=graphs), large_inputs)
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    kernels.append(_phase14(args, dev))
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     checks.append({"name": "training_step", "phase": 9,
                    "max_abs_err": training["peaks_max_abs_err"],
                    "loss_rel_err": training["loss_rel_err"],

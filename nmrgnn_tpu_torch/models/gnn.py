@@ -298,7 +298,7 @@ def apply_painn(params: Params, config: ModelConfig, graph: Graph, positions,
         with span("nmrgnn.mp"):
             with span("nmrgnn.message"):
                 s, v = painn.message(p, s, v, w[..., 3 * F * i:3 * F * (i + 1)], unit, nlist,
-                                     act, dense_fn, cd)
+                                     edges, act, dense_fn, cd)
             with span("nmrgnn.update"):
                 s, v = painn.update(p, s, v, act, dense_fn, cd)
     return readout(params, config, atoms, s, dense_fn=dense_fn)

@@ -23,18 +23,30 @@ it adds, is exactly 0, with no 0 * inf on the way. The Dense layers are
 the caller's ``dense`` (``models.gnn.dense``'s signature: operands in
 ``compute_dtype``, float32 sums); the rest is float32.
 
-No TPU kernel: the JAX package has no such family.
+No TPU kernel: the JAX package has no such family. On the card the
+message's sums are one hand-written kernel a block (``message``,
+``csrc/painn.cu``); the rest is plain PyTorch.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from . import _cuda
+from .banded import _check, _on_cuda
 from .edge import as_operand
 
 ANGSTROM_PER_NM = 10.0
 NORM_EPS = 1e-8  # schnetpack's PaiNNMixing epsilon
+MAX_F = 256      # atom features the message kernel takes (8 channels a lane)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "nmr_error_string": (ctypes.c_char_p, [_I]),
+    "nmr_painn_message": (_I, [_P] * 9 + [_I] * 3 + [_L, _L, _P]),
+}
 
 
 def edge_geometry(positions: torch.Tensor, nlist: torch.Tensor, edges: torch.Tensor,
@@ -74,20 +86,86 @@ def filters(p: dict, d: torch.Tensor, count: int, cutoff: float,
     return as_operand(basis, compute_dtype) @ as_operand(kernel, compute_dtype)
 
 
-def message(p: dict, s: torch.Tensor, v: torch.Tensor, w: torch.Tensor, unit: torch.Tensor,
-            nlist: torch.Tensor, activation, dense, compute_dtype=torch.float32):
-    """(s, v) after PaiNNInteraction: ``p`` {"context": [Dense(F, F),
-    Dense(F, 3F)]}, ``w`` f32[N, K, 3F] this block's filter, ``unit`` the
-    slots' r^ f32[N, K, 3]."""
+def context(p: dict, s: torch.Tensor, activation, dense,
+            compute_dtype=torch.float32) -> torch.Tensor:
+    """ctx [N, 3F] = Dense(F, 3F)(act(Dense(F, F)(s))): ``p["context"]``."""
+    return dense(p["context"][1], dense(p["context"][0], s, activation, compute_dtype),
+                 None, compute_dtype)
+
+
+def message_sums_plain(s: torch.Tensor, v: torch.Tensor, ctx: torch.Tensor, w: torch.Tensor,
+                       unit: torch.Tensor, nlist: torch.Tensor):
+    """(s + sum_j a, v + sum_j (b r^ + c v_j)), (a, b, c) = split(W_ij * ctx_j),
+    over every slot of ``nlist`` (a padding slot's filter is exactly 0): the
+    plain version of ``message``'s kernel."""
     F = s.shape[-1]
     nl = nlist.long()
-    ctx = dense(p["context"][1], dense(p["context"][0], s, activation, compute_dtype),
-                None, compute_dtype)
     x = ctx[nl].mul_(w)                                   # [N, K, 3F]
     a, b, c = x.split(F, -1)
     vj = v[nl].mul_(c[:, :, None, :])                     # [N, K, 3, F]
     dv = torch.einsum("nkx,nkf->nxf", unit, b) + vj.sum(1)
     return s + a.sum(1), v + dv
+
+
+def kernel_args(s: torch.Tensor, v: torch.Tensor, ctx: torch.Tensor, w: torch.Tensor,
+                unit: torch.Tensor, nlist: torch.Tensor, edges: torch.Tensor):
+    """(N, K, F, W's atom stride, W's slot stride) of a call of ``message``'s
+    kernel; raises on what the kernel does not take. Every tensor on
+    ``s``'s device; float32 s [N, F], v [N, 3, F], ctx [N, 3F], unit
+    [N, K, 3], edges [N, K] and int32 nlist [N, K], contiguous and 16-byte
+    aligned; F a multiple of 32 up to ``MAX_F``; w float32 [N, K, 3F] with
+    the last stride 1 and the others multiples of 4 (a column slice of the
+    filter [N, K, 3BF], taken in place)."""
+    n, F = s.shape if s.dim() == 2 else (None, None)
+    if F is None or F % 32 or not 32 <= F <= MAX_F:
+        raise ValueError(f"painn.message kernel: s has shape {tuple(s.shape)}; it takes "
+                         f"[N, F], F a multiple of 32 up to {MAX_F}")
+    K = nlist.shape[-1] if nlist.dim() == 2 else -1
+    dev = s.device
+    for name, t, dtype, shape in (("s", s, torch.float32, (n, F)),
+                                  ("v", v, torch.float32, (n, 3, F)),
+                                  ("ctx", ctx, torch.float32, (n, 3 * F)),
+                                  ("unit", unit, torch.float32, (n, K, 3)),
+                                  ("nlist", nlist, torch.int32, (n, K)),
+                                  ("edges", edges, torch.float32, (n, K))):
+        _check(name, t, dtype, shape, dev)
+    if w.device != dev:
+        raise ValueError(f"w is on {w.device}, expected {dev}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"w has dtype {w.dtype}, expected torch.float32")
+    if tuple(w.shape) != (n, K, 3 * F):
+        raise ValueError(f"w has shape {tuple(w.shape)}, expected {(n, K, 3 * F)}")
+    if w.stride(2) != 1 or w.stride(0) % 4 or w.stride(1) % 4 or w.data_ptr() % 16:
+        raise ValueError(f"w has strides {w.stride()}: the kernel takes the last stride 1, "
+                         f"the others multiples of 4, 16-byte aligned")
+    return n, K, F, w.stride(0), w.stride(1)
+
+
+def message(p: dict, s: torch.Tensor, v: torch.Tensor, w: torch.Tensor, unit: torch.Tensor,
+            nlist: torch.Tensor, edges: torch.Tensor, activation, dense,
+            compute_dtype=torch.float32):
+    """(s, v) after PaiNNInteraction: ``p`` {"context": [Dense(F, F),
+    Dense(F, 3F)]}, ``w`` f32[N, K, 3F] this block's filter, ``unit`` the
+    slots' r^ f32[N, K, 3], ``edges`` the graph's distances (0 on padding).
+
+    No TPU kernel: the JAX package has no PaiNN. On the card the context
+    Dense layers run as they are and one launch of ``csrc/painn.cu``
+    computes the sums over the real slots (``edges`` > 0) in registers,
+    reading ``w`` in place by its strides (``kernel_args``); it counts its
+    launches in ``.launches``. On the CPU: ``message_sums_plain``."""
+    ctx = context(p, s, activation, dense, compute_dtype)
+    if not _on_cuda(s, "painn.message"):
+        return message_sums_plain(s, v, ctx, w, unit, nlist)
+    n, K, F, w_atom, w_slot = kernel_args(s, v, ctx, w, unit, nlist, edges)
+    s_out, v_out = torch.empty_like(s), torch.empty_like(v)
+    _cuda.launch("painn", _SIGNATURES, "nmr_painn_message", s.device, s.data_ptr(),
+                 v.data_ptr(), ctx.data_ptr(), w.data_ptr(), unit.data_ptr(), nlist.data_ptr(),
+                 edges.data_ptr(), s_out.data_ptr(), v_out.data_ptr(), n, K, F, w_atom, w_slot)
+    message.launches += 1
+    return s_out, v_out
+
+
+message.launches = 0
 
 
 def update(p: dict, s: torch.Tensor, v: torch.Tensor, activation, dense,

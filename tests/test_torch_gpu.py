@@ -2080,3 +2080,88 @@ def test_serving_prepared_on_the_card_equals_host_permuted(dev):
                 for f in frames]
         for got, (peaks, _) in zip(launched, want):
             assert np.array_equal(sm._finalize(*got), sm._finalize(peaks, sm._inverse))
+
+
+def _painn_message_case(n, k, f, seed, dev, blocks=3, blk=1):
+    """PaiNN message inputs on the card: w the column slice of block ``blk``
+    of a [n, k, 3 blocks f] filter (taken in place), 25% padding slots and
+    two rows all padding (filter exactly 0 there, as the filter makes it),
+    real slots past the cutoff with a zero filter, indices counted from
+    the end (-1), and v = 0 on seed 0 (the first block)."""
+    rng = np.random.default_rng(seed)
+    nlist = rng.integers(0, n, (n, k)).astype(np.int32)
+    nlist[::7, 0] = -1
+    edges = rng.uniform(0.1, 0.6, (n, k)).astype(np.float32)
+    edges[rng.uniform(size=(n, k)) < 0.25] = 0.0
+    edges[[3, n - 2]] = 0.0
+    filt = rng.normal(size=(n, k, 3 * blocks * f)).astype(np.float32)
+    filt[(edges == 0) | (edges >= 0.5)] = 0.0
+    unit = rng.normal(size=(n, k, 3)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=-1, keepdims=True)
+    s = rng.normal(size=(n, f)).astype(np.float32)
+    v = np.zeros((n, 3, f), np.float32) if seed == 0 else rng.normal(size=(n, 3, f)).astype(
+        np.float32)
+    nl, ed, filt_t, un, st, vt = _on(dev, nlist, edges, filt, unit, s, v)
+    gen = torch.Generator().manual_seed(seed)
+    p = {"context": [{"kernel": torch.randn(f, f, generator=gen) / f ** 0.5,
+                      "bias": torch.randn(f, generator=gen) * 0.1},
+                     {"kernel": torch.randn(f, 3 * f, generator=gen) / f ** 0.5,
+                      "bias": torch.randn(3 * f, generator=gen) * 0.1}]}
+    p = gnn.tree_map(lambda t: t.to(dev), p)
+    return p, st, vt, filt_t[..., 3 * f * blk:3 * f * (blk + 1)], un, nl, ed
+
+
+@pytest.mark.parametrize("f", [32, 128])
+@pytest.mark.parametrize("k", [24, 80])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_painn_message_kernel_matches_plain(dev, f, k, seed):
+    """The message kernel against its plain version. Tolerance: float32 sums
+    of the 2K + 1 terms of an output in another order, with the products
+    fused into the sums on the card: each side lies within (2K + 2) 2^-24
+    of the sum of the terms' magnitudes (the plain version computed on
+    their magnitudes), so the two within twice that. Rows all padding give
+    s and v back bit for bit; no [N, K, 3F] tensor is allocated."""
+    from nmrgnn_tpu_torch.ops import painn
+
+    n = 300
+    p, s, v, w, unit, nlist, edges = _painn_message_case(n, k, f, seed, dev)
+    act = torch.nn.functional.silu
+    ctx = painn.context(p, s, act, gnn.dense)
+    want = painn.message_sums_plain(s, v, ctx, w, unit, nlist)
+    mags = painn.message_sums_plain(s.abs(), v.abs(), ctx.abs(), w.abs(), unit.abs(), nlist)
+    torch.cuda.synchronize()
+    before, base = painn.message.launches, torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = painn.message(p, s, v, w, unit, nlist, edges, act, gnn.dense)
+    torch.cuda.synchronize()
+    assert painn.message.launches == before + 1
+    assert torch.cuda.max_memory_allocated() - base < w.numel() * 4 // 8
+    for g, wt, m in zip(got, want, mags):
+        assert torch.all((g - wt).abs() <= 2 * (2 * k + 2) * 2.0 ** -24 * m)
+    for row in (3, n - 2):
+        assert torch.equal(got[0][row], s[row]) and torch.equal(got[1][row], v[row])
+    assert got[0].shape == s.shape and got[1].shape == v.shape
+
+
+def test_painn_message_kernel_refuses_what_it_does_not_take(dev):
+    """On the card ``message`` launches the kernel or raises: no fallback."""
+    from nmrgnn_tpu_torch.ops import painn
+
+    act = torch.nn.functional.silu
+    p, s, v, w, unit, nlist, edges = _painn_message_case(64, 24, 32, 1, dev)
+    args = dict(s=s, v=v, w=w, unit=unit, nlist=nlist, edges=edges)
+    before = painn.message.launches
+    for key, bad, error in (("nlist", nlist.long(), TypeError),
+                            ("w", w.to(torch.bfloat16), TypeError),
+                            ("w", torch.randn(64, 96, 24, device=dev).transpose(1, 2),
+                             ValueError),
+                            ("edges", edges.cpu(), ValueError),
+                            ("v", v.transpose(1, 2).contiguous().transpose(1, 2), ValueError)):
+        a = dict(args, **{key: bad})
+        with pytest.raises(error):
+            painn.message(p, a["s"], a["v"], a["w"], a["unit"], a["nlist"], a["edges"], act,
+                          gnn.dense)
+    p48, s48, v48, w48, u48, n48, e48 = _painn_message_case(64, 24, 48, 1, dev)
+    with pytest.raises(ValueError):
+        painn.message(p48, s48, v48, w48, u48, n48, e48, act, gnn.dense)
+    assert painn.message.launches == before

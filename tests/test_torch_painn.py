@@ -30,6 +30,7 @@ from nmrgnn_tpu_torch.config import ModelConfig
 from nmrgnn_tpu_torch.graph import Graph
 from nmrgnn_tpu_torch.models import gnn
 from nmrgnn_tpu_torch.models.serving import ServingModel
+from nmrgnn_tpu_torch.ops import painn
 
 torch.set_num_threads(2)
 
@@ -213,3 +214,71 @@ def test_the_painn_config_loads_in_the_jax_packages_model_config():
     j = jconfig.ModelConfig.from_json(PUBLISHED.to_json())
     assert j.to_json() == PUBLISHED.to_json()
     assert ModelConfig.from_json(j.to_json()) == PUBLISHED
+
+
+def _kernel_inputs(n=12, k=24, f=32, blocks=3, blk=1):
+    """message's kernel arguments on the CPU: w the column slice of block
+    ``blk`` of a [n, k, 3 blocks f] filter, taken in place."""
+    gen = torch.Generator().manual_seed(0)
+    filt = torch.randn((n, k, 3 * blocks * f), generator=gen)
+    return dict(s=torch.randn((n, f), generator=gen), v=torch.randn((n, 3, f), generator=gen),
+                ctx=torch.randn((n, 3 * f), generator=gen),
+                w=filt[..., 3 * f * blk:3 * f * (blk + 1)],
+                unit=torch.randn((n, k, 3), generator=gen),
+                nlist=torch.randint(0, n, (n, k), generator=gen, dtype=torch.int32),
+                edges=torch.rand((n, k), generator=gen))
+
+
+def test_kernel_args_take_a_strided_filter_slice_in_place():
+    a = _kernel_inputs()
+    assert painn.kernel_args(**a) == (12, 24, 32, 24 * 288, 288)
+    assert painn.kernel_args(**_kernel_inputs(f=256, blocks=1, blk=0)) == (12, 24, 256,
+                                                                            24 * 768, 768)
+
+
+def _wrong(name):
+    """One argument of ``_kernel_inputs`` that the kernel does not take."""
+    a = _kernel_inputs()
+    n, k, f = 12, 24, 32
+    if name == "F not a multiple of 32":
+        a = _kernel_inputs(f=48)
+    elif name == "F past the kernel's":
+        a = _kernel_inputs(f=288, blocks=1, blk=0)
+    elif name == "int64 nlist":
+        a["nlist"] = a["nlist"].long()
+    elif name == "bfloat16 w":
+        a["w"] = a["w"].to(torch.bfloat16)
+    elif name == "w's last stride not 1":
+        a["w"] = torch.randn(n, 3 * f, k).transpose(1, 2)
+    elif name == "w not 16-byte aligned":
+        a["w"] = torch.randn(n * k * 3 * f + 4)[1:1 + n * k * 3 * f].view(n, k, 3 * f)
+    elif name == "w's slot stride not a multiple of 4":
+        a["w"] = torch.randn(n, k, 3 * f + 2)[..., :3 * f]
+    elif name == "v not contiguous":
+        a["v"] = torch.randn(n, f, 3).transpose(1, 2)
+    elif name == "ctx of 2F columns":
+        a["ctx"] = a["ctx"][:, :2 * f].contiguous()
+    elif name == "unit of another K":
+        a["unit"] = torch.randn(n, k + 1, 3)
+    elif name == "edges on another device":
+        a["edges"] = torch.empty((n, k), device="meta")
+    return a
+
+
+@pytest.mark.parametrize("name,error", [
+    ("F not a multiple of 32", ValueError), ("F past the kernel's", ValueError),
+    ("int64 nlist", TypeError), ("bfloat16 w", TypeError), ("w's last stride not 1", ValueError),
+    ("w not 16-byte aligned", ValueError), ("w's slot stride not a multiple of 4", ValueError),
+    ("v not contiguous", ValueError), ("ctx of 2F columns", ValueError),
+    ("unit of another K", ValueError), ("edges on another device", ValueError),
+])
+def test_kernel_args_refuse_what_the_kernel_does_not_take(name, error):
+    with pytest.raises(error):
+        painn.kernel_args(**_wrong(name))
+
+
+def test_a_cpu_forward_takes_the_plain_message(case):
+    g, pos, params, want = case
+    before = painn.message.launches
+    assert _gap(_port(params, SMALL, g, pos), want) <= TOL
+    assert painn.message.launches == before
