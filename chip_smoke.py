@@ -740,17 +740,16 @@ def _wall_ms(model, g, runs: int) -> float:
 
 
 def _wrappers():
-    """Every kernel wrapper of the port, each with its launch count."""
-    from nmrgnn_tpu_torch.ops import banded, blocksparse
+    """Every kernel wrapper of the forwards, each with its launch count."""
+    from nmrgnn_tpu_torch.ops import _cuda
 
-    return banded.KERNEL_WRAPPERS + blocksparse.KERNEL_WRAPPERS
+    return _cuda.KERNEL_WRAPPERS
 
 
 def _reset_counts() -> None:
-    from nmrgnn_tpu_torch.ops import banded
+    from nmrgnn_tpu_torch.ops import _cuda
 
-    for f in _wrappers() + (banded.permute_tile_bounds,):
-        f.launches = 0
+    _cuda.reset_launch_counts()
 
 
 def _on_card(g, dev):

@@ -1,6 +1,7 @@
 """Tensor ops of the port: activations, RBF, gather message passing, and
 the banded and block-sparse operators with their hand-written CUDA
 kernels."""
+from . import banded, painn  # noqa: F401 (their kernel wrappers join _cuda.KERNEL_WRAPPERS)
 from .activations import get_activation
 from .blocksparse import (
     BlockStructure,

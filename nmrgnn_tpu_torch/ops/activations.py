@@ -16,6 +16,15 @@ import torch
 ACTIVATION_CODES = {None: 0, "linear": 0, "relu": 1, "softplus": 2, "tanh": 3}
 
 
+def activation_code(name: Optional[str]) -> int:
+    """The CUDA kernels' code for activation ``name``; raises for one they
+    do not take."""
+    act = ACTIVATION_CODES.get(name)
+    if act is None:
+        raise ValueError(f"unknown activation {name!r}")
+    return act
+
+
 class _Softplus(torch.autograd.Function):
     """softplus with the gradient sigmoid(x), as ``jax.nn.softplus`` has it
     (0.5 at 0, where the gradient of the expression itself would be

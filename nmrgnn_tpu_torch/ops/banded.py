@@ -39,15 +39,16 @@ builds take a caller-given window start per tile (the partitioned
 forward's interior and halo bands, whose indices may be shifted negative).
 
 The kernels are instantiated for a few widths; the wrappers adapt every
-other width exactly (the width helpers below: the node table padded, edge
-channels in groups, the EdgeFC padded), so every configuration the JAX
-package's path rule sends to a kernel runs through it on the card.
+other width exactly (the width helpers below and the MP kernel's in
+``ops/mp.py``: the node table padded, edge channels in groups, the EdgeFC
+padded), so every configuration the JAX package's path rule sends to a
+kernel runs through it on the card.
 
-Each wrapper below takes the plain PyTorch version for a tensor on the CPU
-and launches its CUDA kernel (``csrc/banded.cu``, ``poly.cu``,
-``hbm.cu``, ``fused_first.cu``) for a tensor on the card; it never falls
-back from the card to the plain version. Each counts its launches in
-``.launches``.
+Each wrapper below (``_cuda.kernel``) takes the plain PyTorch version for
+a tensor on the CPU and launches its CUDA kernel (``csrc/banded.cu``,
+``poly.cu``, ``hbm.cu``, ``fused_first.cu``) for a tensor on the card; it
+never falls back from the card to the plain version. Each counts its
+launches in ``.launches``.
 
 ========================  ==========================================  ==========
 wrapper                   replaces (TPU kernel)                       bound
@@ -75,18 +76,20 @@ on the device).
 """
 from __future__ import annotations
 
-import ctypes
 import itertools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from . import _cuda
-from .activations import ACTIVATION_CODES, get_activation
+from ._cuda import (as_long, at, bf16_flag, check, col, device_index, dtype_suffix, kernel,
+                    launch)
+from .activations import activation_code, get_activation
 from .edge import edge_features
 from .edgefn import EdgeCheb, cheb_x
+from .mp import (MAX_E, MP_CHUNK, chain, channel_groups, mp_group_size, mp_split, mp_tiles_ok,
+                 occupancy_bits, occupancy_words, operands, pack_bits, pad_columns)
 
 
 class BandPlan(NamedTuple):
@@ -480,11 +483,6 @@ def plan_on_device(plan, device):
     )
 
 
-def _long(a, device) -> torch.Tensor:
-    a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-    return a.to(device=device, dtype=torch.int64)
-
-
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions: the CPU path, and the oracle each kernel is held
 # against on the card (counterparts of build_band_xla / mp_banded_xla,
@@ -515,7 +513,7 @@ def build_band_tracedlo_plain(
     T = _tiles_of(m, block_rows)
     e = edge_feats.shape[-1]
     ev = edge_feats.float().view(T, block_rows, k, e).permute(0, 3, 1, 2)  # [T, E, B, K]
-    return _band_in_slot_order(nlist.reshape(T, block_rows, k), _long(lo, edge_feats.device), ev,
+    return _band_in_slot_order(nlist.reshape(T, block_rows, k), as_long(lo, edge_feats.device), ev,
                                window, out_dtype)
 
 
@@ -606,29 +604,8 @@ def permute_tile_bounds_plain(
 # The band occupancy: which 16-column window chunks of each band row hold
 # a nonzero. The MP kernel stages and multiplies only the chunks a block's
 # rows occupy (``csrc/mp.cuh``); here it is one bit per grid row and chunk,
-# int32 [Tg * B, ceil(W / 512)], bit b of word j for chunk 32 j + b.
-
-
-def occupancy_words(window: int) -> int:
-    """Occupancy words of a band row of ``window`` columns."""
-    return (window // _MP_CHUNK + 31) // 32
-
-
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """bool [R, nw] -> int32 [R, ceil(nw / 32)], bit b of word j = bits[:, 32 j + b]."""
-    r, nw = bits.shape
-    nwords = (nw + 31) // 32
-    b = nnf.pad(bits.to(torch.int64), (0, nwords * 32 - nw)).view(r, nwords, 32)
-    words = (b << torch.arange(32, device=bits.device)).sum(-1)
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
-
-
-def occupancy_bits(occ: torch.Tensor, window: int) -> torch.Tensor:
-    """int32 [R, NW] -> bool [R, W / 16]: the chunks each row occupies."""
-    nw = window // _MP_CHUNK
-    w = occ.to(torch.int64) & 0xFFFFFFFF
-    bits = (w[..., None] >> torch.arange(32, device=occ.device)) & 1
-    return bits.view(occ.shape[0], -1)[:, :nw].bool()
+# int32 [Tg * B, ceil(W / 512)], bit b of word j for chunk 32 j + b
+# (``ops/mp.py``'s ``occupancy_words``, ``pack_bits``, ``occupancy_bits``).
 
 
 def band_occupancy_plain(
@@ -649,9 +626,9 @@ def band_occupancy_plain(
     dev = edges.device
     n, k = nlist.shape
     B = block_rows
-    lo_t = _long(lo, dev)
+    lo_t = as_long(lo, dev)
     tg = lo_t.shape[0]
-    tiles = torch.arange(tg, device=dev) if ids is None else _long(ids, dev)
+    tiles = torch.arange(tg, device=dev) if ids is None else as_long(ids, dev)
     if tiles.shape != (tg,):
         raise ValueError(f"{tiles.shape[0]} tile ids for {tg} window starts")
     src = tiles.clamp(min=0)[:, None] * B + torch.arange(B, device=dev)  # [Tg, B]
@@ -659,19 +636,19 @@ def band_occupancy_plain(
     src = src.clamp(max=max(n - 1, 0))
     rel = nlist.to(torch.int64)[src] - lo_t[:, None, None]  # [Tg, B, K]
     hit = ok[..., None] & (edges[src] > 0) & (rel >= 0) & (rel < window)
-    nw = window // _MP_CHUNK
-    chunk = torch.where(hit, rel // _MP_CHUNK, nw).view(tg * B, k)
+    nw = window // MP_CHUNK
+    chunk = torch.where(hit, rel // MP_CHUNK, nw).view(tg * B, k)
     bits = torch.zeros((tg * B, nw + 1), dtype=torch.bool, device=dev)
     bits.scatter_(1, chunk, True)
-    return _pack_bits(bits[:, :nw])
+    return pack_bits(bits[:, :nw])
 
 
 def band_occupancy_from_band_plain(M: torch.Tensor) -> torch.Tensor:
     """int32 [T * B, NW]: the chunks of each band row of M [T, E, B, W]
     that hold a nonzero (in any channel)."""
     T, E, B, W = M.shape
-    bits = (M != 0).any(1).view(T * B, W // _MP_CHUNK, _MP_CHUNK).any(-1)
-    return _pack_bits(bits)
+    bits = (M != 0).any(1).view(T * B, W // MP_CHUNK, MP_CHUNK).any(-1)
+    return pack_bits(bits)
 
 
 def _occupied(M: torch.Tensor, occupancy) -> torch.Tensor:
@@ -683,7 +660,7 @@ def _occupied(M: torch.Tensor, occupancy) -> torch.Tensor:
     if tuple(occupancy.shape) != (T * B, occupancy_words(W)):
         raise ValueError(f"occupancy of shape {tuple(occupancy.shape)} does not match the band "
                          f"{tuple(M.shape)}")
-    keep = occupancy_bits(occupancy.to(M.device), W).repeat_interleave(_MP_CHUNK, 1)
+    keep = occupancy_bits(occupancy.to(M.device), W).repeat_interleave(MP_CHUNK, 1)
     return M * keep.view(T, 1, B, W).to(M.dtype)
 
 
@@ -704,7 +681,7 @@ def mp_banded_partial_plain(
     F = table.shape[-1]
     dev = table.device
     cd = table.dtype
-    idx = _long(lo, dev)[:, None] + torch.arange(W, device=dev)  # [T, W]
+    idx = as_long(lo, dev)[:, None] + torch.arange(W, device=dev)  # [T, W]
     h = torch.einsum("tebw,twf->tebf", M.float(), table[idx].float()).to(cd).float()
     out = torch.einsum("tebf,efm->tbm", h, w.permute(2, 0, 1).to(cd).float())
     return out.reshape(T * B, F)
@@ -772,7 +749,7 @@ def mp_banded_hbm_cls_plain(
     if M.shape[2] != block_rows:
         raise ValueError(f"band of shape {tuple(M.shape)} has no {block_rows}-row tiles")
     acc = mp_banded_partial_plain(M, cls.lo, nodes, w, occupancy)
-    return _mp_epilogue(acc, _long(cls.ids, nodes.device), nodes, inv_degree, activation_name)
+    return _mp_epilogue(acc, as_long(cls.ids, nodes.device), nodes, inv_degree, activation_name)
 
 
 def poly_edge_values(cheb: EdgeCheb, d: torch.Tensor) -> torch.Tensor:
@@ -817,7 +794,7 @@ def build_band_poly_plain(
     """M [T, E, B, W] in ``out_dtype`` from raw distances through the
     Chebyshev-compressed edge stage."""
     nl, d = _padded_tiles(nlist, edges, plan.block_rows, plan.n_padded)
-    return _poly_band(nl, d, _long(plan.lo, edges.device), cheb, plan.window, out_dtype)
+    return _poly_band(nl, d, as_long(plan.lo, edges.device), cheb, plan.window, out_dtype)
 
 
 def build_band_poly_tracedlo_plain(
@@ -834,7 +811,7 @@ def build_band_poly_tracedlo_plain(
     m, k = nlist.shape
     T = _tiles_of(m, block_rows)
     return _poly_band(nlist.view(T, block_rows, k), edges.view(T, block_rows, k),
-                      _long(lo, edges.device), cheb, window, out_dtype)
+                      as_long(lo, edges.device), cheb, window, out_dtype)
 
 
 def mp_banded_poly_fused_plain(
@@ -869,74 +846,20 @@ def build_band_poly_cls_plain(
     """M_c [Tc, E, B, Wc]: the Chebyshev band build over one class's tiles
     (tile ``cls.ids[i]`` into ``M_c[i]``, with window start ``cls.lo[i]``)."""
     nl, d = _padded_tiles(nlist, edges, block_rows, n_padded)
-    ids = _long(cls.ids, edges.device)
-    return _poly_band(nl[ids], d[ids], _long(cls.lo, edges.device), cheb, cls.window,
+    ids = as_long(cls.ids, edges.device)
+    return _poly_band(nl[ids], d[ids], as_long(cls.lo, edges.device), cheb, cls.window,
                       out_dtype)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
-_P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_MP_ARGS = [_P] * 8 + [_I] * 9 + [_P, _P]
-_PARTIAL_ARGS = [_P] * 6 + [_I] * 8 + [_P, _P]
-_OCC_FROM_BAND_ARGS = [_P, _P] + [_I] * 4 + [_P]
-_FUSED_FIRST_ARGS = [_P] * 9 + [_I] * 8 + [_F32] * 3 + [_I, _I, _I, _P, _P]
-_SIGNATURES = {
-    "banded": {
-        "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_build_band": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
-        "nmr_permute_tile_bounds": (_I, [_P] * 11 + [_I] * 4 + [_P]),
-        "nmr_build_band_fused": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _I, _I, _P],
-        ),
-    },
-    "fused_wide": {
-        "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_build_band_fused_wide": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _F32, _F32, _F32, _I, _I, _I, _I, _I, _P],
-        ),
-    },
-    "poly": {
-        "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_build_band_poly": (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _F32, _F32, _F32, _I, _I, _P],
-        ),
-    },
-    "hbm": {
-        "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_mp_banded": (_I, _MP_ARGS),
-        "nmr_mp_banded_bf16": (_I, _MP_ARGS),
-        "nmr_mp_banded_partial": (_I, _PARTIAL_ARGS),
-        "nmr_mp_banded_partial_bf16": (_I, _PARTIAL_ARGS),
-        "nmr_band_occupancy": (_I, [_P] * 5 + [_I] * 6 + [_P]),
-        "nmr_band_occupancy_from_band": (_I, _OCC_FROM_BAND_ARGS),
-        "nmr_band_occupancy_from_band_bf16": (_I, _OCC_FROM_BAND_ARGS),
-    },
-    "fused_first": {
-        "nmr_error_string": (ctypes.c_char_p, [_I]),
-        "nmr_mp_banded_poly_fused": (_I, _FUSED_FIRST_ARGS),
-        "nmr_mp_banded_poly_fused_bf16": (_I, _FUSED_FIRST_ARGS),
-    },
-}
-# Element types the MP and band-build kernels take, and the suffix of
-# their entry points.
-_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-_MAX_E = 4          # edge channels a launch takes (more run as channel groups)
-_MAX_K = 8192       # neighbor slots the band builds stage (common.cuh's kBandMaxK)
+MAX_K = 8192        # neighbor slots the band builds stage (common.cuh's kBandMaxK)
 _FUSED_H = (128, 256, 512, 1024, 2048)  # EdgeFC widths the fused kernel is instantiated for
 _FUSED_TC_H = (128, 256)  # of them, those with a tensor-core (bfloat16) instantiation
 _FUSED_OUT = 128 * 128  # edge slots x H of one EdgeFC pass of the fused kernel
 _FUSED_MAX_K = 4096  # neighbor slots a block of the fused kernel keeps (one atom)
-_MP_F = (64, 128, 256, 512)  # node widths the MP kernel is instantiated for
-_MP_SPLIT = 256     # column block of a wider node table (the F-split)
-_MP_WIDE_E = 2      # edge channels a launch takes at F = 512
-_MP_CHUNK = 16      # window columns of an occupancy bit
-_MP_ROWS = 32       # rows per block of the MP kernel
-_POLY_MAX_COEFFS = 1024  # (degree + 1) * E the Chebyshev build stages
+POLY_MAX_COEFFS = 1024  # (degree + 1) * E the Chebyshev build stages
 _BUILD_ROWS = 4  # rows of a tile a block of the band builds takes
 _BUILD_STAGE = 40 * 1024  # slot bytes a block of the band builds stages without opting in
 
@@ -944,23 +867,10 @@ _BUILD_STAGE = 40 * 1024  # slot bytes a block of the band builds stages without
 # -- Widths ------------------------------------------------------------------
 # The kernels are instantiated for a few widths. Every other width that the
 # JAX package's path rule sends to a kernel is adapted to them exactly, on
-# the card, by these plain functions on tensors:
-# * node features F: the node table and w are zero-padded to the next width
-#   of _MP_F (a padded input column meets a zero row of w) and the output
-#   is sliced back (its padded columns hold act(0) + 0); past 512, to a
-#   multiple of _MP_SPLIT, run as column blocks (the F-split, below);
-# * edge channels E: a launch takes at most _MAX_E channels (_MP_WIDE_E at
-#   F = 512); more run as channel groups. The builds write each group's
-#   channels of one M; an MP layer runs its groups' partial sums in order,
-#   each launch adding the float32 sum of the groups before it (acc_in),
-#   and the last launch ends in the epilogue;
-# * the F-split: a table wider than 512 runs in column blocks of
-#   _MP_SPLIT. An output block j sums, through the same acc_in chain, the
-#   launches of every input block i (the table's columns [i fb, +fb), read
-#   through a row stride, against w's block (i, j)) and channel group,
-#   input block j last, so that its last launch reads its residual from the
-#   columns it writes and ends in the epilogue on the full sum. The output
-#   blocks are joined after their chains;
+# the card, by these plain functions on tensors (the MP kernel's node
+# widths, channel groups and F-split: ``ops/mp.py``):
+# * edge channels E: a band build launch takes at most MAX_E channels; more
+#   run as channel groups, each writing its channels of one M;
 # * the EdgeFC width H of the fused build: zero-padded to 128, 256, 512,
 #   1,024 or 2,048 (a padded hidden unit's act(0) meets a zero row of the
 #   next kernel, a padded RBF centre a zero row of the first), the RBF
@@ -968,62 +878,6 @@ _BUILD_STAGE = 40 * 1024  # slot bytes a block of the band builds stages without
 # * neighbor slots K: the band builds stage fewer rows a block as K grows
 #   (build_rows); the fused build runs a block's slots through its EdgeFC
 #   in passes (fused_rows).
-
-
-def channel_groups(n: int, size: int = _MAX_E) -> list:
-    """[(c0, c1), ...]: ``n`` channels in groups of at most ``size``, in
-    order."""
-    return [(c0, min(c0 + size, n)) for c0 in range(0, n, size)]
-
-
-def mp_width(F: int) -> int:
-    """The MP kernel's width a node table of ``F`` features is padded to:
-    64, 128, 256 or 512, and past 512 the next multiple of 256, run as
-    column blocks (``mp_split``).
-
-    Any F is taken. The JAX package's budgets send F past 512 to its MP
-    kernels: ``plan_fits_vmem`` at one edge channel lets F reach 1,701
-    (float32) and 2,407 (bfloat16) on the smallest plan (64 rows, W = 256),
-    ``hbm_plan_fits_vmem`` 1,421 and 2,147, and its block-sparse path
-    applies no width budget at all."""
-    if F < 1:
-        raise ValueError(f"a node table needs at least one feature, not {F}")
-    for f in _MP_F:
-        if F <= f:
-            return f
-    return _round_up(F, _MP_SPLIT)
-
-
-def mp_split(fp: int) -> Tuple[int, int]:
-    """(block width, blocks) of a node table padded to ``fp``: one block
-    up to 512, else blocks of _MP_SPLIT."""
-    fb = fp if fp <= _MP_F[-1] else _MP_SPLIT
-    return fb, fp // fb
-
-
-def mp_group_size(F: int) -> int:
-    """Edge channels one MP launch takes at padded width ``F``."""
-    return _MP_WIDE_E if mp_split(F)[0] > 256 else _MAX_E
-
-
-def mp_split_steps(nb: int, groups) -> list:
-    """[(j, [(i, (c0, c1)), ...]), ...]: for each output block j of an
-    F-split in ``nb`` blocks, the launches of its chain in order, input
-    block j last, each input block's channel ``groups`` in order."""
-    return [(j, [(i, g) for i in [*range(j), *range(j + 1, nb), j] for g in groups])
-            for j in range(nb)]
-
-
-def pad_columns(x: torch.Tensor, width: int) -> torch.Tensor:
-    """``x`` with its last axis zero-padded to ``width`` (``x`` itself
-    when it is that wide)."""
-    return x if x.shape[-1] == width else nnf.pad(x, (0, width - x.shape[-1]))
-
-
-def pad_mp_weights(w: torch.Tensor, width: int) -> torch.Tensor:
-    """MP weights [F, F, E] zero-padded to [width, width, E]."""
-    f = w.shape[0]
-    return w if f == width else nnf.pad(w, (0, 0, 0, width - f, 0, width - f))
 
 
 def fused_width(H: int) -> int:
@@ -1090,14 +944,14 @@ def fused_compute(compute_bf16: bool, H: int, K: int) -> int:
 
 def poly_group_size(degree: int) -> int:
     """Edge channels one Chebyshev build launch takes at ``degree``: its
-    (degree + 1) * E coefficients stay within _POLY_MAX_COEFFS."""
-    size = min(_MAX_E, _POLY_MAX_COEFFS // (degree + 1))
+    (degree + 1) * E coefficients stay within POLY_MAX_COEFFS."""
+    size = min(MAX_E, POLY_MAX_COEFFS // (degree + 1))
     if size < 1:
-        raise NotImplementedError(f"the Chebyshev builds take degree < {_POLY_MAX_COEFFS}")
+        raise NotImplementedError(f"the Chebyshev builds take degree < {POLY_MAX_COEFFS}")
     return size
 
 
-def build_rows(block_rows: int, K: int = 16, E: int = _MAX_E) -> int:
+def build_rows(block_rows: int, K: int = 16, E: int = MAX_E) -> int:
     """Rows of one tile a block of the band builds (``csrc/banded.cu``,
     ``csrc/poly.cu``) takes: 4 (the best or near it on the card among 1
     to 32, at 2,482 and at 44,676 atoms), or the largest power of two
@@ -1105,7 +959,7 @@ def build_rows(block_rows: int, K: int = 16, E: int = _MAX_E) -> int:
     values stage in _BUILD_STAGE bytes (one row past that: the kernel
     opts in to more shared memory).
 
-    The band builds take K up to 8,192 (``_MAX_K``); the JAX package's
+    The band builds take K up to 8,192 (``MAX_K``); the JAX package's
     budgets set no bound on K for them."""
     rows = _BUILD_ROWS
     while block_rows % rows or (rows > 1 and rows * K * (E + 1) * 4 > _BUILD_STAGE):
@@ -1113,76 +967,10 @@ def build_rows(block_rows: int, K: int = 16, E: int = _MAX_E) -> int:
     return rows
 
 
-def _on_cuda(x: torch.Tensor, what: str) -> bool:
-    """False for a CPU tensor (plain version), True for a CUDA one."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: tensors on {x.device} are not supported")
-    return True
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def _device_lo(plan: BandPlan, device) -> torch.Tensor:
     lo = plan_on_device(plan, device).lo
-    _check("plan.lo", lo, torch.int32, (plan.num_tiles,), device)
+    check("plan.lo", lo, torch.int32, (plan.num_tiles,), device)
     return lo
-
-
-def _dtype_suffix(name: str, dtype) -> str:
-    if dtype not in _SUFFIX:
-        raise TypeError(f"{name} has dtype {dtype}; the kernels take float32 or bfloat16")
-    return _SUFFIX[dtype]
-
-
-def _bf16_flag(name: str, dtype) -> int:
-    """The kernels' type flag: 0 for float32, 1 for bfloat16."""
-    return int(_dtype_suffix(name, dtype) != "")
-
-
-def _device_index(name: str, a, length: int, device) -> torch.Tensor:
-    """An int32 index array (tile ids, window starts) on ``device``."""
-    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
-        np.ascontiguousarray(a, np.int32))
-    t = t.to(device=device, dtype=torch.int32).contiguous()
-    _check(name, t, torch.int32, (length,), device)
-    return t
-
-
-def _mp_tiles_ok(B: int, W: int) -> bool:
-    """Whether the MP kernel (``csrc/mp.cuh``) takes these tiles: B a
-    multiple of the rows per block, W of the chunk (any F and E, through
-    the width helpers above)."""
-    return B % _MP_ROWS == 0 and W % _MP_CHUNK == 0
-
-
-def _at(t: torch.Tensor, axis: int, c0: int) -> int:
-    """The address of index ``c0`` along ``axis`` of ``t`` (a channel
-    group's first channel)."""
-    return t.data_ptr() + c0 * t.stride(axis) * t.element_size()
-
-
-def _act_code(activation_name: str) -> int:
-    act = ACTIVATION_CODES.get(activation_name)
-    if act is None:
-        raise ValueError(f"unknown activation {activation_name!r}")
-    return act
-
-
-def _launch(fn: str, device, *args, source: str = "banded") -> None:
-    _cuda.launch(source, _SIGNATURES[source], fn, device, *args)
 
 
 def _launch_build(nlist, edge_feats, lo, window: int, block_rows: int,
@@ -1193,21 +981,22 @@ def _launch_build(nlist, edge_feats, lo, window: int, block_rows: int,
     m, k = nlist.shape
     e = edge_feats.shape[-1]
     T = _tiles_of(m, block_rows)
-    _check("nlist", nlist, torch.int32, (m, k), dev)
-    _check("edge_feats", edge_feats, torch.float32, (m, k, e), dev)
-    _check("lo", lo, torch.int32, (T,), dev)
-    if not 1 <= k <= _MAX_K:
-        raise NotImplementedError(f"build_band kernel takes K <= {_MAX_K}")
-    out_bf16 = _bf16_flag("out_dtype", out_dtype)
+    check("nlist", nlist, torch.int32, (m, k), dev)
+    check("edge_feats", edge_feats, torch.float32, (m, k, e), dev)
+    check("lo", lo, torch.int32, (T,), dev)
+    if not 1 <= k <= MAX_K:
+        raise NotImplementedError(f"build_band kernel takes K <= {MAX_K}")
+    out_bf16 = bf16_flag("out_dtype", out_dtype)
     M = torch.empty((T, e, block_rows, window), dtype=out_dtype, device=dev)
     for c0, c1 in channel_groups(e):
-        _launch("nmr_build_band", dev, nlist.data_ptr(),
-                _at(edge_feats, 2, c0), lo.data_ptr(), _at(M, 1, c0), T, block_rows, k,
-                c1 - c0, window,
-                build_rows(block_rows, k, c1 - c0), out_bf16, e, e)
+        launch("nmr_build_band", dev, nlist.data_ptr(),
+               at(edge_feats, 2, c0), lo.data_ptr(), at(M, 1, c0), T, block_rows, k,
+               c1 - c0, window,
+               build_rows(block_rows, k, c1 - c0), out_bf16, e, e)
     return M
 
 
+@kernel(build_band_plain, on="edge_feats")
 def build_band(
     nlist: torch.Tensor,       # i32[N, K]
     edge_feats: torch.Tensor,  # f32[N, K, E] (EdgeFC output; 0 on padding)
@@ -1222,8 +1011,6 @@ def build_band(
     of a tile and a warp writes each row, 16 bytes a lane, comparing only
     the columns its indices reach; it is bound by writing M (T*E*B*W
     values)."""
-    if not _on_cuda(edge_feats, "build_band"):
-        return build_band_plain(nlist, edge_feats, plan, out_dtype)
     dev = edge_feats.device
     n = nlist.shape[0]
     if n > plan.n_padded:
@@ -1231,15 +1018,11 @@ def build_band(
     pad = plan.n_padded - n
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     e_p = nnf.pad(edge_feats, (0, 0, 0, 0, 0, pad))
-    M = _launch_build(nlist_p, e_p, _device_lo(plan, dev), plan.window, plan.block_rows,
-                      out_dtype)
-    build_band.launches += 1
-    return M
+    return _launch_build(nlist_p, e_p, _device_lo(plan, dev), plan.window, plan.block_rows,
+                         out_dtype)
 
 
-build_band.launches = 0
-
-
+@kernel(permute_tile_bounds_plain, on="nlist", forward=False)
 def permute_tile_bounds(
     atoms: torch.Tensor,       # f32[N, V]
     nlist: torch.Tensor,       # i32[N, K]
@@ -1259,36 +1042,32 @@ def permute_tile_bounds(
     real neighbors' smallest and largest index; bound by reading and
     writing the graph once. An index outside [-N, N) is left as it is
     (``permute_graph`` raises on it). With ``order`` None it reads nlist
-    and edges for the bounds alone and returns the graph as it is."""
-    if not _on_cuda(nlist, "permute_tile_bounds"):
-        return permute_tile_bounds_plain(atoms, nlist, edges, inv_degree, order, inverse, rows)
+    and edges for the bounds alone and returns the graph as it is. It
+    counts its launches apart from the forwards' (``KERNEL_WRAPPERS``)."""
     dev = nlist.device
     n, k = nlist.shape
     v = atoms.shape[-1]
     if n < 1 or rows < 1:
         raise ValueError(f"permute_tile_bounds takes at least one row and tile row, not {n}, "
                          f"{rows}")
-    _check("atoms", atoms, torch.float32, (n, v), dev)
-    _check("nlist", nlist, torch.int32, (n, k), dev)
-    _check("edges", edges, torch.float32, (n, k), dev)
-    _check("inv_degree", inv_degree, torch.float32, (n,), dev)
+    check("atoms", atoms, torch.float32, (n, v), dev)
+    check("nlist", nlist, torch.int32, (n, k), dev)
+    check("edges", edges, torch.float32, (n, k), dev)
+    check("inv_degree", inv_degree, torch.float32, (n,), dev)
     bounds = torch.empty((-(-n // rows), 2), dtype=torch.int32, device=dev)
     if order is None:
         out, ptrs = (atoms, nlist, edges, inv_degree), [None] * 6
     else:
-        _check("order", order, torch.int32, (n,), dev)
-        _check("inverse", inverse, torch.int32, (n,), dev)
+        check("order", order, torch.int32, (n,), dev)
+        check("inverse", inverse, torch.int32, (n,), dev)
         out = tuple(torch.empty_like(t) for t in (atoms, nlist, edges, inv_degree))
         ptrs = [order.data_ptr(), inverse.data_ptr()] + [t.data_ptr() for t in out]
-    _launch("nmr_permute_tile_bounds", dev, atoms.data_ptr(), nlist.data_ptr(),
-            edges.data_ptr(), inv_degree.data_ptr(), *ptrs, bounds.data_ptr(), n, v, k, rows)
-    permute_tile_bounds.launches += 1
+    launch("nmr_permute_tile_bounds", dev, atoms.data_ptr(), nlist.data_ptr(),
+           edges.data_ptr(), inv_degree.data_ptr(), *ptrs, bounds.data_ptr(), n, v, k, rows)
     return (*out, bounds)
 
 
-permute_tile_bounds.launches = 0
-
-
+@kernel(build_band_tracedlo_plain, on="edge_feats")
 def build_band_tracedlo(
     nlist: torch.Tensor,       # i32[M, K], M a multiple of block_rows
     edge_feats: torch.Tensor,  # f32[M, K, E]
@@ -1307,19 +1086,12 @@ def build_band_tracedlo(
     Replaces ``build_band_tracedlo`` (nmrgnn_tpu/ops/banded.py:788-830).
     On the card it launches ``build_band``'s kernel, which reads ``lo``
     from device memory; bound by writing M."""
-    _tiles_of(nlist.shape[0], block_rows)
-    if not _on_cuda(edge_feats, "build_band_tracedlo"):
-        return build_band_tracedlo_plain(nlist, edge_feats, lo, window, block_rows, out_dtype)
-    dev = edge_feats.device
-    lo = _device_index("lo", lo, nlist.shape[0] // block_rows, dev)
-    M = _launch_build(nlist, edge_feats, lo, window, block_rows, out_dtype)
-    build_band_tracedlo.launches += 1
-    return M
+    T = _tiles_of(nlist.shape[0], block_rows)
+    lo = device_index("lo", lo, T, edge_feats.device)
+    return _launch_build(nlist, edge_feats, lo, window, block_rows, out_dtype)
 
 
-build_band_tracedlo.launches = 0
-
-
+@kernel(build_band_fused_plain, on="edges")
 def build_band_fused(
     nlist: torch.Tensor,             # i32[N, K]
     edges: torch.Tensor,             # f32[N, K] raw distances
@@ -1352,12 +1124,6 @@ def build_band_fused(
     ``fused_compute``), more than 4 channels run as groups, and a block's
     slots run through the EdgeFC in passes of 16384 / H (``fused_rows``):
     a K that does not fill a pass leaves its last slots masked."""
-    if not _on_cuda(edges, "build_band_fused"):
-        return build_band_fused_plain(
-            nlist, edges, edge_fc_params, plan, rbf_low=rbf_low,
-            rbf_high=rbf_high, activation_name=activation_name,
-            out_dtype=out_dtype, compute_dtype=compute_dtype,
-        )
     dev = edges.device
     n, k = nlist.shape
     B, W, T = plan.block_rows, plan.window, plan.num_tiles
@@ -1368,8 +1134,8 @@ def build_band_fused(
     if hp != h:
         edge_fc_params = pad_edge_fc(edge_fc_params, hp)
     hidden, final = list(edge_fc_params[:-1]), edge_fc_params[-1]
-    _check("nlist", nlist, torch.int32, (n, k), dev)
-    _check("edges", edges, torch.float32, (n, k), dev)
+    check("nlist", nlist, torch.int32, (n, k), dev)
+    check("edges", edges, torch.float32, (n, k), dev)
     if n > plan.n_padded:
         raise ValueError(f"{n} rows, the plan {plan.n_padded}")
     if hidden:
@@ -1379,13 +1145,13 @@ def build_band_fused(
         wh = torch.zeros((1, hp, hp), dtype=torch.float32, device=dev)
         bh = torch.zeros((1, hp), dtype=torch.float32, device=dev)
     lh = len(hidden)
-    _check("hidden kernels", wh, torch.float32, (max(lh, 1), hp, hp), dev)
-    _check("hidden biases", bh, torch.float32, (max(lh, 1), hp), dev)
-    _check("final kernel", final["kernel"].contiguous(), torch.float32, (hp, e), dev)
-    _check("final bias", final["bias"].contiguous(), torch.float32, (e,), dev)
-    act = _act_code(activation_name)
-    out_bf16 = _bf16_flag("out_dtype", out_dtype)
-    compute = fused_compute(_bf16_flag("compute_dtype", compute_dtype), hp, k)
+    check("hidden kernels", wh, torch.float32, (max(lh, 1), hp, hp), dev)
+    check("hidden biases", bh, torch.float32, (max(lh, 1), hp), dev)
+    check("final kernel", final["kernel"].contiguous(), torch.float32, (hp, e), dev)
+    check("final bias", final["bias"].contiguous(), torch.float32, (e,), dev)
+    act = activation_code(activation_name)
+    out_bf16 = bf16_flag("out_dtype", out_dtype)
+    compute = fused_compute(bf16_flag("compute_dtype", compute_dtype), hp, k)
     if compute == 1:  # the tensor cores' B fragments: [Lh, H_out, H_in], k contiguous
         wh = wh.transpose(1, 2).to(torch.bfloat16).contiguous()
     elif compute == 2:  # bfloat16 operands on the CUDA cores: [Lh, H_in, H_out], rounded
@@ -1399,34 +1165,14 @@ def build_band_fused(
         wf = final["kernel"][:, c0:c1].contiguous()
         bf = final["bias"][c0:c1].contiguous()
         args = (nlist_p.data_ptr(), edges_p.data_ptr(), lo.data_ptr(), wh.data_ptr(),
-                bh.data_ptr(), wf.data_ptr(), bf.data_ptr(), _at(M, 1, c0), plan.n_padded, B, k,
+                bh.data_ptr(), wf.data_ptr(), bf.data_ptr(), at(M, 1, c0), plan.n_padded, B, k,
                 c1 - c0, W, hp, lh, float(np.float32(rbf_low)), float(np.float32(gap)),
                 float(np.float32(1.0 / gap)), act, out_bf16)
         if hp in _FUSED_TC_H:
-            _launch("nmr_build_band_fused", dev, *args, compute, rows, e)
+            launch("nmr_build_band_fused", dev, *args, compute, rows, e)
         else:  # csrc/fused_wide.cu: compute 0 or 2, as its b16ops flag
-            _launch("nmr_build_band_fused_wide", dev, *args, int(compute == 2), rows, e,
-                    source="fused_wide")
-    build_band_fused.launches += 1
+            launch("nmr_build_band_fused_wide", dev, *args, int(compute == 2), rows, e)
     return M
-
-
-build_band_fused.launches = 0
-
-
-def _mp_weights(w, dtype, E: int, fp: int, device) -> torch.Tensor:
-    """w [fp, fp, E] (padded) in the MP kernel's layout and ``dtype``, as
-    blocks [nb, nb, E, fb, fb] of the F-split (``mp_split``; one block up
-    to 512): block (i, j) holds the rows of input block i and the columns
-    of output block j, float32 [E, F_in, F_out] (rows of W_n streamed
-    through shared memory) or bfloat16 [E, F_out, F_in] (the tensor
-    cores' B fragments, k contiguous)."""
-    fb, nb = mp_split(fp)
-    wb = w.reshape(nb, fb, nb, fb, E)  # (in block, in, out block, out, E)
-    wb = wb.permute(0, 2, 4, 1, 3) if dtype == torch.float32 else wb.permute(0, 2, 4, 3, 1)
-    wb = wb.to(dtype).contiguous()
-    _check("w", wb, dtype, (nb, nb, E, fb, fb), device)
-    return wb
 
 
 def _mp_occupancy(M, occupancy) -> torch.Tensor:
@@ -1435,63 +1181,37 @@ def _mp_occupancy(M, occupancy) -> torch.Tensor:
     if occupancy is None:
         return band_occupancy_from_band(M)
     T, _, B, W = M.shape
-    _check("occupancy", occupancy, torch.int32, (T * B, occupancy_words(W)), M.device)
+    check("occupancy", occupancy, torch.int32, (T * B, occupancy_words(W)), M.device)
     return occupancy
 
 
-def _mp_operands(nodes, w, inv_degree, E: int, B: int, W: int, activation_name, what):
-    """Checks of a full MP layer's operands on the card (``csrc/mp.cuh``):
-    (entry-point suffix, activation code, the node table padded to the
-    kernel's width, w in the kernel's layout at that width)."""
-    dev = nodes.device
-    n_table, F = nodes.shape
-    if not _mp_tiles_ok(B, W):
+def _mp_tiles(what: str, B: int, W: int, n_table: int = 0) -> None:
+    """Raise unless the MP kernel takes these tiles (``mp_tiles_ok``) and,
+    for a layer that ends in the epilogue, its node table's ``n_table``
+    rows are whole tiles."""
+    if not mp_tiles_ok(B, W):
         raise NotImplementedError(
             f"{what} kernel takes B a multiple of the rows per block, W a multiple of "
-            f"{_MP_CHUNK}")
+            f"{MP_CHUNK}")
     if n_table % B:
         raise ValueError(f"the node table's {n_table} rows are not whole {B}-row tiles")
-    suffix = _dtype_suffix("nodes", nodes.dtype)
-    _check("nodes", nodes, nodes.dtype, (n_table, F), dev)
-    _check("inv_degree", inv_degree, torch.float32, (n_table,), dev)
-    fp = mp_width(F)
-    return (suffix, _act_code(activation_name), pad_columns(nodes, fp),
-            _mp_weights(pad_mp_weights(w, fp), nodes.dtype, E, fp, dev))
 
 
-def _col(t: torch.Tensor, c0: int) -> int:
-    """The address of column ``c0`` of the first row of a 2-D tensor."""
-    return t.data_ptr() + c0 * t.element_size()
-
-
-def _mp_partial_launch(M, occ, lo, table, w_b, i, j, c0, c1, acc, suffix):
-    """One partial launch of an MP chain: input block ``i``'s columns of
-    ``table`` against w's block (i, j), channels [c0, c1) of M, plus the
-    float32 ``acc`` (or None); returns its float32 [Tg * B, fb] sum."""
-    Tg, E, B, W = M.shape
-    n_table, fp = table.shape
-    fb = w_b.shape[-1]
-    out = torch.empty((Tg * B, fb), dtype=torch.float32, device=table.device)
-    _launch("nmr_mp_banded_partial" + suffix, table.device, _at(M, 1, c0), occ.data_ptr(),
-            lo.data_ptr(), _col(table, i * fb), _at(w_b[i, j], 0, c0), out.data_ptr(), Tg,
-            c1 - c0, B, W, fb, n_table, fp, E, None if acc is None else acc.data_ptr(),
-            source="hbm")
-    return out
-
-
-def _mp_partials(M, occ, lo, table, w_b, groups, suffix: str):
-    """float32 [Tg * B, fp]: the partial MP sums of M's channel ``groups``
-    over ``table`` (the kernel's width), each output block's launches
-    chained through acc_in (``mp_split_steps``); None for no group."""
-    if not groups:
-        return None
-    outs = []
-    for j, steps in mp_split_steps(w_b.shape[0], groups):
-        acc = None
-        for i, (c0, c1) in steps:
-            acc = _mp_partial_launch(M, occ, lo, table, w_b, i, j, c0, c1, acc, suffix)
-        outs.append(acc)
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+def _mp_partial(M, occ, lo, table, w_b, suffix):
+    """The partial launch of an MP chain over the band M (``mp.chain``'s
+    step): input block ``i``'s columns of ``table`` against w's block
+    (i, j), channels [c0, c1) of M, plus the float32 ``acc`` (or None);
+    returns its float32 [Tg * B, fb] sum."""
+    def step(i, j, c0, c1, acc):
+        Tg, E, B, W = M.shape
+        n_table, fp = table.shape
+        fb = w_b.shape[-1]
+        out = torch.empty((Tg * B, fb), dtype=torch.float32, device=table.device)
+        launch("nmr_mp_banded_partial" + suffix, table.device, at(M, 1, c0), occ.data_ptr(),
+               lo.data_ptr(), col(table, i * fb), at(w_b[i, j], 0, c0), out.data_ptr(), Tg,
+               c1 - c0, B, W, fb, n_table, fp, E, None if acc is None else acc.data_ptr())
+        return out
+    return step
 
 
 def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what,
@@ -1504,27 +1224,23 @@ def _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, what,
     dev = nodes.device
     Tg, E, B, W = M.shape
     n_table, F = nodes.shape
-    suffix, act, table, w_b = _mp_operands(nodes, w, inv_degree, E, B, W, activation_name,
-                                           what)
+    _mp_tiles(what, B, W, n_table)
+    suffix, act, table, w_b = operands("nodes", nodes, w, E, inv_degree, activation_name)
     fp = table.shape[1]
     fb = w_b.shape[-1]
-    _check("M", M, nodes.dtype, (Tg, E, B, W), dev)
+    check("M", M, nodes.dtype, (Tg, E, B, W), dev)
     occ = _mp_occupancy(M, occupancy)
-    outs = []
-    for j, steps in mp_split_steps(w_b.shape[0], channel_groups(E, mp_group_size(fp))):
-        acc = None
-        for i, (c0, c1) in steps[:-1]:
-            acc = _mp_partial_launch(M, occ, lo, table, w_b, i, j, c0, c1, acc, suffix)
-        c0, c1 = steps[-1][1]
+
+    def final(i, j, c0, c1, acc):
         out = torch.empty((Tg * B, fb), dtype=nodes.dtype, device=dev)
-        _launch("nmr_mp_banded" + suffix, dev, _at(M, 1, c0), occ.data_ptr(), lo.data_ptr(),
-                None if ids is None else ids.data_ptr(), _col(table, j * fb),
-                _at(w_b[j, j], 0, c0), inv_degree.data_ptr(), out.data_ptr(), Tg, c1 - c0, B,
-                W, fb, n_table, fp, act, E, None if acc is None else acc.data_ptr(),
-                source="hbm")
-        outs.append(out)
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return out if fp == F else out[:, :F].contiguous()
+        launch("nmr_mp_banded" + suffix, dev, at(M, 1, c0), occ.data_ptr(), lo.data_ptr(),
+               None if ids is None else ids.data_ptr(), col(table, j * fb),
+               at(w_b[j, j], 0, c0), inv_degree.data_ptr(), out.data_ptr(), Tg, c1 - c0, B,
+               W, fb, n_table, fp, act, E, None if acc is None else acc.data_ptr())
+        return out
+
+    return chain(w_b.shape[0], channel_groups(E, mp_group_size(fp)), F,
+                 _mp_partial(M, occ, lo, table, w_b, suffix), final)
 
 
 def _mp_layer(M, plan: BandPlan, nodes, w, inv_degree, activation_name, what,
@@ -1539,6 +1255,7 @@ def _mp_layer(M, plan: BandPlan, nodes, w, inv_degree, activation_name, what,
                       activation_name, what, occupancy)
 
 
+@kernel(mp_banded_plain, on="nodes")
 def mp_banded(
     M: torch.Tensor,           # [T, E, B, W] from a band build, in nodes.dtype
     plan: BandPlan,
@@ -1562,14 +1279,7 @@ def mp_banded(
     (``band_occupancy_from_band``, one pass over M). Bound by the second
     product (2*T*E*B*F*F operations) in float32 and by its bytes in
     bfloat16."""
-    if not _on_cuda(nodes, "mp_banded"):
-        return mp_banded_plain(M, plan, nodes, w, inv_degree, activation_name, occupancy)
-    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded", occupancy)
-    mp_banded.launches += 1
-    return out
-
-
-mp_banded.launches = 0
+    return _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded", occupancy)
 
 
 def _poly_inputs(nlist, edges, cheb: EdgeCheb, n_padded: int, what: str):
@@ -1578,12 +1288,12 @@ def _poly_inputs(nlist, edges, cheb: EdgeCheb, n_padded: int, what: str):
     [degree + 1, E], and the scalars (degree, d_lo, d_hi, d_hi - d_lo))."""
     dev = edges.device
     n, k = nlist.shape
-    _check("nlist", nlist, torch.int32, (n, k), dev)
-    _check("edges", edges, torch.float32, (n, k), dev)
+    check("nlist", nlist, torch.int32, (n, k), dev)
+    check("edges", edges, torch.float32, (n, k), dev)
     coeffs = torch.as_tensor(cheb.coeffs, dtype=torch.float32, device=dev).contiguous()
     deg1, e = coeffs.shape
-    if not 1 <= k <= _MAX_K or n > n_padded or deg1 < 2:
-        raise NotImplementedError(f"{what} kernel takes K <= {_MAX_K} and degree >= 1")
+    if not 1 <= k <= MAX_K or n > n_padded or deg1 < 2:
+        raise NotImplementedError(f"{what} kernel takes K <= {MAX_K} and degree >= 1")
     poly_group_size(deg1 - 1)
     pad = n_padded - n
     f32 = lambda v: float(np.float32(v))  # noqa: E731
@@ -1609,15 +1319,16 @@ def _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, ids, M, groups, n_padded
     channel ``groups``, each with its own coefficients' columns, into M
     (its dtype) over M's grid tiles (``ids`` None: tile i reads tile i)."""
     tiles, e, B, W = M.shape
-    out_bf16 = _bf16_flag("out_dtype", M.dtype)
+    out_bf16 = bf16_flag("out_dtype", M.dtype)
     for c0, c1 in groups:
         c = coeffs[:, c0:c1].contiguous()
-        _launch("nmr_build_band_poly", M.device, nlist_p.data_ptr(), edges_p.data_ptr(),
-                lo.data_ptr(), None if ids is None else ids.data_ptr(), c.data_ptr(),
-                _at(M, 1, c0), tiles, n_padded // B, B, nlist_p.shape[1], c1 - c0, W,
-                build_rows(B, nlist_p.shape[1], c1 - c0), *scalars, out_bf16, e, source="poly")
+        launch("nmr_build_band_poly", M.device, nlist_p.data_ptr(), edges_p.data_ptr(),
+               lo.data_ptr(), None if ids is None else ids.data_ptr(), c.data_ptr(),
+               at(M, 1, c0), tiles, n_padded // B, B, nlist_p.shape[1], c1 - c0, W,
+               build_rows(B, nlist_p.shape[1], c1 - c0), *scalars, out_bf16, e)
 
 
+@kernel(build_band_poly_plain, on="edges")
 def build_band_poly(
     nlist: torch.Tensor,   # i32[N, K]
     edges: torch.Tensor,   # f32[N, K] raw distances
@@ -1633,17 +1344,11 @@ def build_band_poly(
     ``build_rows`` rows of a tile, every thread evaluating a slot's
     recurrence into shared memory, and a warp writes each row, 16 bytes a
     lane; it is bound by writing M."""
-    if not _on_cuda(edges, "build_band_poly"):
-        return build_band_poly_plain(nlist, edges, cheb, plan, out_dtype)
-    M = _launch_poly(nlist, edges, cheb, _device_lo(plan, edges.device), None,
-                     plan.num_tiles, plan.window, plan.block_rows, plan.n_padded, out_dtype)
-    build_band_poly.launches += 1
-    return M
+    return _launch_poly(nlist, edges, cheb, _device_lo(plan, edges.device), None,
+                        plan.num_tiles, plan.window, plan.block_rows, plan.n_padded, out_dtype)
 
 
-build_band_poly.launches = 0
-
-
+@kernel(build_band_poly_tracedlo_plain, on="edges")
 def build_band_poly_tracedlo(
     nlist: torch.Tensor,   # i32[M, K], M a multiple of block_rows
     edges: torch.Tensor,   # f32[M, K] raw distances
@@ -1663,18 +1368,11 @@ def build_band_poly_tracedlo(
     writing M."""
     m = nlist.shape[0]
     T = _tiles_of(m, block_rows)
-    if not _on_cuda(edges, "build_band_poly_tracedlo"):
-        return build_band_poly_tracedlo_plain(nlist, edges, cheb, lo, window, block_rows,
-                                              out_dtype)
-    lo = _device_index("lo", lo, T, edges.device)
-    M = _launch_poly(nlist, edges, cheb, lo, None, T, window, block_rows, m, out_dtype)
-    build_band_poly_tracedlo.launches += 1
-    return M
+    lo = device_index("lo", lo, T, edges.device)
+    return _launch_poly(nlist, edges, cheb, lo, None, T, window, block_rows, m, out_dtype)
 
 
-build_band_poly_tracedlo.launches = 0
-
-
+@kernel(mp_banded_poly_fused_plain, on="nodes")
 def mp_banded_poly_fused(
     nlist: torch.Tensor,       # i32[N, K]
     edges: torch.Tensor,       # f32[N, K] raw distances
@@ -1699,9 +1397,6 @@ def mp_banded_poly_fused(
     block marks the chunks its rows' slots fall in, builds and multiplies
     only those, and writes every entry of M once, zeros included. Bound as
     ``mp_banded``, plus writing M."""
-    if not _on_cuda(nodes, "mp_banded_poly_fused"):
-        return mp_banded_poly_fused_plain(nlist, edges, cheb, plan, nodes, w, inv_degree,
-                                          activation_name, out_dtype)
     dev = nodes.device
     B, W, T = plan.block_rows, plan.window, plan.num_tiles
     n_pad, F = nodes.shape
@@ -1710,11 +1405,11 @@ def mp_banded_poly_fused(
     e = coeffs.shape[1]
     if n_pad != plan.n_padded:
         raise ValueError(f"nodes has {n_pad} rows, the plan {plan.n_padded}")
-    suffix, act, table, w_b = _mp_operands(nodes, w, inv_degree, e, B, W, activation_name,
-                                           "mp_banded_poly_fused")
+    _mp_tiles("mp_banded_poly_fused", B, W, n_pad)
+    suffix, act, table, w_b = operands("nodes", nodes, w, e, inv_degree, activation_name)
     fp = table.shape[1]
     fb, nb = mp_split(fp)
-    m_bf16 = _bf16_flag("out_dtype", out_dtype)
+    m_bf16 = bf16_flag("out_dtype", out_dtype)
     lo = _device_lo(plan, dev)
     M = torch.empty((T, e, B, W), dtype=out_dtype, device=dev)
     groups = channel_groups(e, min(mp_group_size(fp), poly_group_size(scalars[0])))
@@ -1732,30 +1427,21 @@ def mp_banded_poly_fused(
             Mh = torch.empty((T, read[-1][1], B, W), dtype=nodes.dtype, device=dev)
             _poly_groups(nlist_p, edges_p, coeffs, scalars, lo, None, Mh, read, n_pad)
         occ = band_occupancy(nlist_p, edges_p, lo, W, B, n_pad)
-    c0, c1 = groups[-1]
-    c = coeffs[:, c0:c1].contiguous()
-    outs = []
-    for j, steps in mp_split_steps(nb, groups):
-        acc = None
-        for i, (g0, g1) in steps[:-1]:
-            acc = _mp_partial_launch(Mh, occ, lo, table, w_b, i, j, g0, g1, acc, suffix)
+    c = coeffs[:, groups[-1][0]:groups[-1][1]].contiguous()
+
+    def final(i, j, c0, c1, acc):
         out = torch.empty((T * B, fb), dtype=nodes.dtype, device=dev)
-        _launch("nmr_mp_banded_poly_fused" + suffix, dev, nlist_p.data_ptr(),
-                edges_p.data_ptr(), c.data_ptr(), lo.data_ptr(), _col(table, j * fb),
-                _at(w_b[j, j], 0, c0), inv_degree.data_ptr(), out.data_ptr(), _at(M, 1, c0), T,
-                c1 - c0, B, W, fb, fp, nlist.shape[1], *scalars, m_bf16, act, e,
-                None if acc is None else acc.data_ptr(), source="fused_first")
-        outs.append(out)
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    if fp != F:
-        out = out[:, :F].contiguous()
-    mp_banded_poly_fused.launches += 1
-    return M, out
+        launch("nmr_mp_banded_poly_fused" + suffix, dev, nlist_p.data_ptr(),
+               edges_p.data_ptr(), c.data_ptr(), lo.data_ptr(), col(table, j * fb),
+               at(w_b[j, j], 0, c0), inv_degree.data_ptr(), out.data_ptr(), at(M, 1, c0), T,
+               c1 - c0, B, W, fb, fp, nlist.shape[1], *scalars, m_bf16, act, e,
+               None if acc is None else acc.data_ptr())
+        return out
+
+    return M, chain(nb, groups, F, _mp_partial(Mh, occ, lo, table, w_b, suffix), final)
 
 
-mp_banded_poly_fused.launches = 0
-
-
+@kernel(build_band_poly_cls_plain, on="edges")
 def build_band_poly_cls(
     nlist: torch.Tensor,   # i32[N, K]
     edges: torch.Tensor,   # f32[N, K] raw distances
@@ -1772,22 +1458,15 @@ def build_band_poly_cls(
     On the card it is the kernel of ``build_band_poly`` reading its rows
     through the ids array (an id out of range reads nothing); it is bound
     by writing M_c."""
-    if not _on_cuda(edges, "build_band_poly_cls"):
-        return build_band_poly_cls_plain(nlist, edges, cheb, cls, block_rows, n_padded,
-                                         out_dtype)
     dev = edges.device
     tc = len(cls.ids)
-    ids = _device_index("cls.ids", cls.ids, tc, dev)
-    lo = _device_index("cls.lo", cls.lo, tc, dev)
-    M = _launch_poly(nlist, edges, cheb, lo, ids, tc, cls.window, block_rows, n_padded,
-                     out_dtype)
-    build_band_poly_cls.launches += 1
-    return M
+    ids = device_index("cls.ids", cls.ids, tc, dev)
+    lo = device_index("cls.lo", cls.lo, tc, dev)
+    return _launch_poly(nlist, edges, cheb, lo, ids, tc, cls.window, block_rows, n_padded,
+                        out_dtype)
 
 
-build_band_poly_cls.launches = 0
-
-
+@kernel(mp_banded_partial_plain, on="table")
 def mp_banded_partial(
     M: torch.Tensor,      # [T, E, B, W], in table.dtype
     lo,                   # i32[T] window starts (numpy, or int32 on the card)
@@ -1802,37 +1481,22 @@ def mp_banded_partial(
     833-894). On the card it is the MP kernel of ``mp_banded`` without its
     epilogue (``csrc/hbm.cu``), with the same occupancy rule; window rows
     outside the table read as zeros. Bound as ``mp_banded``."""
-    if not _on_cuda(table, "mp_banded_partial"):
-        return mp_banded_partial_plain(M, lo, table, w, occupancy)
-    dev = table.device
     T, E, B, W = M.shape
     n_table, F = table.shape
-    if not _mp_tiles_ok(B, W):
-        raise NotImplementedError(
-            f"mp_banded_partial kernel takes B a multiple of the rows per block, W a multiple "
-            f"of {_MP_CHUNK}")
-    suffix = _dtype_suffix("table", table.dtype)
-    _check("M", M, table.dtype, (T, E, B, W), dev)
-    _check("table", table, table.dtype, (n_table, F), dev)
+    _mp_tiles("mp_banded_partial", B, W)
+    suffix, _, table_p, w_b = operands("table", table, w, E)
+    check("M", M, table.dtype, (T, E, B, W), table.device)
     if not isinstance(lo, torch.Tensor):
         lo_np = np.asarray(lo)
         if lo_np.size and (lo_np.min() < 0 or lo_np.max() + W > n_table):
             raise ValueError("windows must lie inside the table")
-    lo = _device_index("lo", lo, T, dev)
-    fp = mp_width(F)
-    w_b = _mp_weights(pad_mp_weights(w, fp), table.dtype, E, fp, dev)
+    lo = device_index("lo", lo, T, table.device)
     occ = _mp_occupancy(M, occupancy)
-    out = _mp_partials(M, occ, lo, pad_columns(table, fp), w_b,
-                       channel_groups(E, mp_group_size(fp)), suffix)
-    if fp != F:
-        out = out[:, :F].contiguous()
-    mp_banded_partial.launches += 1
-    return out
+    return chain(w_b.shape[0], channel_groups(E, mp_group_size(table_p.shape[1])), F,
+                 _mp_partial(M, occ, lo, table_p, w_b, suffix))
 
 
-mp_banded_partial.launches = 0
-
-
+@kernel(mp_banded_hbm_plain, on="nodes")
 def mp_banded_hbm(
     M: torch.Tensor,           # [T, E, B, W] from a band build, in nodes.dtype
     plan: BandPlan,
@@ -1852,17 +1516,11 @@ def mp_banded_hbm(
     chunk of window and band in flight while the current one is used: on
     Hopper no path holds the table on chip, so the TPU's resident and HBM
     kernels are one kernel here. Bound as ``mp_banded``."""
-    if not _on_cuda(nodes, "mp_banded_hbm"):
-        return mp_banded_hbm_plain(M, plan, nodes, w, inv_degree, activation_name, occupancy)
-    out = _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded_hbm",
-                    occupancy)
-    mp_banded_hbm.launches += 1
-    return out
+    return _mp_layer(M, plan, nodes, w, inv_degree, activation_name, "mp_banded_hbm",
+                     occupancy)
 
 
-mp_banded_hbm.launches = 0
-
-
+@kernel(mp_banded_hbm_cls_plain, on="nodes")
 def mp_banded_hbm_cls(
     M: torch.Tensor,           # [Tc, E, B, Wc] from build_band_poly_cls, in nodes.dtype
     cls: BandClass,            # ids and lo as numpy or int32 tensors on the card
@@ -1882,9 +1540,6 @@ def mp_banded_hbm_cls(
     residual rows and inv_degree through the ids array; an id out of range
     given on the card reads nothing and writes zeros, one given as numpy
     raises. Bound as ``mp_banded_hbm``."""
-    if not _on_cuda(nodes, "mp_banded_hbm_cls"):
-        return mp_banded_hbm_cls_plain(M, cls, block_rows, nodes, w, inv_degree,
-                                       activation_name, occupancy)
     dev = nodes.device
     tc, _, B, W = M.shape
     if B != block_rows or len(cls.ids) != tc or cls.window != W:
@@ -1896,16 +1551,13 @@ def mp_banded_hbm_cls(
             a = np.asarray(a)
             if a.size and (a.min() < 0 or a.max() > hi):
                 raise ValueError(f"{name} out of range [0, {hi}]")
-    ids = _device_index("cls.ids", cls.ids, tc, dev)
-    lo = _device_index("cls.lo", cls.lo, tc, dev)
-    out = _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, "mp_banded_hbm_cls",
-                     occupancy)
-    mp_banded_hbm_cls.launches += 1
-    return out
+    ids = device_index("cls.ids", cls.ids, tc, dev)
+    lo = device_index("cls.lo", cls.lo, tc, dev)
+    return _launch_mp(M, lo, ids, nodes, w, inv_degree, activation_name, "mp_banded_hbm_cls",
+                      occupancy)
 
 
-mp_banded_hbm_cls.launches = 0
-
+@kernel(band_occupancy_plain, on="edges")
 def band_occupancy(
     nlist: torch.Tensor,   # i32[N, K]
     edges: torch.Tensor,   # f32[N, K] distances, 0 on padding slots
@@ -1924,29 +1576,24 @@ def band_occupancy(
     that replaces B1, B5, B6 and B9 (``csrc/mp.cuh``). On the card one
     warp takes a band row, its lanes the row's slots, and writes the
     row's words with a warp OR; bound by reading nlist and the distances."""
-    if not _on_cuda(edges, "band_occupancy"):
-        return band_occupancy_plain(nlist, edges, lo, window, block_rows, n_padded, ids)
     dev = edges.device
     n, k = nlist.shape
     tg = len(lo)
-    _check("nlist", nlist, torch.int32, (n, k), dev)
-    _check("edges", edges, torch.float32, (n, k), dev)
-    if window % _MP_CHUNK or n_padded % block_rows:
-        raise ValueError(f"window {window} is not whole {_MP_CHUNK}-column chunks, or "
+    check("nlist", nlist, torch.int32, (n, k), dev)
+    check("edges", edges, torch.float32, (n, k), dev)
+    if window % MP_CHUNK or n_padded % block_rows:
+        raise ValueError(f"window {window} is not whole {MP_CHUNK}-column chunks, or "
                          f"{n_padded} rows not whole {block_rows}-row tiles")
-    lo = _device_index("lo", lo, tg, dev)
-    ids = None if ids is None else _device_index("ids", ids, tg, dev)
+    lo = device_index("lo", lo, tg, dev)
+    ids = None if ids is None else device_index("ids", ids, tg, dev)
     occ = torch.empty((tg * block_rows, occupancy_words(window)), dtype=torch.int32, device=dev)
-    _launch("nmr_band_occupancy", dev, nlist.data_ptr(), edges.data_ptr(), lo.data_ptr(),
-            None if ids is None else ids.data_ptr(), occ.data_ptr(), tg, n,
-            n_padded // block_rows, block_rows, k, window, source="hbm")
-    band_occupancy.launches += 1
+    launch("nmr_band_occupancy", dev, nlist.data_ptr(), edges.data_ptr(), lo.data_ptr(),
+           None if ids is None else ids.data_ptr(), occ.data_ptr(), tg, n,
+           n_padded // block_rows, block_rows, k, window)
     return occ
 
 
-band_occupancy.launches = 0
-
-
+@kernel(band_occupancy_from_band_plain, on="M")
 def band_occupancy_from_band(M: torch.Tensor) -> torch.Tensor:
     """int32 [T * B, NW]: the chunk occupancy of a band M [T, E, B, W]
     read from M itself, for an MP call given no occupancy (the JAX
@@ -1955,22 +1602,16 @@ def band_occupancy_from_band(M: torch.Tensor) -> torch.Tensor:
     A kernel of the port with no TPU counterpart, feeding the MP kernel
     (``csrc/mp.cuh``): one warp a band row, a lane a chunk, one pass over
     M; bound by reading M."""
-    if not _on_cuda(M, "band_occupancy_from_band"):
-        return band_occupancy_from_band_plain(M)
     dev = M.device
     T, E, B, W = M.shape
-    suffix = _dtype_suffix("M", M.dtype)
-    _check("M", M, M.dtype, (T, E, B, W), dev)
-    if W % _MP_CHUNK:
-        raise ValueError(f"window {W} is not whole {_MP_CHUNK}-column chunks")
+    suffix = dtype_suffix("M", M.dtype)
+    check("M", M, M.dtype, (T, E, B, W), dev)
+    if W % MP_CHUNK:
+        raise ValueError(f"window {W} is not whole {MP_CHUNK}-column chunks")
     occ = torch.empty((T * B, occupancy_words(W)), dtype=torch.int32, device=dev)
-    _launch("nmr_band_occupancy_from_band" + suffix, dev, M.data_ptr(), occ.data_ptr(), T, E,
-            B, W, source="hbm")
-    band_occupancy_from_band.launches += 1
+    launch("nmr_band_occupancy_from_band" + suffix, dev, M.data_ptr(), occ.data_ptr(), T, E,
+           B, W)
     return occ
-
-
-band_occupancy_from_band.launches = 0
 
 # ---------------------------------------------------------------------------
 # Differentiable wrappers (``nmrgnn_tpu/ops/banded.py:897-1104``): training
@@ -2015,7 +1656,7 @@ class _BuildBandDF(torch.autograd.Function):
     def backward(ctx, gM):
         (nlist,) = ctx.saved_tensors
         plan = ctx.plan
-        lo_rows = _long(plan.lo, nlist.device).repeat_interleave(plan.block_rows)[:nlist.shape[0]]
+        lo_rows = as_long(plan.lo, nlist.device).repeat_interleave(plan.block_rows)[:nlist.shape[0]]
         return _band_vjp(gM, nlist, lo_rows, plan.window), None, None, None
 
 
@@ -2057,7 +1698,7 @@ def build_band_tracedlo_df(
     """``build_band_tracedlo`` with a gradient to ``edge_feats``
     (``nmrgnn_tpu/ops/banded.py:958-1001``): forward B7a, backward the
     window gather of ``_band_vjp`` with the caller's window starts."""
-    lo = _long(lo, edge_feats.device)
+    lo = as_long(lo, edge_feats.device)
     if lo.shape != (_tiles_of(nlist.shape[0], block_rows),):
         raise ValueError(f"{lo.shape[0]} window starts for {nlist.shape[0]} rows")
     return _BuildBandTracedloDF.apply(edge_feats, nlist.to(torch.int32).contiguous(), lo,
@@ -2138,19 +1779,4 @@ def mp_banded_partial_df(
     (``nmrgnn_tpu/ops/banded.py:924-955``): forward B6, backward the VJP
     of ``mp_banded_partial_plain`` in float32 (``mp_banded_partial_xla``'s,
     :897-917)."""
-    return _MPBandedPartialDF.apply(M, table, w, _long(lo, table.device), occupancy)
-
-
-# The forwards' kernel wrappers; the request preparation's
-# (``permute_tile_bounds``) counts its launches apart.
-KERNEL_WRAPPERS = (build_band, build_band_tracedlo, build_band_fused, mp_banded,
-                   build_band_poly, build_band_poly_tracedlo, mp_banded_poly_fused,
-                   build_band_poly_cls, mp_banded_partial, mp_banded_hbm, mp_banded_hbm_cls,
-                   band_occupancy, band_occupancy_from_band)
-
-
-def reset_launch_counts() -> None:
-    """Zero the launch counts of the forwards' kernels (``KERNEL_WRAPPERS``)
-    and of the request preparation's (``permute_tile_bounds``)."""
-    for f in KERNEL_WRAPPERS + (permute_tile_bounds,):
-        f.launches = 0
+    return _MPBandedPartialDF.apply(M, table, w, as_long(lo, table.device), occupancy)

@@ -25,8 +25,8 @@ reads the block occupancy, one bit per (pair, slab, chunk)
 from nlist, the distances and the pairs; ``block_occupancy_from_adjacency``
 for a call with the JAX package's signature, one pass over A).
 
-Each wrapper takes the plain PyTorch version for a tensor on the CPU and
-launches its CUDA kernel (``csrc/blocksparse.cu``; the MP layer is
+Each wrapper (``_cuda.kernel``) takes the plain PyTorch version for a
+tensor on the CPU and launches its CUDA kernel (``csrc/blocksparse.cu``; the MP layer is
 ``csrc/mp.cuh``'s kernel in its kPairs mode) for a tensor on the card; it
 never falls back from the card to the plain version. Each counts its
 launches in ``.launches``.
@@ -50,19 +50,16 @@ card it computes the same function on a structure built with ``group=G``
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from . import _cuda
-from .activations import ACTIVATION_CODES, get_activation
-from .banded import (_MP_CHUNK, _MP_ROWS, _at, _check, _col, _dtype_suffix, _long,
-                     _mp_tiles_ok, _mp_weights, _on_cuda, _pack_bits, channel_groups,
-                     mp_group_size, mp_split, mp_split_steps, mp_width, occupancy_bits,
-                     pad_columns, pad_mp_weights)
+from ._cuda import as_long, at, bf16_flag, check, col, kernel, launch
+from .activations import get_activation
+from .mp import (MP_CHUNK, MP_ROWS, chain, channel_groups, mp_group_size, mp_tiles_ok,
+                 occupancy_bits, operands, pack_bits)
 
 
 class BlockStructure(NamedTuple):
@@ -246,9 +243,9 @@ def build_block_adjacency_plain(
     pad = struct.n_padded - n
     nl = nnf.pad(nlist.to(torch.int64), (0, 0, 0, pad), value=-1).view(nb, B, k)
     ef = nnf.pad(edge_feats.float(), (0, 0, 0, 0, 0, pad)).view(nb, B, k, e)
-    pairs = torch.nonzero(_long(struct.pair_valid, dev)).squeeze(1)  # the valid pairs
-    rows = _long(struct.pair_rows, dev)[pairs]
-    rel = nl[rows] - (_long(struct.pair_cols, dev)[pairs] * B)[:, None, None]  # [Pv, B, K]
+    pairs = torch.nonzero(as_long(struct.pair_valid, dev)).squeeze(1)  # the valid pairs
+    rows = as_long(struct.pair_rows, dev)[pairs]
+    rel = nl[rows] - (as_long(struct.pair_cols, dev)[pairs] * B)[:, None, None]  # [Pv, B, K]
     vals = ef[rows]                                                           # [Pv, B, K, E]
     A = torch.zeros((P, e, B, B), dtype=torch.float32, device=dev)
     blocks = A.permute(0, 2, 3, 1)  # [P, b, q, E], a view of A
@@ -269,7 +266,7 @@ _MAX_PAIR_B = 512  # block size the MP kernel's chunk list takes (B / 16 <= 32)
 
 def _pair_bits(block_size: int) -> int:
     """Occupancy bits of a pair: (slabs) x (chunks)."""
-    return (block_size // _MP_ROWS) * (block_size // _MP_CHUNK)
+    return (block_size // MP_ROWS) * (block_size // MP_CHUNK)
 
 
 def pair_words(block_size: int) -> int:
@@ -291,11 +288,11 @@ def block_occupancy_plain(
     B, nb, P = struct.block_size, struct.nb, struct.n_pairs
     dev = edges.device
     n, k = nlist.shape
-    nch = B // _MP_CHUNK
+    nch = B // MP_CHUNK
     bits = torch.zeros((P, _pair_bits(B)), dtype=torch.bool, device=dev)
-    vidx = torch.nonzero(_long(struct.pair_valid, dev) != 0).squeeze(1)
+    vidx = torch.nonzero(as_long(struct.pair_valid, dev) != 0).squeeze(1)
     if vidx.numel():
-        keys = _long(struct.pair_rows, dev)[vidx] * nb + _long(struct.pair_cols, dev)[vidx]
+        keys = as_long(struct.pair_rows, dev)[vidx] * nb + as_long(struct.pair_cols, dev)[vidx]
         order = torch.sort(keys, stable=True).indices
         skeys, spair = keys[order], vidx[order]
         t = nlist.to(torch.int64)
@@ -304,17 +301,17 @@ def block_occupancy_plain(
         key = (row // B) * nb + t.clamp(0, nb * B - 1) // B
         pos = torch.searchsorted(skeys, key.reshape(-1)).clamp(max=skeys.numel() - 1)
         ok = hit.reshape(-1) & (skeys[pos] == key.reshape(-1))
-        bit = ((row % B) // _MP_ROWS * nch + (t % B) // _MP_CHUNK).reshape(-1)
+        bit = ((row % B) // MP_ROWS * nch + (t % B) // MP_CHUNK).reshape(-1)
         bits[spair[pos][ok], bit[ok]] = True
-    return _pack_bits(bits)
+    return pack_bits(bits)
 
 
 def block_occupancy_from_adjacency_plain(A: torch.Tensor) -> torch.Tensor:
     """int32 [P, pair_words(B)]: the (slab, chunk) pieces of each pair's
     block of A [P, E, B, B] that hold a nonzero (in any channel)."""
     P, E, B, _ = A.shape
-    nz = (A != 0).any(1).view(P, B // _MP_ROWS, _MP_ROWS, B // _MP_CHUNK, _MP_CHUNK)
-    return _pack_bits(nz.any(4).any(2).reshape(P, -1))
+    nz = (A != 0).any(1).view(P, B // MP_ROWS, MP_ROWS, B // MP_CHUNK, MP_CHUNK)
+    return pack_bits(nz.any(4).any(2).reshape(P, -1))
 
 
 def _occupied_blocks(A: torch.Tensor, occupancy) -> torch.Tensor:
@@ -326,9 +323,9 @@ def _occupied_blocks(A: torch.Tensor, occupancy) -> torch.Tensor:
     if tuple(occupancy.shape) != (P, pair_words(B)):
         raise ValueError(f"occupancy of shape {tuple(occupancy.shape)} does not match A "
                          f"{tuple(A.shape)}")
-    bits = occupancy_bits(occupancy.to(A.device), _pair_bits(B) * _MP_CHUNK)
-    keep = bits.view(P, B // _MP_ROWS, 1, B // _MP_CHUNK, 1).expand(
-        P, B // _MP_ROWS, _MP_ROWS, B // _MP_CHUNK, _MP_CHUNK).reshape(P, 1, B, B)
+    bits = occupancy_bits(occupancy.to(A.device), _pair_bits(B) * MP_CHUNK)
+    keep = bits.view(P, B // MP_ROWS, 1, B // MP_CHUNK, 1).expand(
+        P, B // MP_ROWS, MP_ROWS, B // MP_CHUNK, MP_CHUNK).reshape(P, 1, B, B)
     return A * keep.to(A.dtype)
 
 
@@ -353,7 +350,7 @@ def mp_blocksparse_plain(
     P, E, B, _ = A.shape
     nb, F = struct.nb, nodes.shape[-1]
     dev, cd = nodes.device, nodes.dtype
-    rows, cols = _long(struct.pair_rows, dev), _long(struct.pair_cols, dev)
+    rows, cols = as_long(struct.pair_rows, dev), as_long(struct.pair_cols, dev)
     blocks = nodes.view(nb, B, F)
     h = torch.zeros((nb, E, B, F), dtype=torch.float32, device=dev)
     for s in range(0, P, _PLAIN_PAIR_CHUNK):
@@ -368,31 +365,17 @@ def mp_blocksparse_plain(
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_MP_ARGS = [_P] * 8 + [_I] * 8 + [_P, _P]
-_SIGNATURES = {
-    "nmr_error_string": (ctypes.c_char_p, [_I]),
-    "nmr_build_block_adjacency": (_I, [_P] * 6 + [_I] * 8 + [_P]),
-    "nmr_mp_blocksparse": (_I, _MP_ARGS),
-    "nmr_mp_blocksparse_bf16": (_I, _MP_ARGS),
-    "nmr_block_occupancy": (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    "nmr_block_occupancy_from_adjacency": (_I, [_P, _P, _I, _I, _I, _I, _P]),
-}
-
-
-def _launch(fn: str, device, *args) -> None:
-    _cuda.launch("blocksparse", _SIGNATURES, fn, device, *args)
-
 
 def _device_struct(struct: BlockStructure, device) -> BlockStructure:
     s = struct_on_device(struct, device)
     P = s.n_pairs
     for name in ("pair_rows", "pair_cols", "pair_valid"):
-        _check(f"struct.{name}", getattr(s, name), torch.int32, (P,), device)
-    _check("struct.row_ptr", s.row_ptr, torch.int32, (s.nb + 1,), device)
+        check(f"struct.{name}", getattr(s, name), torch.int32, (P,), device)
+    check("struct.row_ptr", s.row_ptr, torch.int32, (s.nb + 1,), device)
     return s
 
 
+@kernel(build_block_adjacency_plain, on="edge_feats")
 def build_block_adjacency(
     nlist: torch.Tensor,       # i32[N, K]
     edge_feats: torch.Tensor,  # f32[N, K, E] (EdgeFC output; 0 on padding)
@@ -406,33 +389,28 @@ def build_block_adjacency(
     215-293). On the card one block per pair; a warp takes a row, passes
     its K slots round by shuffle, and each lane sums four columns of every
     channel in slot order. It is bound by writing A."""
-    if not _on_cuda(edge_feats, "build_block_adjacency"):
-        return build_block_adjacency_plain(nlist, edge_feats, struct, out_dtype)
     dev = edge_feats.device
     n, k = nlist.shape
     e = edge_feats.shape[-1]
     B = struct.block_size
-    _check("nlist", nlist, torch.int32, (n, k), dev)
-    _check("edge_feats", edge_feats, torch.float32, (n, k, e), dev)
+    check("nlist", nlist, torch.int32, (n, k), dev)
+    check("edge_feats", edge_feats, torch.float32, (n, k, e), dev)
     if not (k >= 1 and B % 4 == 0 and n <= struct.n_padded):
         raise NotImplementedError("build_block_adjacency kernel takes B a multiple of 4")
-    suffix = _dtype_suffix("out_dtype", out_dtype)
+    out_bf16 = bf16_flag("out_dtype", out_dtype)
     s = _device_struct(struct, dev)
     pad = struct.n_padded - n
     nlist_p = nnf.pad(nlist, (0, 0, 0, pad), value=-1)
     e_p = nnf.pad(edge_feats, (0, 0, 0, 0, 0, pad))
     A = torch.empty((s.n_pairs, e, B, B), dtype=out_dtype, device=dev)
     for c0, c1 in channel_groups(e):
-        _launch("nmr_build_block_adjacency", dev, nlist_p.data_ptr(), _at(e_p, 2, c0),
-                s.pair_rows.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
-                _at(A, 1, c0), s.n_pairs, s.nb, B, k, c1 - c0, int(suffix != ""), e, e)
-    build_block_adjacency.launches += 1
+        launch("nmr_build_block_adjacency", dev, nlist_p.data_ptr(), at(e_p, 2, c0),
+               s.pair_rows.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
+               at(A, 1, c0), s.n_pairs, s.nb, B, k, c1 - c0, out_bf16, e, e)
     return A
 
 
-build_block_adjacency.launches = 0
-
-
+@kernel(block_occupancy_plain, on="edges")
 def block_occupancy(
     nlist: torch.Tensor,     # i32[N, K], N <= n_padded
     edges: torch.Tensor,     # f32[N, K] distances, 0 on padding slots
@@ -449,28 +427,23 @@ def block_occupancy(
     thread takes a slot, scans its row block's pairs for the target's col
     block and sets the bit with an atomic OR into zeroed words; bound by
     reading nlist and the distances."""
-    if not _on_cuda(edges, "block_occupancy"):
-        return block_occupancy_plain(nlist, edges, struct)
     dev = edges.device
     n, k = nlist.shape
     B = struct.block_size
-    _check("nlist", nlist, torch.int32, (n, k), dev)
-    _check("edges", edges, torch.float32, (n, k), dev)
-    if B % _MP_ROWS or B > _MAX_PAIR_B or n > struct.n_padded:
-        raise NotImplementedError(f"block_occupancy kernel takes B a multiple of {_MP_ROWS} "
+    check("nlist", nlist, torch.int32, (n, k), dev)
+    check("edges", edges, torch.float32, (n, k), dev)
+    if B % MP_ROWS or B > _MAX_PAIR_B or n > struct.n_padded:
+        raise NotImplementedError(f"block_occupancy kernel takes B a multiple of {MP_ROWS} "
                                   f"up to {_MAX_PAIR_B}")
     s = _device_struct(struct, dev)
     occ = torch.zeros((s.n_pairs, pair_words(B)), dtype=torch.int32, device=dev)
-    _launch("nmr_block_occupancy", dev, nlist.data_ptr(), edges.data_ptr(),
-            s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
-            occ.data_ptr(), n, k, s.nb, B, s.n_pairs)
-    block_occupancy.launches += 1
+    launch("nmr_block_occupancy", dev, nlist.data_ptr(), edges.data_ptr(),
+           s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), s.pair_valid.data_ptr(),
+           occ.data_ptr(), n, k, s.nb, B, s.n_pairs)
     return occ
 
 
-block_occupancy.launches = 0
-
-
+@kernel(block_occupancy_from_adjacency_plain, on="A")
 def block_occupancy_from_adjacency(A: torch.Tensor) -> torch.Tensor:
     """int32 [P, pair_words(B)]: the block occupancy of A [P, E, B, B] read
     from A itself, for an MP call given no occupancy (the JAX package's
@@ -479,76 +452,75 @@ def block_occupancy_from_adjacency(A: torch.Tensor) -> torch.Tensor:
     A kernel of the port with no TPU counterpart, feeding the MP kernel
     (``csrc/mp.cuh``, kPairs): one block a pair, one pass over A; bound by
     reading A."""
-    if not _on_cuda(A, "block_occupancy_from_adjacency"):
-        return block_occupancy_from_adjacency_plain(A)
     dev = A.device
     P, E, B, _ = A.shape
-    suffix = _dtype_suffix("A", A.dtype)
-    _check("A", A, A.dtype, (P, E, B, B), dev)
-    if B % _MP_ROWS or B > _MAX_PAIR_B or P < 1:
+    a_bf16 = bf16_flag("A", A.dtype)
+    check("A", A, A.dtype, (P, E, B, B), dev)
+    if B % MP_ROWS or B > _MAX_PAIR_B or P < 1:
         raise NotImplementedError(f"block_occupancy_from_adjacency kernel takes B a multiple "
-                                  f"of {_MP_ROWS} up to {_MAX_PAIR_B}")
+                                  f"of {MP_ROWS} up to {_MAX_PAIR_B}")
     occ = torch.empty((P, pair_words(B)), dtype=torch.int32, device=dev)
-    _launch("nmr_block_occupancy_from_adjacency", dev, A.data_ptr(), occ.data_ptr(), P, E, B,
-            int(suffix != ""))
-    block_occupancy_from_adjacency.launches += 1
+    launch("nmr_block_occupancy_from_adjacency", dev, A.data_ptr(), occ.data_ptr(), P, E, B,
+           a_bf16)
     return occ
-
-
-block_occupancy_from_adjacency.launches = 0
 
 
 def _launch_mp(A, struct, nodes, w, inv_degree, activation_name, what,
                occupancy) -> torch.Tensor:
     """Checks and launches the block-sparse MP layer (``csrc/mp.cuh``'s
-    kernel in its kPairs mode, ``csrc/blocksparse.cu``)."""
+    kernel in its kPairs mode, ``csrc/blocksparse.cu``): for each output
+    block of the F-split, its chain of partial sums (no inv_degree) and its
+    last launch with the epilogue, all through one entry point."""
     dev = nodes.device
     P, E, B, _ = A.shape
     n_table, F = nodes.shape
-    if not _mp_tiles_ok(B, B) or B > _MAX_PAIR_B:  # a pair's B columns are its window
+    if not mp_tiles_ok(B, B) or B > _MAX_PAIR_B:  # a pair's B columns are its window
         raise NotImplementedError(
-            f"{what} kernel takes B a multiple of {_MP_CHUNK} and of the rows per block, up "
+            f"{what} kernel takes B a multiple of {MP_CHUNK} and of the rows per block, up "
             f"to {_MAX_PAIR_B}")
     if B != struct.block_size or n_table != struct.n_padded or P != struct.n_pairs:
         raise ValueError(f"A of shape {tuple(A.shape)} and nodes of {tuple(nodes.shape)} do "
                          f"not match the structure")
-    suffix = _dtype_suffix("nodes", nodes.dtype)
-    _check("A", A, nodes.dtype, (P, E, B, B), dev)
-    _check("nodes", nodes, nodes.dtype, (n_table, F), dev)
-    _check("inv_degree", inv_degree, torch.float32, (n_table,), dev)
-    act = ACTIVATION_CODES.get(activation_name)
-    if act is None:
-        raise ValueError(f"unknown activation {activation_name!r}")
-    fp = mp_width(F)
-    fb = mp_split(fp)[0]
-    table = pad_columns(nodes, fp)
-    w_b = _mp_weights(pad_mp_weights(w, fp), nodes.dtype, E, fp, dev)
+    suffix, act, table, w_b = operands("nodes", nodes, w, E, inv_degree, activation_name)
+    check("A", A, nodes.dtype, (P, E, B, B), dev)
+    fp = table.shape[1]
+    fb = w_b.shape[-1]
     s = _device_struct(struct, dev)
     if occupancy is None:
         occ = block_occupancy_from_adjacency(A)
     else:
         occ = occupancy
-        _check("occupancy", occ, torch.int32, (P, pair_words(B)), dev)
-    # for each output block of the F-split, its launches but the last as
-    # partial sums (no inv_degree), chained, and the last with the epilogue
-    outs = []
-    for j, steps in mp_split_steps(w_b.shape[0], channel_groups(E, mp_group_size(fp))):
-        acc = None
-        for n, (i, (c0, c1)) in enumerate(steps):
-            last = n == len(steps) - 1
-            out = torch.empty((n_table, fb), dtype=nodes.dtype if last else torch.float32,
-                              device=dev)
-            _launch("nmr_mp_blocksparse" + suffix, dev, _at(A, 1, c0), occ.data_ptr(),
-                    s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), _col(table, i * fb),
-                    _at(w_b[i, j], 0, c0), inv_degree.data_ptr() if last else None,
-                    out.data_ptr(), P, s.nb, c1 - c0, B, fb, fp, act, E,
-                    None if acc is None else acc.data_ptr())
-            acc = out
-        outs.append(out)
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return out if fp == F else out[:, :F].contiguous()
+        check("occupancy", occ, torch.int32, (P, pair_words(B)), dev)
+
+    def step(inv, dtype):
+        def run(i, j, c0, c1, acc):
+            out = torch.empty((n_table, fb), dtype=dtype, device=dev)
+            launch("nmr_mp_blocksparse" + suffix, dev, at(A, 1, c0), occ.data_ptr(),
+                   s.row_ptr.data_ptr(), s.pair_cols.data_ptr(), col(table, i * fb),
+                   at(w_b[i, j], 0, c0), inv, out.data_ptr(), P, s.nb, c1 - c0, B, fb, fp, act,
+                   E, None if acc is None else acc.data_ptr())
+            return out
+        return run
+
+    return chain(w_b.shape[0], channel_groups(E, mp_group_size(fp)), F,
+                 step(None, torch.float32), step(inv_degree.data_ptr(), nodes.dtype))
 
 
+def _mp_blocksparse_cpu(A, struct, nodes, w, inv_degree, activation_name="softplus", group=1,
+                        occupancy=None):
+    """``mp_blocksparse_plain`` of a call of either MP wrapper: the same
+    function for every ``group``."""
+    return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name, occupancy)
+
+
+def _grouped(A, struct, nodes, w, inv_degree, activation_name="softplus", group=1,
+             occupancy=None):
+    """``mp_blocksparse_grouped`` for a call with ``group`` > 1 on the card,
+    which takes and counts it."""
+    return mp_blocksparse_grouped if group > 1 else None
+
+
+@kernel(_mp_blocksparse_cpu, on="nodes", route=_grouped)
 def mp_blocksparse(
     A: torch.Tensor,           # [P, E, B, B] from build_block_adjacency, in nodes.dtype
     struct: BlockStructure,
@@ -576,20 +548,11 @@ def mp_blocksparse(
     cores; bfloat16: h split into two bfloat16 halves on the tensor
     cores), then the epilogue. In float32 the second product bounds it; in
     bfloat16 the bytes of the occupied chunks and of W."""
-    if not _on_cuda(nodes, "mp_blocksparse"):
-        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name, occupancy)
-    if group > 1:
-        return mp_blocksparse_grouped(A, struct, nodes, w, inv_degree, activation_name, group,
-                                      occupancy)
-    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse",
-                     occupancy)
-    mp_blocksparse.launches += 1
-    return out
+    return _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse",
+                      occupancy)
 
 
-mp_blocksparse.launches = 0
-
-
+@kernel(_mp_blocksparse_cpu, on="nodes")
 def mp_blocksparse_grouped(
     A: torch.Tensor,           # [P, E, B, B], P a multiple of group
     struct: BlockStructure,    # built with block_structure(..., group=group)
@@ -610,22 +573,7 @@ def mp_blocksparse_grouped(
     padding pair (A = 0) occupies nothing, so it is never staged and the
     result equals ``mp_blocksparse``'s on the group-1 structure bit for
     bit. Bound as ``mp_blocksparse``."""
-    if not _on_cuda(nodes, "mp_blocksparse_grouped"):
-        return mp_blocksparse_plain(A, struct, nodes, w, inv_degree, activation_name, occupancy)
     if group < 1 or A.shape[0] % group:
         raise ValueError(f"{A.shape[0]} pairs are not whole groups of {group}")
-    out = _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse_grouped",
-                     occupancy)
-    mp_blocksparse_grouped.launches += 1
-    return out
-
-
-mp_blocksparse_grouped.launches = 0
-
-KERNEL_WRAPPERS = (build_block_adjacency, mp_blocksparse, mp_blocksparse_grouped,
-                   block_occupancy, block_occupancy_from_adjacency)
-
-
-def reset_launch_counts() -> None:
-    for f in KERNEL_WRAPPERS:
-        f.launches = 0
+    return _launch_mp(A, struct, nodes, w, inv_degree, activation_name, "mp_blocksparse_grouped",
+                      occupancy)

@@ -29,24 +29,16 @@ message's sums are one hand-written kernel a block (``message``,
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from . import _cuda
-from .banded import _check, _on_cuda
+from ._cuda import check, kernel, launch
 from .edge import as_operand
 
 ANGSTROM_PER_NM = 10.0
 NORM_EPS = 1e-8  # schnetpack's PaiNNMixing epsilon
 MAX_F = 256      # atom features the message kernel takes (8 channels a lane)
-
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "nmr_error_string": (ctypes.c_char_p, [_I]),
-    "nmr_painn_message": (_I, [_P] * 9 + [_I] * 3 + [_L, _L, _P]),
-}
 
 
 def edge_geometry(positions: torch.Tensor, nlist: torch.Tensor, edges: torch.Tensor,
@@ -128,7 +120,7 @@ def kernel_args(s: torch.Tensor, v: torch.Tensor, ctx: torch.Tensor, w: torch.Te
                                   ("unit", unit, torch.float32, (n, K, 3)),
                                   ("nlist", nlist, torch.int32, (n, K)),
                                   ("edges", edges, torch.float32, (n, K))):
-        _check(name, t, dtype, shape, dev)
+        check(name, t, dtype, shape, dev)
     if w.device != dev:
         raise ValueError(f"w is on {w.device}, expected {dev}")
     if w.dtype != torch.float32:
@@ -141,6 +133,15 @@ def kernel_args(s: torch.Tensor, v: torch.Tensor, ctx: torch.Tensor, w: torch.Te
     return n, K, F, w.stride(0), w.stride(1)
 
 
+def _message_cpu(p: dict, s: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                 unit: torch.Tensor, nlist: torch.Tensor, edges: torch.Tensor, activation,
+                 dense, compute_dtype=torch.float32):
+    """``message`` on the CPU: the context, then ``message_sums_plain``."""
+    ctx = context(p, s, activation, dense, compute_dtype)
+    return message_sums_plain(s, v, ctx, w, unit, nlist)
+
+
+@kernel(_message_cpu, on="s")
 def message(p: dict, s: torch.Tensor, v: torch.Tensor, w: torch.Tensor, unit: torch.Tensor,
             nlist: torch.Tensor, edges: torch.Tensor, activation, dense,
             compute_dtype=torch.float32):
@@ -154,18 +155,12 @@ def message(p: dict, s: torch.Tensor, v: torch.Tensor, w: torch.Tensor, unit: to
     reading ``w`` in place by its strides (``kernel_args``); it counts its
     launches in ``.launches``. On the CPU: ``message_sums_plain``."""
     ctx = context(p, s, activation, dense, compute_dtype)
-    if not _on_cuda(s, "painn.message"):
-        return message_sums_plain(s, v, ctx, w, unit, nlist)
     n, K, F, w_atom, w_slot = kernel_args(s, v, ctx, w, unit, nlist, edges)
     s_out, v_out = torch.empty_like(s), torch.empty_like(v)
-    _cuda.launch("painn", _SIGNATURES, "nmr_painn_message", s.device, s.data_ptr(),
-                 v.data_ptr(), ctx.data_ptr(), w.data_ptr(), unit.data_ptr(), nlist.data_ptr(),
-                 edges.data_ptr(), s_out.data_ptr(), v_out.data_ptr(), n, K, F, w_atom, w_slot)
-    message.launches += 1
+    launch("nmr_painn_message", s.device, s.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+           w.data_ptr(), unit.data_ptr(), nlist.data_ptr(), edges.data_ptr(), s_out.data_ptr(),
+           v_out.data_ptr(), n, K, F, w_atom, w_slot)
     return s_out, v_out
-
-
-message.launches = 0
 
 
 def update(p: dict, s: torch.Tensor, v: torch.Tensor, activation, dense,

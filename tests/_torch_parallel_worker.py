@@ -35,7 +35,7 @@ def _train_task(task, case, dev):
     from nmrgnn_tpu_torch.graph import Graph
     from nmrgnn_tpu_torch.library import params_from_numpy
     from nmrgnn_tpu_torch.models import gnn
-    from nmrgnn_tpu_torch.ops import banded
+    from nmrgnn_tpu_torch.ops import _cuda
     from nmrgnn_tpu_torch.train.trainer import TrainState, Trainer, adam
 
     kind = task["kind"]
@@ -51,7 +51,7 @@ def _train_task(task, case, dev):
         leaves = gnn.trainable_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        banded.reset_launch_counts()
+        _cuda.reset_launch_counts()
         peaks = par.apply_partitioned_banded(params, cfg, g, plan, mesh, differentiable=True,
                                              use_kernels=use_kernels)
         tgt = torch.as_tensor(case["target"][:peaks.shape[0]], device=dev)
@@ -64,7 +64,7 @@ def _train_task(task, case, dev):
         return {"loss": float(loss.detach()), "grads": _np({k: v for k, v in gnn.tree_map(
             lambda t: t.grad, {k: v for k, v in params.items()
                                if k not in ("peak_std", "peak_avg")}).items()}),
-                "counts": {f.__name__: f.launches for f in banded.KERNEL_WRAPPERS}}
+                "counts": {f.__name__: f.launches for f in _cuda.KERNEL_WRAPPERS}}
     if kind == "step":  # one partitioned step, or the data-batched one
         names = task["frames"]
         gs = [Graph(*case["graphs"][n]) for n in names]
@@ -182,7 +182,7 @@ def _task(task, case, mesh, dev):
     from nmrgnn_tpu_torch.graph import Graph
     from nmrgnn_tpu_torch.library import params_from_numpy
     from nmrgnn_tpu_torch.models.serving import ServingModel
-    from nmrgnn_tpu_torch.ops import banded
+    from nmrgnn_tpu_torch.ops import _cuda
     from nmrgnn_tpu_torch.ops.edgefn import EdgeCheb
 
     kind, name = task["kind"], task["model"]
@@ -205,12 +205,12 @@ def _task(task, case, mesh, dev):
         if cheb is not None:
             cheb = EdgeCheb(coeffs=torch.as_tensor(cheb[0], device=dev), d_lo=cheb[1],
                             d_hi=cheb[2])
-        banded.reset_launch_counts()
+        _cuda.reset_launch_counts()
         peaks = par.apply_partitioned_banded(params, cfg, gp, plan, mesh, cheb=cheb,
                                              use_kernels=use_kernels)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        counts = {f.__name__: f.launches for f in banded.KERNEL_WRAPPERS}
+        counts = {f.__name__: f.launches for f in _cuda.KERNEL_WRAPPERS}
         return {"peaks": peaks.cpu().numpy(), "counts": counts}
     if kind == "halo":
         plan = par.make_halo_plan(gp.nlist, D, edges=gp.edges)

@@ -35,6 +35,7 @@ from nmrgnn_tpu_torch.data.reorder import permute_graph
 from nmrgnn_tpu_torch.graph import Graph, inv_degree_from_nlist
 from nmrgnn_tpu_torch.library import params_from_numpy
 from nmrgnn_tpu_torch.models import gnn, infer
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded as tb
 from nmrgnn_tpu_torch.ops import message_passing as tmp
 from nmrgnn_tpu_torch.ops.edgefn import fit_edge_chebyshev
@@ -187,7 +188,7 @@ def test_banded_attention_matches_jax(f, precision):
         jcheb = jfit_cheb(jparams["edge_fc"], **kw)
         cheb = fit_edge_chebyshev(params["edge_fc"], **kw)
     want = jinfer.apply_banded_attention(jparams, jcfg, jg, plan, interpret=True, cheb=jcheb)
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = infer.apply_banded_attention(params, cfg, tg, tplan, cheb=cheb)
     assert infer.padding_rows(g[1], g[2]).tolist() == [0]
     if precision == "exact":

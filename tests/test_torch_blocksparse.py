@@ -24,6 +24,7 @@ from nmrgnn_tpu_torch.graph import Graph
 from nmrgnn_tpu_torch.library import load_model
 from nmrgnn_tpu_torch.models.infer import apply_blocksparse, precompute_structure
 from nmrgnn_tpu_torch.models.serving import ServingModel
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import blocksparse as tbs
 
 torch.set_num_threads(2)
@@ -134,7 +135,7 @@ def test_build_block_adjacency_matches_jax(group, dtype):
     ts = tbs.block_structure(nlist, dists, 128, pair_rounding=32, group=group)
     want = jbs.build_block_adjacency_pallas(jnp.asarray(nlist), jnp.asarray(efeat), js,
                                             out_dtype=jnp.dtype(dtype), interpret=True)
-    tbs.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = tbs.build_block_adjacency(torch.from_numpy(nlist), torch.from_numpy(efeat), ts,
                                     out_dtype=getattr(torch, dtype))
     assert tbs.build_block_adjacency.launches == 0  # the plain version on the CPU
@@ -168,11 +169,11 @@ def test_mp_blocksparse_matches_jax(group, dtype):
                               jnp.asarray(w).astype(jd), jnp.asarray(inv_p), interpret=True,
                               group=group)
     assert want.dtype == jd
-    tbs.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = tbs.mp_blocksparse(torch.from_numpy(np.array(A)).to(td), ts,
                              torch.from_numpy(nodes_p).to(td), torch.from_numpy(w),
                              torch.from_numpy(inv_p), group=group)
-    assert all(f.launches == 0 for f in tbs.KERNEL_WRAPPERS)
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)
     assert got.dtype == td
     want = np.asarray(want.astype(jnp.float32))
     tol = 2e-4 if dtype == "float32" else BF16_STEP * float(np.abs(want).max())
@@ -263,5 +264,5 @@ def test_serving_blocksparse_matches_jax(bundled, frames, precision, monkeypatch
             np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4, err_msg=f"frame {f}")
         else:
             in_fast_band(got, want, mean_atol=0.05)
-    assert all(f.launches == 0 for f in tbs.KERNEL_WRAPPERS)
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)
     assert not np.array_equal(sm.predict(frames[0]), sm.predict(frames[1]))

@@ -23,6 +23,7 @@ import torch
 
 from nmrgnn_tpu.graph import inv_degree_from_nlist as jinv_degree
 from nmrgnn_tpu.ops import blocksparse as jbs
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import blocksparse as tbs
 
 torch.set_num_threads(2)
@@ -68,10 +69,10 @@ def test_occupancy_from_nlist_is_exact(kind, group, dtype):
     s = tbs.block_structure(nlist, dists, 128, pair_rounding=32, group=group)
     nl, d, ef = tens(nlist, dists, efeat)
     A = tbs.build_block_adjacency_plain(nl, ef, s, out_dtype=dtype)
-    tbs.reset_launch_counts()
+    _cuda.reset_launch_counts()
     occ = tbs.block_occupancy(nl, d, s)
     from_a = tbs.block_occupancy_from_adjacency(A)
-    assert all(f.launches == 0 for f in tbs.KERNEL_WRAPPERS)
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)
     assert occ.dtype == torch.int32 and tuple(occ.shape) == (s.n_pairs, 1)
     assert covers(occ, A)
     assert torch.equal(occ, from_a)
@@ -169,9 +170,9 @@ def test_mp_given_the_occupancy_matches_jax(group, dtype):
     x, wt, iv = torch.from_numpy(nodes_p).to(td), torch.from_numpy(w), torch.from_numpy(inv_p)
     occ = tbs.block_occupancy(*tens(nlist, dists), ts)
     assert occ.any() and not bool((occ == -1).all())
-    tbs.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = tbs.mp_blocksparse(tA, ts, x, wt, iv, group=group, occupancy=occ)
-    assert all(f.launches == 0 for f in tbs.KERNEL_WRAPPERS)
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)
     assert torch.equal(got, tbs.mp_blocksparse_plain(tA, ts, x, wt, iv))
     want = np.asarray(want.astype(jnp.float32))
     tol = 2e-4 if dtype == "float32" else BF16_STEP * float(np.abs(want).max())

@@ -20,6 +20,7 @@ from nmrgnn_tpu_torch.graph import Graph, inv_degree_from_nlist
 from nmrgnn_tpu_torch.library import load_model
 from nmrgnn_tpu_torch.models.infer import apply_banded
 from nmrgnn_tpu_torch.models.serving import ServingModel
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded as tb
 
 torch.set_num_threads(2)
@@ -77,7 +78,7 @@ def test_build_band_fused_bf16_matches_jax(bundled, graph, out_dtype):
                                jparams["edge_fc"], plan, out_dtype=jnp.dtype(out_dtype),
                                compute_dtype=jnp.bfloat16, interpret=True, **kw)
     want = np.asarray(want.astype(jnp.float32))
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = tb.build_band_fused(torch.from_numpy(graph.nlist), torch.from_numpy(graph.edges),
                               params["edge_fc"], tb.band_plan(graph.nlist, graph.edges),
                               out_dtype=getattr(torch, out_dtype),

@@ -22,6 +22,7 @@ from nmrgnn_tpu_torch.library import load_model
 from nmrgnn_tpu_torch.models import gnn
 from nmrgnn_tpu_torch.models.infer import apply_banded, apply_banded_classes
 from nmrgnn_tpu_torch.models.serving import ServingModel
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded as tb
 from nmrgnn_tpu_torch.ops import edgefn as tedgefn
 
@@ -119,7 +120,7 @@ def test_fast_forwards_use_their_kernels_and_plain_versions_agree(bundled, graph
     gt = Graph(*map(torch.from_numpy, graph))
     cls_plan = tb.band_plan_classes(graph.nlist, graph.edges)
     plan = tb.band_plan(graph.nlist, graph.edges)
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     with torch.no_grad():
         a = apply_banded_classes(params, cfg16, gt, cls_plan, tcheb)
         b = apply_banded_classes(params, cfg16, gt, cls_plan, tcheb, use_kernels=False)
@@ -127,7 +128,7 @@ def test_fast_forwards_use_their_kernels_and_plain_versions_agree(bundled, graph
         d = apply_banded(params, cfg16, gt, plan, cheb=tcheb, use_kernels=False)
         exact = gnn.apply(params, cfg, gt)
         f32 = apply_banded_classes(params, cfg, gt, cls_plan, tcheb)
-    assert all(f.launches == 0 for f in tb.KERNEL_WRAPPERS)
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     torch.testing.assert_close(c, d, rtol=0, atol=0)
     torch.testing.assert_close(f32, exact, rtol=2e-4, atol=2e-4)

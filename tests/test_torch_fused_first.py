@@ -19,6 +19,7 @@ from nmrgnn_tpu_torch.config import ModelConfig
 from nmrgnn_tpu_torch.graph import Graph, inv_degree_from_nlist
 from nmrgnn_tpu_torch.models.gnn import tree_map
 from nmrgnn_tpu_torch.models.infer import apply_banded
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded as tb
 from nmrgnn_tpu_torch.ops import edgefn as tedgefn
 
@@ -72,12 +73,12 @@ def test_mp_banded_poly_fused_matches_jax(case, nodes_dtype, out_dtype):
         jnp.asarray(case["nlist"]), jnp.asarray(case["dists"]), case["jcheb"], plan,
         jnp.asarray(case["nodes"]).astype(jdt), jnp.asarray(w), jnp.asarray(case["inv"]),
         out_dtype=jnp.dtype(out_dtype), interpret=True)
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     M, got = tb.mp_banded_poly_fused(
         torch.from_numpy(case["nlist"]), torch.from_numpy(case["dists"]), case["tcheb"],
         tb.band_plan(case["nlist"], case["dists"]), torch.from_numpy(case["nodes"]).to(tdt),
         torch.from_numpy(w), torch.from_numpy(case["inv"]), out_dtype=getattr(torch, out_dtype))
-    assert all(f.launches == 0 for f in tb.KERNEL_WRAPPERS)  # the plain version on the CPU
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)  # the plain version on the CPU
     assert M.dtype == getattr(torch, out_dtype) and got.dtype == tdt
     M_want = np.asarray(M_want.astype(jnp.float32))
     want = np.asarray(want.astype(jnp.float32))

@@ -23,6 +23,7 @@ from nmrgnn_tpu_torch.graph import Graph, inv_degree_from_nlist
 from nmrgnn_tpu_torch.models import gnn
 from nmrgnn_tpu_torch.models.infer import apply_banded, precompute_band
 from nmrgnn_tpu_torch.models.serving import ServingModel
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded
 from nmrgnn_tpu_torch.ops.edgefn import EdgeCheb
 
@@ -296,7 +297,7 @@ def test_fast_serving_on_the_card(dev):
     atoms = np.eye(10, dtype=np.float32)[rng.choice([2, 3, 4, 5], n)]
     g = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
     sm = ServingModel(params, cfg, reorder=False, precision="fast")
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = sm.predict(g)
     classes = len(sm._cls_plan_vmem.classes)
     assert classes > 1
@@ -306,7 +307,7 @@ def test_fast_serving_on_the_card(dev):
     want = ServingModel(params, cfg, device="cpu", reorder=False, precision="fast").predict(g)
     assert np.corrcoef(got, want)[0, 1] > 0.9999
     np.testing.assert_allclose(got, want, rtol=0.05, atol=1.0)
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     gt = Graph(*_on(dev, *g))
     plan = banded.band_plan(nlist, dists)
     uni = apply_banded(sm.params, sm.config, gt, plan, cheb=sm._edge_cheb())
@@ -427,7 +428,7 @@ def test_hbm_class_forward_and_batched_frames_on_the_card(dev):
     cls_plan = banded.band_plan_classes(nlist, dists)
     nc = len(cls_plan.classes)
     assert nc > 1
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = apply_banded_hbm_classes(sm.params, sm.config, gt, cls_plan, sm._edge_cheb())
     torch.cuda.synchronize()
     assert banded.build_band_poly_cls.launches == nc
@@ -444,7 +445,7 @@ def test_hbm_class_forward_and_batched_frames_on_the_card(dev):
     stack = Graph(*_on(dev, *[np.stack([getattr(f, k) for f in frames]) for k in Graph._fields]))
     plan = banded.band_plan_frames(np.stack([f.nlist for f in frames]),
                                    np.stack([f.edges for f in frames]))
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     batch = apply_banded_frames(params, cfg, stack, plan)
     torch.cuda.synchronize()
     assert banded.build_band_fused.launches == 1
@@ -583,7 +584,7 @@ def test_blocksparse_forward_and_serving_on_the_card(dev):
     g = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
     gt = Graph(*_on(dev, *g))
     s = blocksparse.block_structure(nlist, dists, 128, pair_rounding=32)
-    blocksparse.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = apply_blocksparse(params, cfg, gt, s)
     torch.cuda.synchronize()
     assert blocksparse.build_block_adjacency.launches == 1
@@ -592,7 +593,7 @@ def test_blocksparse_forward_and_serving_on_the_card(dev):
     torch.testing.assert_close(got, apply_blocksparse(params, cfg, gt, s, use_kernels=False),
                                rtol=2e-4, atol=2e-4)
     ref = gnn.apply(params, cfg, gt).cpu().numpy()
-    blocksparse.reset_launch_counts()
+    _cuda.reset_launch_counts()
     exact = ServingModel(params, cfg, mode="blocksparse").predict(g)
     assert blocksparse.build_block_adjacency.launches == 1
     assert blocksparse.mp_blocksparse_grouped.launches == cfg.mp_layers
@@ -790,19 +791,19 @@ def test_fused_first_forward_and_exact_bf16_serving_on_the_card(dev):
                               degree=64)
     L = cfg.mp_layers
     for c in (cfg, cfg.replace(compute_dtype="bfloat16")):
-        banded.reset_launch_counts()
+        _cuda.reset_launch_counts()
         fused = apply_banded(params, c, gt, plan, cheb=cheb, fused_first=True)
         torch.cuda.synchronize()
         assert banded.mp_banded_poly_fused.launches == 1
         assert banded.mp_banded.launches == L - 1 and banded.build_band_poly.launches == 0
         assert torch.equal(fused, apply_banded(params, c, gt, plan, cheb=cheb))
-        banded.reset_launch_counts()
+        _cuda.reset_launch_counts()
         for kw in ({"hbm_table": True, "cheb": cheb}, {}):
             assert torch.equal(apply_banded(params, c, gt, plan, fused_first=True, **kw),
                                apply_banded(params, c, gt, plan, **kw))
         assert banded.mp_banded_poly_fused.launches == 0
     cfg16 = cfg.replace(compute_dtype="bfloat16")
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     peaks = ServingModel(params, cfg16).predict(g)
     assert banded.build_band_fused.launches == 1 and banded.mp_banded.launches == L
     plain = apply_banded(params, cfg16, gt, plan, use_kernels=False).cpu().numpy()
@@ -952,7 +953,7 @@ def test_exact_bf16_serving_on_the_other_paths(dev):
 
     hbm = ServingModel(params, cfg16, reorder=False)
     hbm._resolved = "banded_hbm"
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     in_band(np.stack([hbm.predict(g) for g in frames]))
     assert hbm._resolved == "banded_hbm"
     assert banded.mp_banded_hbm.launches == 3 * L and banded.mp_banded.launches == 0
@@ -960,13 +961,13 @@ def test_exact_bf16_serving_on_the_other_paths(dev):
 
     from nmrgnn_tpu_torch.ops import blocksparse as bs
 
-    bs.reset_launch_counts()
+    _cuda.reset_launch_counts()
     wide = ServingModel(params, cfg16, mode="blocksparse", reorder=False)
     in_band(np.stack([wide.predict(g) for g in frames]))
     assert bs.mp_blocksparse_grouped.launches == 3 * L
 
     batch = ServingModel(params, cfg16, reorder=False)
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = batch.predict_frames(frames)
     in_band(got)
     assert banded.mp_banded.launches in (L, 3 * L)  # batched, or frame by frame past the budget
@@ -1256,7 +1257,7 @@ def test_band_builds_equal_plain_bitwise(dev, e, k, block_rows, dtype):
 
 
 def _max_degree(e):
-    return banded._POLY_MAX_COEFFS // e - 1
+    return banded.POLY_MAX_COEFFS // e - 1
 
 
 @pytest.mark.parametrize("e", [1, 2, 3, 4])
@@ -1316,7 +1317,7 @@ def test_band_build_wrappers_raise_past_the_kernels_limits(dev):
     stages, degree 0, a row count that is not whole tiles, an output type
     other than float32 or bfloat16. E > 4 and (degree + 1) * E > 1024 run
     as channel groups, equal to the plain versions bit for bit."""
-    k = banded._MAX_K + 1
+    k = banded.MAX_K + 1
     nlist, dists, efeat = _build_inputs(256, k, 3, seed=1, block_rows=128)
     plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
     nl, d, ef = _on(dev, nlist, dists, efeat)
@@ -1465,7 +1466,7 @@ def test_trainer_step_on_the_card(dev):
         state = tr.init_state(torch.Generator().manual_seed(1))
         before = [t.detach().clone() for t in gnn.trainable_leaves(state.params)]
         opt = tr.optimizer(state)
-        banded.reset_launch_counts()
+        _cuda.reset_launch_counts()
         loss = tr.train_step(state, opt, g, y, w)
         torch.cuda.synchronize()
         if path == "banded":
@@ -1547,7 +1548,7 @@ def test_banded_attention_forward_on_the_card(dev, compute_dtype):
     atoms = np.eye(10, dtype=np.float32)[np.random.default_rng(0).integers(0, 10, 700)]
     g = Graph(*_on(dev, atoms, nlist, dists, inv_degree_from_nlist(nlist)))
     plan = banded.plan_on_device(banded.band_plan(nlist, dists), dev)
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = apply_banded_attention(params, cfg, g, plan)
     torch.cuda.synchronize()
     assert (banded.build_band.launches, banded.mp_banded_partial.launches,
@@ -1733,7 +1734,7 @@ def test_serving_and_training_at_other_widths(dev, f, e, h, k):
     ref = gnn.apply(params, cfg, Graph(*_on(dev, *g))).cpu()
     for precision in ("exact", "fast"):
         sm = ServingModel(params, cfg, mode="banded", precision=precision, device="cuda")
-        banded.reset_launch_counts()
+        _cuda.reset_launch_counts()
         peaks = torch.as_tensor(sm.predict(g))
         torch.cuda.synchronize()
         assert banded.mp_banded.launches + banded.mp_banded_partial.launches >= cfg.mp_layers
@@ -1755,7 +1756,7 @@ def test_serving_and_training_at_other_widths(dev, f, e, h, k):
     for path in ("banded", "gather") if eligible else ("gather",):
         tr = Trainer(cfg, TrainConfig(batch_size=4, pad_to=128, mp_path=path))
         state = tr.init_state(torch.Generator().manual_seed(1))
-        banded.reset_launch_counts()
+        _cuda.reset_launch_counts()
         losses[path] = float(tr.train_step(state, tr.optimizer(state), gb, y, wts))
         if path == "banded":
             assert (banded.build_band.launches, banded.mp_banded.launches) == (1, cfg.mp_layers)
@@ -1814,7 +1815,7 @@ def test_mp_kernels_at_f768_match_plain(dev, e, dtype):
     cheb = make_cheb(e, degree=64, seed=e)
     dc = cheb._replace(coeffs=torch.as_tensor(cheb.coeffs, device=dev))
     s, sd, bnl, bef, bx, bwt, biv = _block_case(dev, 300, 7, f, e, 5, True, 1)
-    for fn in banded.KERNEL_WRAPPERS + blocksparse.KERNEL_WRAPPERS:
+    for fn in _cuda.KERNEL_WRAPPERS:
         fn.launches = 0
     with _KernelsOnly():
         occ = banded.band_occupancy(nl, d, plan.lo, plan.window, plan.block_rows,
@@ -1859,7 +1860,7 @@ def test_fused_kernel_at_c6_widths_matches_plain(dev, h, k, e, compute_dtype):
     nl, d = _on(dev, nlist, dists)
     kw = dict(rbf_low=cfg.rbf_low, rbf_high=cfg.rbf_high, activation_name=cfg.fc_activation,
               out_dtype=compute_dtype, compute_dtype=compute_dtype)
-    banded.reset_launch_counts()
+    _cuda.reset_launch_counts()
     with _KernelsOnly():
         got = banded.build_band_fused(nl, d, params["edge_fc"], plan, **kw)
         torch.cuda.synchronize()

@@ -27,6 +27,7 @@ from nmrgnn_tpu_torch.graph import Graph
 from nmrgnn_tpu_torch.library import load_model, params_from_numpy
 from nmrgnn_tpu_torch.models.infer import apply_banded, apply_banded_hbm_classes
 from nmrgnn_tpu_torch.models.serving import ServingModel
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded as tb
 from nmrgnn_tpu_torch.ops import edgefn as tedgefn
 
@@ -124,7 +125,7 @@ def test_mp_banded_hbm_matches_jax(graph, dtype):
     want = jb.mp_banded_hbm(jnp.asarray(M).astype(jd), plan, jnp.asarray(nodes).astype(jd),
                             jnp.asarray(w).astype(jd), jnp.asarray(inv), interpret=True)
     assert want.dtype == jd
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = tb.mp_banded_hbm(torch.from_numpy(M).to(td), tb.band_plan(graph.nlist, graph.edges),
                            torch.from_numpy(nodes).to(td), torch.from_numpy(w),
                            torch.from_numpy(inv))
@@ -366,7 +367,7 @@ def test_serving_hbm_dispatch_matches_jax(small, graph, precision, monkeypatch):
     ).astype(np.float32))
     rebucketed = skewed_graph(spread_hi=400, seed=7, rng=np.random.default_rng(9))
     frames = (graph, jitter, rebucketed, graph) if precision == "fast" else (graph, jitter)
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     forwards = []
     for g in frames:
         want = jsm.predict(JGraph(*g))
@@ -382,4 +383,4 @@ def test_serving_hbm_dispatch_matches_jax(small, graph, precision, monkeypatch):
     if precision == "fast":
         assert forwards == [True, True, False, True]
         assert sm._cls_hbm_off and sm._cls_plan_vmem is None
-    assert all(f.launches == 0 for f in tb.KERNEL_WRAPPERS)
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)

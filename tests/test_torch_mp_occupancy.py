@@ -20,6 +20,7 @@ import torch
 
 from nmrgnn_tpu.ops import banded as jbanded
 from nmrgnn_tpu_torch.ops import banded
+from nmrgnn_tpu_torch.ops import mp as tmp
 from nmrgnn_tpu_torch.ops.edgefn import EdgeCheb
 
 
@@ -125,7 +126,7 @@ def test_frames_occupancy_is_exact():
 def test_occupancy_bits_round_trip():
     rng = np.random.default_rng(5)
     bits = torch.from_numpy(rng.uniform(size=(37, 70)) < 0.3)
-    occ = banded._pack_bits(bits)
+    occ = tmp.pack_bits(bits)
     assert occ.shape == (37, 3) and occ.dtype == torch.int32
     assert torch.equal(banded.occupancy_bits(occ, 70 * 16), bits)
     assert (occ < 0).any()  # bit 31 set: the word's sign

@@ -18,6 +18,7 @@ import torch
 
 from nmrgnn_tpu.ops import banded as jb
 from nmrgnn_tpu.ops.edgefn import EdgeCheb as JEdgeCheb
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded as tb
 from nmrgnn_tpu_torch.ops.edgefn import EdgeCheb
 
@@ -99,9 +100,9 @@ def test_tracedlo_builds_match_jax(case, build, dtype, which):
     float32 sum once). Shifting indices and window starts by -m changes
     no band entry."""
     nl, lo, W = _inputs(case, which)
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     got = _build("torch", build, case, nl, lo, W, dtype)
-    assert all(f.launches == 0 for f in tb.KERNEL_WRAPPERS)  # the plain versions on the CPU
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)  # the plain versions on the CPU
     want = _build("jax", build, case, nl, lo, W, dtype)
     rtol = 1e-5 if dtype == "float32" else BF16_STEP
     np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-5)

@@ -31,6 +31,7 @@ from nmrgnn_tpu_torch.graph import Graph
 from nmrgnn_tpu_torch.library import params_from_numpy
 from nmrgnn_tpu_torch.models.infer import apply_banded, apply_banded_frames
 from nmrgnn_tpu_torch.models.serving import ServingModel
+from nmrgnn_tpu_torch.ops import _cuda
 from nmrgnn_tpu_torch.ops import banded as tb
 from nmrgnn_tpu_torch.ops import edgefn as tedgefn
 
@@ -124,14 +125,14 @@ def test_batched_frames_forward_matches_jax_vmap(small, precision):
     plan = jb.band_plan_frames(st.nlist, st.edges)
     want = np.asarray(jax.vmap(lambda g: japply_banded(
         jparams, jcfg, g, plan, cheb=jc, interpret=True))(JGraph(*map(jnp.asarray, st))))
-    tb.reset_launch_counts()
+    _cuda.reset_launch_counts()
     with torch.no_grad():
         got = apply_banded_frames(params, cfg, Graph(*map(torch.from_numpy, st)),
                                   tb.band_plan_frames(st.nlist, st.edges), cheb=tc).numpy()
         each = np.stack([apply_banded(params, cfg, Graph(*map(torch.from_numpy, g)),
                                       tb.band_plan_frames(st.nlist, st.edges), cheb=tc).numpy()
                          for g in gs])
-    assert all(f.launches == 0 for f in tb.KERNEL_WRAPPERS)
+    assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)
     assert got.shape == want.shape == (3, 400)
     if precision == "exact":
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

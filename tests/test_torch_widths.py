@@ -1,5 +1,5 @@
 """The width helpers of the kernel wrappers (``nmrgnn_tpu_torch/ops/
-banded.py``): a node table and its weights zero-padded to the MP kernel's
+mp.py`` and ``ops/banded.py``): a node table and its weights zero-padded to the MP kernel's
 width, edge channels in groups, an EdgeFC zero-padded to the fused
 build's width. Each padded or grouped plain computation against the
 unpadded plain one (float32, within 1e-6 of the output's largest value:
@@ -24,6 +24,7 @@ from nmrgnn_tpu_torch.library import params_from_numpy
 from nmrgnn_tpu_torch.models.serving import ServingModel
 from nmrgnn_tpu_torch.ops import banded as tb
 from nmrgnn_tpu_torch.ops import blocksparse as tbs
+from nmrgnn_tpu_torch.ops import mp as tmp
 from nmrgnn_tpu_torch.ops.edge import edge_features
 from nmrgnn_tpu_torch.train.trainer import banded_fragments_eligible
 
@@ -53,17 +54,17 @@ def _case(n, k, f, e, seed):
 
 
 def test_width_choices():
-    assert [tb.mp_width(f) for f in (1, 32, 64, 96, 128, 200, 256, 320, 512)] == [
+    assert [tmp.mp_width(f) for f in (1, 32, 64, 96, 128, 200, 256, 320, 512)] == [
         64, 64, 64, 128, 128, 256, 256, 512, 512]
     # past 512: a multiple of 256, in column blocks of 256 (the F-split)
-    assert [tb.mp_width(f) for f in (513, 768, 1701, 2407)] == [768, 768, 1792, 2560]
-    assert tb.mp_split(512) == (512, 1) and tb.mp_split(768) == (256, 3)
+    assert [tmp.mp_width(f) for f in (513, 768, 1701, 2407)] == [768, 768, 1792, 2560]
+    assert tmp.mp_split(512) == (512, 1) and tmp.mp_split(768) == (256, 3)
     with pytest.raises(ValueError):
-        tb.mp_width(0)
-    assert [tb.mp_group_size(f) for f in (64, 256, 512, 768)] == [4, 4, 2, 4]
-    assert tb.channel_groups(9) == [(0, 4), (4, 8), (8, 9)]
-    assert tb.channel_groups(3) == [(0, 3)]
-    assert tb.channel_groups(5, 2) == [(0, 2), (2, 4), (4, 5)]
+        tmp.mp_width(0)
+    assert [tmp.mp_group_size(f) for f in (64, 256, 512, 768)] == [4, 4, 2, 4]
+    assert tmp.channel_groups(9) == [(0, 4), (4, 8), (8, 9)]
+    assert tmp.channel_groups(3) == [(0, 3)]
+    assert tmp.channel_groups(5, 2) == [(0, 2), (2, 4), (4, 5)]
     assert [tb.fused_width(h) for h in (16, 64, 128, 200, 256, 300, 512, 1000, 2048)] == [
         128, 128, 128, 256, 256, 512, 512, 1024, 2048]
     with pytest.raises(NotImplementedError):
@@ -82,7 +83,7 @@ def test_width_choices():
     # band-build rows: fewer as K grows, so the staged slots stay small
     assert [tb.build_rows(128, k) for k in (16, 160, 1000, 3000)] == [4, 4, 2, 1]
     # each output block's chain: every input block, its own last
-    assert tb.mp_split_steps(3, [(0, 1)]) == [
+    assert tmp.mp_split_steps(3, [(0, 1)]) == [
         (0, [(1, (0, 1)), (2, (0, 1)), (0, (0, 1))]),
         (1, [(0, (0, 1)), (2, (0, 1)), (1, (0, 1))]),
         (2, [(0, (0, 1)), (1, (0, 1)), (2, (0, 1))])]
@@ -98,41 +99,81 @@ def test_padded_node_table_equals_unpadded(f, e):
     columns hold act(0) + 0."""
     plan, (nl, d, ef, x, w, iv) = _case(300, 12, f, e, seed=f)
     M = tb.build_band_plain(nl, ef, plan)
-    fp = tb.mp_width(f)
-    got = tb.mp_banded_plain(M, plan, tb.pad_columns(x, fp), tb.pad_mp_weights(w, fp), iv)
+    fp = tmp.mp_width(f)
+    got = tb.mp_banded_plain(M, plan, tmp.pad_columns(x, fp), tmp.pad_mp_weights(w, fp), iv)
     _close(got[:, :f], tb.mp_banded_plain(M, plan, x, w, iv))
     torch.testing.assert_close(got[:, f:], torch.full_like(got[:, f:], np.log(2.0)))
-    part = tb.mp_banded_partial_plain(M, plan.lo, tb.pad_columns(x, fp),
-                                      tb.pad_mp_weights(w, fp))
+    part = tb.mp_banded_partial_plain(M, plan.lo, tmp.pad_columns(x, fp),
+                                      tmp.pad_mp_weights(w, fp))
     _close(part[:, :f], tb.mp_banded_partial_plain(M, plan.lo, x, w))
     assert not part[:, f:].any()
 
 
 @pytest.mark.parametrize("f,e", [(768, 1), (768, 3), (600, 2)])
 def test_f_split_chains_sum_to_the_layer(f, e):
-    """The F-split as the kernels run it: for each output block, the
-    partial sums of every input block's columns against w's block and of
-    every channel group, chained in ``mp_split_steps``' order, then the
-    epilogue with the output block's residual columns, equal the layer at
-    the table's own width; the blocks' partial sums equal the partial
-    layer."""
+    """The F-split as the kernels run it, through the wrappers' ``mp.chain``
+    with the plain partial sum and the epilogue as its steps: for each
+    output block, the partial sums of every input block's columns against
+    w's block and of every channel group, chained in ``mp_split_steps``'
+    order, then the epilogue with the output block's residual columns,
+    equal the layer at the table's own width; the chains without the
+    epilogue equal the partial layer."""
     plan, (nl, d, ef, x, w, iv) = _case(300, 12, f, e, seed=f + e)
     M = tb.build_band_plain(nl, ef, plan)
-    fp = tb.mp_width(f)
-    fb, nb = tb.mp_split(fp)
-    xp, wp = tb.pad_columns(x, fp), tb.pad_mp_weights(w, fp)
+    fp = tmp.mp_width(f)
+    fb, nb = tmp.mp_split(fp)
+    xp, wp = tmp.pad_columns(x, fp), tmp.pad_mp_weights(w, fp)
     tiles = torch.arange(plan.num_tiles)
-    full, part = [], []
-    for j, steps in tb.mp_split_steps(nb, tb.channel_groups(e, tb.mp_group_size(fp))):
-        acc = None
-        for i, (c0, c1) in steps:
-            p = tb.mp_banded_partial_plain(M[:, c0:c1], plan.lo, xp[:, i * fb:(i + 1) * fb],
-                                           wp[i * fb:(i + 1) * fb, j * fb:(j + 1) * fb, c0:c1])
-            acc = p if acc is None else acc + p
-        part.append(acc)
-        full.append(tb._mp_epilogue(acc, tiles, xp[:, j * fb:(j + 1) * fb], iv, "softplus"))
-    _close(torch.cat(full, 1)[:, :f], tb.mp_banded_plain(M, plan, x, w, iv))
-    _close(torch.cat(part, 1)[:, :f], tb.mp_banded_partial_plain(M, plan.lo, x, w))
+    groups = tmp.channel_groups(e, tmp.mp_group_size(fp))
+
+    def partial(i, j, c0, c1, acc):
+        p = tb.mp_banded_partial_plain(M[:, c0:c1], plan.lo, xp[:, i * fb:(i + 1) * fb],
+                                       wp[i * fb:(i + 1) * fb, j * fb:(j + 1) * fb, c0:c1])
+        return p if acc is None else acc + p
+
+    def final(i, j, c0, c1, acc):
+        return tb._mp_epilogue(partial(i, j, c0, c1, acc), tiles, xp[:, j * fb:(j + 1) * fb],
+                               iv, "softplus")
+
+    _close(tmp.chain(nb, groups, f, partial, final), tb.mp_banded_plain(M, plan, x, w, iv))
+    _close(tmp.chain(nb, groups, f, partial), tb.mp_banded_partial_plain(M, plan.lo, x, w))
+
+
+@pytest.mark.parametrize("f,e", [(128, 3), (128, 8), (768, 3), (1024, 5)])
+@pytest.mark.parametrize("with_final", [True, False])
+def test_chain_launches_in_the_kernels_order(f, e, with_final):
+    """``mp.chain``'s launches, as every MP wrapper makes them: each
+    output block's chain takes every input block's channel groups in
+    order, its own input block last, ends in one final launch (a partial
+    one for a call with no epilogue), and hands each launch but the
+    chain's first the sum before it; the blocks are joined in order and
+    cut to F columns."""
+    fp = tmp.mp_width(f)
+    fb, nb = tmp.mp_split(fp)
+    groups = tmp.channel_groups(e, tmp.mp_group_size(fp))
+    seen = []
+
+    def step(kind):
+        def run(i, j, c0, c1, acc):
+            out = torch.full((2, fb), float(len(seen)))
+            seen.append((kind, i, j, (c0, c1), acc, out))
+            return out
+        return run
+
+    got = tmp.chain(nb, groups, f, step("partial"), step("final") if with_final else None)
+    assert len(seen) == nb * nb * len(groups)
+    per = nb * len(groups)
+    for j in range(nb):
+        launches = seen[j * per:(j + 1) * per]
+        assert {s[2] for s in launches} == {j}
+        others = [i for i in range(nb) if i != j]
+        assert [(s[1], s[3]) for s in launches] == [(i, g) for i in others + [j] for g in groups]
+        kinds = [s[0] for s in launches]
+        assert kinds == ["partial"] * (per - 1) + ["final" if with_final else "partial"]
+        assert launches[0][4] is None
+        assert all(b[4] is a[5] for a, b in zip(launches, launches[1:]))
+    want = torch.cat([seen[(j + 1) * per - 1][5] for j in range(nb)], 1)[:, :f]
+    assert torch.equal(got, want) and got.shape == (2, f)
 
 
 @pytest.mark.parametrize("e,size", [(8, 4), (64, 4), (5, 2), (3, 4)])
@@ -142,7 +183,7 @@ def test_channel_groups_sum_to_the_layer(e, size):
     plan, (nl, d, ef, x, w, iv) = _case(260, 8, 64, e, seed=e)
     M = tb.build_band_plain(nl, ef, plan)
     acc = None
-    for c0, c1 in tb.channel_groups(e, size):
+    for c0, c1 in tmp.channel_groups(e, size):
         assert torch.equal(tb.build_band_plain(nl, ef[..., c0:c1].contiguous(), plan),
                            M[:, c0:c1])
         part = tb.mp_banded_partial_plain(M[:, c0:c1], plan.lo, x, w[..., c0:c1])
@@ -187,10 +228,10 @@ def test_blocksparse_padded_and_grouped_equal_unpadded():
     iv = torch.nn.functional.pad(iv, (0, pad))
     A = tbs.build_block_adjacency_plain(nl, ef, s)
     want = tbs.mp_blocksparse_plain(A, s, x, w, iv)
-    fp = tb.mp_width(96)
-    got = tbs.mp_blocksparse_plain(A, s, tb.pad_columns(x, fp), tb.pad_mp_weights(w, fp), iv)
+    fp = tmp.mp_width(96)
+    got = tbs.mp_blocksparse_plain(A, s, tmp.pad_columns(x, fp), tmp.pad_mp_weights(w, fp), iv)
     _close(got[:, :96], want)
-    for c0, c1 in tb.channel_groups(6):
+    for c0, c1 in tmp.channel_groups(6):
         assert torch.equal(tbs.build_block_adjacency_plain(nl, ef[..., c0:c1].contiguous(), s),
                            A[:, c0:c1])
 
@@ -241,8 +282,8 @@ def test_path_rule_at_other_widths_matches_jax(kw):
             mode = sm._resolve_mode(g)
             assert mode == jsm._resolve_mode(JGraph(*g)), (n, precision)
             # the kernels of the path take the widths it sends them
-            fp = tb.mp_width(cfg.atom_feature_size)
-            assert fp % tb.mp_split(fp)[0] == 0
+            fp = tmp.mp_width(cfg.atom_feature_size)
+            assert fp % tmp.mp_split(fp)[0] == 0
             if mode != "blocksparse":
                 B = sm._plan.block_rows
                 tb.build_rows(B, k, min(cfg.edge_feature_size, 4))
