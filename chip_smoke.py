@@ -193,7 +193,8 @@ Phases, in order; any failure exits non-zero and prints no result:
        RCM reorder: its padding slots name the old row 0's new place (not
        row 0), and "banded_attn" equals "gather" within 2e-4.
     c. The 44,676-atom supercell must resolve "gather" (the JAX package's
-       rule); finite peaks, the gather forward timed.
+       rule), with one attention kernel launch (amp) a layer and no other;
+       finite peaks, the gather forward timed.
     d. Gradients of a loss through apply_banded_attention(differentiable=
        True, noise and dropout on) on phase 4's frame, kernels vs plain,
        each leaf within 1e-6 of its max (the last EdgeFC bias, whose
@@ -301,7 +302,22 @@ Phases, in order; any failure exits non-zero and prints no result:
     the plain version's time, the bound (W's real slots at 3.35 TB/s), and
     a PaiNN forward (gnn.apply) that must launch it exactly once a block
     (3), with its time and memory peak.
-15. One JSON line listing every kernel of the paths (a counterpart of
+15. The attention layer's kernel (csrc/attention.cu, ops/attention.py
+    amp) at the amp-predict-44676 cell's shapes: the cell's 44,676-atom
+    structure (portbench's supercell and k-NN, K = 16, in the RCM order),
+    the nmrgnn-amp configuration (F = 256, E = 3) with random weights from
+    --seed, the EdgeFC output of the graph and random node features. The
+    kernel against amp_plain (amp_layer plus the residual) within 1e-5 of
+    the largest output, each against a float64 evaluation; its time a
+    wrapper call (CUDA events; the projection nodes @ wv included) and
+    alone (torch.profiler), the projection's and the plain version's time,
+    the bound of a wrapper call (the larger of the layer's operations at
+    67 TFLOP/s and its bytes at 3.35 TB/s, portbench/flops/attention.py)
+    and, printed only, that of the kernel alone (its own bytes, P's read
+    included), a layer's memory peak through the kernel and through the
+    plain version, and an attention forward (gnn.apply, no grad) that
+    must launch it once a layer (4), with its time and memory peak.
+16. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
     and times; B2, B1 and the band occupancy also with their launches a
     training step (train_launches); B2 and B6 at one edge channel as
@@ -315,7 +331,7 @@ Phases, in order; any failure exits non-zero and prints no result:
     their launches a partitioned training step of rank 0 (13a,
     part_train_launches), B2, B1 and the occupancy with theirs a
     data-parallel step of rank 0 (13c, dp_train_launches).
-16. The last line: {"ok": true, "device": {...}}.
+17. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -2178,9 +2194,9 @@ def _phase10(args, dev, small, large, check, counts, expect) -> dict:
     big_peaks = big.predict(large["graph"])
     big_wall = time.perf_counter() - t0
     big_launches = counts()
-    if big._resolved != "gather" or any(big_launches.values()):
-        raise SystemExit(f"chip_smoke: the supercell resolved {big._resolved!r}, launches "
-                         f"{big_launches}")
+    if big._resolved != "gather":
+        raise SystemExit(f"chip_smoke: the supercell resolved {big._resolved!r}")
+    expect(big_launches, amp=L)
     if not np.all(np.isfinite(big_peaks)):
         raise SystemExit("chip_smoke: supercell attention peaks not finite")
     big_gt = _on_card(large["graph"], dev)
@@ -3640,6 +3656,116 @@ def _phase14(args, dev) -> dict:
             "forward_ms": fwd_ms, "forward_peak_gb": peak_gb}
 
 
+def _phase15(args, dev) -> dict:
+    """The attention layer's kernel at the amp-predict-44676 cell's shapes
+    (module docstring, phase 15). Returns its kernel row."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig
+    from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.ops import attention
+    from portbench.harness import inputs
+    from portbench.reference.structures import one_hot, supercell_coords
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "traffic", "predict-44676.json")) as fh:
+        t = json.load(fh)
+    with open(os.path.join(root, "portbench", "configs", "nmrgnn-amp.json")) as fh:
+        fields = {f.name for f in dataclasses.fields(ModelConfig)}
+        cfg = ModelConfig(**{k: v for k, v in json.load(fh).items() if k in fields})
+    xyz, elements = supercell_coords(t["atoms"], t["grid"],
+                                     np.random.default_rng([t["structure_seed"], 1]),
+                                     gap=t["gap"])
+    conf = torch.as_tensor(xyz.astype(np.float32), device=dev)
+    g = Graph(*inputs.graph(one_hot(elements), *inputs.knn_device(conf, t["neighbors"])))
+    g, _ = permute_graph(g, rcm_order(g.nlist, g.edges), pin_zero=False)
+    gt = _on_card(g, dev)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(args.seed), device=dev)
+    N, K = g.nlist.shape
+    F, E, L = cfg.atom_feature_size, cfg.edge_feature_size, cfg.mp_layers
+    print(f"phase 15: attention N={N} K={K} F={F} E={E}, {L} layers, "
+          f"{int((g.edges == 0).sum())} padding slots of {N * K}")
+
+    with torch.no_grad():
+        e = gnn.edge_features(params, cfg, gt.edges)
+        nodes = torch.randn((N, F), generator=torch.Generator(device=dev).manual_seed(args.seed),
+                            device=dev)
+        p = params["mp"][1]
+        ops = (p["wq"], p["wk"], p["wv"], nodes, gt.nlist, e, gt.inv_degree)
+
+        def kernel():
+            return attention.amp(*ops, cfg.mp_activation)
+
+        def plain():
+            return attention.amp_plain(*ops, cfg.mp_activation)
+
+        got, want = kernel(), plain()
+        truth = attention.amp_plain(*[x.double() if x.is_floating_point() else x for x in ops],
+                                    cfg.mp_activation)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        err64 = {k: float((v.double() - truth).abs().max()) for k, v in
+                 (("kernel", got), ("plain", want))}
+        if not torch.all(torch.isfinite(got)) or err > 1e-5 * scale:
+            raise SystemExit(f"chip_smoke: amp differs from its plain version by {err:.3e} "
+                             f"(largest output {scale:.3e})")
+        del got, want, truth
+        ms, plain_ms = _time_ms(kernel, 10), _time_ms(plain, 3, 2)
+        alone_ms = _kernel_device_ms(kernel, "amp_layer_kernel")
+        proj_ms = _time_ms(lambda: nodes @ p["wv"], 10)
+        layer_peak_gb = {}
+        for name, f in (("kernel", kernel), ("plain", plain)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            f()
+            torch.cuda.synchronize()
+            layer_peak_gb[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # a wrapper call's least work is the layer's (portbench/flops/attention.py);
+    # the kernel's own reads nodes and P = nodes @ wv, the slots and the
+    # small weights, and writes [N, F]: none of the projection's operations
+    layer_bytes = 4 * (2 * N * F + N * K * (E + 1) + N + F * E + E * E + F * F)
+    layer_flops = (2 * F * E + 2 * F * F) * N + (2 * E * E + 2 * E + 2 * F) * N * K
+    bound_ms, bound_by = _bound(layer_flops, layer_bytes)
+    alone_bytes = 4 * (3 * N * F + N * K * (E + 1) + N + F * E + E * E)
+    alone_flops = 2 * F * E * N + (2 * E * E + 2 * E + 2 * F) * N * K
+    alone_bound_ms, alone_bound_by = _bound(alone_flops, alone_bytes)
+    timed = lambda x: f"{x:.4f} ms" if x else "not measured"  # noqa: E731
+    print(f"phase 15: amp [float32]: max|kernel-plain|={err:.3e} ({err / scale:.2e} of the "
+          f"largest output; from float64: kernel {err64['kernel']:.3e}, plain "
+          f"{err64['plain']:.3e}), kernel {ms:.4f} ms a wrapper call, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {layer_flops / 1e9:.2f} GFLOP at 67 TFLOP/s, "
+          f"{layer_bytes / 1e6:.1f} MB a layer); alone {timed(alone_ms)}, bound "
+          f"{alone_bound_ms:.4f} ms ({alone_bound_by}: {alone_flops / 1e9:.3f} GFLOP, "
+          f"{alone_bytes / 1e6:.1f} MB); the projection {proj_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; a layer's memory peak above its inputs: kernel "
+          f"{layer_peak_gb['kernel']:.3f} GB, plain {layer_peak_gb['plain']:.3f} GB")
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    with torch.no_grad():
+        peaks = gnn.apply(params, cfg, gt)
+        torch.cuda.synchronize()
+        launches = attention.amp.launches
+        if launches != L or not torch.all(torch.isfinite(peaks)):
+            raise SystemExit(f"chip_smoke: an attention forward launched amp {launches} times "
+                             f"(want {L}) or gave peaks not all finite")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = _time_ms(lambda: gnn.apply(params, cfg, gt), 5, 2)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"phase 15: an attention forward (no grad) launches amp {launches} times (one a "
+          f"layer); forward {fwd_ms:.4f} ms, its memory peak {peak_gb:.2f} GB above the inputs")
+    return {"name": "amp", "route": "cuda", "source": "nmrgnn_tpu_torch/csrc/attention.cu",
+            "replaces": None, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "alone_ms": alone_ms, "projection_ms": proj_ms, "dtype": "float32", "phase": 15,
+            "forward_ms": fwd_ms, "forward_peak_gb": peak_gb,
+            "layer_peak_gb": layer_peak_gb, "err_from_float64": err64}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4110,6 +4236,9 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     kernels.append(_phase14(args, dev))
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    kernels.append(_phase15(args, dev))
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     checks.append({"name": "training_step", "phase": 9,
                    "max_abs_err": training["peaks_max_abs_err"],
                    "loss_rel_err": training["loss_rel_err"],

@@ -1,7 +1,8 @@
-// Device code shared by banded.cu, poly.cu, hbm.cu, fused_first.cu and
-// blocksparse.cu: the activations, float32 / bfloat16 element access, the
-// cp.async staging, the tensor cores' bfloat16 product, the Chebyshev edge
-// stage, and the band-row writer and row groups of the band builds.
+// Device code shared by banded.cu, poly.cu, hbm.cu, fused_first.cu,
+// blocksparse.cu and attention.cu: the activations, float32 / bfloat16
+// element access, the cp.async staging, the tensor cores' bfloat16
+// product, the Chebyshev edge stage, and the band-row writer and row
+// groups of the band builds.
 //
 // bfloat16 follows the TPU kernels' mixed precision: operands are bf16,
 // products and sums are float32 (a bf16 x bf16 product is exact in f32),

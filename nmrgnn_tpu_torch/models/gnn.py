@@ -17,7 +17,9 @@ Parameter layout: {"embed": {"kernel"}, "edge_fc": [{"kernel", "bias"}],
 "peak_avg"}. An ``mp_type="attention"`` model (the AMPLayer family) holds
 ``{"wq": [F, E], "wk": [E, E], "wv": [F, F]}`` per MP layer instead, and
 its layers are ``ops.message_passing.amp_layer``, float32 whatever the
-compute type (``nmrgnn_tpu/models/gnn.py:192-200``).
+compute type (``nmrgnn_tpu/models/gnn.py:192-200``), with their
+residuals as ``ops.attention.amp``: one kernel a layer on the card where
+autograd does not record, ``amp_layer`` where it does.
 
 An ``mp_type="painn"`` model (PaiNN, arXiv:2102.03150; ``ops/painn.py``,
 which the JAX package has no counterpart of) reads the atoms' positions
@@ -62,10 +64,10 @@ import torch
 from .._device import resolve_device
 from ..config import ModelConfig
 from ..graph import Graph
-from ..ops import edge, painn
+from ..ops import attention, edge, painn
 from ..ops.edge import as_operand
 from ..ops.activations import get_activation
-from ..ops.message_passing import amp_layer, mp_layer
+from ..ops.message_passing import mp_layer
 from ..utils.profiling import span
 
 Params = Dict[str, Any]
@@ -271,10 +273,10 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, positions=None,
     for p in params["mp"]:
         with span("nmrgnn.mp"):
             if config.mp_type == "attention":
-                upd = amp_layer(p["wq"], p["wk"], p["wv"], nodes, nlist, e, inv_degree, mp_act)
+                nodes = attention.amp(p["wq"], p["wk"], p["wv"], nodes, nlist, e, inv_degree,
+                                      config.mp_activation)
             else:
-                upd = mp_fn(p["w"], nodes, nlist, e, inv_degree, mp_act, cd)
-            nodes = upd + nodes
+                nodes = mp_fn(p["w"], nodes, nlist, e, inv_degree, mp_act, cd) + nodes
     return readout(params, config, atoms, nodes, dropout_mask=dropout_mask, dense_fn=dense_fn)
 
 

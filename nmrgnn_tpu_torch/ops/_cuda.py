@@ -86,6 +86,7 @@ _ENTRY_POINTS = {
         "nmr_block_occupancy_from_adjacency": [_P, _P] + [_I] * 4 + [_P],
     },
     "painn": {"nmr_painn_message": [_P] * 9 + [_I] * 3 + [_L, _L, _P]},
+    "attention": {"nmr_amp_layer": [_P] * 8 + [_I] * 5 + [_P]},
 }
 SOURCES = tuple(_ENTRY_POINTS)
 _SOURCE = {fn: name for name, fns in _ENTRY_POINTS.items() for fn in fns}

@@ -265,3 +265,75 @@ def test_banded_attention_with_two_padding_rows():
     want = jgnn.apply(jparams, jcfg, JGraph(*map(jnp.asarray, g)))
     _, tplan = _plans(nl, d)
     _close(infer.apply_banded_attention(params, cfg, Graph(*map(_t, g)), tplan), want)
+
+
+def _amp_operands(n=60, k=12, f=40, e=3, seed=0):
+    """An attention layer's operands as CPU tensors: padding slots (features
+    0) naming real rows, and negative indices."""
+    rng = np.random.default_rng(seed)
+    nlist = rng.integers(0, n, (n, k)).astype(np.int32)
+    nlist[::5, 0] = -1
+    edges = rng.normal(size=(n, k, e)).astype(np.float32)
+    edges[rng.uniform(size=(n, k)) < 0.25] = 0.0
+    nodes = rng.normal(size=(n, f)).astype(np.float32)
+    wq = rng.normal(size=(f, e)).astype(np.float32) / 8
+    wk = rng.normal(size=(e, e)).astype(np.float32)
+    wv = rng.normal(size=(f, f)).astype(np.float32) / 8
+    inv = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    return tuple(map(_t, (wq, wk, wv, nodes, nlist, edges, inv)))
+
+
+@pytest.mark.parametrize("act", ["linear", "relu", "softplus", "tanh"])
+def test_amp_wrapper_on_the_cpu_is_amp_layer_plus_the_residual(act):
+    """``attention.amp`` on CPU tensors equals ``amp_layer`` plus the
+    residual bit for bit and counts no launch; ``kernel_args`` pads F = 40
+    to 64 with zero columns, takes nlist as int32, and refuses E = 0."""
+    from nmrgnn_tpu_torch.ops import attention
+    from nmrgnn_tpu_torch.ops.activations import get_activation
+
+    wq, wk, wv, nodes, nlist, edges, inv = ops = _amp_operands()
+    _cuda.reset_launch_counts()
+    got = attention.amp(*ops, act)
+    want = tmp.amp_layer(*ops, get_activation(act)) + nodes
+    assert torch.equal(got, want) and attention.amp.launches == 0
+    args, dims = attention.kernel_args(wq, wk, nodes @ wv, nodes, nlist.long(), edges, inv)
+    assert dims == (60, 12, 64, 3)
+    assert [tuple(t.shape) for t in args.values()] == [(60, 64), (60, 64), (64, 3), (3, 3),
+                                                      (60, 12), (60, 12, 3), (60,)]
+    assert args["nlist"].dtype == torch.int32 and torch.equal(args["nlist"].long(), nlist.long())
+    assert torch.equal(args["nodes"][:, :40], nodes) and not args["nodes"][:, 40:].any()
+    assert not args["wq"][40:].any() and not args["values"][:, 40:].any()
+    with pytest.raises(ValueError):
+        attention.kernel_args(wq[:, :0], wk[:0, :0], nodes @ wv, nodes, nlist, edges[..., :0],
+                              inv)
+
+
+def test_attention_layer_takes_the_wrapper_only_where_autograd_does_not_record(monkeypatch):
+    """``attention.amp``'s route on the card sends a call to ``amp_plain``
+    only while autograd records (grad mode on and an operand that requires
+    grad); ``gnn.apply`` takes ``attention.amp`` for each attention layer,
+    and its peaks are equal bit for bit with and without grad."""
+    from nmrgnn_tpu_torch.ops import attention
+
+    cfg = ModelConfig(**dict(ATTN, atom_feature_size=32, **OFF))
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = Graph(*map(_t, _graph(n=64, seed=7)))
+    calls = []
+    plain = attention.amp_plain
+    monkeypatch.setattr(attention, "amp_plain", lambda *a: calls.append(1) or plain(*a))
+    with torch.no_grad():
+        no_grad = gnn.apply(params, cfg, g)
+    assert len(calls) == cfg.mp_layers
+    frozen = gnn.apply(params, cfg, g)
+    assert len(calls) == 2 * cfg.mp_layers
+    for t in gnn.trainable_leaves(params):
+        t.requires_grad_(True)
+    recorded = gnn.apply(params, cfg, g)
+    assert len(calls) == 3 * cfg.mp_layers and recorded.requires_grad
+    assert torch.equal(no_grad, frozen) and torch.equal(no_grad, recorded.detach())
+    ops = _amp_operands()
+    assert attention._recording(*ops) is None
+    ops[2].requires_grad_(True)
+    assert attention._recording(*ops, "relu") is attention.amp_plain
+    with torch.no_grad():
+        assert attention._recording(*ops) is None

@@ -2166,3 +2166,173 @@ def test_painn_message_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         painn.message(p48, s48, v48, w48, u48, n48, e48, act, gnn.dense)
     assert painn.message.launches == before
+
+
+# -- the attention layer on "gather": one kernel a layer (csrc/attention.cu) --------
+
+
+def _amp_case(dev, n, k, f, e, seed):
+    """An attention layer's operands on the card: 25% padding slots (edge
+    features 0, as the edge stage's mask leaves them) that name real rows,
+    a row all padding, indices counted from the end (-1), logits of a few
+    units."""
+    rng = np.random.default_rng(seed)
+    nlist = rng.integers(0, n, (n, k)).astype(np.int32)
+    nlist[::7, 0] = -1
+    edges = rng.normal(size=(n, k, e)).astype(np.float32)
+    pad = rng.uniform(size=(n, k)) < 0.25
+    pad[3] = True
+    edges[pad] = 0.0
+    nodes = rng.normal(size=(n, f)).astype(np.float32)
+    wq = (rng.normal(size=(f, e)) / np.sqrt(f)).astype(np.float32)
+    wk = rng.normal(size=(e, e)).astype(np.float32)
+    wv = (rng.normal(size=(f, f)) / np.sqrt(f)).astype(np.float32)
+    inv = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    return _on(dev, wq, wk, wv, nodes, nlist, edges, inv)
+
+
+def _amp_bound(wq, wk, wv, nodes, nlist, edges, inv, want):
+    """Twice a float32 bound of either side's error: the values' F-term
+    and the weighted sum's K-term sums (F + K + 8 units of 2^-24 of the
+    sum of |a| |x| |wv|), each weight's relative error from its logit's
+    two E-term sums and the max (4 (E + 2) units of the logits' largest
+    magnitude, plus the softmax's K-term sum), then the activation (slope
+    at most 1) and the residual (a few units of the output)."""
+    d = torch.float64
+    x, nl, iv = nodes.to(d), nlist.long(), inv.to(d)
+    F, (n, K, E) = x.shape[1], edges.shape
+    q = x @ wq.to(d)
+    a = torch.softmax(iv[:, None] * torch.einsum("ijk,kl,il->ij", edges.to(d), wk.to(d), q), -1)
+    m1 = torch.einsum("ij,ijm->im", a, (x.abs() @ wv.to(d).abs())[nl])
+    lmag = iv.abs()[:, None] * torch.einsum("ijk,kl,il->ij", edges.to(d).abs(), wk.to(d).abs(),
+                                            x.abs() @ wq.to(d).abs())
+    coef = F + 2 * K + 16 + 4 * (E + 2) * lmag.max(1).values[:, None]
+    return 2 * 2.0 ** -24 * (coef * m1 + 4 * x.abs() + 4 * want.to(d).abs())
+
+
+def _amp_check(dev, ops, act):
+    from nmrgnn_tpu_torch.ops import attention
+
+    n, k = ops[4].shape
+    f = ops[3].shape[1]
+    want = attention.amp_plain(*ops, act)
+    torch.cuda.synchronize()
+    before, base = attention.amp.launches, torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = attention.amp(*ops, act)
+    torch.cuda.synchronize()
+    assert attention.amp.launches == before + 1
+    assert torch.cuda.max_memory_allocated() - base < n * k * f * 4 // 2
+    assert got.shape == want.shape and torch.all(torch.isfinite(got))
+    bound = _amp_bound(*ops, want)
+    assert torch.all((got - want).abs().to(torch.float64) <= bound), \
+        float(((got - want).abs() / bound).max())
+    assert torch.equal(attention.amp(*ops, act), got)  # no atomics: the same bits again
+
+
+@pytest.mark.parametrize("n,k,f,e,seed", [
+    (700, 16, 256, 3, 0),  # the amp cell's widths
+    (300, 40, 256, 3, 1),  # K past 32: two chunks of slots
+    (300, 16, 100, 3, 2),  # F padded to 128
+    (300, 24, 192, 4, 3),  # 6 channels a lane, 8-byte loads
+    (300, 16, 96, 1, 4),   # 3 channels a lane, 4-byte loads
+    (300, 33, 512, 8, 5),  # F past 256: two channel groups
+])
+def test_amp_kernel_matches_plain(dev, n, k, f, e, seed):
+    """The attention kernel (with its projection and residual) against
+    ``amp_plain`` elementwise within float32 rounding (``_amp_bound``),
+    padding slots and negative indices included; one count a call, no
+    [N, K, F] tensor allocated, the same bits on a second call."""
+    _amp_check(dev, _amp_case(dev, n, k, f, e, seed), "softplus")
+
+
+@pytest.mark.parametrize("act", ["linear", "relu", "softplus", "tanh"])
+def test_amp_kernel_every_activation_matches_plain(dev, act):
+    _amp_check(dev, _amp_case(dev, 300, 16, 64, 3, 10), act)
+
+
+def test_amp_kernel_on_a_flattened_batch(dev):
+    """A flattened ``apply_batched`` graph: each fragment's padding slots
+    name its row 0, moved by b N."""
+    g = gnn.flatten_batch(_fragment_batch(dev, b=4, n=128, k=16, seed=3))
+    n, k = g.nlist.shape
+    wq, wk, wv, nodes, _, edges, _ = _amp_case(dev, n, k, 256, 3, 11)
+    assert int(g.nlist.max()) >= 3 * 128 and int((g.edges == 0).sum()) > 0
+    edges = edges * (g.edges > 0)[..., None]
+    _amp_check(dev, (wq, wk, wv, nodes, g.nlist, edges, g.inv_degree), "softplus")
+
+
+def _parent_attention_apply(params, cfg, g):
+    """The attention forward as ``gnn.apply`` computes it where autograd
+    records: ``amp_layer`` plus the residual, a layer at a time."""
+    from nmrgnn_tpu_torch.ops.activations import get_activation
+    from nmrgnn_tpu_torch.ops.message_passing import amp_layer
+
+    atoms, nlist, edges, inv = g
+    e = gnn.edge_features(params, cfg, edges, mask=(edges > 0).to(torch.float32)[..., None])
+    nodes = gnn.dense(params["embed"], atoms)
+    act = get_activation(cfg.mp_activation)
+    for p in params["mp"]:
+        nodes = amp_layer(p["wq"], p["wk"], p["wv"], nodes, nlist, e, inv, act) + nodes
+    return gnn.readout(params, cfg, atoms, nodes)
+
+
+def test_attention_gather_forward_on_the_card(dev):
+    """An attention ServingModel.predict on "gather" launches the kernel 4
+    times (one a layer), as gnn.apply and apply_batched do under no grad,
+    and equals the plain forward within float32 rounding (1e-5 of the
+    largest peak); a forward while autograd records launches it 0 times,
+    equals the plain layers bit for bit, and its gradients equal theirs
+    within 1e-5 of each leaf's largest (the gather's backward sums by
+    atomics)."""
+    from nmrgnn_tpu_torch.ops import attention
+
+    cfg, params = _attention_model(dev, noise=0.0, dropout=False)
+    nlist, dists, *_ = make_case(700, 16, 8, 1, seed=6, banded_nlist=True)
+    atoms = np.eye(10, dtype=np.float32)[np.random.default_rng(6).integers(0, 10, 700)]
+    g_np = Graph(atoms, nlist, dists, inv_degree_from_nlist(nlist))
+    g = Graph(*_on(dev, *g_np))
+    with torch.no_grad():
+        plain = _parent_attention_apply(params, cfg, g)
+    _cuda.reset_launch_counts()
+    model = ServingModel(params, cfg, device=dev)
+    model._resolved = "gather"
+    served = model.predict(g_np)
+    assert attention.amp.launches == 4
+    scale = 1e-5 * float(plain.abs().max())
+    np.testing.assert_allclose(served, plain.cpu().numpy(), rtol=0, atol=scale)
+    with torch.no_grad():
+        torch.testing.assert_close(gnn.apply(params, cfg, g), plain, rtol=0, atol=scale)
+        gb = Graph(*[torch.stack([t, t.flip(0)]) for t in g])
+        batched = gnn.apply_batched(params, cfg, gb)
+    assert attention.amp.launches == 12
+    want_b = torch.stack([plain, _parent_attention_apply(params, cfg, Graph(*[t.flip(0)
+                                                                             for t in g]))])
+    torch.testing.assert_close(batched, want_b.detach(), rtol=0, atol=scale)
+
+    leaves = gnn.trainable_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    w = torch.rand(700, generator=torch.Generator().manual_seed(0)).to(dev)
+    got = gnn.apply(params, cfg, g)
+    want = _parent_attention_apply(params, cfg, g)
+    assert attention.amp.launches == 12 and torch.equal(got, want)
+    for a, b in zip(torch.autograd.grad((got * w).sum(), leaves),
+                    torch.autograd.grad((want * w).sum(), leaves)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def test_amp_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """On the card ``amp`` launches the kernel or raises: an activation
+    with no kernel code (silu), nlist on the host, no edge feature."""
+    from nmrgnn_tpu_torch.ops import attention
+
+    wq, wk, wv, nodes, nlist, edges, inv = ops = _amp_case(dev, 64, 16, 64, 3, 12)
+    before = attention.amp.launches
+    with pytest.raises(ValueError):
+        attention.amp(*ops, "silu")
+    with pytest.raises(ValueError):
+        attention.amp(wq, wk, wv, nodes, nlist.cpu(), edges, inv, "softplus")
+    with pytest.raises(ValueError):
+        attention.amp(wq[:, :0], wk[:0, :0], wv, nodes, nlist, edges[..., :0], inv, "softplus")
+    assert attention.amp.launches == before

@@ -14,13 +14,13 @@ from nmrgnn_tpu_torch.config import ModelConfig
 from nmrgnn_tpu_torch.graph import Graph
 from nmrgnn_tpu_torch.models import gnn
 from nmrgnn_tpu_torch.models.serving import ServingModel
-from nmrgnn_tpu_torch.ops import _cuda, banded, blocksparse, painn
+from nmrgnn_tpu_torch.ops import _cuda, attention, banded, blocksparse, painn
 
 torch.set_num_threads(2)
 
 OPS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "nmrgnn_tpu_torch", "ops")
-KERNEL_MODULES = (banded, blocksparse, painn)
+KERNEL_MODULES = (attention, banded, blocksparse, painn)
 
 
 def _tree(mod):
@@ -46,17 +46,18 @@ def _launchers(mod) -> set:
 
 
 def test_every_kernel_wrapper_is_in_the_one_registry():
-    """Every public function of banded, blocksparse and painn that
-    launches a kernel is a counted wrapper in ``KERNEL_WRAPPERS`` (the
+    """Every public function of attention, banded, blocksparse and painn
+    that launches a kernel is a counted wrapper in ``KERNEL_WRAPPERS`` (the
     request preparation's ``permute_tile_bounds`` apart), ``painn.message``
-    included, under a name of its own; ``reset_launch_counts`` zeroes them
-    all and ``permute_tile_bounds``."""
+    and ``attention.amp`` included, under a name of its own;
+    ``reset_launch_counts`` zeroes them all and ``permute_tile_bounds``."""
     found = [getattr(mod, name) for mod in KERNEL_MODULES for name in _launchers(mod)]
     assert painn.message in found and blocksparse.mp_blocksparse_grouped in found
+    assert attention.amp in found
     assert set(found) == set(_cuda.KERNEL_WRAPPERS) | {banded.permute_tile_bounds}
     assert banded.permute_tile_bounds not in _cuda.KERNEL_WRAPPERS
     names = [f.__name__ for f in _cuda.KERNEL_WRAPPERS]
-    assert len(names) == len(set(names)) == 19
+    assert len(names) == len(set(names)) == 20
     for f in found:
         f.launches = 7
     _cuda.reset_launch_counts()
