@@ -36,6 +36,24 @@ inference only: ``training=True`` raises. Its forward is one
 ``nmrgnn.filter`` span and one ``nmrgnn.mp`` a block holding
 ``nmrgnn.message`` and ``nmrgnn.update``.
 
+An ``mp_type="et"`` model (TorchMD-Net's equivariant transformer,
+arXiv:2202.02541; ``ops/et.py``) reads the positions as PaiNN does and
+holds ``{"embed", "neighbor": {"embed" {kernel [V, F]}, "dist" Dense(R,
+F), "combine" Dense(2F, F)}, "mp": [{"norm" {weight, bias}, "q" Dense(F,
+F), "k" Dense(F, F), "v" Dense(F, 3F), "o" Dense(F, 3F), "vec" {kernel
+[F, 3F]}, "dk" Dense(R, F), "dv" Dense(R, 3F)}], "out_norm" {weight,
+bias}, "fc", "out", "peak_std", "peak_avg"}``. Its ``ModelConfig``
+mapping: F ``atom_feature_size``, ``mp_layers`` attention layers, R
+``edge_hidden_size`` exponential-normal radial functions,
+``edge_feature_size`` the heads (which must divide F), ``rbf_low`` and
+``rbf_high`` the lower and upper cutoffs (nm), SiLU as ``mp_activation``
+(the filters' and the attention's), the readout as the other families';
+``edge_fc_layers`` is unused. Inference only, as PaiNN. Its forward is
+one ``nmrgnn.filter`` span (geometry and basis), one ``nmrgnn.embed``
+(the neighbor embedding) and one ``nmrgnn.mp`` a layer holding
+``nmrgnn.attn`` (every block of the attention stage) and two
+``nmrgnn.update`` (the steps before it and after it).
+
 Training mode (``training=True``, ``nmrgnn_tpu/models/gnn.py:144-236``)
 adds Gaussian noise of std ``config.noise`` to the distances before the
 RBF, the padding mask still taken from the distances before the noise, and
@@ -64,13 +82,17 @@ import torch
 from .._device import resolve_device
 from ..config import ModelConfig
 from ..graph import Graph
-from ..ops import attention, edge, painn
+from ..ops import attention, edge, et, painn
 from ..ops.edge import as_operand
 from ..ops.activations import get_activation
 from ..ops.message_passing import mp_layer
 from ..utils.profiling import span
 
 Params = Dict[str, Any]
+
+# the families that read the atoms' positions beside the graph and serve
+# inference only
+POSITIONS_FAMILIES = ("painn", "et")
 
 
 def _glorot(gen: torch.Generator, shape, fan_in: int, fan_out: int) -> torch.Tensor:
@@ -122,14 +144,17 @@ def init_params(
     drawn on the CPU from ``generator`` and moved to ``device``. The MP
     weight w[F, F, E] takes the rank-3 glorot fan of Keras: fan_in = F*F,
     fan_out = E*F; an attention model's wq [F, E], wk [E, E] and wv [F, F]
-    take their own two dimensions as fans; a PaiNN model draws its own
-    layout (the module's docstring). ``peak_standards`` maps element
-    index -> (name, avg, std); peak_std defaults to 1 and peak_avg to 0."""
+    take their own two dimensions as fans; a PaiNN or ET model draws its
+    own layout (the module's docstring; ET's LayerNorms start at 1 and 0).
+    ``peak_standards`` maps element index -> (name, avg, std); peak_std
+    defaults to 1 and peak_avg to 0."""
     dev = resolve_device(device)
     F, E, H, V = (config.atom_feature_size, config.edge_feature_size,
                   config.edge_hidden_size, config.num_elements)
     if config.mp_type == "painn":
         family = _painn_params(config, generator)
+    elif config.mp_type == "et":
+        family = _et_params(config, generator)
     else:
         edge_fc = [_dense_init(generator, H, H) for _ in range(config.edge_fc_layers - 1)]
         edge_fc.append(_dense_init(generator, H, E))
@@ -168,6 +193,33 @@ def _painn_params(config: ModelConfig, generator) -> Params:
                "channel_mix": _dense_init(generator, F, 2 * F, use_bias=False)}
               for _ in range(B)]
     return {"filter": filt, "mp": blocks}
+
+
+def _et_params(config: ModelConfig, generator) -> Params:
+    """ET's neighbor embedding, attention layers and last LayerNorm."""
+    F, R, V = config.atom_feature_size, config.edge_hidden_size, config.num_elements
+    _heads(config)
+    norm = lambda: {"weight": torch.ones((F,), dtype=torch.float32),  # noqa: E731
+                    "bias": torch.zeros((F,), dtype=torch.float32)}
+    neighbor = {"embed": _dense_init(generator, V, F, use_bias=False),
+                "dist": _dense_init(generator, R, F),
+                "combine": _dense_init(generator, 2 * F, F)}
+    layers = [{"norm": norm(), "q": _dense_init(generator, F, F),
+               "k": _dense_init(generator, F, F), "v": _dense_init(generator, F, 3 * F),
+               "o": _dense_init(generator, F, 3 * F),
+               "vec": _dense_init(generator, F, 3 * F, use_bias=False),
+               "dk": _dense_init(generator, R, F), "dv": _dense_init(generator, R, 3 * F)}
+              for _ in range(config.mp_layers)]
+    return {"neighbor": neighbor, "mp": layers, "out_norm": norm()}
+
+
+def _heads(config: ModelConfig) -> int:
+    """ET's heads (``edge_feature_size``); raises where they do not divide F."""
+    heads, F = config.edge_feature_size, config.atom_feature_size
+    if heads < 1 or F % heads:
+        raise ValueError(f"mp_type='et': {heads} heads (edge_feature_size) do not divide "
+                         f"atom_feature_size {F}")
+    return heads
 
 
 def edge_features(params: Params, config: ModelConfig, edges: torch.Tensor,
@@ -248,16 +300,21 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, positions=None,
     forward: the reference every faster path is held to. ``training=True``
     applies the distance noise and the readout dropout (draws: see the
     module's docstring; ``dropout_mask`` is [N, F // 2]). ``positions``
-    (f32[N, 3], nm) is read by a PaiNN model alone, which needs it.
+    (f32[N, 3], nm) is read by a PaiNN or ET model alone, which needs it.
 
     ``dense_fn`` (``dense``'s signature) and ``mp_fn`` (``mp_layer``'s)
     compute the products of the embedding, FC block and head, and of the
     bilinear MP layers: the plain ones by default, the tensor-parallel
     slices' in ``parallel/sharding.tp_products``."""
-    if config.mp_type == "painn":
+    if config.mp_type in POSITIONS_FAMILIES:
         if training:
-            raise ValueError("mp_type='painn' serves inference only: no training forward")
-        return apply_painn(params, config, graph, positions, dense_fn)
+            raise ValueError(f"mp_type={config.mp_type!r} serves inference only: "
+                             "no training forward")
+        if positions is None:
+            raise ValueError(f"mp_type={config.mp_type!r} needs the atoms' positions: "
+                             "apply(params, config, graph, positions=f32[N, 3] nm)")
+        fwd = apply_painn if config.mp_type == "painn" else apply_et
+        return fwd(params, config, graph, positions, dense_fn)
     atoms, nlist, edges, inv_degree = graph
     mp_act = get_activation(config.mp_activation)
     cd = compute_dtype(config)
@@ -284,9 +341,6 @@ def apply_painn(params: Params, config: ModelConfig, graph: Graph, positions,
                 dense_fn=dense) -> torch.Tensor:
     """PaiNN's forward (``ops/painn.py``) for one graph and its atoms'
     ``positions`` f32[N, 3] nm; peaks f32[N] through ``readout``."""
-    if positions is None:
-        raise ValueError("mp_type='painn' needs the atoms' positions: "
-                         "apply(params, config, graph, positions=f32[N, 3] nm)")
     atoms, nlist, edges, _ = graph
     act = get_activation(config.mp_activation)
     cd = compute_dtype(config)
@@ -304,6 +358,33 @@ def apply_painn(params: Params, config: ModelConfig, graph: Graph, positions,
             with span("nmrgnn.update"):
                 s, v = painn.update(p, s, v, act, dense_fn, cd)
     return readout(params, config, atoms, s, dense_fn=dense_fn)
+
+
+def apply_et(params: Params, config: ModelConfig, graph: Graph, positions,
+             dense_fn=dense) -> torch.Tensor:
+    """ET's forward (``ops/et.py``) for one graph and its atoms'
+    ``positions`` f32[N, 3] nm; peaks f32[N] through ``readout``."""
+    atoms, nlist, edges, _ = graph
+    heads = _heads(config)
+    act = get_activation(config.mp_activation)
+    cd = compute_dtype(config)
+    with span("nmrgnn.filter"):
+        geo = et.geometry(positions, nlist, edges, config.edge_hidden_size, config.rbf_low,
+                          config.rbf_high)
+    x = dense_fn(params["embed"], atoms)
+    with span("nmrgnn.embed"):
+        x = et.neighbor_embedding(params["neighbor"], x, atoms, geo, dense_fn, cd)
+    vec = torch.zeros((x.shape[0], 3, x.shape[1]), dtype=x.dtype, device=x.device)
+    for p in params["mp"]:
+        with span("nmrgnn.mp"):
+            with span("nmrgnn.update"):
+                q, k, v, u3, vec_dot = et.update_in(p, x, vec, dense_fn, cd)
+            with span("nmrgnn.attn"):
+                sx, sv = et.attention(p, q, k, v, vec, geo, heads, act, cd)
+            with span("nmrgnn.update"):
+                x, vec = et.update_out(p, x, vec, sx, sv, u3, vec_dot, dense_fn, cd)
+    x = et.layer_norm(params["out_norm"], x)
+    return readout(params, config, atoms, x, dense_fn=dense_fn)
 
 
 def flatten_batch(graph: Graph) -> Graph:

@@ -31,12 +31,14 @@ check (``_plan_if_attn``), else to ``"gather"`` (``gnn.apply``). The port
 keeps this rule on the CPU too, where the JAX package serves the family
 through "gather". Another non-bilinear ``mp_type`` resolves to "gather".
 
-A PaiNN model (``mp_type="painn"``, ``gnn.apply_painn``) also reads the
-atoms' positions: ``predict(graph, positions=f32[N, 3] nm)``, served
-through "gather"; the positions are copied up with the graph and put in
-the serving order on the card with it. ``predict_frames``,
-``predict_trajectory`` and "partitioned" serving do not take the family
-and raise, as ``predict`` does without positions.
+A family that reads the atoms' positions (``gnn.POSITIONS_FAMILIES``:
+PaiNN, ``mp_type="painn"``, ``gnn.apply_painn``; the equivariant
+transformer, ``mp_type="et"``, ``gnn.apply_et``) serves through
+``predict(graph, positions=f32[N, 3] nm)`` on "gather"; the positions are
+copied up with the graph and put in the serving order on the card with
+it. ``predict_frames``, ``predict_trajectory`` and "partitioned" serving
+do not take these families and raise, each naming the family, as
+``predict`` does without positions.
 
 Each later frame verifies the cached band plan against its own neighbor
 lists (``plan_covers``) and rebuilds it only when a real neighbor escapes
@@ -229,7 +231,7 @@ class ServingModel:
             # the plain matmuls (embedding, FC block, head) stay float32
             torch.backends.cuda.matmul.allow_tf32 = False
         self.config = config
-        self._painn = config.mp_type == "painn"
+        self._positions = config.mp_type in gnn.POSITIONS_FAMILIES
         self.precision = precision
         self.reorder = reorder
         self.block_size = block_size
@@ -255,8 +257,8 @@ class ServingModel:
         self._on_device = {}  # slot -> (host plan, its copy on the device)
         self.mesh = mesh
         self.partition_axis = partition_axis
-        if self._painn and self._n_shards() > 1:
-            raise ValueError("mp_type='painn' is not served partitioned over a mesh")
+        if self._positions and self._n_shards() > 1:
+            raise ValueError(f"mp_type={config.mp_type!r} is not served partitioned over a mesh")
         self._part_key = None   # the cached partitioned plan's topology key
         self._part_plan = None  # (plan, banded, this shard's plan arrays on the device)
 
@@ -620,13 +622,13 @@ class ServingModel:
         """Launch the forward; returns (peaks on the device in the served
         order, the inverse permutation or None) without waiting for the
         device."""
-        if self._painn and positions is None:
-            raise ValueError("mp_type='painn' needs the atoms' positions: "
+        if self._positions and positions is None:
+            raise ValueError(f"mp_type={self.config.mp_type!r} needs the atoms' positions: "
                              "predict(graph, positions=f32[N, 3] nm)")
         g = Graph(*[np.asarray(a) for a in graph])
         if self._resolved in _HOST_PATHS:
             return self._predict_host(g)
-        gt, bounds, pos = self._prepare(g, positions if self._painn else None)
+        gt, bounds, pos = self._prepare(g, positions if self._positions else None)
         while True:
             mode = self._resolve_mode(bounds)
             if mode in _HOST_PATHS:
@@ -686,14 +688,14 @@ class ServingModel:
 
     def predict(self, graph: Graph, positions=None) -> np.ndarray:
         """peaks f32[N] in the graph's own atom order. ``positions``
-        (f32[N, 3] nm, in the same order) is read by a PaiNN model alone,
-        which needs it."""
+        (f32[N, 3] nm, in the same order) is read by a PaiNN or ET model
+        alone, which needs it."""
         with span("nmrgnn.predict"):
             return self._finalize(*self._predict_async(graph, positions))
 
-    def _refuse_painn(self, what: str) -> None:
-        if self._painn:
-            raise ValueError(f"{what} does not serve mp_type='painn': call "
+    def _refuse_positions(self, what: str) -> None:
+        if self._positions:
+            raise ValueError(f"{what} does not serve mp_type={self.config.mp_type!r}: call "
                              "predict(graph, positions=...) a structure at a time")
 
     def predict_frames(self, graphs) -> np.ndarray:
@@ -704,8 +706,8 @@ class ServingModel:
         path is not "banded" or "banded_attn", or the union plan escapes its
         budget (for "banded_attn" the node-table budget with one channel and
         no fused-build check). Both precisions take the uniform forward
-        here, as in the JAX package. Not for a PaiNN model (raises)."""
-        self._refuse_painn("predict_frames")
+        here, as in the JAX package. Not for a PaiNN or ET model (raises)."""
+        self._refuse_positions("predict_frames")
         with span("nmrgnn.predict"):
             return self._predict_frames(graphs)
 
@@ -769,10 +771,10 @@ class ServingModel:
         i's readback happens after frame i + 1 has been launched; results
         come out in frame order. A failed build raises in the consumer
         (``RuntimeError``); the trajectory is never cut short silently. Not
-        for a PaiNN model (raises)."""
+        for a PaiNN or ET model (raises)."""
         from ..data.parse import structure2graph
 
-        self._refuse_painn("predict_trajectory")
+        self._refuse_positions("predict_trajectory")
         frames = list(range(0, struct.n_frames, stride))
         q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
 

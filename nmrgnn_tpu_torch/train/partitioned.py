@@ -118,9 +118,9 @@ class PartitionedTrainer:
         if mesh is None:
             raise ValueError("PartitionedTrainer requires a mesh")
         self.config = config or ModelConfig()
-        if self.config.mp_type == "painn":
-            raise ValueError("PartitionedTrainer does not train mp_type='painn': the family "
-                             "serves inference only")
+        if self.config.mp_type in gnn.POSITIONS_FAMILIES:
+            raise ValueError(f"PartitionedTrainer does not train "
+                             f"mp_type={self.config.mp_type!r}: the family serves inference only")
         self.tcfg = train_config or TrainConfig()
         self.mesh = mesh
         self.axis = axis

@@ -388,9 +388,9 @@ class Trainer:
         ``fit`` hands back the whole params. Every rank of the mesh runs
         the same calls."""
         self.config = config or ModelConfig()
-        if self.config.mp_type == "painn":
-            raise ValueError("Trainer does not train mp_type='painn': the family serves "
-                             "inference only")
+        if self.config.mp_type in gnn.POSITIONS_FAMILIES:
+            raise ValueError(f"Trainer does not train mp_type={self.config.mp_type!r}: the "
+                             "family serves inference only")
         self.tcfg = train_config or TrainConfig()
         self.mesh = mesh
         self.tensor_parallel = tensor_parallel
