@@ -317,7 +317,21 @@ Phases, in order; any failure exits non-zero and prints no result:
     included), a layer's memory peak through the kernel and through the
     plain version, and an attention forward (gnn.apply, no grad) that
     must launch it once a layer (4), with its time and memory peak.
-16. One JSON line listing every kernel of the paths (a counterpart of
+16. The equivariant transformer's attention kernel (csrc/et.cu,
+    ops/et.py fused_attention) at the et-predict-44676 cell's shapes: the
+    cell's structure and cutoff graph (as phase 14's, K = 80, in the RCM
+    order) and its Geometry, the torchmd-et configuration (F = 256 in 8
+    heads of 32, R = 64) with weights from --seed and nonzero biases,
+    random q, k, v and v_state. The kernel against attention (its plain
+    version) within the card tests' bound (et_stage_bound: float32 sums
+    in another order), each against a float64 evaluation; its time a wrapper
+    call (CUDA events) and alone (torch.profiler), the plain version's
+    time, the bound (a layer's share of portbench/flops/et.py's
+    work["attn"]: operations at 67 TFLOP/s or bytes at 3.35 TB/s, the
+    larger), a layer's memory peak through the kernel and through the
+    plain version, and an ET forward (gnn.apply, no grad) that must
+    launch it once a layer (8), with its time and memory peak.
+17. One JSON line listing every kernel of the paths (a counterpart of
     every pl.pallas_call site of the JAX package) with its launches, error
     and times; B2, B1 and the band occupancy also with their launches a
     training step (train_launches); B2 and B6 at one edge channel as
@@ -331,7 +345,7 @@ Phases, in order; any failure exits non-zero and prints no result:
     their launches a partitioned training step of rank 0 (13a,
     part_train_launches), B2, B1 and the occupancy with theirs a
     data-parallel step of rank 0 (13c, dp_train_launches).
-17. The last line: {"ok": true, "device": {...}}.
+18. The last line: {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.
 The synthetic-PDB writers are plain functions, importable by the tests.
@@ -3766,6 +3780,149 @@ def _phase15(args, dev) -> dict:
             "layer_peak_gb": layer_peak_gb, "err_from_float64": err64}
 
 
+def et_stage_bound(p, q, k, v, vec, geo, heads):
+    """(Sx, Sv) elementwise bounds of ET's attention kernel against its
+    plain version: twice a float32 bound of either side's error.
+    ``attention`` in float64 on the operands' magnitudes with the identity
+    for SiLU (|SiLU(x)| <= |x|, its slope at most 1.1) gives, summed over
+    a row's slots, C L s for Sx (L the logit's sum of magnitudes, s the
+    value's) and |v_state| m1 + |r^| m2 for Sv; each term's relative error
+    is at most (2.31 R + 1.1 D + S + 21) 2^-24 for Sx (the filter's R + 1
+    products, SiLU's slope, the logit's D terms, the weight, the slot
+    sum's S terms) and (1.1 R + S + 11) 2^-24 for Sv, rounded up here to
+    (3 R + 2 D + S + 32) and (2 R + S + 16)."""
+    import torch
+
+    from nmrgnn_tpu_torch.ops import et
+
+    mag = lambda t: t.abs().to(torch.float64)  # noqa: E731
+    pm = {name: {key: mag(t) for key, t in layer.items()} for name, layer in p.items()}
+    gm = et.Geometry(geo.nlist, mag(geo.basis), mag(geo.cut), mag(geo.unit))
+    sx, sv = et.attention(pm, mag(q), mag(k), mag(v), mag(vec), gm, heads, lambda x: x)
+    R, S, D = p["dk"]["kernel"].shape[0], geo.nlist.shape[1], q.shape[1] // heads
+    return (2 * 2.0 ** -24 * (3 * R + 2 * D + S + 32) * sx,
+            2 * 2.0 ** -24 * (2 * R + S + 16) * sv)
+
+
+def _phase16(args, dev) -> dict:
+    """The ET attention stage's kernel at the et-predict-44676 cell's shapes
+    (module docstring, phase 16). Returns its kernel row."""
+    import torch
+
+    from nmrgnn_tpu_torch.config import ModelConfig
+    from nmrgnn_tpu_torch.data.reorder import permute_graph, rcm_order
+    from nmrgnn_tpu_torch.graph import Graph
+    from nmrgnn_tpu_torch.models import gnn
+    from nmrgnn_tpu_torch.ops import et
+    from portbench.drivers.predict_loop_xyz import cutoff_graph, supercell
+    from portbench.flops.et import work
+    from portbench.harness import inputs
+    from portbench.reference.structures import ANGSTROM_TO_NM, one_hot
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "traffic", "predict-44676-r5-et.json")) as fh:
+        t = json.load(fh)
+    with open(os.path.join(root, "portbench", "configs", "torchmd-et.json")) as fh:
+        conf_dict = json.load(fh)
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(**{k: v for k, v in conf_dict.items() if k in fields})
+    xyz, elements = supercell(t)
+    conf = torch.as_tensor(xyz.astype(np.float32), device=dev)
+    g = Graph(*inputs.graph(one_hot(elements), *cutoff_graph(conf, t["neighbors"],
+                                                              t["cutoff"])))
+    order = rcm_order(g.nlist, g.edges)
+    g, _ = permute_graph(g, order, pin_zero=False)
+    gt = _on_card(g, dev)
+    pos = torch.as_tensor(xyz[order].astype(np.float32) * ANGSTROM_TO_NM, device=dev)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(args.seed), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    p = params["mp"][1]
+    for name in ("dk", "dv"):  # nonzero biases
+        p[name]["bias"] = (torch.rand(p[name]["bias"].shape, generator=gen, device=dev) - 0.5) \
+            * 0.2
+    N, K = g.nlist.shape
+    F, L, R, H = cfg.atom_feature_size, cfg.mp_layers, cfg.edge_hidden_size, \
+        cfg.edge_feature_size
+    real = int((g.edges > 0).sum())
+    silu = torch.nn.functional.silu
+
+    with torch.no_grad():
+        geo = et.geometry(pos, gt.nlist, gt.edges, R, cfg.rbf_low, cfg.rbf_high)
+        live = int((geo.nlist < N).sum())
+        print(f"phase 16: ET N={N} K={K} F={F} in {H} heads, R={R}, {L} layers; {real} graph "
+              f"edges, {live} real slots with the self terms of {N * (K + 1)}")
+        q, k = (torch.randn((N, F), generator=gen, device=dev) for _ in range(2))
+        v = torch.randn((N, 3 * F), generator=gen, device=dev)
+        vec = torch.randn((N, 3, F), generator=gen, device=dev)
+        ops = (p, q, k, v, vec, geo, H)
+
+        def kernel():
+            return et.fused_attention(*ops, silu)
+
+        def plain():
+            return et.attention(*ops, silu)
+
+        got, want = kernel(), plain()
+        ratio, err = 0.0, 0.0
+        for a, b, bound in zip(got, want, et_stage_bound(*ops)):
+            gap = (a - b).abs().to(torch.float64)
+            if not torch.all(torch.isfinite(a)) or not torch.all(gap <= bound):
+                raise SystemExit("chip_smoke: the ET attention kernel lies outside its bound "
+                                 "of the plain version")
+            ratio = max(ratio, float((gap / bound.clamp_min(1e-300)).max()))
+            err = max(err, float(gap.max()))
+        scale = max(float(w.abs().max()) for w in want)
+        pd = {name: {key: x.double() for key, x in layer.items()} for name, layer in p.items()}
+        truth = et.attention(pd, *(x.double() for x in ops[1:5]),
+                             et.Geometry(geo.nlist, *(x.double() for x in geo[1:])), H, silu)
+        err64 = {name: max(float((x.double() - y).abs().max()) for x, y in zip(out, truth))
+                 for name, out in (("kernel", got), ("plain", want))}
+        del got, want, truth
+        ms, plain_ms = _time_ms(kernel, 10), _time_ms(plain, 3, 2)
+        alone_ms = _kernel_device_ms(kernel, "et_attention_kernel")
+        layer_peak_gb = {}
+        for name, f in (("kernel", kernel), ("plain", plain)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            f()
+            torch.cuda.synchronize()
+            layer_peak_gb[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # a layer's least work: portbench/flops/et.py's work["attn"] over L
+    attn_flops, attn_bytes = work(conf_dict, N, real)["attn"]
+    bound_ms, bound_by = _bound(attn_flops / L, attn_bytes / L)
+    timed = lambda x: f"{x:.4f} ms" if x else "not measured"  # noqa: E731
+    print(f"phase 16: et fused_attention [float32]: max|kernel-plain|={err:.3e} ({err / scale:.2e}"
+          f" of the largest output; at most {ratio:.3f} of the bound; from float64: kernel "
+          f"{err64['kernel']:.3e}, plain {err64['plain']:.3e}), kernel {ms:.4f} ms a wrapper "
+          f"call (alone {timed(alone_ms)}), bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{attn_flops / L / 1e9:.1f} GFLOP at 67 TFLOP/s, {attn_bytes / L / 1e9:.3f} GB a "
+          f"layer), plain {plain_ms:.4f} ms; a layer's memory peak above its inputs: kernel "
+          f"{layer_peak_gb['kernel']:.3f} GB, plain {layer_peak_gb['plain']:.3f} GB")
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    with torch.no_grad():
+        peaks = gnn.apply(params, cfg, gt, positions=pos)
+        torch.cuda.synchronize()
+        launches = et.fused_attention.launches
+        if launches != L or not torch.all(torch.isfinite(peaks)):
+            raise SystemExit(f"chip_smoke: an ET forward launched fused_attention {launches} "
+                             f"times (want {L}) or gave peaks not all finite")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = _time_ms(lambda: gnn.apply(params, cfg, gt, positions=pos), 3, 1)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"phase 16: an ET forward (no grad) launches fused_attention {launches} times (one a "
+          f"layer); forward {fwd_ms:.4f} ms, its memory peak {peak_gb:.2f} GB above the inputs")
+    return {"name": "et_attention", "route": "cuda", "source": "nmrgnn_tpu_torch/csrc/et.cu",
+            "replaces": None, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "alone_ms": alone_ms, "dtype": "float32", "phase": 16, "forward_ms": fwd_ms,
+            "forward_peak_gb": peak_gb, "layer_peak_gb": layer_peak_gb,
+            "err_from_float64": err64}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4239,6 +4396,9 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     kernels.append(_phase15(args, dev))
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    kernels.append(_phase16(args, dev))
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     checks.append({"name": "training_step", "phase": 9,
                    "max_abs_err": training["peaks_max_abs_err"],
                    "loss_rel_err": training["loss_rel_err"],

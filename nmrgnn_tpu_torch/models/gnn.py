@@ -380,7 +380,7 @@ def apply_et(params: Params, config: ModelConfig, graph: Graph, positions,
             with span("nmrgnn.update"):
                 q, k, v, u3, vec_dot = et.update_in(p, x, vec, dense_fn, cd)
             with span("nmrgnn.attn"):
-                sx, sv = et.attention(p, q, k, v, vec, geo, heads, act, cd)
+                sx, sv = et.fused_attention(p, q, k, v, vec, geo, heads, act, cd)
             with span("nmrgnn.update"):
                 x, vec = et.update_out(p, x, vec, sx, sv, u3, vec_dot, dense_fn, cd)
     x = et.layer_norm(params["out_norm"], x)

@@ -1,8 +1,8 @@
 """Tensor ops of the port: activations, RBF, gather message passing, and
-the banded and block-sparse operators, PaiNN's message and the attention
-layer with their hand-written CUDA kernels."""
+the banded and block-sparse operators, PaiNN's message, the attention
+layer and ET's attention stage with their hand-written CUDA kernels."""
 # (imported so that their kernel wrappers join _cuda.KERNEL_WRAPPERS)
-from . import attention, banded, painn  # noqa: F401
+from . import attention, banded, et, painn  # noqa: F401
 from .activations import get_activation
 from .blocksparse import (
     BlockStructure,

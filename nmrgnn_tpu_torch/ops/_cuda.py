@@ -87,6 +87,7 @@ _ENTRY_POINTS = {
     },
     "painn": {"nmr_painn_message": [_P] * 9 + [_I] * 3 + [_L, _L, _P]},
     "attention": {"nmr_amp_layer": [_P] * 8 + [_I] * 5 + [_P]},
+    "et": {"nmr_et_attention": [_P] * 14 + [_I] * 7 + [_P]},
 }
 SOURCES = tuple(_ENTRY_POINTS)
 _SOURCE = {fn: name for name, fns in _ENTRY_POINTS.items() for fn in fns}

@@ -48,6 +48,12 @@ caller's ``dense`` (``models.gnn.dense``'s signature: operands in
 ``compute_dtype``, float32 sums), the filter products ``as_operand`` the
 same; the rest is float32. No TPU kernel: the JAX package has no such
 family.
+
+On the card the attention stage is one hand-written kernel a layer
+(``fused_attention``, ``csrc/et.cu``): the filters, the head logits and
+both sums in registers over the real slots only (no zero row, no [rows,
+K + 1, 4F] tensor), writing only Sx and Sv. ``attention`` is its plain
+version, which the CPU and a call while autograd records take.
 """
 from __future__ import annotations
 
@@ -56,11 +62,15 @@ from typing import NamedTuple
 
 import torch
 
+from ._cuda import check, kernel, launch
 from .edge import as_operand
 from .painn import ANGSTROM_PER_NM, cosine_cutoff, edge_geometry
 
 LN_EPS = 1e-5       # torch.nn.LayerNorm's epsilon, torchmd-net's
 BLOCK_ROWS = 2048   # neighbor-list rows an attention block takes (module docstring)
+HEAD_WIDTHS = (16, 32, 64)  # head widths D = F / H the kernel is built for
+MAX_FUNCTIONS = 128         # radial functions R the kernel takes
+MAX_SLOTS = 129             # slots a row the kernel takes: K up to 128, then the self term
 
 
 class Geometry(NamedTuple):
@@ -186,6 +196,83 @@ def attention(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, vec: t
         sx[rows] = val[:, :, 0].view(b, s, heads, D).mul_(a[..., None]).sum(1).view(b, F)
         sv[rows] = (vec[nl].mul_(val[:, :, 1:2]).sum(1)
                     + torch.matmul(geo.unit[rows].transpose(1, 2), val[:, :, 2]))
+    return sx, sv
+
+
+def kernel_args(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                vec: torch.Tensor, geo: Geometry, heads: int, activation,
+                compute_dtype=torch.float32):
+    """The operands of a launch of ``fused_attention``'s kernel, checked, in
+    its order (q, k, v, vec, nlist, basis, cut, unit, dk's kernel and bias,
+    dv's kernel and bias), and its sizes (N, K + 1, H, D, R, the basis
+    width R'). Raises on what the kernel does not take: an activation
+    other than SiLU, a compute type other than float32 or bfloat16, D =
+    F / H other than 16, 32 or 64, more than ``MAX_FUNCTIONS`` radial
+    functions or ``MAX_SLOTS`` slots a row, a basis width under R + 1 or
+    not a multiple of 4, an operand of another shape or type, or off
+    ``q``'s device. ``v`` and dv's columns stay as Dense(F, 3F) orders
+    them, (head, part, dim)."""
+    if activation is not torch.nn.functional.silu:
+        raise ValueError(f"et kernel: activation {activation!r}; it takes SiLU only")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"et kernel: compute_dtype {compute_dtype}; it takes float32 or "
+                        f"bfloat16 operands")
+    if q.dim() != 2 or heads < 1 or q.shape[1] % heads:
+        raise ValueError(f"et kernel: q {tuple(q.shape)} in {heads} heads")
+    (n, F), D = q.shape, q.shape[1] // heads
+    if D not in HEAD_WIDTHS:
+        raise ValueError(f"et kernel: heads of {D} features; it takes {HEAD_WIDTHS}")
+    if geo.nlist.dim() != 2 or geo.basis.dim() != 3:
+        raise ValueError(f"et kernel: nlist {tuple(geo.nlist.shape)} and basis "
+                         f"{tuple(geo.basis.shape)} must be 2-D and 3-D")
+    S, width = geo.nlist.shape[1], geo.basis.shape[2]
+    R = p["dk"]["kernel"].shape[0]
+    if not 1 <= S <= MAX_SLOTS:
+        raise ValueError(f"et kernel: {S} slots a row; it takes 1 to {MAX_SLOTS}")
+    if not 1 <= R <= MAX_FUNCTIONS:
+        raise ValueError(f"et kernel: {R} radial functions; it takes 1 to {MAX_FUNCTIONS}")
+    if width % 4 or width < R + 1:
+        raise ValueError(f"et kernel: basis width {width}; it takes a multiple of 4 of at "
+                         f"least R + 1 = {R + 1}")
+    ops = {"q": (q, (n, F)), "k": (k, (n, F)), "v": (v, (n, 3 * F)), "vec": (vec, (n, 3, F)),
+           "nlist": (geo.nlist, (n, S)), "basis": (geo.basis, (n, S, width)),
+           "cut": (geo.cut, (n, S)), "unit": (geo.unit, (n, S, 3)),
+           "dk kernel": (p["dk"]["kernel"], (R, F)), "dk bias": (p["dk"]["bias"], (F,)),
+           "dv kernel": (p["dv"]["kernel"], (R, 3 * F)), "dv bias": (p["dv"]["bias"], (3 * F,))}
+    out = []
+    for name, (t, shape) in ops.items():
+        t = t.contiguous()
+        check(f"et kernel: {name}", t, torch.int64 if name == "nlist" else torch.float32,
+              shape, q.device)
+        out.append(t)
+    return out, (n, S, heads, D, R, width)
+
+
+def _recording(p, q, k, v, vec, geo, heads, activation, compute_dtype=torch.float32,
+               block=BLOCK_ROWS):
+    """``attention`` for a call on the card while autograd records: grad
+    mode on and an operand that requires grad."""
+    ops = (q, k, v, vec, geo.basis, geo.cut, geo.unit, *p["dk"].values(), *p["dv"].values())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return attention
+    return None
+
+
+@kernel(attention, on="q", route=_recording)
+def fused_attention(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    vec: torch.Tensor, geo: Geometry, heads: int, activation,
+                    compute_dtype=torch.float32, block: int = BLOCK_ROWS):
+    """(Sx [N, F], Sv [N, 3, F]): ``attention``'s stage, with its arguments
+    (``block`` is the plain version's alone). On the card one launch of
+    ``csrc/et.cu`` over the real slots (``kernel_args`` says what it
+    takes; others raise), counted in ``.launches``, or ``attention`` while
+    autograd records; on the CPU ``attention``."""
+    ops, (n, S, H, D, R, width) = kernel_args(p, q, k, v, vec, geo, heads, activation,
+                                              compute_dtype)
+    sx = torch.empty((n, H * D), dtype=torch.float32, device=q.device)
+    sv = torch.empty((n, 3, H * D), dtype=torch.float32, device=q.device)
+    launch("nmr_et_attention", q.device, *(t.data_ptr() for t in ops), sx.data_ptr(),
+           sv.data_ptr(), n, S, H, D, R, width, int(compute_dtype == torch.bfloat16))
     return sx, sv
 
 

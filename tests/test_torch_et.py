@@ -277,3 +277,133 @@ def test_a_cpu_forward_launches_no_kernel(case):
     _cuda.reset_launch_counts()
     assert _gap(_port(params, SMALL, g, pos), want) <= TOL
     assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS)
+
+
+# -- the attention stage's kernel wrapper (``et.fused_attention``) ---------------
+
+
+def _stage_operands(F=128, heads=8, R=None, seed=5, case=None, S=None):
+    """(p, q, k, v, vec, geo, heads) of one layer's attention stage on the
+    CPU: the ``case`` structure's geometry (or an empty one of ``S``
+    slots a row at 8 atoms), drawn activations and a layer's weights of
+    ``R`` radial functions."""
+    gen = torch.Generator().manual_seed(seed)
+    if case is None:
+        n, R = 8, R or SMALL.edge_hidden_size
+        width = (R + 1 + 7) // 8 * 8
+        geo = et.Geometry(nlist=torch.full((n, S), n, dtype=torch.int64),
+                          basis=torch.zeros((n, S, width)), cut=torch.zeros((n, S)),
+                          unit=torch.zeros((n, S, 3)))
+    else:
+        g, pos = case[:2]
+        gt, post = _tensors(g, pos)
+        geo = et.geometry(post, gt.nlist, gt.edges, SMALL.edge_hidden_size, SMALL.rbf_low,
+                          SMALL.rbf_high)
+        n, R = g.atoms.shape[0], SMALL.edge_hidden_size
+    dense = lambda c: {"kernel": torch.randn((R, c), generator=gen) / R ** 0.5,  # noqa: E731
+                       "bias": torch.rand(c, generator=gen) * 0.1}
+    p = {"dk": dense(F), "dv": dense(3 * F)}
+    q, k = torch.randn((n, F), generator=gen), torch.randn((n, F), generator=gen)
+    v, vec = torch.randn((n, 3 * F), generator=gen), torch.randn((n, 3, F), generator=gen)
+    return p, q, k, v, vec, geo, heads
+
+
+def test_the_attention_wrapper_on_the_cpu_is_the_plain_version(case):
+    """On a CPU tensor ``fused_attention`` is ``attention``, bit for bit,
+    at any head width (here D = 8 and 16, the first of which the kernel
+    does not take), and counts no launch."""
+    _cuda.reset_launch_counts()
+    for F in (64, 128):
+        ops = _stage_operands(F=F, case=case)
+        got = et.fused_attention(*ops, torch.nn.functional.silu)
+        want = et.attention(*ops, torch.nn.functional.silu)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert et.fused_attention.launches == 0
+
+
+def test_a_card_call_launches_the_kernel_unless_autograd_records(case, monkeypatch):
+    """Where the wrapper sees a CUDA tensor (stood in for here), a call
+    under no grad is one launch of ``nmr_et_attention`` with the entry
+    point's arguments, counted once; a call while autograd records (an
+    operand that requires grad) is ``attention``'s, uncounted, and grad
+    mode off turns the route off again."""
+    calls = []
+    monkeypatch.setattr(_cuda, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(et, "launch", lambda fn, device, *args: calls.append((fn, args)))
+    p, q, k, v, vec, geo, heads = ops = _stage_operands(F=128, case=case)
+    silu = torch.nn.functional.silu
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        sx, sv = et.fused_attention(*ops, silu)
+    assert et.fused_attention.launches == 1 and len(calls) == 1
+    fn, args = calls[0]
+    assert fn == "nmr_et_attention"
+    assert len(args) + 1 == len(_cuda._ENTRY_POINTS["et"][fn])  # the stream last
+    n, S = geo.nlist.shape
+    assert args[-7:] == (n, S, heads, 128 // heads, SMALL.edge_hidden_size,
+                         geo.basis.shape[-1], 0)
+    assert args[-9:-7] == (sx.data_ptr(), sv.data_ptr()) and sv.shape == (n, 3, 128)
+    assert et._recording(*ops, silu) is None
+    q.requires_grad_(True)
+    assert et._recording(*ops, silu) is et.attention
+    got = et.fused_attention(*ops, silu)
+    want = et.attention(*ops, silu)
+    assert got[0].requires_grad and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert et.fused_attention.launches == 1 and len(calls) == 1
+    with torch.no_grad():
+        assert et._recording(*ops, silu) is None
+        et.fused_attention(*ops, silu, torch.bfloat16)
+    assert calls[-1][1][-1] == 1 and et.fused_attention.launches == 2
+
+
+def _bad_operands(what):
+    """A layer's operands (heads of 16, 20 radial functions, 9 slots a
+    row) with one thing the kernel does not take."""
+    F, R, S, heads, act, cd = 128, 20, 9, 8, torch.nn.functional.silu, torch.float32
+    if what == "heads of 12":
+        F = 96
+    elif what == "129 functions":
+        R = 129
+    elif what == "130 slots":
+        S = 130
+    elif what == "4 heads of 24":
+        F, heads = 96, 4
+    p, q, k, v, vec, geo, heads = _stage_operands(F=F, heads=heads, R=R, S=S)
+    if what == "relu":
+        act = torch.relu
+    elif what == "float16 operands":
+        cd = torch.float16
+    elif what == "float64 q":
+        q = q.double()
+    elif what == "int32 nlist":
+        geo = geo._replace(nlist=geo.nlist.int())
+    elif what == "basis narrower than R + 1":
+        geo = geo._replace(basis=geo.basis[..., :R])
+    elif what == "basis width not a multiple of 4":
+        geo = geo._replace(basis=torch.zeros(geo.basis.shape[:2] + (R + 2,)))
+    elif what == "v on another device":
+        v = v.to("meta")
+    elif what == "dv of 2F columns":
+        p["dv"] = {"kernel": p["dv"]["kernel"][:, :2 * F], "bias": p["dv"]["bias"][:2 * F]}
+    return (p, q, k, v, vec, geo, heads, act, cd)
+
+
+@pytest.mark.parametrize("what", [
+    "relu", "float16 operands", "heads of 12", "4 heads of 24", "129 functions", "130 slots",
+    "basis narrower than R + 1", "basis width not a multiple of 4", "float64 q",
+    "int32 nlist", "v on another device", "dv of 2F columns"])
+def test_the_kernel_argument_checks_raise_without_a_launch(what, monkeypatch):
+    """``kernel_args`` raises on CPU tensors for what the kernel does not
+    take, and a card call (stood in for) raises before any launch; the
+    same operands with nothing wrong pass."""
+    calls = []
+    monkeypatch.setattr(_cuda, "on_cuda", lambda x, w: True)
+    monkeypatch.setattr(et, "launch", lambda *a: calls.append(a))
+    good = _bad_operands("nothing")
+    ops, sizes = et.kernel_args(*good)
+    assert sizes == (8, 9, 8, 16, 20, 24) and len(ops) == 12
+    with pytest.raises((ValueError, TypeError)):
+        et.kernel_args(*_bad_operands(what))
+    with torch.no_grad(), pytest.raises((ValueError, TypeError)):
+        et.fused_attention(*_bad_operands(what))
+    assert calls == []

@@ -28,7 +28,7 @@ from nmrgnn_tpu_torch.ops import banded
 from nmrgnn_tpu_torch.ops.edgefn import EdgeCheb
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import split_windows  # noqa: E402
+from chip_smoke import et_stage_bound, split_windows  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -2336,3 +2336,187 @@ def test_amp_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         attention.amp(wq[:, :0], wk[:0, :0], wv, nodes, nlist, edges[..., :0], inv, "softplus")
     assert attention.amp.launches == before
+
+
+# -- the equivariant transformer's attention stage: one kernel a layer (csrc/et.cu) --
+
+
+def _et_case(dev, n, k, F, heads, R, seed, empty_rows=()):
+    """An ET layer's attention operands on the card: ``n`` atoms at about
+    100 a cubic nm (protein density: about 55 within the 0.5 nm cutoff
+    inside the box), each row's ``k`` nearest slots, every fifth row's
+    slots past the cutoff made padding (index 0, distance 0), and rows
+    ``empty_rows`` with no real slot but the self term (all padding where
+    even; where odd, the atom moved 10 nm off, so its slots lie past the
+    cutoff). q, k, v, v_state drawn; dk and dv of ``R`` functions with
+    nonzero biases. Returns (p, q, k, v, vec, Geometry, heads)."""
+    from nmrgnn_tpu_torch.ops import et
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, (n / 100.0) ** (1 / 3), (n, 3)).astype(np.float32)
+    d = np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    nlist = np.argsort(d, 1, kind="stable")[:, :k].astype(np.int32)
+    edges = np.take_along_axis(d, nlist, 1).astype(np.float32)
+    far = (edges >= 0.5) & (np.arange(n) % 5 == 0)[:, None]
+    nlist[far], edges[far] = 0, 0.0
+    for r in empty_rows:
+        if r % 2 == 0:
+            nlist[r], edges[r] = 0, 0.0
+        else:
+            pos[r] += 10.0
+    nl, ed, xyz = _on(dev, nlist, edges, pos)
+    geo = et.geometry(xyz, nl, ed, R, 0.0, 0.5)
+    dense = lambda c: {"kernel": torch.from_numpy(  # noqa: E731
+        (rng.normal(size=(R, c)) / np.sqrt(R)).astype(np.float32)).to(dev),
+        "bias": torch.from_numpy(rng.uniform(-0.1, 0.1, c).astype(np.float32)).to(dev)}
+    p = {"dk": dense(F), "dv": dense(3 * F)}
+    q, kk, v, vec = _on(dev, *(rng.normal(size=s).astype(np.float32)
+                               for s in ((n, F), (n, F), (n, 3 * F), (n, 3, F))))
+    return p, q, kk, v, vec, geo, heads
+
+
+def _et_check(ops, compute_dtype=torch.float32):
+    """``fused_attention`` against ``attention`` on the card: elementwise
+    within ``et_stage_bound`` (float32 sums in another order), finite, one
+    count a call, nothing allocated past its outputs, the same bits on a
+    second call (no atomics)."""
+    from nmrgnn_tpu_torch.ops import et
+
+    q, silu = ops[1], torch.nn.functional.silu
+    with torch.no_grad():
+        want = et.attention(*ops, silu, compute_dtype)
+        torch.cuda.synchronize()
+        before, base = et.fused_attention.launches, torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = et.fused_attention(*ops, silu, compute_dtype)
+        torch.cuda.synchronize()
+        assert et.fused_attention.launches == before + 1
+        assert torch.cuda.max_memory_allocated() - base <= 4 * q.numel() * 4 + (1 << 20)
+        for a, b, bound in zip(got, want, et_stage_bound(*ops)):
+            assert a.shape == b.shape and torch.all(torch.isfinite(a))
+            assert torch.all((a - b).abs().to(torch.float64) <= bound), \
+                float(((a - b).abs() / bound.clamp_min(1e-300)).max())
+        again = et.fused_attention(*ops, silu, compute_dtype)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+    return got, want
+
+
+@pytest.mark.parametrize("n,k,F,heads,R,seed", [
+    (700, 80, 256, 8, 64, 0),   # the ET cell's widths: D 32, K 80, R 64
+    (500, 80, 128, 8, 64, 1),   # D 16 (ET-MD17's heads)
+    (333, 40, 256, 4, 64, 2),   # D 64; N not a multiple of the 32-atom tile
+    (257, 24, 256, 8, 18, 3),   # R 18: the staged basis reads the ones column, zero W rows
+    (200, 128, 256, 8, 128, 4),  # K 128 and R 128, the largest the kernel takes
+    (150, 128, 128, 8, 128, 10),  # the same at D 16: the most shared memory, 176 KB
+])
+def test_et_attention_kernel_matches_plain(dev, n, k, F, heads, R, seed):
+    _et_check(_et_case(dev, n, k, F, heads, R, seed))
+
+
+def test_et_attention_kernel_rows_with_no_real_slot(dev):
+    """Rows all padding and rows all past the cutoff add only their self
+    term, at the first and last atoms of tiles too."""
+    ops = _et_case(dev, 300, 40, 256, 8, 64, 5, empty_rows=(0, 1, 31, 32, 63, 298, 299))
+    geo = ops[5]
+    assert int((geo.nlist[[0, 1, 31, 32, 63, 298, 299], :-1] < 300).sum()) == 0
+    _et_check(ops)
+
+
+def test_et_attention_kernel_self_term_alone(dev):
+    """A graph of no slots (K = 0): the stage is each atom's self term."""
+    p, q, k, v, vec, geo, heads = _et_case(dev, 96, 8, 128, 8, 32, 6)
+    from nmrgnn_tpu_torch.ops import et
+
+    empty = torch.zeros((96, 0), dtype=torch.int32, device=dev)
+    xyz = torch.rand((96, 3), device=dev)
+    geo = et.geometry(xyz, empty, empty.float(), 32, 0.0, 0.5)
+    assert geo.nlist.shape == (96, 1)
+    _et_check((p, q, k, v, vec, geo, heads))
+
+
+def test_et_attention_kernel_bfloat16_operands(dev):
+    """A bfloat16 ``compute_dtype``: the basis and W rounded as they are
+    staged, as ``as_operand`` rounds them; the products and sums float32."""
+    ops = _et_case(dev, 400, 80, 256, 8, 64, 7)
+    got, want = _et_check(ops, torch.bfloat16)
+    f32 = _et_check(ops)[0]
+    assert float((got[0] - f32[0]).abs().max()) > 0
+
+
+def _et_model(dev):
+    cfg = ModelConfig(atom_feature_size=128, edge_feature_size=8, edge_hidden_size=32,
+                      mp_layers=2, fc_layers=1, edge_fc_layers=1, neighbor_number=40,
+                      mp_type="et", mp_activation="silu", fc_activation="silu", rbf_low=0.0,
+                      rbf_high=0.5)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(3), device=dev)
+    gen = torch.Generator().manual_seed(4)
+    for layer in params["mp"]:  # nonzero biases
+        for name in ("dk", "dv"):
+            b = layer[name]["bias"]
+            layer[name]["bias"] = ((torch.rand(b.shape, generator=gen) - 0.5) * 0.2).to(dev)
+    return cfg, params
+
+
+def test_et_forward_on_the_card(dev, monkeypatch):
+    """An ET ServingModel.predict launches the kernel once a layer and
+    equals the forward through the plain stage within 1e-5 of the largest
+    peak (half the cell's ``peak_gap`` limit); a forward while autograd
+    records launches it 0 times and equals the plain one bit for bit."""
+    from nmrgnn_tpu_torch.ops import et
+
+    cfg, params = _et_model(dev)
+    rng = np.random.default_rng(8)
+    n = 400
+    pos = rng.uniform(0.0, (n / 100.0) ** (1 / 3), (n, 3)).astype(np.float32)
+    d = np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    nlist = np.argsort(d, 1, kind="stable")[:, :40].astype(np.int32)
+    edges = np.take_along_axis(d, nlist, 1).astype(np.float32)
+    atoms = np.eye(10, dtype=np.float32)[rng.integers(1, 10, n)]
+    g_np = Graph(atoms, nlist, edges, inv_degree_from_nlist(nlist))
+    g, xyz = Graph(*_on(dev, *g_np)), torch.from_numpy(pos).to(dev)
+    with torch.no_grad(), monkeypatch.context() as m:
+        m.setattr(et, "fused_attention", et.attention)
+        plain = gnn.apply(params, cfg, g, positions=xyz)
+    _cuda.reset_launch_counts()
+    served = ServingModel(params, cfg, device=dev).predict(g_np, positions=pos)
+    assert et.fused_attention.launches == cfg.mp_layers
+    scale = 1e-5 * float(plain.abs().max())
+    np.testing.assert_allclose(served, plain.cpu().numpy(), rtol=0, atol=scale)
+    for t in gnn.trainable_leaves(params):
+        t.requires_grad_(True)
+    recorded = gnn.apply(params, cfg, g, positions=xyz)
+    assert et.fused_attention.launches == cfg.mp_layers and recorded.requires_grad
+    assert torch.equal(recorded.detach(), plain)
+
+
+def test_et_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """On the card ``fused_attention`` launches the kernel or raises:
+    heads of 12, 129 functions, 130 slots a row, float64 operands, the
+    neighbour list on the host, ReLU, float16 operands."""
+    from nmrgnn_tpu_torch.ops import et
+
+    p, q, k, v, vec, geo, heads = ops = _et_case(dev, 64, 16, 128, 8, 32, 9)
+    silu = torch.nn.functional.silu
+    n, S, width = geo.nlist.shape + (geo.basis.shape[-1],)
+    wide = {"kernel": torch.zeros((129, 128), device=dev), "bias": p["dk"]["bias"]}
+    bad = [
+        (p, q[:, :96], k[:, :96], v[:, :288], vec[..., :96], geo, 8, silu),
+        ({"dk": wide, "dv": p["dv"]}, q, k, v, vec, geo._replace(
+            basis=torch.zeros((n, S, 136), device=dev)), heads, silu),
+        (p, q, k, v, vec, et.Geometry(torch.full((n, 130), n, device=dev), torch.zeros(
+            (n, 130, width), device=dev), torch.zeros((n, 130), device=dev),
+            torch.zeros((n, 130, 3), device=dev)), heads, silu),
+        (p, q.double(), k, v, vec, geo, heads, silu),
+        (p, q, k, v, vec, geo._replace(nlist=geo.nlist.cpu()), heads, silu),
+        (*ops, torch.relu),
+    ]
+    before = et.fused_attention.launches
+    with torch.no_grad():
+        for args in bad:
+            with pytest.raises((ValueError, TypeError)):
+                et.fused_attention(*args)
+        with pytest.raises(TypeError):
+            et.fused_attention(*ops, silu, torch.float16)
+    assert et.fused_attention.launches == before

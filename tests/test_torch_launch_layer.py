@@ -14,13 +14,13 @@ from nmrgnn_tpu_torch.config import ModelConfig
 from nmrgnn_tpu_torch.graph import Graph
 from nmrgnn_tpu_torch.models import gnn
 from nmrgnn_tpu_torch.models.serving import ServingModel
-from nmrgnn_tpu_torch.ops import _cuda, attention, banded, blocksparse, painn
+from nmrgnn_tpu_torch.ops import _cuda, attention, banded, blocksparse, et, painn
 
 torch.set_num_threads(2)
 
 OPS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "nmrgnn_tpu_torch", "ops")
-KERNEL_MODULES = (attention, banded, blocksparse, painn)
+KERNEL_MODULES = (attention, banded, blocksparse, et, painn)
 
 
 def _tree(mod):
@@ -46,18 +46,19 @@ def _launchers(mod) -> set:
 
 
 def test_every_kernel_wrapper_is_in_the_one_registry():
-    """Every public function of attention, banded, blocksparse and painn
-    that launches a kernel is a counted wrapper in ``KERNEL_WRAPPERS`` (the
-    request preparation's ``permute_tile_bounds`` apart), ``painn.message``
-    and ``attention.amp`` included, under a name of its own;
+    """Every public function of attention, banded, blocksparse, et and
+    painn that launches a kernel is a counted wrapper in
+    ``KERNEL_WRAPPERS`` (the request preparation's ``permute_tile_bounds``
+    apart), ``painn.message``, ``attention.amp`` and
+    ``et.fused_attention`` included, under a name of its own;
     ``reset_launch_counts`` zeroes them all and ``permute_tile_bounds``."""
     found = [getattr(mod, name) for mod in KERNEL_MODULES for name in _launchers(mod)]
     assert painn.message in found and blocksparse.mp_blocksparse_grouped in found
-    assert attention.amp in found
+    assert attention.amp in found and et.fused_attention in found
     assert set(found) == set(_cuda.KERNEL_WRAPPERS) | {banded.permute_tile_bounds}
     assert banded.permute_tile_bounds not in _cuda.KERNEL_WRAPPERS
     names = [f.__name__ for f in _cuda.KERNEL_WRAPPERS]
-    assert len(names) == len(set(names)) == 20
+    assert len(names) == len(set(names)) == 21
     for f in found:
         f.launches = 7
     _cuda.reset_launch_counts()
@@ -85,20 +86,23 @@ def _graph(n=300, k=12, seed=0):
 
 
 @pytest.mark.parametrize("family,mode", [("bilinear", "auto"), ("bilinear", "blocksparse"),
-                                         ("attention", "auto"), ("painn", "auto")])
+                                         ("attention", "auto"), ("painn", "auto"),
+                                         ("et", "auto")])
 def test_a_cpu_forward_counts_no_launch(family, mode):
     """A CPU forward of each family runs the plain versions: every
     wrapper's count stays 0."""
     cfg = ModelConfig(atom_feature_size=32, edge_hidden_size=16, mp_layers=2, fc_layers=1,
                       edge_fc_layers=2, neighbor_number=12, mp_type=family)
-    if family == "painn":
+    if family in ("painn", "et"):
         cfg = cfg.replace(mp_activation="silu", fc_activation="silu", edge_fc_layers=1,
                           rbf_high=0.5)
+    if family == "et":
+        cfg = cfg.replace(edge_feature_size=4, rbf_low=0.0)
     params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     g, pos = _graph()
     _cuda.reset_launch_counts()
     model = ServingModel(params, cfg, device="cpu", mode=mode)
-    peaks = model.predict(g, positions=pos if family == "painn" else None)
+    peaks = model.predict(g, positions=pos if family in gnn.POSITIONS_FAMILIES else None)
     assert peaks.shape == (300,) and np.all(np.isfinite(peaks))
     assert all(f.launches == 0 for f in _cuda.KERNEL_WRAPPERS + (banded.permute_tile_bounds,))
 
