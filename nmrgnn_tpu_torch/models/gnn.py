@@ -54,6 +54,26 @@ one ``nmrgnn.filter`` span (geometry and basis), one ``nmrgnn.embed``
 ``nmrgnn.attn`` (every block of the attention stage) and two
 ``nmrgnn.update`` (the steps before it and after it).
 
+An ``mp_type="mace"`` model (MACE, arXiv:2206.07697, at MACE-OFF23's
+sizes; ``ops/mace.py``) reads the positions as PaiNN does and holds
+``{"embed", "avg_num_neighbors" (a scalar, frozen), "mp": [{"up": [{kernel
+[F, F]}] an l of h, "radial": [{kernel}] (R -> 64 ... -> P F), "linear":
+[{kernel [P_l3 F, F]}] l3 = 0..3, "skip": [{kernel [V, F, F]}] (the first
+layer: an l of A; later: an output L), "product": [{"w1", "w2", "w3"
+[V, eta, F]}] an output L, "out": [{kernel [F, F]}] an output L}], "fc",
+"out", "peak_std", "peak_avg"}``. Its ``ModelConfig`` mapping:
+``atom_feature_size`` the channels, ``mp_layers`` the interactions,
+``edge_hidden_size`` the Bessel functions, ``edge_fc_layers`` the radial
+MLP's hidden layers, ``edge_feature_size`` the hidden irreps' L (0e ..
+L), ``rbf_high`` the cutoff (nm), SiLU as ``mp_activation``, the readout
+as the other families' on the last layer's scalars; ``rbf_low`` is unused.
+Inference only, as PaiNN. Its forward is one ``nmrgnn.filter`` span
+(geometry, basis, Y, the atoms grouped by element) and one ``nmrgnn.mp``
+an interaction holding ``nmrgnn.conv`` (the radial MLP, the tensor
+products, the slot sums and the linear after them, every block),
+``nmrgnn.product`` (the symmetric contraction) and ``nmrgnn.update``
+(Linear_up, the skip or element mix, Linear_prod).
+
 Training mode (``training=True``, ``nmrgnn_tpu/models/gnn.py:144-236``)
 adds Gaussian noise of std ``config.noise`` to the distances before the
 RBF, the padding mask still taken from the distances before the noise, and
@@ -82,7 +102,7 @@ import torch
 from .._device import resolve_device
 from ..config import ModelConfig
 from ..graph import Graph
-from ..ops import attention, edge, et, painn
+from ..ops import attention, edge, et, mace, painn
 from ..ops.edge import as_operand
 from ..ops.activations import get_activation
 from ..ops.message_passing import mp_layer
@@ -90,9 +110,8 @@ from ..utils.profiling import span
 
 Params = Dict[str, Any]
 
-# the families that read the atoms' positions beside the graph and serve
-# inference only
-POSITIONS_FAMILIES = ("painn", "et")
+# leaves held with the weights that no optimizer moves
+FROZEN = ("peak_std", "peak_avg", "avg_num_neighbors")
 
 
 def _glorot(gen: torch.Generator, shape, fan_in: int, fan_out: int) -> torch.Tensor:
@@ -144,8 +163,10 @@ def init_params(
     drawn on the CPU from ``generator`` and moved to ``device``. The MP
     weight w[F, F, E] takes the rank-3 glorot fan of Keras: fan_in = F*F,
     fan_out = E*F; an attention model's wq [F, E], wk [E, E] and wv [F, F]
-    take their own two dimensions as fans; a PaiNN or ET model draws its
-    own layout (the module's docstring; ET's LayerNorms start at 1 and 0).
+    take their own two dimensions as fans; a PaiNN, ET or MACE model draws its
+    own layout (the module's docstring; ET's LayerNorms start at 1 and 0),
+    a MACE model e3nn's standard normals times their scale, with
+    ``avg_num_neighbors`` at ``neighbor_number``, the slots an atom has.
     ``peak_standards`` maps element index -> (name, avg, std); peak_std
     defaults to 1 and peak_avg to 0."""
     dev = resolve_device(device)
@@ -155,6 +176,8 @@ def init_params(
         family = _painn_params(config, generator)
     elif config.mp_type == "et":
         family = _et_params(config, generator)
+    elif config.mp_type == "mace":
+        family = _mace_params(config, generator)
     else:
         edge_fc = [_dense_init(generator, H, H) for _ in range(config.edge_fc_layers - 1)]
         edge_fc.append(_dense_init(generator, H, E))
@@ -173,8 +196,10 @@ def init_params(
         if k < V:
             peak_std[k] = v[2]
             peak_avg[k] = v[1]
+    embed = (_normal(generator, (V, F), V) if config.mp_type == "mace"
+             else _dense_init(generator, V, F, use_bias=False)["kernel"])
     params = {
-        "embed": _dense_init(generator, V, F, use_bias=False),
+        "embed": {"kernel": embed},
         **family,
         "fc": fc,
         "out": _dense_init(generator, F // 2, V),
@@ -211,6 +236,53 @@ def _et_params(config: ModelConfig, generator) -> Params:
                "dk": _dense_init(generator, R, F), "dv": _dense_init(generator, R, 3 * F)}
               for _ in range(config.mp_layers)]
     return {"neighbor": neighbor, "mp": layers, "out_norm": norm()}
+
+
+def _normal(gen, shape, fan_in: int) -> torch.Tensor:
+    """Standard normal over sqrt(``fan_in``): an e3nn weight with its
+    normalization folded in."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32) / float(np.sqrt(fan_in))
+
+
+def mace_irreps(config: ModelConfig):
+    """(the hidden irreps' ls 0..L, the layers' output ls): a MACE model's
+    L is ``edge_feature_size``; the last layer outputs l = 0 alone."""
+    L = config.edge_feature_size
+    if not 0 <= L <= mace.LMAX:
+        raise ValueError(f"mp_type='mace': hidden L (edge_feature_size) {L} is not in "
+                         f"0..{mace.LMAX}")
+    hidden = tuple(range(L + 1))
+    return hidden, [hidden] * (config.mp_layers - 1) + [(0,)]
+
+
+def _mace_params(config: ModelConfig, generator) -> Params:
+    """MACE's interactions (``ops/mace.py``) and ``avg_num_neighbors``."""
+    F, R, V = config.atom_feature_size, config.edge_hidden_size, config.num_elements
+    hidden, outs = mace_irreps(config)
+    layers, ls_in = [], (0,)
+    for i, ls_out in enumerate(outs):
+        paths = mace.conv_paths(ls_in)
+        widths = [R] + [mace.RADIAL_WIDTH] * config.edge_fc_layers + [len(paths) * F]
+        per_l3 = [sum(p.l3 == l for p in paths) for l in range(mace.LMAX + 1)]
+        mixed = range(mace.LMAX + 1) if i == 0 else ls_out
+        product = []
+        for L in ls_out:
+            orders = range(1, mace.CORRELATION + 1)
+            eta = [mace.coupling_basis(nu, L).shape[-1] for nu in orders]
+            product.append({f"w{nu}": torch.randn((V, e, F), generator=generator) / e
+                            for nu, e in zip(orders, eta)})
+        layers.append({
+            "up": [{"kernel": _normal(generator, (F, F), F)} for _ in ls_in],
+            "radial": [{"kernel": _normal(generator, (a, b), a)}
+                       for a, b in zip(widths[:-1], widths[1:])],
+            "linear": [{"kernel": _normal(generator, (n * F, F), n * F)} for n in per_l3],
+            "skip": [{"kernel": _normal(generator, (V, F, F), F * V)} for _ in mixed],
+            "product": product,
+            "out": [{"kernel": _normal(generator, (F, F), F)} for _ in ls_out],
+        })
+        ls_in = ls_out
+    return {"mp": layers,
+            "avg_num_neighbors": torch.tensor(float(config.neighbor_number))}
 
 
 def _heads(config: ModelConfig) -> int:
@@ -300,7 +372,8 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, positions=None,
     forward: the reference every faster path is held to. ``training=True``
     applies the distance noise and the readout dropout (draws: see the
     module's docstring; ``dropout_mask`` is [N, F // 2]). ``positions``
-    (f32[N, 3], nm) is read by a PaiNN or ET model alone, which needs it.
+    (f32[N, 3], nm) is read by a model of ``POSITIONS_FAMILIES`` alone,
+    which needs it.
 
     ``dense_fn`` (``dense``'s signature) and ``mp_fn`` (``mp_layer``'s)
     compute the products of the embedding, FC block and head, and of the
@@ -313,8 +386,7 @@ def apply(params: Params, config: ModelConfig, graph: Graph, *, positions=None,
         if positions is None:
             raise ValueError(f"mp_type={config.mp_type!r} needs the atoms' positions: "
                              "apply(params, config, graph, positions=f32[N, 3] nm)")
-        fwd = apply_painn if config.mp_type == "painn" else apply_et
-        return fwd(params, config, graph, positions, dense_fn)
+        return POSITIONS_FORWARDS[config.mp_type](params, config, graph, positions, dense_fn)
     atoms, nlist, edges, inv_degree = graph
     mp_act = get_activation(config.mp_activation)
     cd = compute_dtype(config)
@@ -387,6 +459,51 @@ def apply_et(params: Params, config: ModelConfig, graph: Graph, positions,
     return readout(params, config, atoms, x, dense_fn=dense_fn)
 
 
+def apply_mace(params: Params, config: ModelConfig, graph: Graph, positions,
+               dense_fn=dense) -> torch.Tensor:
+    """MACE's forward (``ops/mace.py``) for one graph and its atoms'
+    ``positions`` f32[N, 3] nm; peaks f32[N] through ``readout`` of the
+    last layer's scalars."""
+    atoms, nlist, edges, _ = graph
+    if config.mp_activation != "silu":
+        raise ValueError(f"mp_type='mace' takes mp_activation 'silu', not "
+                         f"{config.mp_activation!r}")
+    _, outs = mace_irreps(config)
+    cd = compute_dtype(config)
+    avg = params["avg_num_neighbors"].detach()
+    with span("nmrgnn.filter"):
+        geo = mace.geometry(positions, nlist, edges, config.edge_hidden_size, config.rbf_high)
+        groups = mace.element_groups(atoms)
+    h = [dense_fn(params["embed"], atoms)[:, None, :]]
+    for i, (p, ls_out) in enumerate(zip(params["mp"], outs)):
+        with span("nmrgnn.mp"):
+            with span("nmrgnn.update"):
+                ht = mace.linear(p["up"], h, cd)
+                sc = (None if i == 0 else mace.element_mix(
+                    p["skip"], torch.cat(h, 1).index_select(0, groups.order), groups.spans,
+                    ls_out, cd))
+            with span("nmrgnn.conv"):
+                A = mace.conv(p, ht, geo, avg, cd).index_select(0, groups.order)
+            if i == 0:
+                with span("nmrgnn.update"):
+                    A = mace.element_mix(p["skip"], A, groups.spans, range(mace.LMAX + 1), cd)
+            with span("nmrgnn.product"):
+                B = mace.product(p["product"], A, groups.spans, ls_out)
+            with span("nmrgnn.update"):
+                rows = np.cumsum([0] + [2 * L + 1 for L in ls_out])
+                h = mace.linear(p["out"], [B[:, a:b] for a, b in zip(rows[:-1], rows[1:])], cd)
+                if sc is not None:
+                    h = [x + sc[:, a:b] for x, a, b in zip(h, rows[:-1], rows[1:])]
+                h = [x.index_select(0, groups.inverse) for x in h]
+    return readout(params, config, atoms, h[0][:, 0, :], dense_fn=dense_fn)
+
+
+# the families that read the atoms' positions beside the graph and serve
+# inference only, each with its forward
+POSITIONS_FORWARDS = {"painn": apply_painn, "et": apply_et, "mace": apply_mace}
+POSITIONS_FAMILIES = tuple(POSITIONS_FORWARDS)
+
+
 def flatten_batch(graph: Graph) -> Graph:
     """A batch Graph[B, N, ...] as one graph of B * N rows, fragment b's
     neighbor indices moved by b * N (its padding slots too: their distance
@@ -419,9 +536,9 @@ def apply_batched(params: Params, config: ModelConfig, graph: Graph, *,
 
 def trainable_mask(params: Params) -> Params:
     """Tree of bools: True for the trainable leaves (not peak_std and
-    peak_avg, frozen buffers as in the reference)."""
-    return {k: tree_map(lambda _: k not in ("peak_std", "peak_avg"), v)
-            for k, v in params.items()}
+    peak_avg, frozen buffers as in the reference, nor a MACE model's
+    avg_num_neighbors)."""
+    return {k: tree_map(lambda _: k not in FROZEN, v) for k, v in params.items()}
 
 
 def tree_leaves(tree) -> list:
@@ -435,11 +552,11 @@ def tree_leaves(tree) -> list:
 
 
 def trainable_leaves(params: Params) -> list:
-    """The trainable tensors of a params tree (``tree_leaves`` without
-    peak_std and peak_avg): the order the optimizer's state keeps."""
-    return tree_leaves({k: v for k, v in params.items() if k not in ("peak_std", "peak_avg")})
+    """The trainable tensors of a params tree (``tree_leaves`` without the
+    ``FROZEN`` leaves): the order the optimizer's state keeps."""
+    return tree_leaves({k: v for k, v in params.items() if k not in FROZEN})
 
 
 def count_params(params: Params) -> int:
-    """Trainable parameters (peak_std / peak_avg are frozen buffers)."""
+    """Trainable parameters (the ``FROZEN`` leaves are not)."""
     return sum(int(np.prod(tuple(t.shape))) for t in trainable_leaves(params))

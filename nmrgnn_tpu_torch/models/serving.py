@@ -31,9 +31,10 @@ check (``_plan_if_attn``), else to ``"gather"`` (``gnn.apply``). The port
 keeps this rule on the CPU too, where the JAX package serves the family
 through "gather". Another non-bilinear ``mp_type`` resolves to "gather".
 
-A family that reads the atoms' positions (``gnn.POSITIONS_FAMILIES``:
-PaiNN, ``mp_type="painn"``, ``gnn.apply_painn``; the equivariant
-transformer, ``mp_type="et"``, ``gnn.apply_et``) serves through
+A family that reads the atoms' positions (``gnn.POSITIONS_FAMILIES``,
+each with its forward in ``gnn.POSITIONS_FORWARDS``: PaiNN,
+``mp_type="painn"``; the equivariant transformer, ``mp_type="et"``;
+MACE, ``mp_type="mace"``) serves through
 ``predict(graph, positions=f32[N, 3] nm)`` on "gather"; the positions are
 copied up with the graph and put in the serving order on the card with
 it. ``predict_frames``, ``predict_trajectory`` and "partitioned" serving
@@ -688,8 +689,8 @@ class ServingModel:
 
     def predict(self, graph: Graph, positions=None) -> np.ndarray:
         """peaks f32[N] in the graph's own atom order. ``positions``
-        (f32[N, 3] nm, in the same order) is read by a PaiNN or ET model
-        alone, which needs it."""
+        (f32[N, 3] nm, in the same order) is read by a model of
+        ``gnn.POSITIONS_FAMILIES`` alone, which needs it."""
         with span("nmrgnn.predict"):
             return self._finalize(*self._predict_async(graph, positions))
 
@@ -706,7 +707,8 @@ class ServingModel:
         path is not "banded" or "banded_attn", or the union plan escapes its
         budget (for "banded_attn" the node-table budget with one channel and
         no fused-build check). Both precisions take the uniform forward
-        here, as in the JAX package. Not for a PaiNN or ET model (raises)."""
+        here, as in the JAX package. Not for a model of
+        ``gnn.POSITIONS_FAMILIES`` (raises)."""
         self._refuse_positions("predict_frames")
         with span("nmrgnn.predict"):
             return self._predict_frames(graphs)
@@ -771,7 +773,7 @@ class ServingModel:
         i's readback happens after frame i + 1 has been launched; results
         come out in frame order. A failed build raises in the consumer
         (``RuntimeError``); the trajectory is never cut short silently. Not
-        for a PaiNN or ET model (raises)."""
+        for a model of ``gnn.POSITIONS_FAMILIES`` (raises)."""
         from ..data.parse import structure2graph
 
         self._refuse_positions("predict_trajectory")

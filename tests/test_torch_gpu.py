@@ -2520,3 +2520,82 @@ def test_et_wrapper_refuses_what_the_kernel_does_not_take(dev):
         with pytest.raises(TypeError):
             et.fused_attention(*ops, silu, torch.float16)
     assert et.fused_attention.launches == before
+
+
+def _mace_case(dev, seed=2 ** 31 + 19):
+    """The mace cell's configuration and one 2,482-atom chain of its
+    traffic (K = 80, 5 A), weights drawn on the card: (ModelConfig, its
+    dict, params, graph as numpy, positions nm as numpy)."""
+    import dataclasses
+    import json
+
+    from portbench.drivers import predict_loop_xyz as xyz_loop
+    from portbench.harness import inputs
+    from portbench.harness.weights_mace import draw_params
+    from portbench.reference.structures import one_hot
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "portbench")
+    with open(os.path.join(bench, "configs", "mace-off23-medium.json")) as f:
+        cfg_d = json.load(f)
+    with open(os.path.join(bench, "traffic", "predict-44676-r5-mace.json")) as f:
+        t = {**json.load(f), "grid": [1, 1, 1]}
+    cfg = ModelConfig(**{k: v for k, v in cfg_d.items()
+                         if k in {f.name for f in dataclasses.fields(ModelConfig)}})
+    xyz, elements = xyz_loop.supercell(t)
+    conf = torch.as_tensor(xyz.astype(np.float32), device=dev)
+    g = inputs.graph(one_hot(elements), *xyz_loop.cutoff_graph(conf, t["neighbors"], t["cutoff"]))
+    return cfg, cfg_d, draw_params(cfg_d, seed, dev), Graph(*g), xyz.astype(np.float32) * 0.1
+
+
+def test_mace_forward_on_the_card_matches_the_reference(dev):
+    """At the published widths on a 2,482-atom chain of the cell's traffic,
+    ``ServingModel.predict`` (``apply_mace``) equals the benchmark's plain
+    reference within the cell's ``peak_gap`` limit, and a TF32 reference
+    does not."""
+    import json
+
+    from portbench.reference import mace as ref
+    from portbench.reference.model import Products
+
+    cfg, cfg_d, params, g, pos = _mace_case(dev)
+    assert g.atoms.shape[0] == 2482
+    served = ServingModel(params, cfg, device=dev).predict(g, positions=pos)
+    args = [torch.as_tensor(np.asarray(a), device=dev) for a in g[:3]]
+    xyz = torch.as_tensor(pos, device=dev)
+    with torch.no_grad():
+        want = ref.forward(params, cfg_d, *args, xyz).cpu().numpy()
+        tf32 = ref.forward(params, cfg_d, *args, xyz, prod=Products(tf32=True)).cpu().numpy()
+    limits = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "portbench", "limits", "mace-predict-44676.json")
+    with open(limits) as f:
+        limit = json.load(f)["peak_gap"]
+    scale = float(np.max(np.abs(want)))
+    assert np.all(np.isfinite(served)) and scale > 0
+    assert float(np.max(np.abs(served - want))) <= limit * scale
+    assert float(np.max(np.abs(tf32 - want))) > limit * scale
+
+
+def test_mace_conv_blocks_stay_under_their_memory_target(dev):
+    """The second interaction's convolution (10 paths, 1,280 radial weights
+    a slot) over 2,482 atoms, one full block of ``BLOCK_ROWS`` rows at
+    K = 80, F = 128: its peak above its inputs and output stays under 4 GB."""
+    from nmrgnn_tpu_torch.ops import mace
+
+    cfg, _, params, g, pos = _mace_case(dev)
+    gt = Graph(*[torch.as_tensor(np.asarray(a), device=dev) for a in g])
+    geo = mace.geometry(torch.as_tensor(pos, device=dev), gt.nlist, gt.edges,
+                        cfg.edge_hidden_size, cfg.rbf_high)
+    n, F = gt.atoms.shape[0], cfg.atom_feature_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ht = [torch.randn((n, 1, F), generator=gen, device=dev),
+          torch.randn((n, 3, F), generator=gen, device=dev)]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a = mace.conv(params["mp"][1], ht, geo, params["avg_num_neighbors"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    assert a.shape == (n, 16, F) and bool(torch.isfinite(a).all())
+    assert n > mace.BLOCK_ROWS
+    assert peak < 4e9, peak

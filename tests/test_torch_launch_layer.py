@@ -87,15 +87,17 @@ def _graph(n=300, k=12, seed=0):
 
 @pytest.mark.parametrize("family,mode", [("bilinear", "auto"), ("bilinear", "blocksparse"),
                                          ("attention", "auto"), ("painn", "auto"),
-                                         ("et", "auto")])
+                                         ("et", "auto"), ("mace", "auto")])
 def test_a_cpu_forward_counts_no_launch(family, mode):
     """A CPU forward of each family runs the plain versions: every
     wrapper's count stays 0."""
     cfg = ModelConfig(atom_feature_size=32, edge_hidden_size=16, mp_layers=2, fc_layers=1,
                       edge_fc_layers=2, neighbor_number=12, mp_type=family)
-    if family in ("painn", "et"):
+    if family in ("painn", "et", "mace"):
         cfg = cfg.replace(mp_activation="silu", fc_activation="silu", edge_fc_layers=1,
                           rbf_high=0.5)
+    if family == "mace":
+        cfg = cfg.replace(edge_feature_size=1)
     if family == "et":
         cfg = cfg.replace(edge_feature_size=4, rbf_low=0.0)
     params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
